@@ -1,0 +1,31 @@
+"""Weights across: a nested dict of numpy arrays -> the port's tensors.
+
+The input is typically the JAX package's ``init_params`` output passed
+through ``np.asarray`` leaf by leaf.  Every array is copied (JAX's numpy
+views are read-only); a ``bfloat16`` array (``dtype.name == "bfloat16"``,
+the ``ml_dtypes`` type) goes through a uint16 view, since ``torch.from_numpy``
+does not take that type.  Stacked ``blocks`` keep their leading repeat axis.
+Neither jax nor ml_dtypes is imported here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def array_to_torch(a, device) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def to_torch(tree, device):
+    """Map every array leaf of a dict/list tree onto ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, device) for v in tree]
+    return array_to_torch(tree, device)

@@ -1,0 +1,64 @@
+"""K2 — causal flash attention (``csrc/flash_attn.cu``).
+
+Replaces ``repro/kernels/flash_attn.py::flash_attention`` and the GQA head
+repeat of ``repro/kernels/ops.py::flash_attention``.  Layout is the
+reference's: q ``(B, S, H, hd)``, k and v ``(B, S, Hkv, hd)``.  At the main
+path's shapes it is bound by bytes; the first version runs on plain FMA
+(see the source).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2, in the reference's order: q scaled by hd**-0.5
+    in f32 before the dot, keys after the query masked to -1e30, f32
+    softmax, output ``acc / max(l, 1e-30)`` in q's dtype."""
+    B, S, H, hd = q.shape
+    g = H // k.shape[2]
+    qf = q.float() * hd ** -0.5
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = torch.where(causal, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p, vf)
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention; returns ``(B, S, H, hd)`` in q's dtype."""
+    B, S, H, hd = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    Hkv = k.shape[2]
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_attention: {H} q heads over {Hkv} kv heads")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; takes one of {tuple(_DTYPE_CODE)}")
+    if ops.on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    out = torch.empty_like(q)
+    ops.launch("flash_attention", "ishmem_flash_attention", q.device,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               B, S, H, Hkv, hd, _DTYPE_CODE[q.dtype], hd ** -0.5)
+    return out

@@ -1,0 +1,339 @@
+"""Paged KV-cache block pool on the symmetric heap.
+
+Counterpart of ``repro/serve/kvpool.py``.  Every request's decode state is
+stored in fixed-size blocks carved out of one symmetric allocation, so a
+prefill PE hands a finished request to a decode PE with one-sided
+``put_signal_nbi``: the layout is identical on every PE, which makes a
+block id a cluster-wide address.
+
+- **paged leaves** — the self-attention K/V tensors, split along the token
+  axis into blocks of ``block_tokens``; block *b* holds ``[b*T, (b+1)*T)``
+  of every paged leaf, flattened and concatenated in a fixed order.
+- **tail** — every other cache leaf, packed losslessly into one float32
+  vector per slot (f32 as is, bf16 upcast exactly, int32 bit-cast with
+  ``Tensor.view``).
+- **header** — 4 int32 words per slot ``(req_id, prompt_len,
+  first_token, n_blocks)``.
+- **signal** — one int32 word per slot, the admission target.
+
+Block metadata (free list, ref counts, tables) is host-side.  Shared-prefix
+mapping, copy-on-write reserves and per-stream signal words come with the
+streaming/prefix slice (ROADMAP queue 1, item 5b).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.heap import TORCH_DTYPES, SymPtr, SymmetricHeap
+from repro_torch.models import kvcache
+
+HEADER_WORDS = 4            # (req_id, prompt_len, first_token, n_blocks)
+
+
+# ---------------------------------------------------------------------------
+# Layout derivation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLeaf:
+    """One K or V tensor paged over its token axis: stacked
+    ``(reps, B, W, nkv, hd)``; a block contributes ``reps*T*nkv*hd`` words."""
+    unit_idx: int
+    key: str
+    reps: int
+    width: int
+    nkv: int
+    hd: int
+
+    @property
+    def words_per_token(self) -> int:
+        return self.reps * self.nkv * self.hd
+
+
+@dataclasses.dataclass(frozen=True)
+class TailLeaf:
+    """One non-paged cache leaf, packed into the f32 tail vector."""
+    unit_idx: int
+    key: str
+    shape: tuple             # per-request shape (reps, 1, ...)
+    dtype: str
+    words: int
+
+
+@dataclasses.dataclass(frozen=True)
+class KVLayout:
+    """Block/tail geometry for one (cfg, max_len, block_tokens) triple."""
+    block_tokens: int
+    blocks_per_request: int
+    block_words: int
+    tail_words: int
+    kv_dtype: str
+    cache_width: int
+    paged: Tuple[PagedLeaf, ...]
+    tail: Tuple[TailLeaf, ...]
+
+    @property
+    def block_bytes(self) -> int:
+        return self.block_words * TORCH_DTYPES[self.kv_dtype].itemsize
+
+    def blocks_for_prompt(self, prompt_len: int) -> int:
+        """Blocks that migrate for a prompt: a dense cache fills slots
+        [0, S).  (Ring caches, where every block is live, come with the
+        SWA families.)"""
+        need = -(-min(prompt_len, self.cache_width) // self.block_tokens)
+        return max(1, need)
+
+    def blocks_for_decode(self, prompt_len: int, max_new: int) -> int:
+        """Block-table length through the whole decode: the prompt blocks
+        plus the growth blocks generated tokens are written into.  Decode
+        consumes out[0..max_new-2], so the last K/V write lands at
+        prompt_len + max_new - 2.  THE table-size formula: staging and the
+        scheduler's headroom check both use it."""
+        last =min(prompt_len + max(max_new - 1, 0), self.cache_width) - 1
+        return max(self.blocks_for_prompt(prompt_len),
+                   last // self.block_tokens + 1)
+
+
+def build_layout(cfg, max_len: int, *, block_tokens: int = 16) -> KVLayout:
+    """Classify every leaf of the model's cache (shapes computed directly)."""
+    struct = kvcache.cache_shapes(cfg, 1, max_len)
+    W = kvcache.self_cache_len(cfg, max_len)
+    block_tokens = min(block_tokens, W)
+    paged: List[PagedLeaf] = []
+    tail: List[TailLeaf] = []
+    kv_dtype = None
+    for ui, entry in enumerate(struct["blocks"]):
+        for key in sorted(entry):
+            shape, dt = entry[key]
+            if key in ("k", "v") and len(shape) == 5 and shape[2] == W:
+                paged.append(PagedLeaf(ui, key, shape[0], shape[2],
+                                       shape[3], shape[4]))
+                kv_dtype = dt if kv_dtype is None else kv_dtype
+                if dt != kv_dtype:
+                    raise ValueError("mixed paged dtypes unsupported")
+            else:
+                if dt not in ("float32", "int32", "bfloat16"):
+                    raise ValueError(f"unpackable tail dtype {dt}")
+                n = 1
+                for s in shape:
+                    n *= s
+                tail.append(TailLeaf(ui, key, tuple(shape), dt, n))
+    nb = -(-W // block_tokens) if paged else 1
+    return KVLayout(block_tokens=block_tokens, blocks_per_request=nb,
+                    block_words=max(1, sum(p.words_per_token for p in paged)
+                                    * block_tokens),
+                    tail_words=max(1, sum(t.words for t in tail)),
+                    kv_dtype=kv_dtype or "float32", cache_width=W,
+                    paged=tuple(paged), tail=tuple(tail))
+
+
+# ---------------------------------------------------------------------------
+# Lossless tail packing
+# ---------------------------------------------------------------------------
+
+
+def _pack_leaf_f32(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.float32:
+        return x.reshape(-1)
+    if x.dtype == torch.bfloat16:
+        return x.float().reshape(-1)                    # exact upcast
+    if x.dtype == torch.int32:
+        return x.contiguous().view(torch.float32).reshape(-1)   # bit-cast
+    raise ValueError(f"unpackable tail dtype {x.dtype}")
+
+
+def _unpack_leaf_f32(flat: torch.Tensor, shape, dtype: str) -> torch.Tensor:
+    flat = flat.float().reshape(shape)
+    if dtype == "float32":
+        return flat
+    if dtype == "bfloat16":
+        return flat.to(torch.bfloat16)                  # exact downcast
+    if dtype == "int32":
+        return flat.contiguous().view(torch.int32)
+    raise ValueError(f"unpackable tail dtype {dtype}")
+
+
+# ---------------------------------------------------------------------------
+# Cache <-> block payload conversion
+# ---------------------------------------------------------------------------
+
+
+def pack_blocks(layout: KVLayout, cache, *, batch_idx: int = 0,
+                n_blocks: Optional[int] = None) -> List[torch.Tensor]:
+    """Slice one request out of a cache into ``n_blocks`` flat
+    ``(block_words,)`` payloads covering token blocks [0, n_blocks)."""
+    if n_blocks is None:
+        n_blocks = layout.blocks_per_request
+    T = layout.block_tokens
+    dtype = TORCH_DTYPES[layout.kv_dtype]
+    payloads = []
+    for b in range(n_blocks):
+        parts = []
+        for pl in layout.paged:
+            leaf = cache["blocks"][pl.unit_idx][pl.key]
+            sl = leaf[:, batch_idx, b * T:(b + 1) * T]      # (reps,T,nkv,hd)
+            if sl.shape[1] < T:                             # ragged last block
+                sl = torch.nn.functional.pad(
+                    sl, (0, 0, 0, 0, 0, T - sl.shape[1]))
+            parts.append(sl.reshape(-1))
+        if not parts:
+            parts = [torch.zeros(layout.block_words, dtype=dtype)]
+        payloads.append(torch.cat(parts).to(dtype))
+    return payloads
+
+
+def pack_tail(layout: KVLayout, cache, *, batch_idx: int = 0,
+              device=None) -> torch.Tensor:
+    """Pack the non-paged remainder of one request into a f32 vector."""
+    parts = [_pack_leaf_f32(cache["blocks"][tl.unit_idx][tl.key]
+                            [:, batch_idx:batch_idx + 1])
+             for tl in layout.tail]
+    if not parts:
+        return torch.zeros(layout.tail_words, dtype=torch.float32,
+                           device=device)
+    return torch.cat(parts)
+
+
+def insert_tail(layout: KVLayout, cache, slot: int, tail_vec):
+    """Scatter a migrated tail vector into slot ``slot`` (inverse of
+    :func:`pack_tail`).  Returns a new cache dict; leaves it writes are
+    cloned first."""
+    cache = dict(cache)
+    blocks = [dict(e) for e in cache["blocks"]]
+    off = 0
+    for tl in layout.tail:
+        sl = _unpack_leaf_f32(tail_vec[off:off + tl.words], tl.shape,
+                              tl.dtype)
+        off += tl.words
+        leaf = blocks[tl.unit_idx][tl.key].clone()
+        leaf[:, slot:slot + 1] = sl.to(leaf.dtype)
+        blocks[tl.unit_idx][tl.key] = leaf
+    cache["blocks"] = blocks
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# The pool: symmetric allocation + host-side block accounting
+# ---------------------------------------------------------------------------
+
+
+class KVPool:
+    """Ref-counted paged block pool over one symmetric heap allocation."""
+
+    def __init__(self, heap: SymmetricHeap, layout: KVLayout, *,
+                 num_blocks: int, max_slots: int):
+        self.layout = layout
+        self.num_blocks = num_blocks
+        self.max_slots = max_slots
+        self.data = heap.calloc((num_blocks * layout.block_words,),
+                                layout.kv_dtype)
+        self.tails = heap.calloc((max_slots * layout.tail_words,), "float32")
+        self.headers = heap.calloc((max_slots * HEADER_WORDS,), "int32")
+        self.signals = heap.calloc((max_slots,), "int32")
+        self._refcnt: List[int] = [0] * num_blocks
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        self.block_tables: Dict[int, List[int]] = {}
+        # block id -> PE whose heap row holds the staged payload (the wire
+        # source; growth blocks have no home and never travel)
+        self._home: Dict[int, int] = {}
+
+    @classmethod
+    def create(cls, heap: SymmetricHeap, cfg, max_len: int, *,
+               num_blocks: int, max_slots: int,
+               block_tokens: int = 16) -> "KVPool":
+        layout = build_layout(cfg, max_len, block_tokens=block_tokens)
+        return cls(heap, layout, num_blocks=num_blocks, max_slots=max_slots)
+
+    # ---------------------------------------------------------- addressing
+    def block_ptr(self, block_id: int) -> SymPtr:
+        if not 0 <= block_id < self.num_blocks:
+            raise IndexError(block_id)
+        w = self.layout.block_words
+        return SymPtr(self.layout.kv_dtype,
+                      self.data.offset + block_id * w, (w,))
+
+    def _check_slot(self, slot: int) -> int:
+        if not 0 <= slot < self.max_slots:
+            raise IndexError(f"slot {slot} outside pool of {self.max_slots}")
+        return slot
+
+    def tail_ptr(self, slot: int) -> SymPtr:
+        w = self.layout.tail_words
+        return SymPtr("float32",
+                      self.tails.offset + self._check_slot(slot) * w, (w,))
+
+    def header_ptr(self, slot: int) -> SymPtr:
+        return SymPtr("int32", self.headers.offset
+                      + self._check_slot(slot) * HEADER_WORDS,
+                      (HEADER_WORDS,))
+
+    def sig_ptr(self, slot: int) -> SymPtr:
+        return SymPtr("int32", self.signals.offset + self._check_slot(slot),
+                      ())
+
+    # ---------------------------------------------------------- accounting
+    def alloc(self, req_id: int, n_blocks: int) -> Optional[List[int]]:
+        """Reserve ``n_blocks`` blocks (refcount 1 each) in token-block
+        order, or None when the pool cannot satisfy the request.  Ids come
+        off the tail of the LIFO list, sorted so heap-contiguous blocks end
+        up queue-adjacent for write combining."""
+        if req_id in self.block_tables:
+            raise ValueError(f"request {req_id} already has blocks")
+        if n_blocks < 0:
+            raise ValueError(f"negative block count {n_blocks}")
+        if n_blocks > len(self._free):
+            return None
+        ids = sorted(self._free[len(self._free) - n_blocks:])
+        del self._free[len(self._free) - n_blocks:]
+        for i in ids:
+            self._refcnt[i] = 1
+        self.block_tables[req_id] = ids
+        return ids
+
+    def _decref(self, i: int) -> int:
+        self._refcnt[i] -= 1
+        if self._refcnt[i] < 0:
+            raise ValueError(f"double free of block {i}")
+        if self._refcnt[i] == 0:
+            self._free.append(i)
+            self._home.pop(i, None)
+            return 1
+        return 0
+
+    def release(self, req_id: int) -> int:
+        """Drop a request's references; returns the number of blocks freed."""
+        ids = self.block_tables.pop(req_id, [])
+        return sum(self._decref(i) for i in ids)
+
+    def blocks_of(self, req_id: int) -> List[int]:
+        return list(self.block_tables[req_id])
+
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def set_home(self, block_ids: List[int], pe: int) -> None:
+        """Record which PE's row holds these blocks' staged payloads."""
+        for i in block_ids:
+            self._home[i] = pe
+
+    def home_of(self, block_id: int) -> Optional[int]:
+        return self._home.get(block_id)
+
+    def stats(self, heap: Optional[SymmetricHeap] = None) -> dict:
+        used = self.num_blocks - len(self._free)
+        out = {
+            "blocks_total": self.num_blocks,
+            "blocks_in_use": used,
+            "blocks_free": len(self._free),
+            "block_bytes": self.layout.block_bytes,
+            "bytes_in_use": used * self.layout.block_bytes,
+            "utilization": used / self.num_blocks if self.num_blocks else 0.0,
+            "requests_resident": len(self.block_tables),
+        }
+        if heap is not None:
+            out["heap"] = heap.stats()
+        return out

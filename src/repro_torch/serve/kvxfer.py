@@ -1,0 +1,240 @@
+"""KV-cache migration engine: prefill PE -> decode PE over the SHMEM stack.
+
+Counterpart of ``repro/serve/kvxfer.py``, whole-prefill protocol:
+
+1. **stage** — the prefill PE packs the request's cache into pool blocks
+   and writes them into its own row of the symmetric pool (local blocking
+   puts).  Growth blocks, reserved for decode to write generated tokens
+   into, carry no payload and never travel.
+2. **migrate** — the staged blocks go to the decode PE as
+   ``put_signal_nbi`` traffic: block ids sorted so heap-contiguous runs are
+   queue-adjacent, every block of a run a deferred put read from its home
+   row, the run's last block carrying ``SIGNAL_ADD(run_len)``.  The
+   completion queue write-combines each run into ONE transfer.  The tail
+   and the 4-word header follow, each signal-bearing.
+3. **admit** — the decode PE polls ``signal_wait_until(sig >= n_blocks +
+   2)``.  Queue order makes the signal the last update to land, so
+   observing it proves every byte of the request is resident.
+
+Fused per-block admission (``migrate_fused``, ``consume_blocks``), chunked
+streaming and the host-proxy route come with later slices (ROADMAP queue
+1, items 5a-5b and 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+
+from repro_torch.core import cutover, rma, signal as signal_mod
+from repro_torch.serve.kvpool import HEADER_WORDS, KVPool, pack_blocks, \
+    pack_tail
+
+#: signal increments beyond the data blocks: the tail's and the header's
+EXTRA_SIGNALS = 2
+
+
+def expected_signal(n_blocks: int) -> int:
+    return n_blocks + EXTRA_SIGNALS
+
+
+@dataclasses.dataclass
+class MigrationReport:
+    """What one request's migration put on the wire."""
+    req_id: int
+    slot: int
+    src_pe: int
+    dst_pe: int
+    tier: str
+    n_blocks: int               # staged (payload-bearing) blocks
+    n_wire: int                 # blocks sent
+    n_runs: int                 # contiguous block runs
+    bytes_paged: int
+    bytes_tail: int
+    expected_signal: int
+    bytes_dcn: int = 0          # wire bytes that crossed pods
+
+    @property
+    def bytes_total(self) -> int:
+        return self.bytes_paged + self.bytes_tail + HEADER_WORDS * 4
+
+
+def _contiguous_runs(ids: List[int]) -> List[List[int]]:
+    runs: List[List[int]] = []
+    for i in sorted(ids):
+        if runs and i == runs[-1][-1] + 1:
+            runs[-1].append(i)
+        else:
+            runs.append([i])
+    return runs
+
+
+class KVMigrator:
+    """Streams paged KV blocks between PEs with signal-carried completion."""
+
+    def __init__(self, ctx, pool: KVPool, *,
+                 work_items: Optional[int] = None):
+        self.ctx = ctx
+        self.pool = pool
+        self.work_items = (ctx.tuning.work_group_size
+                           if work_items is None else work_items)
+        self._staged_tails = {}     # req_id -> packed tail vector
+
+    def _tracer(self):
+        tr = self.ctx.tracer
+        return tr if tr.enabled else None
+
+    def _track(self, pe: int) -> tuple:
+        return f"pod{self.ctx.node_of(pe)}", f"pe{pe}"
+
+    # ------------------------------------------------------------- staging
+    def stage(self, heap, req_id: int, cache, *, prompt_len: int,
+              src_pe: int, batch_idx: int = 0, max_new: int = 0):
+        """Allocate a finished prefill's block table ``[prompt | growth]``
+        and write the packed payloads into the prefill PE's own pool row.
+        Returns (heap, ids), or (heap, None) when the pool is exhausted."""
+        lay = self.pool.layout
+        n_prompt = lay.blocks_for_prompt(prompt_len)
+        ids = self.pool.alloc(req_id, lay.blocks_for_decode(prompt_len,
+                                                            max_new))
+        if ids is None:
+            return heap, None
+        payloads = pack_blocks(lay, cache, batch_idx=batch_idx,
+                               n_blocks=n_prompt)
+        for bid, payload in zip(ids[:n_prompt], payloads):
+            heap = rma.put(self.ctx, heap, self.pool.block_ptr(bid), payload,
+                           src_pe, src_pe=src_pe, work_items=self.work_items)
+        self.pool.set_home(ids[:n_prompt], src_pe)
+        self._staged_tails[req_id] = pack_tail(lay, cache,
+                                               batch_idx=batch_idx,
+                                               device=heap.device)
+        tr = self._tracer()
+        if tr is not None:
+            pid, tid = self._track(src_pe)
+            tr.instant("stage", "kvx", pid, tid, rid=req_id, blocks=n_prompt)
+        return heap, ids
+
+    # ----------------------------------------------------------- migration
+    def _send_runs(self, heap, ids: List[int], sig, dst_pe: int) -> tuple:
+        """One signal-bearing deferred transfer per contiguous run, each
+        block read from its home row.  Returns (heap, n_runs, dcn_bytes)."""
+        runs = _contiguous_runs(ids)
+        dcn = 0
+        for run in runs:
+            for bid in run:
+                ptr = self.pool.block_ptr(bid)
+                home = self.pool.home_of(bid)
+                if bid == run[-1]:
+                    heap = signal_mod.put_signal_nbi(
+                        self.ctx, heap, ptr, heap.read(ptr, home), sig,
+                        len(run), signal_mod.SIGNAL_ADD, dst_pe, src_pe=home,
+                        work_items=self.work_items)
+                else:
+                    heap = rma.put_nbi(self.ctx, heap, ptr,
+                                       heap.read(ptr, home), dst_pe,
+                                       src_pe=home,
+                                       work_items=self.work_items)
+                self._note_block(ptr.nbytes, home, dst_pe)
+                if self.ctx.tier(home, dst_pe) == "dcn":
+                    dcn += ptr.nbytes
+        return heap, len(runs), dcn
+
+    def _send_tail_header(self, heap, req_id: int, slot: int, src_pe: int,
+                          dst_pe: int, prompt_len: int, first_token: int,
+                          n_staged: int):
+        """Signal-bearing tail then header; the header's increment is the
+        last queue entry, i.e. the admission threshold.  The packed tail
+        stays retained until the request evicts."""
+        sig = self.pool.sig_ptr(slot)
+        heap = signal_mod.put_signal_nbi(
+            self.ctx, heap, self.pool.tail_ptr(slot),
+            self._staged_tails[req_id], sig, 1, signal_mod.SIGNAL_ADD,
+            dst_pe, src_pe=src_pe, work_items=self.work_items)
+        hdr = torch.tensor([req_id, prompt_len, first_token, n_staged],
+                           dtype=torch.int32)
+        return signal_mod.put_signal_nbi(
+            self.ctx, heap, self.pool.header_ptr(slot), hdr, sig, 1,
+            signal_mod.SIGNAL_ADD, dst_pe, src_pe=src_pe,
+            work_items=self.work_items)
+
+    def migrate(self, heap, req_id: int, *, src_pe: int, dst_pe: int,
+                slot: int, prompt_len: int, first_token: int) -> tuple:
+        """Stream one staged request to ``dst_pe`` as deferred
+        ``put_signal_nbi`` traffic; nothing lands until a completion point.
+        Returns ``(heap, MigrationReport)``."""
+        lay = self.pool.layout
+        send = [i for i in self.pool.blocks_of(req_id)
+                if self.pool.home_of(i) is not None]
+        tier = self.ctx.tier(src_pe, dst_pe)
+        heap, n_runs, dcn = self._send_runs(heap, send,
+                                            self.pool.sig_ptr(slot), dst_pe)
+        heap = self._send_tail_header(heap, req_id, slot, src_pe, dst_pe,
+                                      prompt_len, first_token, len(send))
+        if tier == "dcn":
+            dcn += lay.tail_words * 4 + HEADER_WORDS * 4
+        report = MigrationReport(
+            req_id=req_id, slot=slot, src_pe=src_pe, dst_pe=dst_pe,
+            tier=tier, n_blocks=len(send), n_wire=len(send), n_runs=n_runs,
+            bytes_paged=len(send) * lay.block_bytes,
+            bytes_tail=lay.tail_words * 4,
+            expected_signal=expected_signal(len(send)), bytes_dcn=dcn)
+        tr = self._tracer()
+        if tr is not None:
+            pid, tid = self._track(src_pe)
+            tr.instant("migrate", "kvx", pid, tid, rid=req_id,
+                       dst_pe=dst_pe, tier=tier, runs=n_runs,
+                       bytes=report.bytes_total, bytes_dcn=dcn)
+            tr.flow_start(req_id, "migration", pid, tid)
+        return heap, report
+
+    def _note_block(self, nbytes: int, src_pe: int, dst_pe: int) -> None:
+        """Advisory per-block cutover record: the path the cutover engine
+        would pick for one block.  The bytes are charged when the flush
+        prices the coalesced transfer, so the modeled comm clock excludes
+        the ``kvxfer_block`` buckets."""
+        tier = self.ctx.tier(src_pe, dst_pe)
+        if tier == "dcn":
+            path = "proxy"
+        else:
+            path = cutover.choose_path(nbytes, work_items=self.work_items,
+                                       tier=tier, hw=self.ctx.hw,
+                                       tuning=self.ctx.tuning)
+        self.ctx.record("kvxfer_block", nbytes, path, tier, self.work_items)
+
+    # ---------------------------------------------------------- completion
+    def flush(self, heap):
+        """Explicit completion point (quiet)."""
+        return rma.quiet(self.ctx, heap)
+
+    # ----------------------------------------------------------- admission
+    def try_admit(self, heap, slot: int, dst_pe: int, expected: int):
+        """Signal-gated admission: returns ``(heap, header|None)``.  The
+        wait is the completion point: observing ``sig >= expected`` forces
+        the queue prefix the signal depends on, which includes every data
+        block of this request."""
+        heap, _, ok = signal_mod.signal_wait_until(
+            self.ctx, heap, self.pool.sig_ptr(slot), dst_pe, "ge", expected)
+        if not ok:
+            return heap, None
+        hdr = heap.read(self.pool.header_ptr(slot), dst_pe).tolist()
+        tr = self._tracer()
+        if tr is not None:
+            pid, tid = self._track(dst_pe)
+            tr.instant("admit", "kvx", pid, tid, rid=hdr[0], slot=slot,
+                       expected_signal=expected)
+            tr.flow_end(hdr[0], "migration", pid, tid)
+        return heap, {"req_id": hdr[0], "prompt_len": hdr[1],
+                      "first_token": hdr[2], "n_blocks": hdr[3]}
+
+    def gather_tail(self, heap, slot: int, pe: int):
+        """Decode-side read of an admitted request's tail vector."""
+        return heap.read(self.pool.tail_ptr(slot), pe)
+
+    def release_tail(self, req_id: int) -> None:
+        self._staged_tails.pop(req_id, None)
+
+    def reset_slot(self, heap, slot: int, pe: int):
+        """Re-arm a slot: zero its signal word (a local store)."""
+        return rma.p(self.ctx, heap, self.pool.sig_ptr(slot), 0, pe,
+                     src_pe=pe)

@@ -1,0 +1,138 @@
+"""Paged decode attention: decode reads K/V straight from the block pool.
+
+Counterpart of ``repro/serve/paged_attn.py``.  The decode PE's pool row IS
+the decode-side KV cache, indexed per slot through block tables:
+
+- **assemble** — gathers every slot's table-mapped payload rows from the
+  decode PE's pool row with the K3 kernel (``kernels/ishmem_device.py``;
+  unmapped table entries read zeros) and rebuilds each paged leaf
+  ``(reps, B, W, nkv, hd)`` exactly as a dense cache would hold it, so the
+  decode step is bitwise the dense one;
+- **writeback** — stores each active slot's freshly projected K/V token
+  into its owning block (a local store on the decode PE);
+- **attach** zeroes a request's never-migrated growth blocks at admission.
+
+Copy-on-write of shared-prefix blocks comes with the streaming/prefix slice
+(ROADMAP queue 1, item 5b).
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.core.heap import TORCH_DTYPES
+from repro_torch.kernels import ishmem_device
+from repro_torch.serve.kvpool import KVPool
+
+
+class PagedDecodeView:
+    """Per-decode-PE window onto the pool: which request each slot holds.
+    Control plane only; the data plane is the decode PE's pool row."""
+
+    def __init__(self, pool: KVPool, pe: int, num_slots: int):
+        self.pool = pool
+        self.pe = pe
+        self.num_slots = num_slots
+        self.slots: Dict[int, int] = {}      # slot -> request id
+
+    # ------------------------------------------------------------ lifecycle
+    def attach(self, heap, slot: int, req_id: int, *, fresh_ids: List[int]):
+        """Arm a slot at admission and zero its growth blocks on this PE's
+        row, so an assembled leaf is byte-identical to a virgin dense
+        cache."""
+        self.slots[slot] = req_id
+        for bid in fresh_ids:
+            ptr = self.pool.block_ptr(bid)
+            heap = heap.write(ptr, self.pe, torch.zeros(
+                ptr.size, dtype=TORCH_DTYPES[ptr.dtype], device=heap.device))
+        return heap
+
+    def detach(self, slot: int) -> None:
+        self.slots.pop(slot, None)
+
+    def table_of(self, slot: int) -> List[int]:
+        return self.pool.blocks_of(self.slots[slot])
+
+    def table(self) -> np.ndarray:
+        """(num_slots, blocks_per_request) int32 block table; unmapped
+        entries hold ``num_blocks`` (K3's zero row)."""
+        nb = self.pool.layout.blocks_per_request
+        table = np.full((self.num_slots, nb), self.pool.num_blocks, np.int32)
+        for s, rid in self.slots.items():
+            ids = self.pool.blocks_of(rid)
+            table[s, :len(ids)] = ids
+        return table
+
+    # ------------------------------------------------------------- assemble
+    def assemble(self, heap, cache):
+        """Rebuild every paged leaf of the batched decode cache from the
+        pool row through the slot block tables.  Non-paged leaves pass
+        through from ``cache``."""
+        lay = self.pool.layout
+        if not lay.paged:
+            return cache
+        data = heap.read(self.pool.data, self.pe).reshape(
+            self.pool.num_blocks, lay.block_words)
+        table = torch.from_numpy(self.table()).to(data.device)
+        pay = ishmem_device.paged_gather(data, table)   # (B, nb, words)
+        nb, T = lay.blocks_per_request, lay.block_tokens
+        cache = dict(cache)
+        blocks = [dict(e) for e in cache["blocks"]]
+        off = 0
+        for pl in lay.paged:
+            n = pl.words_per_token * T
+            leaf = pay[:, :, off:off + n].reshape(
+                self.num_slots, nb, pl.reps, T, pl.nkv, pl.hd)
+            off += n
+            leaf = leaf.permute(2, 0, 1, 3, 4, 5).reshape(
+                pl.reps, self.num_slots, nb * T, pl.nkv, pl.hd)[:, :, :pl.width]
+            ref = blocks[pl.unit_idx][pl.key]
+            blocks[pl.unit_idx][pl.key] = leaf.to(ref.dtype)
+        cache["blocks"] = blocks
+        return cache
+
+    def strip(self, cache):
+        """Zero the paged leaves of a post-step cache: the pool row is the
+        single source of truth, and the slot bank never re-grows a dense
+        copy."""
+        lay = self.pool.layout
+        cache = dict(cache)
+        blocks = [dict(e) for e in cache["blocks"]]
+        for pl in lay.paged:
+            blocks[pl.unit_idx][pl.key] = torch.zeros_like(
+                blocks[pl.unit_idx][pl.key])
+        cache["blocks"] = blocks
+        return cache
+
+    # ------------------------------------------------------------ writeback
+    def writeback(self, ctx, heap, new_cache, pos, active):
+        """Store each active slot's just-written K/V token column into its
+        owning pool block.  ``pos`` is the PRE-step cursor."""
+        lay = self.pool.layout
+        if not lay.paged:
+            return heap
+        T, W = lay.block_tokens, lay.cache_width
+        pos = pos.tolist()
+        for s in range(self.num_slots):
+            if not active[s] or s not in self.slots:
+                continue
+            idx = pos[s]
+            if idx >= W:        # dense overrun: the dense write drops it
+                continue
+            b, t = divmod(idx, T)
+            ptr = self.pool.block_ptr(self.table_of(s)[b])
+            payload = heap.read(ptr, self.pe)
+            parts = []
+            off = 0
+            for pl in lay.paged:
+                n = pl.words_per_token * T
+                sl = payload[off:off + n].reshape(pl.reps, T, pl.nkv,
+                                                  pl.hd).clone()
+                col = new_cache["blocks"][pl.unit_idx][pl.key][:, s, idx]
+                sl[:, t] = col.to(sl.dtype)
+                parts.append(sl.reshape(-1))
+                off += n
+            heap = heap.write(ptr, self.pe, torch.cat(parts))
+        return heap

@@ -36,6 +36,12 @@ except TypeError:                                 # old ctor: ((name, size), ...
     jax.sharding.AbstractMesh = _compat_abstract_mesh
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (runs the port's kernels); "
+                   "skipped without one")
+
+
 @pytest.fixture(scope="session")
 def mesh8():
     return jax.make_mesh((8,), ("x",))

@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and entry
+points that run on the card unless told otherwise."""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import _bridge, _devices
+from repro_torch.configs import base
+from repro_torch.core import context, heap as heap_mod
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import model
+from repro_torch.serve.engine import Engine
+
+MODULES = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_the_reference():
+    assert len(MODULES) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for name in {MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": src}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_port_sources_name_no_jax_import():
+    root = Path(repro_torch.__file__).resolve().parent
+    for path in root.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1]
+                assert not (mod == "jax" or mod.startswith("jax.")
+                            or mod == "repro" or mod.startswith("repro.")), \
+                    f"{path}: {line}"
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+
+
+def test_device_defaults_to_cuda_and_raises_without_it(no_card):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _devices.resolve()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _devices.resolve("cuda")
+    assert _devices.resolve("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda_unless_cpu(no_card):
+    cfg = base.reduced(base.get_config("qwen3-4b"))
+    with pytest.raises(RuntimeError):
+        context.init(npes=2)
+    with pytest.raises(RuntimeError):
+        heap_mod.create(2)
+    with pytest.raises(RuntimeError):
+        model.init_params(cfg)
+    params = model.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError):
+        Engine(cfg, params, max_len=8)
+    with pytest.raises(RuntimeError):
+        launch_serve.main(["--disagg", "--requests", "1"])
+    ctx, heap = context.init(npes=2, device="cpu")
+    assert heap.device == torch.device("cpu")
+    assert Engine(cfg, params, max_len=8, device="cpu").device.type == "cpu"
+
+
+def test_engine_refuses_params_on_another_device():
+    cfg = base.reduced(base.get_config("qwen3-4b"))
+    params = model.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError):
+        Engine(cfg, params, max_len=8, device="meta")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+def test_bridge_copies_exactly(dtype):
+    import jax.numpy as jnp
+    a = np.asarray(jnp.asarray(np.arange(-6, 6, dtype=np.float32) * 1.5)
+                   .astype(dtype))
+    assert not a.flags.writeable               # JAX hands out read-only views
+    tree = _bridge.to_torch({"blocks": [{"w": a[None]}], "x": a}, "cpu")
+    t = tree["x"]
+    assert str(t.dtype).removeprefix("torch.") == dtype
+    assert tree["blocks"][0]["w"].shape == (1, 12)
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+    t += 1                                     # a copy, not the JAX buffer
+    np.testing.assert_array_equal(tree["blocks"][0]["w"][0].float().numpy(),
+                                  a.astype(np.float32))

@@ -1,0 +1,256 @@
+"""The port's three kernels, held against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version, so these
+tests hold those plain versions (and the wrappers' checks and dispatch)
+against the reference kernels, run in interpret mode as
+``tests/test_kernels.py`` runs them.  Inputs come from numpy seeds and go to
+both packages unchanged.  Data movement is compared bitwise; attention to
+the reference's own tolerances (2e-5 in f32, 2e-2 in bf16), since the two
+sum in different orders.  The ``cuda``-marked tests hold the CUDA kernels
+against the same plain versions and run only on a card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attn as ref_flash, ishmem_device as ref_dev
+from repro.kernels import ops as ref_ops
+from repro_torch import _bridge
+from repro_torch.kernels import _build, flash_attn, ishmem_device, ops, \
+    rma_copy
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # tests/test_kernels.py
+
+
+def _t(a):
+    """A JAX/numpy array as a CPU tensor, bf16 included."""
+    return _bridge.array_to_torch(np.asarray(a), "cpu")
+
+
+def _both(x: np.ndarray, dtype: str):
+    return jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(
+        getattr(torch, dtype))
+
+
+@pytest.fixture
+def counts():
+    ops.reset_launches()
+    yield ops.LAUNCHES
+    assert ops.LAUNCHES == {name: 0 for name in ops.LAUNCHES}, \
+        "a CPU tensor launched a kernel"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# K1: copy_into vs wg_copy_local / copy_into
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("n,off,w", [
+    (128, 0, 1), (256, 128, 2), (1024, 512, 4), (4096, 0, 16),
+])
+def test_copy_into_matches_wg_copy_sweep(dtype, n, off, w, counts):
+    """The grid of test_wg_copy_sweep, bitwise."""
+    want = ref_ops.wg_copy_local(jnp.zeros(8192, dtype),
+                                 jnp.arange(n).astype(dtype), off,
+                                 work_items=w)
+    dst = torch.zeros(8192, dtype=getattr(torch, dtype))
+    got = rma_copy.copy_into(dst, torch.arange(n).to(dst.dtype), off)
+    assert got is dst                         # in place
+    assert torch.equal(got, _t(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("n,off", [(1, 3), (37, 13), (127, 129), (300, 1000),
+                                   (128, 64), (1000, 7000)])
+def test_copy_into_unaligned_matches_reference(dtype, n, off, counts):
+    """Lengths and offsets off the 128 grid, where the reference falls back
+    to .at[].set and the port's kernel takes them directly."""
+    rng = np.random.default_rng(n * 7919 + off)
+    dst = rng.normal(size=8192).astype(np.float32) * 50
+    src = rng.normal(size=n).astype(np.float32) * 50
+    jd, td = _both(dst, dtype)
+    js, ts = _both(src, dtype)
+    want = ref_ops.copy_into(jd, js, off)
+    assert torch.equal(rma_copy.copy_into(td, ts, off), _t(want))
+
+
+def test_copy_into_rejects_bad_input(counts):
+    row = torch.zeros(256)
+    with pytest.raises(IndexError):
+        rma_copy.copy_into(row, torch.ones(10), 250)
+    with pytest.raises(TypeError):
+        rma_copy.copy_into(row, torch.ones(10, dtype=torch.int32), 0)
+    with pytest.raises(ValueError):
+        rma_copy.copy_into(torch.zeros(4, 4), torch.ones(4), 0)
+    with pytest.raises(TypeError):
+        rma_copy.copy_into(torch.zeros(8, dtype=torch.float64),
+                           torch.ones(2, dtype=torch.float64), 0)
+
+
+# ---------------------------------------------------------------------------
+# K2: flash_attention vs flash_attn.flash_attention / ops.flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(seed, B, S, H, Hkv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,hd,bq,bk", [
+    (1, 128, 2, 64, 64, 64),
+    (2, 256, 4, 32, 128, 64),
+    (1, 512, 1, 128, 256, 256),
+])
+def test_flash_matches_pallas_kernel(dtype, B, S, H, hd, bq, bk, counts):
+    """The grid of test_flash_attention_vs_oracle, equal heads."""
+    q, k, v = _qkv(B * S + H, B, S, H, H, hd)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    want = ref_flash.flash_attention(jq, jk, jv, block_q=bq, block_k=bk)
+    got = flash_attn.flash_attention(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(), _t(want).float().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Hkv,hd", [(1, 8, 2, 64), (37, 8, 2, 64),
+                                        (64, 4, 1, 32), (128, 8, 4, 128)])
+def test_flash_gqa_matches_ops_flash_attention(dtype, S, H, Hkv, hd, counts):
+    """GQA without materialising the repeat, against the reference's
+    repeat-then-flash (``ops.flash_attention``), S not a power of two
+    included."""
+    q, k, v = _qkv(S * 131 + H, 2, S, H, Hkv, hd)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    want = ref_ops.flash_attention(jq, jk, jv, block_q=64, block_k=64)
+    got = flash_attn.flash_attention(tq, tk, tv)
+    np.testing.assert_allclose(got.float().numpy(), _t(want).float().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_rejects_bad_input(counts):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(0, 1, 8, 4, 2, 16))
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention(q, k[:, :4], v[:, :4])
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention(q, k.bfloat16(), v)
+
+
+# ---------------------------------------------------------------------------
+# K3: paged_gather vs ishmem_device.paged_gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("R,W,slots,nb", [(6, 128, 3, 4), (16, 384, 2, 8),
+                                          (5, 37, 4, 3)])
+def test_paged_gather_matches_reference(dtype, R, W, slots, nb, counts):
+    """Bitwise, with unmapped entries (index R) that read zeros; the
+    reference appends the zero row itself, the port's kernel needs none."""
+    rng = np.random.default_rng(R * 1000 + W)
+    data = rng.normal(size=(R, W)).astype(np.float32) * 100
+    table = rng.integers(0, R + 1, size=(slots, nb)).astype(np.int32)
+    table[-1, -1] = R                                 # always one unmapped
+    jd, td = _both(data, dtype)
+    want = ref_dev.paged_gather(
+        jnp.concatenate([jd, jnp.zeros((1, W), jd.dtype)]), table)
+    got = ishmem_device.paged_gather(td, torch.from_numpy(table))
+    assert torch.equal(got, _t(want))
+
+
+def test_paged_gather_rejects_bad_table(counts):
+    data = torch.ones(4, 8)
+    with pytest.raises(IndexError):
+        ishmem_device.paged_gather(data, torch.tensor([[5]], dtype=torch.int32))
+    with pytest.raises(IndexError):
+        ishmem_device.paged_gather(data,
+                                   torch.tensor([[-1]], dtype=torch.int32))
+    with pytest.raises(TypeError):
+        ishmem_device.paged_gather(data, torch.tensor([[1]]))   # int64
+
+
+# ---------------------------------------------------------------------------
+# dispatch and build
+# ---------------------------------------------------------------------------
+
+
+def test_non_cpu_tensors_never_take_the_plain_version(counts):
+    """A wrapper takes the plain version only because its tensors lie on
+    the CPU; tensors anywhere else go to the kernel or raise (here: the meta
+    device, which no kernel takes)."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError):
+        rma_copy.copy_into(torch.zeros(8, device=meta),
+                           torch.zeros(2, device=meta), 0)
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention(*(torch.zeros(1, 4, 2, 8, device=meta),) * 3)
+    with pytest.raises(ValueError):
+        ops.on_cpu(torch.zeros(1), torch.zeros(1, device=meta))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No nvcc on PATH or under CUDA_HOME: the build says so, and nothing
+    falls back."""
+    import torch.utils.cpp_extension as cpp_ext
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_build_dir_is_keyed_by_sources():
+    key = _build.build_dir()
+    assert key.parent == _build.BUILD_ROOT and len(key.name) == 16
+    assert _build.build_dir() == key
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels themselves (card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_cuda_copy_into_bitwise(card, dtype):
+    for n, off in ((1, 3), (127, 129), (100_000, 1000)):
+        row = (torch.randn(200_000, device=card) * 50).to(getattr(torch, dtype))
+        src = (torch.randn(n, device=card) * 50).to(row.dtype)
+        want = rma_copy.copy_into_plain(row.clone(), src, off)
+        assert torch.equal(rma_copy.copy_into(row, src, off), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 37, 512])
+def test_cuda_flash_attention(card, dtype, S):
+    q, k, v = (torch.from_numpy(x).to(card, getattr(torch, dtype))
+               for x in _qkv(S, 1, S, 32, 8, 128))
+    got = flash_attn.flash_attention(q, k, v)
+    want = flash_attn.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_paged_gather_bitwise(card):
+    data = torch.randn(64, 4096, device=card).bfloat16()
+    table = torch.randint(0, 65, (3, 9), device=card, dtype=torch.int32)
+    assert torch.equal(ishmem_device.paged_gather(data, table),
+                       ishmem_device.paged_gather_plain(data, table))

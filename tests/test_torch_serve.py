@@ -1,0 +1,477 @@
+"""The whole slice: the port's disaggregated paged serving against the
+JAX package's, plus the port's own serving laws.
+
+The cross-package run uses the config, weights, prompts and flags of
+``tests/test_disagg.py::_run_disagg`` (reduced qwen3-4b in f32, 4 PEs, 5
+requests over 2 decode PEs of 3 slots).  Both schedulers step in lockstep,
+and after every step the control plane must agree exactly: request states,
+block tables, every int32 heap word (signals, headers), the telemetry
+record sequence, the scheduler counters and the tokens.  Float payloads —
+pool bytes and each step's logits — agree to 5e-5 (f32 sums in another
+order, as in ``test_torch_model.py``).  The JAX side keeps its defaults
+(no kernels); ``test_torch_kernels.py`` covers the kernels one by one.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as ref_base
+from repro.core import context as ref_context
+from repro.models import model as ref_model
+from repro.serve.engine import Engine as RefEngine, \
+    ServeConfig as RefServeConfig
+from repro.serve.kvpool import KVPool as RefKVPool
+from repro.serve.kvxfer import KVMigrator as RefKVMigrator
+from repro.serve.scheduler import DisaggScheduler as RefScheduler
+from repro_torch import _bridge
+from repro_torch.configs import base
+from repro_torch.core import context, signal as signal_mod
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import model
+from repro_torch.serve import engine as engine_mod
+from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.kvpool import KVPool
+from repro_torch.serve.kvxfer import KVMigrator, expected_signal
+from repro_torch.serve.scheduler import DisaggScheduler
+
+MAXLEN = 24
+TOL = 5e-5
+
+
+@pytest.fixture(scope="module")
+def ref_params():
+    cfg = ref_base.reduced(ref_base.get_config("qwen3_4b"))
+    return ref_model.init_params(jax.random.key(0), cfg)
+
+
+@pytest.fixture(scope="module")
+def params(ref_params):
+    return _bridge.to_torch(jax.tree.map(np.asarray, ref_params), "cpu")
+
+
+def _prompts(n, S=10, seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 512, size=(1, S)).astype(np.int32)
+            for _ in range(n)]
+
+
+def _tok(p):
+    return {"tokens": torch.from_numpy(p).long()}
+
+
+def _setup(params, *, npes=4, num_blocks=32, max_slots=3, block_tokens=8):
+    cfg = base.reduced(base.get_config("qwen3-4b"))
+    ctx, heap = context.init(npes=npes, node_size=npes, device="cpu")
+    eng = Engine(cfg, params, max_len=MAXLEN, device="cpu")
+    pool = KVPool.create(heap, cfg, MAXLEN, num_blocks=num_blocks,
+                         max_slots=max_slots, block_tokens=block_tokens)
+    return cfg, ctx, heap, eng, pool
+
+
+def _sched(params, *, decode_pes=(2, 3), num_slots=3, NEW=6, admit_delay=0,
+           eos_id=-1, temperature=0.0, seed=0, **kw):
+    cfg, ctx, heap, eng, pool = _setup(params, **kw)
+    sched = DisaggScheduler(ctx, heap, eng, pool, KVMigrator(ctx, pool),
+                            prefill_pes=[0, 1], decode_pes=list(decode_pes),
+                            num_slots=num_slots,
+                            scfg=ServeConfig(max_new_tokens=NEW,
+                                             eos_id=eos_id,
+                                             temperature=temperature,
+                                             seed=seed),
+                            admit_delay_steps=admit_delay)
+    return sched
+
+
+def _run(params, prompts, **kw):
+    sched = _sched(params, **kw)
+    for p in prompts:
+        sched.submit(_tok(p))
+    return sched, sched.run()
+
+
+# ---------------------------------------------------------------------------
+# the slice against the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _int_pool(heap, ref):
+    pool = heap.pools["int32"]
+    return np.asarray(pool) if ref else pool.numpy()
+
+
+@pytest.mark.parametrize("n_req,num_slots,admit_delay", [(5, 3, 0),
+                                                         (5, 1, 1),
+                                                         (4, 2, 2)])
+def test_disagg_matches_reference_step_by_step(ref_params, params,
+                                               monkeypatch, n_req, num_slots,
+                                               admit_delay):
+    NEW = 6
+    # test_disagg.py::_prompts, handed to both packages as numpy
+    prompts = [np.array(jax.random.randint(
+        jax.random.fold_in(jax.random.key(1), i), (1, 10), 0, 512))
+        for i in range(n_req)]
+    # reference side (test_disagg.py::_setup / _run_disagg)
+    rcfg = ref_base.reduced(ref_base.get_config("qwen3_4b"))
+    rctx, rheap = ref_context.init(npes=4, node_size=4)
+    reng = RefEngine(rcfg, ref_params, max_len=MAXLEN)
+    rpool = RefKVPool.create(rheap, rcfg, MAXLEN, num_blocks=32, max_slots=3,
+                             block_tokens=8)
+    rsched = RefScheduler(rctx, rheap, reng, rpool, RefKVMigrator(rctx, rpool),
+                          prefill_pes=[0, 1], decode_pes=[2, 3],
+                          num_slots=num_slots,
+                          scfg=RefServeConfig(max_new_tokens=NEW),
+                          admit_delay_steps=admit_delay)
+    psched = _sched(params, num_slots=num_slots, NEW=NEW,
+                    admit_delay=admit_delay)
+    # every decode step's logits, both sides
+    rlogits, plogits = [], []
+    rdecode = reng._decode
+    reng._decode = lambda *a: (lambda out: rlogits.append(
+        np.asarray(out[0])) or out)(rdecode(*a))
+    pdecode = model.decode_step
+    monkeypatch.setattr(engine_mod.model, "decode_step", lambda *a: (
+        lambda out: plogits.append(out[0].numpy()) or out)(pdecode(*a)))
+    for p in prompts:
+        rsched.submit({"tokens": jnp.asarray(p)})
+        psched.submit(_tok(p))
+    steps = 0
+    while not (rsched.done() and psched.done()):
+        rsched.step()
+        psched.step()
+        steps += 1
+        assert steps < 200
+        assert [(r.rid, r.state, r.slot, r.decode_pe)
+                for r in rsched.requests.values()] == \
+            [(r.rid, r.state, r.slot, r.decode_pe)
+             for r in psched.requests.values()]
+        assert rpool.block_tables == psched.pool.block_tables
+        np.testing.assert_array_equal(_int_pool(rsched.heap, True),
+                                      _int_pool(psched.heap, False))
+        np.testing.assert_allclose(
+            psched.heap.pools["float32"].numpy(),
+            np.asarray(rsched.heap.pools["float32"]), atol=TOL, rtol=TOL)
+    for rid, r in rsched.requests.items():
+        assert r.out == psched.requests[rid].out
+    assert len(rlogits) == len(plogits) > 0
+    for a, b in zip(rlogits, plogits):
+        np.testing.assert_allclose(b, a, atol=TOL, rtol=TOL)
+    for f in dataclasses.fields(psched.stats):
+        assert getattr(rsched.stats, f.name) == getattr(psched.stats,
+                                                        f.name), f.name
+    assert [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
+            for r in rctx.telemetry.trace] == \
+        [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
+         for r in psched.ctx.telemetry.trace]
+    assert rctx.pending.stats.coalescing_ratio() == \
+        psched.ctx.pending.stats.coalescing_ratio()
+
+
+def test_migrated_pool_bytes_match_reference(ref_params, params):
+    """After one stage + migrate + admit, the destination row's payload
+    equals the reference's (allclose: the K/V came from f32 prefills)."""
+    p = _prompts(1, S=13)[0]
+    rcfg = ref_base.reduced(ref_base.get_config("qwen3_4b"))
+    rctx, rheap = ref_context.init(npes=4, node_size=4)
+    reng = RefEngine(rcfg, ref_params, max_len=MAXLEN)
+    rpool = RefKVPool.create(rheap, rcfg, MAXLEN, num_blocks=16, max_slots=2,
+                             block_tokens=4)
+    rmig = RefKVMigrator(rctx, rpool)
+    rtok, _, rcache = reng.prefill_request({"tokens": jnp.asarray(p)},
+                                           jax.random.key(0))
+    rheap, rids = rmig.stage(rheap, 0, rcache, prompt_len=13, src_pe=1)
+    rheap, rrep = rmig.migrate(rheap, 0, src_pe=1, dst_pe=3, slot=1,
+                               prompt_len=13, first_token=rtok)
+    rheap, rhdr = rmig.try_admit(rheap, 1, 3, rrep.expected_signal)
+    cfg, ctx, heap, eng, pool = _setup(params, num_blocks=16, max_slots=2,
+                                       block_tokens=4)
+    mig = KVMigrator(ctx, pool)
+    tok, _, cache = eng.prefill_request(_tok(p))
+    heap, ids = mig.stage(heap, 0, cache, prompt_len=13, src_pe=1)
+    heap, rep = mig.migrate(heap, 0, src_pe=1, dst_pe=3, slot=1,
+                            prompt_len=13, first_token=tok)
+    heap, hdr = mig.try_admit(heap, 1, 3, rep.expected_signal)
+    assert (tok, ids, hdr) == (rtok, rids, rhdr)
+    assert dataclasses.asdict(rep) == {
+        k: v for k, v in dataclasses.asdict(rrep).items()
+        if k in dataclasses.asdict(rep)}
+    for pe in (1, 3):
+        np.testing.assert_allclose(
+            heap.read(pool.data, pe).numpy(),
+            np.asarray(rheap.read(rpool.data, pe)), atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the port's own laws (mirrors tests/test_disagg.py and tests/test_paged.py)
+# ---------------------------------------------------------------------------
+
+
+def test_e2e_disagg_matches_baselines_bitwise(params):
+    """Every request's disaggregated stream equals the lockstep single-PE
+    Engine.generate and the equal-shape slot baseline, with more requests
+    than slots (rotation and eviction)."""
+    prompts = _prompts(5)
+    sched, outs = _run(params, prompts)
+    assert sched.stats.evictions == len(prompts)
+    for i, p in enumerate(prompts):
+        gen = sched.engine.generate(_tok(p), ServeConfig(max_new_tokens=6))
+        assert gen[0].tolist() == outs[i].tolist()
+        assert sched.engine.generate_in_slot(
+            _tok(p), ServeConfig(max_new_tokens=6), num_slots=3,
+            slot=sched.requests[i].slot) == outs[i].tolist()
+    buckets = sched.ctx.telemetry.buckets
+    assert any(k[0] == "kvxfer_block" for k in buckets)
+    assert any(k[0] == "put_nbi" for k in buckets)
+    assert sched.ctx.pending.stats.coalescing_ratio() > 1.0
+
+
+def test_e2e_disagg_batched_baseline(params):
+    prompts = _prompts(3)
+    sched, outs = _run(params, prompts)
+    base_out = sched.engine.generate(
+        {"tokens": torch.from_numpy(np.concatenate(prompts)).long()},
+        ServeConfig(max_new_tokens=6))
+    for i in range(3):
+        assert base_out[i].tolist() == outs[i].tolist()
+
+
+def test_blocks_invisible_until_admission(params):
+    """After migrate() the decode PE's rows are untouched (ops deferred);
+    try_admit is the completion point that lands the data and opens the
+    gate."""
+    cfg, ctx, heap, eng, pool = _setup(params)
+    mig = KVMigrator(ctx, pool)
+    tok, _, cache1 = eng.prefill_request(_tok(_prompts(1)[0]))
+    heap, ids = mig.stage(heap, 0, cache1, prompt_len=10, src_pe=0)
+    heap, rep = mig.migrate(heap, 0, src_pe=0, dst_pe=2, slot=0,
+                            prompt_len=10, first_token=tok)
+    assert len(ctx.pending) > 0
+    for bid in ids:
+        ptr = pool.block_ptr(bid)
+        assert torch.equal(heap.read(ptr, 2), torch.zeros(ptr.size))
+        assert ctx.pending.pending_for(ptr, 2) is not None
+    assert int(heap.read(pool.sig_ptr(0), 2)) == 0
+    assert float(heap.read(pool.block_ptr(ids[0]), 0).abs().max()) > 0
+    heap, hdr = mig.try_admit(heap, 0, 2, rep.expected_signal)
+    assert hdr == {"req_id": 0, "prompt_len": 10, "first_token": tok,
+                   "n_blocks": len(ids)}
+    for bid in ids:
+        assert torch.equal(heap.read(pool.block_ptr(bid), 2),
+                           heap.read(pool.block_ptr(bid), 0))
+    assert len(ctx.pending) == 0
+
+
+@pytest.mark.parametrize("n_extra_blocks,probe", [(1, 0), (1, 2), (2, 1),
+                                                  (3, 3), (4, 5), (6, 4)])
+def test_partial_signal_never_admits(params, n_extra_blocks, probe):
+    """While the waited value is above the signal's count, every block not
+    yet signalled reads zero at the destination; the full wait admits and
+    forces the rest."""
+    cfg, ctx, heap, eng, pool = _setup(params, num_blocks=16, max_slots=1,
+                                       block_tokens=4)
+    mig = KVMigrator(ctx, pool)
+    S = min(4 * n_extra_blocks + 2, MAXLEN - 1)
+    tok, _, cache1 = eng.prefill_request(_tok(_prompts(1, S=S, seed=3)[0]))
+    heap, ids = mig.stage(heap, 0, cache1, prompt_len=S, src_pe=0)
+    heap, rep = mig.migrate(heap, 0, src_pe=0, dst_pe=1, slot=0,
+                            prompt_len=S, first_token=tok)
+    expected = rep.expected_signal
+    assert expected == expected_signal(len(ids))
+    partial = min(probe, expected - 1)
+    if partial > 0:
+        heap, cur, ok = signal_mod.signal_wait_until(
+            ctx, heap, pool.sig_ptr(0), 1, "ge", partial)
+        assert ok
+        for bid in ids:
+            ptr = pool.block_ptr(bid)
+            if ctx.pending.pending_for(ptr, 1) is not None:
+                assert torch.equal(heap.read(ptr, 1), torch.zeros(ptr.size))
+    heap, hdr = mig.try_admit(heap, 0, 1, expected)
+    assert hdr is not None
+    assert int(heap.read(pool.sig_ptr(0), 1)) == expected
+    assert len(ctx.pending) == 0
+
+
+def test_assemble_rebuilds_the_dense_cache(params):
+    """After admission, the view's gather (K3's plain version here) rebuilds
+    the admitted slot's K/V byte for byte as the prefill left it, zeros past
+    the prompt (growth block included), and all-zero unmapped slots."""
+    cfg, ctx, heap, eng, pool = _setup(params, block_tokens=4)
+    mig = KVMigrator(ctx, pool)
+    tok, _, cache1 = eng.prefill_request(_tok(_prompts(1, S=11)[0]))
+    heap, ids = mig.stage(heap, 0, cache1, prompt_len=11, src_pe=0,
+                          max_new=4)
+    heap, rep = mig.migrate(heap, 0, src_pe=0, dst_pe=3, slot=1,
+                            prompt_len=11, first_token=tok)
+    heap, _ = mig.try_admit(heap, 1, 3, rep.expected_signal)
+    from repro_torch.serve.paged_attn import PagedDecodeView
+    view = PagedDecodeView(pool, 3, 3)
+    growth = [i for i in ids if pool.home_of(i) is None]
+    assert growth
+    heap = view.attach(heap, 1, 0, fresh_ids=growth)
+    cache = view.assemble(heap, eng.init_slots(3).cache)
+    for key in ("k", "v"):
+        leaf, want = cache["blocks"][0][key], cache1["blocks"][0][key]
+        assert torch.equal(leaf[:, 1], want[:, 0])
+        assert torch.equal(leaf[:, 0], torch.zeros_like(leaf[:, 0]))
+        assert torch.equal(leaf[:, 2], torch.zeros_like(leaf[:, 2]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_tail_packing_is_lossless(dtype):
+    """Non-paged leaves travel as one f32 vector: f32 as is, bf16 upcast
+    exactly, int32 bit-cast (``Tensor.view``), all back bit for bit."""
+    from repro_torch.serve.kvpool import _pack_leaf_f32, _unpack_leaf_f32
+    rng = np.random.default_rng(len(dtype))
+    x = torch.from_numpy(rng.normal(size=(2, 1, 5)).astype(np.float32) * 1e3)
+    x = x.to(getattr(torch, dtype)) if dtype != "int32" else \
+        torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(2, 1, 5),
+                                      dtype=np.int64).astype(np.int32))
+    packed = _pack_leaf_f32(x)
+    assert packed.dtype == torch.float32 and packed.shape == (10,)
+    assert torch.equal(_unpack_leaf_f32(packed, (2, 1, 5), dtype), x)
+
+
+def test_admission_blocked_when_signal_short(params):
+    cfg, ctx, heap, eng, pool = _setup(params, max_slots=1)
+    mig = KVMigrator(ctx, pool)
+    tok, _, cache1 = eng.prefill_request(_tok(_prompts(1)[0]))
+    heap, _ = mig.stage(heap, 7, cache1, prompt_len=10, src_pe=0)
+    heap, rep = mig.migrate(heap, 7, src_pe=0, dst_pe=1, slot=0,
+                            prompt_len=10, first_token=tok)
+    heap, hdr = mig.try_admit(heap, 0, 1, rep.expected_signal + 1)
+    assert hdr is None
+
+
+def test_rotation_reuses_slots_and_blocks(params):
+    """A pool too small for every request at once: stalls are recorded,
+    every request still finishes right, and the pool drains to empty."""
+    prompts = _prompts(6)
+    sched, outs = _run(params, prompts, num_slots=2, NEW=4, num_blocks=6,
+                       max_slots=2)
+    assert sched.stats.stalled_on_pool > 0 or sched.stats.stalled_on_slots > 0
+    assert sched.pool.stats()["blocks_in_use"] == 0
+    for i, p in enumerate(prompts):
+        assert sched.engine.generate(_tok(p), ServeConfig(
+            max_new_tokens=4))[0].tolist() == outs[i].tolist()
+
+
+def test_eviction_and_slot_reuse_more_requests_than_slots(params):
+    """Seven requests over two single-slot decode PEs: every slot serves
+    several requests in turn, each eviction returns its blocks and re-arms
+    the slot's signal word, and every stream stays bitwise right."""
+    prompts = _prompts(7, S=9, seed=5)
+    sched, outs = _run(params, prompts, num_slots=1, NEW=5)
+    st = sched.stats
+    assert (st.prefills, st.migrations, st.admissions, st.evictions) == \
+        (7, 7, 7, 7)
+    served = {}
+    for r in sched.requests.values():
+        served.setdefault((r.decode_pe, r.slot), []).append(r.rid)
+    assert len(served) == 2 and all(len(v) >= 3 for v in served.values())
+    assert sched.pool.free_blocks() == sched.pool.num_blocks
+    assert not sched.pool.block_tables
+    for pe in sched.decode_pes:
+        assert int(sched.heap.read(sched.pool.sig_ptr(0), pe)) == 0
+        assert not sched.banks[pe].active.any()
+    for i, p in enumerate(prompts):
+        assert sched.engine.generate(_tok(p), ServeConfig(
+            max_new_tokens=5))[0].tolist() == outs[i].tolist()
+
+
+def test_eos_early_stop_matches_generate_padding(params):
+    p = _prompts(1)[0]
+    eng = _setup(params)[3]
+    base_out = eng.generate(_tok(p), ServeConfig(max_new_tokens=6))
+    eos = int(base_out[0, 1])
+    want = eng.generate(_tok(p), ServeConfig(max_new_tokens=6, eos_id=eos))
+    sched, outs = _run(params, [p], num_slots=2, eos_id=eos)
+    assert outs[0].tolist() == want[0].tolist()
+    assert sched.requests[0].finish_step < 6
+
+
+def test_sampling_is_seeded(params):
+    """temperature > 0 draws from torch generators seeded by
+    ServeConfig.seed: one seed gives one stream, in the vocabulary, and
+    another seed another stream."""
+    prompts = _prompts(3)
+    runs = {}
+    for seed in (0, 0, 1):
+        sched, outs = _run(params, prompts, temperature=2.0, seed=seed)
+        runs.setdefault(seed, []).append([o.tolist() for o in outs.values()])
+    assert runs[0][0] == runs[0][1]
+    assert runs[0][0] != runs[1][0]
+    assert all(0 <= t < 512 for out in runs[1][0] for t in out)
+    eng = _setup(params)[3]
+    scfg = ServeConfig(max_new_tokens=5, temperature=2.0, seed=4)
+    assert torch.equal(eng.generate(_tok(prompts[0]), scfg),
+                       eng.generate(_tok(prompts[0]), scfg))
+
+
+def test_ttfd_and_migration_accounting(params):
+    sched, _ = _run(params, _prompts(5), admit_delay=2)
+    st = sched.stats
+    assert st.migrations == 5 == st.admissions
+    assert st.bytes_migrated > 0
+    assert all(t >= 2 for t in st.ttfd_steps)
+    assert all(t >= 0 for t in st.ttfd_model_s)
+
+
+def test_paged_decode_never_rehydrates_dense_cache(params):
+    sched, _ = _run(params, _prompts(5))
+    lay = sched.pool.layout
+    assert lay.paged
+    for bank in sched.banks.values():
+        for pl in lay.paged:
+            leaf = bank.cache["blocks"][pl.unit_idx][pl.key]
+            assert torch.equal(leaf, torch.zeros_like(leaf))
+
+
+def test_growth_blocks_receive_decode_writes(params):
+    """Generation crossing a block boundary writes K/V into growth blocks
+    that never migrated; output still matches the baseline."""
+    p = _prompts(1)[0]
+    sched = _sched(params, decode_pes=[2], num_slots=1, NEW=7,
+                   block_tokens=4)
+    sched.submit(_tok(p))
+    touched = {}
+    for _ in range(100):
+        if sched.done():
+            break
+        sched.step()
+        for rid, ids in sched.pool.block_tables.items():
+            for bid in (i for i in ids if sched.pool.home_of(i) is None):
+                val = float(sched.heap.read(sched.pool.block_ptr(bid), 2)
+                            .abs().max())
+                touched[bid] = max(touched.get(bid, 0.0), val)
+    assert sched.done()
+    assert touched and max(touched.values()) > 0
+    assert sched.engine.generate(_tok(p), ServeConfig(
+        max_new_tokens=7))[0].tolist() == sched.requests[0].out
+
+
+@pytest.mark.parametrize("kw", [{"paged": False}, {"stream_chunks": 1},
+                                {"fused_attn": True},
+                                {"shared_prefix": True},
+                                {"policy": object()}])
+def test_unported_modes_raise(params, kw):
+    cfg, ctx, heap, eng, pool = _setup(params)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DisaggScheduler(ctx, heap, eng, pool, KVMigrator(ctx, pool),
+                        prefill_pes=[0, 1], decode_pes=[2, 3], num_slots=3,
+                        **kw)
+
+
+def test_launcher_runs_on_cpu(capsys):
+    sched = launch_serve.main(["--disagg", "--device", "cpu", "--requests",
+                               "4", "--prompt-len", "12", "--max-new", "5"])
+    st = sched.stats
+    assert (st.prefills, st.migrations, st.admissions, st.evictions) == \
+        (4, 4, 4, 4)
+    assert "[serve] disagg arch=qwen3-4b" in capsys.readouterr().out
+    out = launch_serve.main(["--device", "cpu", "--batch", "2",
+                             "--prompt-len", "6", "--max-new", "3"])
+    assert tuple(out.shape) == (2, 3)
