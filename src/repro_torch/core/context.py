@@ -13,7 +13,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core import cutover, heap as heap_mod, \
-    pending as pending_mod
+    pending as pending_mod, teams
 from repro_torch.obs import tracer as tracer_mod
 from repro_torch.tune import telemetry as telemetry_mod
 
@@ -42,6 +42,13 @@ class ShmemContext:
         if self.node_of(src_pe) == self.node_of(dst_pe):
             return "ici"
         return "dcn"
+
+    @property
+    def team_world(self) -> teams.Team:
+        return teams.world(self.npes)
+
+    def team_shared(self, pe: int = 0) -> teams.Team:
+        return teams.shared(self.npes, self.node_size, self.node_of(pe))
 
     # ----------------------------------------------------------- telemetry
     @property

@@ -1,9 +1,10 @@
 """Deferred-completion engine: the queue behind every non-blocking op.
 
-Counterpart of ``repro/core/pending.py``.  ``put_nbi`` and
-``put_signal_nbi`` do not touch the target row at call time: they append a
-:class:`PendingOp` to the context's :class:`CompletionQueue`, and the row
-changes only when a completion point flushes the queue:
+Counterpart of ``repro/core/pending.py``.  ``put_nbi``, ``get_nbi``,
+``put_signal_nbi`` and the deferred AMOs do not touch the target row at
+call time: they append a :class:`PendingOp` to the context's
+:class:`CompletionQueue`, and the row changes only when a completion point
+flushes the queue:
 
 - ``quiet`` flushes everything;
 - ``signal_wait_until`` flushes the queue prefix up to the last op on the
@@ -14,13 +15,14 @@ changes only when a completion point flushes the queue:
 ``fence`` closes an epoch: ops in different epochs never coalesce.  Write
 combining happens at flush: queue-adjacent puts with the same (pe, dtype,
 epoch) whose ranges abut or coincide merge into ONE transfer, and only then
-does the cutover engine pick a path for the coalesced size.  Every transfer
-lands through ``SymmetricHeap.write``, i.e. through the K1 copy kernel on a
-CUDA heap.
+does the cutover engine pick a path for the coalesced size; queue-adjacent
+deferred adds to one element merge into one atomic.  Every transfer lands
+through ``SymmetricHeap.write``, i.e. through the K1 copy kernel on a CUDA
+heap.
 
-Not ported yet: GET/AMO queue entries, fault cancellation and the host-proxy
-route (dcn-tier ops complete on the modeled proxy path) — they come with the
-fleet slice (ROADMAP queue 1, item 10).
+Not ported yet: fault cancellation and the host-proxy route (dcn-tier ops
+complete on the modeled proxy path, and ``flush(proxy=...)`` raises) — they
+come with the fleet slice (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -33,14 +35,14 @@ from repro_torch.core import cutover
 from repro_torch.core.heap import TORCH_DTYPES, SymPtr
 
 # PendingOp kinds
-PUT, SIGNAL = "put", "signal"
+PUT, GET, AMO, SIGNAL = "put", "get", "amo", "signal"
 
 
 @dataclasses.dataclass
 class PendingOp:
     """One deferred operation."""
-    kind: str                      # PUT | SIGNAL
-    op: str                        # ledger name ("put_nbi", "signal")
+    kind: str                      # PUT | GET | AMO | SIGNAL
+    op: str                        # ledger name ("put_nbi", "amo_add_nbi", ...)
     ptr: SymPtr
     pe: int
     tier: str
@@ -48,7 +50,8 @@ class PendingOp:
     seq: int
     work_items: int = 1
     value: Optional[torch.Tensor] = None    # PUT: flat payload, owned
-    apply: Optional[Callable] = None        # SIGNAL: old -> new
+    apply: Optional[Callable] = None        # AMO/SIGNAL: old -> new
+    delta: Optional[object] = None          # AMO add: mergeable increment
     marker: Optional[object] = None         # the "(pending)" trace OpRecord
 
     @property
@@ -80,12 +83,12 @@ class CompletionQueue:
         self.stats = FlushStats()
 
     def submit(self, kind: str, op: str, ptr: SymPtr, pe: int, tier: str, *,
-               work_items: int = 1, value=None, apply=None,
+               work_items: int = 1, value=None, apply=None, delta=None,
                marker=None) -> PendingOp:
         rec = PendingOp(kind=kind, op=op, ptr=ptr, pe=int(pe), tier=tier,
                         epoch=self.epoch, seq=self._seq,
                         work_items=work_items, value=value, apply=apply,
-                        marker=marker)
+                        delta=delta, marker=marker)
         self._seq += 1
         self.ops.append(rec)
         self.stats.submitted += 1
@@ -147,9 +150,25 @@ class CompletionQueue:
                 last = i
         return last
 
+    def pending_first(self, ptr: SymPtr, pe: int) -> Optional[int]:
+        """Index of the FIRST pending op overlapping (ptr, pe): the minimal
+        prefix a device-side wait needs to advance the word."""
+        pe = int(pe)
+        for i, o in enumerate(self.ops):
+            if (o.pe == pe and o.ptr.dtype == ptr.dtype
+                    and o.ptr.offset < ptr.offset + max(1, ptr.size)
+                    and ptr.offset < o.end):
+                return i
+        return None
+
     # -------------------------------------------------------------- flush
-    def flush(self, ctx, heap):
-        """Complete every pending op, in order.  Returns the new heap."""
+    def flush(self, ctx, heap, *, proxy=None):
+        """Complete every pending op, in order.  Returns the new heap.  The
+        host-proxy route is not ported: a ``proxy`` raises."""
+        if proxy is not None:
+            raise NotImplementedError(
+                "flush through a HostProxy comes with the fleet slice "
+                "(ROADMAP queue 1, item 10)")
         return self._flush_ops(ctx, heap, self.ops, keep_from=len(self.ops))
 
     def flush_prefix(self, ctx, heap, upto: int):
@@ -193,10 +212,19 @@ class CompletionQueue:
 
     @staticmethod
     def _issue(ctx, heap, group):
-        """One coalesced transfer, or one signal update."""
+        """One coalesced transfer, one (merged) atomic, one signal update or
+        one fetch."""
         head = group[0]
-        if head.kind == SIGNAL:
-            new = head.apply(heap.read(head.ptr, head.pe).reshape(()))
+        if head.kind == GET:
+            # the fetch completed at submission; its cost accrues here
+            path = "proxy" if head.tier == "dcn" else "engine"
+            ctx.record(head.op, head.ptr.nbytes, path, head.tier,
+                       head.work_items)
+            return heap
+        if head.kind in (AMO, SIGNAL):
+            new = heap.read(head.ptr, head.pe).reshape(())
+            for o in group:                   # merged adds compose in order
+                new = o.apply(new)
             path = "proxy" if head.tier == "dcn" else "direct"
             ctx.record(head.op, TORCH_DTYPES[head.ptr.dtype].itemsize, path,
                        head.tier, head.work_items)
@@ -233,10 +261,17 @@ def _combinable(a: PendingOp, b: PendingOp) -> bool:
                      and b.ptr.size == a.ptr.size)))
 
 
+def _amo_mergeable(a: PendingOp, b: PendingOp) -> bool:
+    return (a.kind == AMO and b.kind == AMO
+            and a.delta is not None and b.delta is not None
+            and a.pe == b.pe and a.epoch == b.epoch and a.ptr == b.ptr)
+
+
 def _combine(ops: List[PendingOp]) -> List[List[PendingOp]]:
     groups: List[List[PendingOp]] = []
     for o in ops:
-        if groups and _combinable(groups[-1][-1], o):
+        if groups and (_combinable(groups[-1][-1], o)
+                       or _amo_mergeable(groups[-1][-1], o)):
             groups[-1].append(o)
         else:
             groups.append([o])

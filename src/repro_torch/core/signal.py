@@ -1,6 +1,8 @@
-"""Signaling ops: put_signal_nbi and signal_wait_until.
+"""Signaling ops: put_signal, put_signal_nbi, signal_fetch and
+signal_wait_until.
 
-Counterpart of ``repro/core/signal.py``.  ``put_signal_nbi`` defers both
+Counterpart of ``repro/core/signal.py``.  ``put_signal`` completes the data
+put before the flag update.  ``put_signal_nbi`` defers both
 halves onto the completion queue as an ordered pair: the data put, then a
 non-coalescible signal update, so write combining never lifts a later put
 across the flag.  ``signal_wait_until`` is the completion point that makes
@@ -34,6 +36,20 @@ def _sig_apply(signal, sig_op):
     return apply
 
 
+def put_signal(ctx, heap, dest, value, sig_ptr, signal, sig_op, dst_pe, *,
+               src_pe: int = 0, work_items: int = 1):
+    """ishmem_put_signal / ishmemx_put_signal_work_group: blocking data put,
+    then the flag update, linearised after queued ops on the flag word."""
+    heap = rma.put(ctx, heap, dest, value, dst_pe, src_pe=src_pe,
+                   work_items=work_items)
+    heap = ctx.pending.resolve_store_conflicts(ctx, heap, sig_ptr, dst_pe,
+                                               covers=False)
+    new = _sig_apply(signal, sig_op)(heap.read(sig_ptr, dst_pe).reshape(()))
+    ctx.record("signal", TORCH_DTYPES[sig_ptr.dtype].itemsize, "direct",
+               ctx.tier(src_pe, dst_pe), 1)
+    return heap.write(sig_ptr, dst_pe, new)
+
+
 def put_signal_nbi(ctx, heap, dest, value, sig_ptr, signal, sig_op, dst_pe, *,
                    src_pe: int = 0, work_items: int = 1):
     """ishmem_put_signal_nbi: deferred data put + deferred signal update,
@@ -47,6 +63,11 @@ def put_signal_nbi(ctx, heap, dest, value, sig_ptr, signal, sig_op, dst_pe, *,
                        apply=_sig_apply(signal, sig_op),
                        marker=ctx.ledger[-1] if ctx.ledger else None)
     return heap
+
+
+def signal_fetch(ctx, heap, sig_ptr, pe):
+    """ishmem_signal_fetch: the signal word's current value."""
+    return heap.read(sig_ptr, pe).reshape(())
 
 
 def signal_wait_until(ctx, heap, sig_ptr, pe, cmp: str, value):

@@ -1,9 +1,8 @@
-"""OpenSHMEM 1.5 teams (a copy of ``repro/core/teams.py``'s ``Team``,
-``world`` and ``disagg_partition``; ``shared`` and ``pods_partition`` come
-with the fleet slice).
+"""OpenSHMEM 1.5 teams (a copy of ``repro/core/teams.py``).
 
 A team is a (start, stride, size) slice of the world PE set, exactly the
-``shmem_team_split_strided`` model.
+``shmem_team_split_strided`` model.  ``shared`` is ``ISHMEM_TEAM_SHARED``:
+the PEs that share one node's fabric.
 """
 from __future__ import annotations
 
@@ -44,6 +43,29 @@ class Team:
 
 def world(npes: int) -> Team:
     return Team(0, 1, npes)
+
+
+def shared(npes: int, node_size: int, node_id: int) -> Team:
+    """ISHMEM_TEAM_SHARED: the PEs of one shared-fabric node (pod)."""
+    if node_size * (node_id + 1) > npes:
+        raise ValueError("node beyond world")
+    return Team(node_id * node_size, 1, node_size)
+
+
+def pods_partition(team: Team, pod_sizes) -> list:
+    """Split a team into contiguous pods of the given (possibly uneven)
+    sizes; trailing PEs may stay unassigned."""
+    sizes = list(pod_sizes)
+    if not sizes or any(s < 1 for s in sizes):
+        raise ValueError(f"pod sizes must be positive, got {sizes}")
+    if sum(sizes) > team.size:
+        raise ValueError(
+            f"pods need {sum(sizes)} PEs but the team holds {team.size}")
+    out, off = [], 0
+    for s in sizes:
+        out.append(team.split_strided(off, 1, s))
+        off += s
+    return out
 
 
 def disagg_partition(team: Team, n_prefill: int) -> tuple:

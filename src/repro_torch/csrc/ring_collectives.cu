@@ -1,0 +1,493 @@
+// K4-K8: device-initiated collectives over PE-stacked buffers.
+//
+// Replaces repro/kernels/rma_copy.py::remote_put (K4) and
+// repro/kernels/ring_collectives.py::{ring_allgather, ring_reduce_scatter,
+// push_broadcast, barrier_push} (K5-K8).  The reference runs each Pallas
+// kernel once per PE under shard_map, with remote DMAs and DMA semaphores
+// between chips.  On one card the PEs are the leading axis of stacked
+// buffers, and one cooperative launch runs them all:
+//
+// - a PE is a group of G CTAs (blockIdx.x = g * P + pe: consecutive CTAs
+//   belong to different PEs, so a PE's group spreads over the SMs instead
+//   of filling a few of them, which matters for K7, where only the root's
+//   group copies);
+// - CTA g of every PE owns the same column slice g of the chunk, so a
+//   "remote DMA" is the group's stores into another PE's row, and a CTA
+//   only ever waits on flags of its own slice, set by CTA g of another PE;
+// - a DMA semaphore is an int32 flag in a global buffer indexed by
+//   (PE, step, slice), zeroed on the stream before each launch, so no flag
+//   of an earlier launch satisfies this one.
+//
+// Ordering: the writer stores its slice, __syncthreads(), then one thread
+// runs __threadfence() and a release add on the flag.  The reader's thread
+// 0 spins with an acquire load, fences, and __syncthreads() before any
+// thread reads; data another CTA wrote is read through L2 (__ldcg), never
+// from a possibly stale L1 line.  A CTA that spins on a flag set by a CTA
+// that is not resident would hang the card, so every kernel is launched
+// with cudaLaunchCooperativeKernel on a grid sized from the occupancy
+// query, which guarantees that all P * G CTAs are resident at once.
+//
+// A flag that never rises is a protocol fault: every spin gives up after
+// 10 s and traps, so the launch fails instead of holding the card.
+//
+// Bound: bytes, for K4-K7 (each input read once, each output written once;
+// chip_smoke.py states each kernel's count).  Copies move 16-byte vectors
+// whenever the chunk and the base pointers allow it, and are bitwise.  K6
+// adds in the input's type in the reference's order (acc = landing + x,
+// bf16 through f32 and round-to-nearest-even, which equals a correctly
+// rounded bf16 add), so it equals its plain PyTorch version bitwise.  K8
+// moves no data: its floor is one empty cooperative launch.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kUnitsPerThread = 4;   // vectors per thread per CTA slice
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// After every thread of the CTA has stored its part: publish to `flag`.
+__device__ __forceinline__ void raise_flag(int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    red_release_add(flag, 1);
+  }
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Spin (one thread) until `flag` reaches `target`.  A flag that never comes
+// is a protocol fault: after kSpinLimitNs the kernel traps, so the launch
+// fails with an error instead of holding the card forever.
+constexpr unsigned long long kSpinLimitNs = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ void spin_until(const int* flag, int target) {
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire(flag) < target) {
+    if (global_ns() - t0 > kSpinLimitNs) __trap();
+  }
+}
+
+// Block until `flag` reaches `target`; afterwards every thread of the CTA
+// may read what the signalling CTA stored before its release.
+__device__ __forceinline__ void wait_flag(const int* flag, int target) {
+  if (threadIdx.x == 0) {
+    spin_until(flag, target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+struct Slice {
+  long long lo, hi;
+};
+
+__device__ __forceinline__ Slice slice_of(long long nvec, int g, int G) {
+  return {nvec * g / G, nvec * (g + 1) / G};
+}
+
+// Each thread keeps kUnroll loads in flight before it stores: one load at
+// a time leaves an SM too few bytes in flight to approach the memory rate.
+constexpr int kUnroll = 4;
+
+template <typename V>
+__device__ __forceinline__ void load_units(V (&v)[kUnroll], const V* __restrict__ src,
+                                           long long base, long long hi) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + static_cast<long long>(u) * kThreads;
+    if (i < hi) v[u] = __ldcg(src + i);
+  }
+}
+
+template <typename V>
+__device__ __forceinline__ void store_units(V* __restrict__ dst, const V (&v)[kUnroll],
+                                            long long base, long long hi) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + static_cast<long long>(u) * kThreads;
+    if (i < hi) dst[i] = v[u];
+  }
+}
+
+template <typename V>
+__device__ __forceinline__ void copy_slice(V* __restrict__ dst, const V* __restrict__ src, Slice s) {
+  for (long long base = s.lo + threadIdx.x; base < s.hi; base += kUnroll * kThreads) {
+    V v[kUnroll];
+    load_units(v, src, base, s.hi);
+    store_units(dst, v, base, s.hi);
+  }
+}
+
+// ---------------------------------------------------------------- K4
+// out[(p + off) mod P] = x[p], all n elements (the reference's last
+// n mod w elements are never written; here every element is).
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+remote_put_kernel(V* out, const V* x, int* flags, int P, int G, long long nvec, int off) {
+  const int p = blockIdx.x % P, g = blockIdx.x / P;
+  const int tgt = (p + off) % P;
+  const Slice s = slice_of(nvec, g, G);
+  copy_slice(out + tgt * nvec, x + p * nvec, s);
+  raise_flag(&flags[tgt * G + g]);
+  wait_flag(&flags[p * G + g], 1);  // the put landing in my own buffer
+}
+
+// ---------------------------------------------------------------- K5
+// out[p][p] = x[p]; step s forwards slot (p - s) mod P of out[p] into
+// out[right], then waits for the left neighbour's step-s slot.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+allgather_kernel(V* out, const V* x, int* flags, int P, int G, long long nvec) {
+  const int p = blockIdx.x % P, g = blockIdx.x / P;
+  const int right = (p + 1) % P;
+  const Slice sl = slice_of(nvec, g, G);
+  V* mine = out + static_cast<long long>(p) * P * nvec;
+  V* theirs = out + static_cast<long long>(right) * P * nvec;
+  const V* own = x + p * nvec;
+  copy_slice(mine + p * nvec, own, sl);
+  for (int s = 0; s < P - 1; ++s) {
+    const int slot = (p - s + P) % P;
+    // step 0 forwards the own chunk straight from x: no read-after-write
+    copy_slice(theirs + slot * nvec, s == 0 ? own : mine + slot * nvec, sl);
+    raise_flag(&flags[(right * (P - 1) + s) * G + g]);
+    wait_flag(&flags[(p * (P - 1) + s) * G + g], 1);
+  }
+}
+
+// ---------------------------------------------------------------- K6
+struct AddF32 {
+  using E = float;
+  __device__ static E add(E a, E b) { return a + b; }
+};
+
+struct AddBF16 {  // bf16 as its bits
+  using E = unsigned short;
+  __device__ static E add(E a, E b) {
+    const float fa = __uint_as_float(static_cast<unsigned>(a) << 16);
+    const float fb = __uint_as_float(static_cast<unsigned>(b) << 16);
+    return __bfloat16_as_ushort(__float2bfloat16_rn(fa + fb));
+  }
+};
+
+template <typename Op, typename V>
+__device__ __forceinline__ V vadd(V a, V b) {
+  using E = typename Op::E;
+  constexpr int N = sizeof(V) / sizeof(E);
+  union U {
+    V v;
+    E e[N];
+  } ua, ub, uc;
+  ua.v = a;
+  ub.v = b;
+#pragma unroll
+  for (int k = 0; k < N; ++k) uc.e[k] = Op::add(ua.e[k], ub.e[k]);
+  return uc.v;
+}
+
+// x: (P, P, nvec) addend rows; land: (P, P-1, nvec), one landing slot per
+// step so a PE running ahead never overwrites a slot not yet read.  The
+// accumulator is never stored on its own: step s computes
+//   acc_s = x[p][(p-1) mod P]                        (s == 0)
+//   acc_s = land[p][s-1] + x[p][(p-1-s) mod P]       (s >= 1)
+// and stores it straight into the right neighbour's landing slot s; the
+// last step stores it into out[p].
+template <typename Op, typename V>
+__global__ void __launch_bounds__(kThreads)
+reduce_scatter_kernel(V* out, const V* x, V* land, int* flags, int P, int G, long long nvec) {
+  const int p = blockIdx.x % P, g = blockIdx.x / P;
+  const int right = (p + 1) % P;
+  const Slice sl = slice_of(nvec, g, G);
+  const V* xp = x + static_cast<long long>(p) * P * nvec;
+  const V* my_land = land + static_cast<long long>(p) * (P - 1) * nvec;
+  V* right_land = land + static_cast<long long>(right) * (P - 1) * nvec;
+  for (int s = 0; s < P; ++s) {
+    const V* addend = xp + static_cast<long long>((p - 1 - s + 2 * P) % P) * nvec;
+    V* dst = s < P - 1 ? right_land + s * nvec : out + p * nvec;
+    if (s == 0) {
+      for (long long i = sl.lo + threadIdx.x; i < sl.hi; i += kThreads) dst[i] = addend[i];
+    } else {
+      const V* prev = my_land + (s - 1) * nvec;
+      for (long long i = sl.lo + threadIdx.x; i < sl.hi; i += kThreads)
+        dst[i] = vadd<Op>(__ldcg(prev + i), addend[i]);
+    }
+    if (s == P - 1) break;
+    raise_flag(&flags[(right * (P - 1) + s) * G + g]);
+    wait_flag(&flags[(p * (P - 1) + s) * G + g], 1);
+  }
+}
+
+// ---------------------------------------------------------------- K7
+// The root pushes x[root] to every PE, the paper's inner loop over
+// destinations: each element is loaded once and stored to its own row,
+// then to root+1+i in order; each destination's flag rises once the
+// slice has landed there.  The other PEs wait on their flags.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+broadcast_kernel(V* out, const V* x, int* flags, int P, int G, long long nvec, int root) {
+  const int p = blockIdx.x % P, g = blockIdx.x / P;
+  const Slice sl = slice_of(nvec, g, G);
+  if (p != root) {
+    wait_flag(&flags[p * G + g], 1);
+    return;
+  }
+  const V* src = x + root * nvec;
+  for (long long base = sl.lo + threadIdx.x; base < sl.hi; base += kUnroll * kThreads) {
+    V v[kUnroll];
+    load_units(v, src, base, sl.hi);
+    for (int d = 0; d < P; ++d) store_units(out + ((root + d) % P) * nvec, v, base, sl.hi);
+  }
+  for (int i = 0; i < P - 1; ++i) raise_flag(&flags[((root + 1 + i) % P) * G + g]);
+}
+
+// ---------------------------------------------------------------- K8
+// One CTA per PE: +1 to every other PE's counter, then wait for P-1.
+__global__ void barrier_kernel(int* out, int* counters, int P) {
+  const int p = blockIdx.x;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    for (int i = 0; i < P - 1; ++i) red_release_add(&counters[(p + 1 + i) % P], 1);
+    spin_until(&counters[p], P - 1);
+    out[p] = 1;
+  }
+}
+
+__global__ void noop_kernel() {}
+
+// ---------------------------------------------------------------- launch
+
+// CTAs per PE for a cooperative launch of `kernel`: as many as `want`, no
+// more than keep P groups resident at once and fit the flag buffer.
+template <typename K>
+cudaError_t groups_for(K kernel, int device, int threads, int P, long long want,
+                       long long flags_per_cta, long long flag_cap, int* G) {
+  int coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (err != cudaSuccess) return err;
+  long long g = static_cast<long long>(per_sm) * sms / P;
+  if (flags_per_cta > 0 && flag_cap / (P * flags_per_cta) < g) g = flag_cap / (P * flags_per_cta);
+  if (g < 1) return cudaErrorCooperativeLaunchTooLarge;  // P groups cannot all be resident
+  if (want < g) g = want < 1 ? 1 : want;
+  *G = static_cast<int>(g);
+  return cudaSuccess;
+}
+
+long long want_for(long long nvec) {
+  return (nvec + kThreads * kUnitsPerThread - 1) / (kThreads * kUnitsPerThread);
+}
+
+template <typename K>
+int coop_launch(K kernel, int P, int G, void** args, int threads, cudaStream_t st) {
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                                dim3(static_cast<unsigned>(P) * G), dim3(threads),
+                                                args, 0, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// widest unit that the chunk and every base pointer are aligned to
+int align_of(long long chunk_bytes, uintptr_t bases) {
+  const uintptr_t a = bases | static_cast<uintptr_t>(chunk_bytes);
+  if (a % 16 == 0) return 16;
+  if (a % 8 == 0) return 8;
+  if (a % 4 == 0) return 4;
+  if (a % 2 == 0) return 2;
+  return 1;
+}
+
+template <typename T>
+struct Unit {
+  using type = T;
+};
+
+// Call f(Unit<V>{}) with V the copy unit of `align` bytes.
+template <typename F>
+int by_unit(int align, F f) {
+  switch (align) {
+    case 16: return f(Unit<uint4>{});
+    case 8: return f(Unit<uint2>{});
+    case 4: return f(Unit<unsigned>{});
+    case 2: return f(Unit<unsigned short>{});
+    default: return f(Unit<unsigned char>{});
+  }
+}
+
+template <typename V>
+int remote_put_t(int device, void* out, const void* x, int* flags, long long cap, int P,
+                 long long chunk_bytes, int off, int work_items, cudaStream_t st) {
+  long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
+  long long want = work_items < nvec ? work_items : nvec;
+  int G = 0;
+  cudaError_t err = groups_for(remote_put_kernel<V>, device, kThreads, P, want, 1, cap, &G);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(flags, 0, sizeof(int) * static_cast<size_t>(P) * G, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  V* o = static_cast<V*>(out);
+  const V* xi = static_cast<const V*>(x);
+  void* args[] = {&o, &xi, &flags, &P, &G, &nvec, &off};
+  return coop_launch(remote_put_kernel<V>, P, G, args, kThreads, st);
+}
+
+template <typename V>
+int allgather_t(int device, void* out, const void* x, int* flags, long long cap, int P,
+                long long chunk_bytes, cudaStream_t st) {
+  long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
+  const long long steps = P > 1 ? P - 1 : 1;
+  int G = 0;
+  cudaError_t err = groups_for(allgather_kernel<V>, device, kThreads, P, want_for(nvec), steps, cap, &G);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(flags, 0, sizeof(int) * static_cast<size_t>(P) * steps * G, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  V* o = static_cast<V*>(out);
+  const V* xi = static_cast<const V*>(x);
+  void* args[] = {&o, &xi, &flags, &P, &G, &nvec};
+  return coop_launch(allgather_kernel<V>, P, G, args, kThreads, st);
+}
+
+template <typename Op, typename V>
+int reduce_scatter_t(int device, void* out, const void* x, void* land, int* flags, long long cap,
+                     int P, long long chunk_bytes, cudaStream_t st) {
+  long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
+  const long long steps = P > 1 ? P - 1 : 1;
+  int G = 0;
+  cudaError_t err = groups_for(reduce_scatter_kernel<Op, V>, device, kThreads, P, want_for(nvec),
+                               steps, cap, &G);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(flags, 0, sizeof(int) * static_cast<size_t>(P) * steps * G, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  V* o = static_cast<V*>(out);
+  const V* xi = static_cast<const V*>(x);
+  V* l = static_cast<V*>(land);
+  void* args[] = {&o, &xi, &l, &flags, &P, &G, &nvec};
+  return coop_launch(reduce_scatter_kernel<Op, V>, P, G, args, kThreads, st);
+}
+
+template <typename V>
+int broadcast_t(int device, void* out, const void* x, int* flags, long long cap, int P,
+                long long chunk_bytes, int root, cudaStream_t st) {
+  long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
+  int G = 0;
+  cudaError_t err = groups_for(broadcast_kernel<V>, device, kThreads, P, want_for(nvec), 1, cap, &G);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(flags, 0, sizeof(int) * static_cast<size_t>(P) * G, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  V* o = static_cast<V*>(out);
+  const V* xi = static_cast<const V*>(x);
+  void* args[] = {&o, &xi, &flags, &P, &G, &nvec, &root};
+  return coop_launch(broadcast_kernel<V>, P, G, args, kThreads, st);
+}
+
+uintptr_t bits(const void* p) { return reinterpret_cast<uintptr_t>(p); }
+
+}  // namespace
+
+// Every entry point: `device` is the CUDA ordinal, `stream` PyTorch's
+// current stream, `flags` an int32 scratch buffer of `flag_cap` words that
+// the wrapper allocated (zeroed here, on the stream, before the launch);
+// the wrapper has checked shapes, types and contiguity.  Returns a
+// cudaError_t code (0 on success).
+
+extern "C" int ishmem_remote_put(int device, void* out, const void* x, int* flags,
+                                 long long flag_cap, int npes, long long chunk_bytes, int offset,
+                                 int work_items, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (chunk_bytes == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int off = ((offset % npes) + npes) % npes;
+  return by_unit(align_of(chunk_bytes, bits(out) | bits(x)), [&](auto u) {
+    using V = typename decltype(u)::type;
+    return remote_put_t<V>(device, out, x, flags, flag_cap, npes, chunk_bytes, off, work_items, st);
+  });
+}
+
+extern "C" int ishmem_ring_allgather(int device, void* out, const void* x, int* flags,
+                                     long long flag_cap, int npes, long long chunk_bytes,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (chunk_bytes == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_unit(align_of(chunk_bytes, bits(out) | bits(x)), [&](auto u) {
+    using V = typename decltype(u)::type;
+    return allgather_t<V>(device, out, x, flags, flag_cap, npes, chunk_bytes, st);
+  });
+}
+
+// dtype: 0 = float32, 1 = bfloat16; chunk_elems elements per (PE, slot).
+extern "C" int ishmem_ring_reduce_scatter(int device, void* out, const void* x, void* land,
+                                          int* flags, long long flag_cap, int npes,
+                                          long long chunk_elems, int dtype, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (chunk_elems == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = align_of(chunk_elems * (dtype == 0 ? 4 : 2), bits(out) | bits(x) | bits(land)) == 16;
+  if (dtype == 0) {
+    const long long nbytes = chunk_elems * 4;
+    return vec ? reduce_scatter_t<AddF32, uint4>(device, out, x, land, flags, flag_cap, npes, nbytes, st)
+               : reduce_scatter_t<AddF32, float>(device, out, x, land, flags, flag_cap, npes, nbytes, st);
+  }
+  if (dtype == 1) {
+    const long long nbytes = chunk_elems * 2;
+    return vec ? reduce_scatter_t<AddBF16, uint4>(device, out, x, land, flags, flag_cap, npes, nbytes, st)
+               : reduce_scatter_t<AddBF16, unsigned short>(device, out, x, land, flags, flag_cap, npes,
+                                                           nbytes, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int ishmem_push_broadcast(int device, void* out, const void* x, int* flags,
+                                     long long flag_cap, int npes, long long chunk_bytes, int root,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (chunk_bytes == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_unit(align_of(chunk_bytes, bits(out) | bits(x)), [&](auto u) {
+    using V = typename decltype(u)::type;
+    return broadcast_t<V>(device, out, x, flags, flag_cap, npes, chunk_bytes, root, st);
+  });
+}
+
+// out: (npes,) int32; counters: npes int32 words (zeroed here).
+extern "C" int ishmem_barrier_push(int device, int* out, int* counters, int npes, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int G = 0;
+  err = groups_for(barrier_kernel, device, 32, npes, 1, 0, 0, &G);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(counters, 0, sizeof(int) * static_cast<size_t>(npes), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&out, &counters, &npes};
+  return coop_launch(barrier_kernel, npes, 1, args, 32, st);
+}
+
+// An empty cooperative launch of npes CTAs: K8's floor, for timing only.
+extern "C" int ishmem_coop_noop(int device, int npes, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {nullptr};
+  return coop_launch(noop_kernel, npes, 1, args, 32, static_cast<cudaStream_t>(stream));
+}

@@ -21,7 +21,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
-SOURCES = ("rma_copy.cu", "flash_attn.cu", "ishmem_device.cu")
+SOURCES = ("rma_copy.cu", "flash_attn.cu", "ishmem_device.cu",
+           "ring_collectives.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libishmem_kernels.so"
@@ -34,6 +35,13 @@ SIGNATURES = {
     "ishmem_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _P],
     "ishmem_paged_gather": [_I, _P, _P, _P, _LL, _LL, _I, _P],
+    "ishmem_remote_put": [_I, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
+    "ishmem_ring_allgather": [_I, _P, _P, _P, _LL, _I, _LL, _P],
+    "ishmem_ring_reduce_scatter": [_I, _P, _P, _P, _P, _LL, _I, _LL, _I,
+                                   _P],
+    "ishmem_push_broadcast": [_I, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ishmem_barrier_push": [_I, _P, _P, _I, _P],
+    "ishmem_coop_noop": [_I, _I, _P],
 }
 
 _lib = None

@@ -1,7 +1,9 @@
-"""Launch plumbing shared by the port's kernel wrappers.
+"""Launch plumbing shared by the port's kernel wrappers, and the ring
+allreduces built from them (``repro/kernels/ops.py:77-111``).
 
-Each wrapper (``rma_copy.copy_into``, ``flash_attn.flash_attention``,
-``ishmem_device.paged_gather``) checks its inputs, allocates its outputs and
+Each wrapper (``rma_copy.copy_into`` and ``remote_put``,
+``flash_attn.flash_attention``, ``ishmem_device.paged_gather``, and
+``ring_collectives``' four) checks its inputs, allocates its outputs and
 calls :func:`launch`, which runs the C entry point on the tensor's device and
 current stream, raises on a nonzero ``cudaError_t`` (a launch the card
 refuses never runs, and no later synchronise reports it), and counts the
@@ -15,7 +17,9 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"copy_into": 0, "flash_attention": 0, "paged_gather": 0}
+LAUNCHES = {"copy_into": 0, "flash_attention": 0, "paged_gather": 0,
+            "remote_put": 0, "ring_allgather": 0, "ring_reduce_scatter": 0,
+            "push_broadcast": 0, "barrier_push": 0}
 
 
 def reset_launches() -> None:
@@ -43,3 +47,36 @@ def on_cpu(*tensors) -> bool:
     if len(kinds) == 1 and next(iter(kinds)).type == "cuda":
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+# ---------------------------------------------------------------------------
+# ring allreduces over PE-stacked tensors (leading axis = PE)
+# ---------------------------------------------------------------------------
+
+
+def ring_allreduce(x: torch.Tensor) -> torch.Tensor:
+    """Allreduce = ring reduce-scatter (K6) + ring all-gather (K5).
+    ``x``: ``(npes, npes, chunk...)`` addend rows per PE; returns
+    ``(npes, npes, chunk...)``, every PE holding every reduced chunk."""
+    from repro_torch.kernels import ring_collectives
+    mine = ring_collectives.ring_reduce_scatter(x)
+    return ring_collectives.ring_allgather(mine)
+
+
+def ring_step_nbi(x: torch.Tensor, *, work_items: int = 8) -> torch.Tensor:
+    """One ring step: every PE puts its buffer to its right neighbour (K4)
+    and gets the one from its left."""
+    from repro_torch.kernels import rma_copy
+    return rma_copy.remote_put(x, target_offset=1, work_items=work_items)
+
+
+def ring_allreduce_nbi(x: torch.Tensor, *, work_items: int = 8) -> torch.Tensor:
+    """Pass-around allreduce: each step's transfer feeds only the next
+    transfer, so the adds stay off the transfer chain.  Moves npes * n bytes
+    per PE (RS+AG moves 2n), so callers keep it to small messages."""
+    acc = x
+    cur = x
+    for _ in range(x.shape[0] - 1):
+        cur = ring_step_nbi(cur, work_items=work_items)
+        acc = acc + cur
+    return acc

@@ -1,0 +1,184 @@
+"""K5-K8 — device-initiated ring collectives (``csrc/ring_collectives.cu``).
+
+Replaces ``repro/kernels/ring_collectives.py``: ``ring_allgather`` (K5),
+``ring_reduce_scatter`` (K6), ``push_broadcast`` (K7) and ``barrier_push``
+(K8).  The reference calls each once per PE inside ``shard_map``; the port
+takes PE-stacked tensors instead: the leading axis is the PE axis, and
+``out[p]`` is what PE p's call returns in the reference.  On the card one
+cooperative launch runs every PE as a group of CTAs, with flag words in
+place of DMA semaphores (see the source for the design).  Each kernel has a
+plain PyTorch version that follows the same ring order; a wrapper takes it
+for CPU tensors only.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import _devices
+from repro_torch.kernels import ops
+
+DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+REDUCE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C dtype code
+# one launch runs at most this many CTAs (npes x CTAs per PE); the flag
+# buffer holds one word per (CTA, step)
+MAX_CTAS = 2048
+
+
+def check_stacked(name: str, x: torch.Tensor, dtypes, min_dim: int = 1):
+    """Raise unless ``x`` is a contiguous PE-stacked tensor of a taken
+    dtype with at least ``min_dim`` axes and a nonempty PE axis."""
+    if x.dim() < min_dim or x.shape[0] < 1:
+        raise ValueError(f"{name}: needs an (npes, ...) tensor with at least "
+                         f"{min_dim} axes, got {tuple(x.shape)}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: {x.dtype}; takes one of {tuple(dtypes)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+
+
+def flags_for(x: torch.Tensor) -> torch.Tensor:
+    """Scratch flag words for one launch over ``x`` (zeroed by the C entry
+    point on the stream)."""
+    steps = max(1, x.shape[0] - 1)
+    return torch.empty(steps * MAX_CTAS, dtype=torch.int32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# K5: ring all-gather (fcollect)
+# ---------------------------------------------------------------------------
+
+
+def ring_allgather_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5, in the reference's schedule: each PE places its
+    own chunk, then in step s forwards slot ``(p - s) mod P`` to its right
+    neighbour."""
+    P = x.shape[0]
+    out = x.new_empty((P, P) + tuple(x.shape[1:]))
+    for p in range(P):
+        out[p, p] = x[p]
+    for s in range(P - 1):
+        for p in range(P):
+            slot = (p - s) % P
+            out[(p + 1) % P, slot] = out[p, slot]
+    return out
+
+
+def ring_allgather(x: torch.Tensor) -> torch.Tensor:
+    """fcollect: ``x`` ``(npes, chunk...)`` -> ``(npes, npes, chunk...)``,
+    where ``out[p][q] = x[q]`` for every PE p."""
+    check_stacked("ring_allgather", x, DTYPES)
+    if ops.on_cpu(x):
+        return ring_allgather_plain(x)
+    P = x.shape[0]
+    out = torch.empty((P, P) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    flags = flags_for(x)
+    ops.launch("ring_allgather", "ishmem_ring_allgather", x.device,
+               out.data_ptr(), x.data_ptr(), flags.data_ptr(), flags.numel(),
+               P, x[0].numel() * x.element_size())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: ring reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+def ring_reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6, in the reference's order and in x's dtype:
+    ``acc = x[p][(p-1) mod P]``; step s: ``acc = left's acc + x[p][(p-2-s)
+    mod P]``."""
+    P = x.shape[0]
+    acc = [x[p, (p - 1) % P].clone() for p in range(P)]
+    for s in range(P - 1):
+        acc = [acc[(p - 1) % P] + x[p, (p - 2 - s) % P] for p in range(P)]
+    return torch.stack(acc)
+
+
+def ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+    """``x``: ``(npes, npes, chunk...)`` addends per PE -> ``(npes,
+    chunk...)``: PE i holds the sum over PEs of chunk i."""
+    check_stacked("ring_reduce_scatter", x, REDUCE_DTYPES, min_dim=2)
+    P = x.shape[0]
+    if x.shape[1] != P:
+        raise ValueError(f"ring_reduce_scatter: x must be (npes, npes, ...), "
+                         f"got {tuple(x.shape)}")
+    if ops.on_cpu(x):
+        return ring_reduce_scatter_plain(x)
+    chunk = tuple(x.shape[2:])
+    out = torch.empty((P,) + chunk, dtype=x.dtype, device=x.device)
+    land = torch.empty((P, max(0, P - 1)) + chunk, dtype=x.dtype,
+                       device=x.device)
+    flags = flags_for(x)
+    ops.launch("ring_reduce_scatter", "ishmem_ring_reduce_scatter", x.device,
+               out.data_ptr(), x.data_ptr(), land.data_ptr(), flags.data_ptr(),
+               flags.numel(), P, x[0, 0].numel(), REDUCE_DTYPES[x.dtype])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: push broadcast
+# ---------------------------------------------------------------------------
+
+
+def push_broadcast_plain(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """Plain version of K7: the root copies its own row, then pushes it to
+    ``root+1+i`` in order."""
+    P = x.shape[0]
+    out = torch.empty_like(x)
+    out[root] = x[root]
+    for i in range(P - 1):
+        out[(root + 1 + i) % P] = x[root]
+    return out
+
+
+def push_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """``x`` ``(npes, n...)`` -> every PE's row set to ``x[root]``."""
+    check_stacked("push_broadcast", x, DTYPES)
+    P = x.shape[0]
+    if not 0 <= root < P:
+        raise ValueError(f"push_broadcast: root {root} outside {P} PEs")
+    if ops.on_cpu(x):
+        return push_broadcast_plain(x, root)
+    out = torch.empty_like(x)
+    flags = flags_for(x)
+    ops.launch("push_broadcast", "ishmem_push_broadcast", x.device,
+               out.data_ptr(), x.data_ptr(), flags.data_ptr(), flags.numel(),
+               P, x[0].numel() * x.element_size(), root)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: push barrier
+# ---------------------------------------------------------------------------
+
+
+def barrier_push_plain(npes: int, device) -> torch.Tensor:
+    """Plain version of K8: every PE adds 1 to every other PE's counter;
+    a PE passes when its own counter reaches npes - 1."""
+    counters = [0] * npes
+    for p in range(npes):
+        for i in range(npes - 1):
+            counters[(p + 1 + i) % npes] += 1
+    return torch.tensor([int(c == npes - 1) for c in counters],
+                        dtype=torch.int32, device=device)
+
+
+def barrier_push(npes: int, *, device=None) -> torch.Tensor:
+    """Push barrier over ``npes`` PEs on ``device`` (the current CUDA
+    device unless given); returns ``(npes,)`` int32 ones once every PE has
+    arrived."""
+    if npes < 1:
+        raise ValueError(f"barrier_push: npes must be >= 1, got {npes}")
+    dev = _devices.resolve(device)
+    if dev.type == "cpu":
+        return barrier_push_plain(npes, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"barrier_push: no kernel for device {dev}")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = torch.empty(npes, dtype=torch.int32, device=dev)
+    counters = torch.empty(npes, dtype=torch.int32, device=dev)
+    ops.launch("barrier_push", "ishmem_barrier_push", dev, out.data_ptr(),
+               counters.data_ptr(), npes)
+    return out

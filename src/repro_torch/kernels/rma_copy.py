@@ -1,10 +1,12 @@
-"""K1 — the work-group heap store (``csrc/rma_copy.cu``).
+"""K1 — the work-group heap store (``csrc/rma_copy.cu``), and K4 — the
+device-initiated remote put (``csrc/ring_collectives.cu``).
 
-Replaces ``repro/kernels/rma_copy.py::wg_copy_local`` and its wrapper
+K1 replaces ``repro/kernels/rma_copy.py::wg_copy_local`` and its wrapper
 ``repro/kernels/ops.py::copy_into``.  The kernel takes any length and any
 offset, so the reference's ``.at[].set`` branch for unaligned transfers has
 no counterpart.  It is bound by bytes (2 n itemsize over the memory rate);
-see the source for the design.
+see the source for the design.  K4 replaces ``remote_put`` and shares the
+ring collectives' flag protocol and cooperative launch.
 """
 from __future__ import annotations
 
@@ -45,3 +47,36 @@ def copy_into(dst_row: torch.Tensor, src: torch.Tensor,
                dst_row.data_ptr(), src.data_ptr(), n, offset,
                dst_row.element_size())
     return dst_row
+
+
+# ---------------------------------------------------------------------------
+# K4: the device-initiated remote put (csrc/ring_collectives.cu)
+# ---------------------------------------------------------------------------
+
+
+def remote_put_plain(x: torch.Tensor, target_offset: int = 1) -> torch.Tensor:
+    """Plain version of K4: ``out[(p + target_offset) mod P] = x[p]``."""
+    P = x.shape[0]
+    out = torch.empty_like(x)
+    for p in range(P):
+        out[(p + target_offset) % P] = x[p]
+    return out
+
+
+def remote_put(x: torch.Tensor, *, target_offset: int = 1,
+               work_items: int = 1) -> torch.Tensor:
+    """Every PE puts its buffer into PE ``(p + target_offset) mod P``'s
+    output.  ``x``: ``(npes, n...)`` PE-stacked.  Replaces
+    ``repro/kernels/rma_copy.py::remote_put``; ``work_items`` sets the CTAs
+    per PE, and every element lands (the reference leaves the last
+    ``n mod w`` elements unwritten when its w slices do not divide n)."""
+    from repro_torch.kernels import ring_collectives
+    ring_collectives.check_stacked("remote_put", x, DTYPES)
+    if ops.on_cpu(x):
+        return remote_put_plain(x, target_offset)
+    out = torch.empty_like(x)
+    flags = ring_collectives.flags_for(x)
+    ops.launch("remote_put", "ishmem_remote_put", x.device, out.data_ptr(),
+               x.data_ptr(), flags.data_ptr(), flags.numel(), x.shape[0],
+               x[0].numel() * x.element_size(), target_offset, work_items)
+    return out

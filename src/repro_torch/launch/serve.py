@@ -1,10 +1,10 @@
 """Serving launcher: lockstep batched generation, and disaggregated
 prefill/decode with SHMEM paged-KV migration and paged decode attention.
 
-Counterpart of ``repro/launch/serve.py`` (its lockstep mode and
-``_run_disagg``).  Runs on the current CUDA device unless ``--device`` says
-otherwise; ``--full`` serves the architecture at its published widths
-instead of the reduced test variant.
+Counterpart of ``repro/launch/serve.py`` (its lockstep mode,
+``_run_disagg`` and ``--overlap-report``).  Runs on the current CUDA device
+unless ``--device`` says otherwise; ``--full`` serves the architecture at
+its published widths instead of the reduced test variant.
 
   # lockstep batch
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 4
@@ -17,6 +17,10 @@ instead of the reduced test variant.
   # full-width qwen3-4b on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \\
       --prompt-len 512 --kv-blocks 256
+
+  # modeled nbi-vs-blocking pricing of the decode allreduces at the
+  # architecture's published widths (the cost model, not a measurement)
+  PYTHONPATH=src python -m repro_torch.launch.serve --overlap-report
 """
 from __future__ import annotations
 
@@ -31,6 +35,43 @@ def make_batch(cfg, gen: torch.Generator, batch: int, prompt_len: int,
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=gen.device)
     return {"tokens": tokens.to(device)}
+
+
+def _overlap_report(args) -> None:
+    """Modeled nbi-vs-blocking report for the decode collectives at the
+    full architecture's shapes: the hidden (d_model) and logits (vocab)
+    allreduces over a batch sweep, with the batch where the nbi schedule
+    starts to win.  These are the cost model's numbers
+    (``cutover.overlap_efficiency``), not measurements."""
+    from repro_torch.comms import api as comms_api
+    from repro_torch.configs import base as cfgbase
+
+    full = cfgbase.get_config(args.arch)
+    ops = comms_api.get_ops("shmem", npes=args.comms_npes)
+    print(f"[serve] overlap report — production shapes for {full.name}: "
+          f"d_model={full.d_model} vocab={full.vocab_size} "
+          f"npes={args.comms_npes}")
+    batches = [1, 2, 4, 8, 16, 32, 64, 128, 256]
+    for name, per_tok in (("hidden", full.d_model * 4),
+                          ("logits", full.vocab_size * 4)):
+        crossover = None
+        rows = []
+        for B in batches:
+            nbytes = B * per_tok
+            eff = ops.modeled_overlap_efficiency(nbytes)
+            rows.append((B, nbytes, eff))
+            if crossover is None and eff > 1.0:
+                crossover = B
+        for B, nbytes, eff in rows:
+            verdict = "nbi" if eff > 1.0 else "blocking"
+            print(f"[serve]   {name:6s} B={B:<4d} {nbytes:>12d} B  "
+                  f"overlap x{eff:.2f} -> {verdict}")
+        if crossover is None:
+            print(f"[serve]   {name}: alpha-bound at every swept batch "
+                  f"-> stay blocking")
+        else:
+            print(f"[serve]   {name}: nbi wins from batch {crossover} "
+                  f"({crossover * per_tok} B per decode step)")
 
 
 def _run_disagg(args, cfg, params):
@@ -101,6 +142,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--overlap-report", action="store_true",
+                    help="after the run, model the decode-step collectives "
+                         "under the nbi schedule vs blocking at the full "
+                         "architecture's shapes and print the crossover")
+    ap.add_argument("--comms-npes", type=int, default=8)
     ap.add_argument("--disagg", action="store_true",
                     help="disaggregated prefill/decode with SHMEM paged-KV "
                          "migration")
@@ -133,7 +179,10 @@ def main(argv=None):
         cfg = cfgbase.reduced(cfg)
     params = model.init_params(cfg, seed=args.seed, device=device)
     if args.disagg:
-        return _run_disagg(args, cfg, params)
+        sched = _run_disagg(args, cfg, params)
+        if args.overlap_report:
+            _overlap_report(args)
+        return sched
     eng = Engine(cfg, params, max_len=args.prompt_len + args.max_new,
                  device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
@@ -143,6 +192,8 @@ def main(argv=None):
                                           seed=args.seed))
     print(f"[serve] arch={cfg.name} generated {tuple(out.shape)}:")
     print(out.cpu().numpy())
+    if args.overlap_report:
+        _overlap_report(args)
     return out
 
 

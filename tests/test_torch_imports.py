@@ -13,7 +13,9 @@ import repro_torch
 from repro_torch import _bridge, _devices
 from repro_torch.configs import base
 from repro_torch.core import context, heap as heap_mod
-from repro_torch.launch import serve as launch_serve
+from repro_torch.core.api import Ishmem
+from repro_torch.kernels import ring_collectives
+from repro_torch.launch import serve as launch_serve, shmem_collectives
 from repro_torch.models import model
 from repro_torch.serve.engine import Engine
 
@@ -79,6 +81,17 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_card):
     ctx, heap = context.init(npes=2, device="cpu")
     assert heap.device == torch.device("cpu")
     assert Engine(cfg, params, max_len=8, device="cpu").device.type == "cpu"
+
+
+def test_collectives_entry_points_raise_without_cuda_unless_cpu(no_card):
+    with pytest.raises(RuntimeError):
+        Ishmem(npes=2)
+    with pytest.raises(RuntimeError):
+        ring_collectives.barrier_push(2)
+    with pytest.raises(RuntimeError):
+        shmem_collectives.main(["--npes", "2"])
+    assert Ishmem(npes=2, device="cpu").heap.device == torch.device("cpu")
+    assert ring_collectives.barrier_push(2, device="cpu").tolist() == [1, 1]
 
 
 def test_engine_refuses_params_on_another_device():
