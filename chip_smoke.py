@@ -9,21 +9,22 @@ Phases, each fatal on failure:
    port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source,
    in parallel), TF32 off;
 2. every kernel against its plain PyTorch version on the card, at the main
-   paths' shapes and at edge shapes (K1, K3 and K4-K8 bitwise, K2 to 2e-5
-   in f32 and 2e-2 in bf16, the reference's tolerances), each timed with
-   CUDA events beside its plain version and one PyTorch call computing the
-   same function (timed only; the port never calls it).  The ring kernels
-   K4-K8 run at 2, 4 and 8 PEs, chunk lengths 1, 127, 5157 and the main
-   shapes, every dtype each takes, roots 0, 3 and 7 and offsets 1 and 3,
-   each check 20 times over to catch ordering races, with every new
-   output, landing and flag block poisoned (NaN or the integer maximum)
-   so that a stale read cannot find an earlier run's equal value.  The
-   bounds count each input read once and each output written once.  For
-   the short
-   kernels (K1, K4 at a small chunk, K8) the event time is the host's
-   launch cost, so their rows also carry ``device_ms``, the device-only
-   duration from ``torch.profiler``, measured after phase 4 so that the
-   profiler's hooks cannot slow the timed phases;
+   paths' shapes and at edge shapes (K1, K3-K9 bitwise; K2 to 2e-5 in f32
+   and 2e-2 in bf16, the reference's tolerances; K10 to 2e-5 on acc/l, m
+   and l, its arithmetic being f32 whatever the input type, acc itself
+   being a sum over up to 4096 keys), each timed with CUDA events beside
+   its plain version and one PyTorch call computing the same function
+   (timed only; the port never calls it).  The ring kernels K4-K8 run at
+   2, 4 and 8 PEs, chunk lengths 1, 127, 5157 and the main shapes, every
+   dtype each takes, roots 0, 3 and 7 and offsets 1 and 3, each check 20
+   times over to catch ordering races, with every new output, landing and
+   flag block poisoned (NaN or the integer maximum) so that a stale read
+   cannot find an earlier run's equal value.  The bounds count each input
+   read once and each output written once, and for K10 only the unmasked
+   products.  Rows also carry ``device_ms``, the device-only duration from
+   ``torch.profiler`` (K1, K4 at a small chunk, K8, K9, K10), measured
+   after phase 6 so that the profiler's hooks cannot slow the timed
+   phases;
 3. the serving path: ``repro_torch.launch.serve --disagg --full``, qwen3-4b at
    its published widths and depth, 2 prefill + 2 decode PEs, 8 requests of
    512 tokens, 16 new tokens each, 3 slots per decode PE, 256 KV blocks of
@@ -37,9 +38,27 @@ Phases, each fatal on failure:
    engine backend and the unsharded MLP, the logits reduce, the bf16 layer
    broadcast, the hidden ppermute, and the ``Ishmem`` facade on a heap
    holding one bf16 MLP weight).  Launch counts are zeroed just before and
-   read just after; K4-K8 must each have launched.
+   read just after; K4-K8 must each have launched;
+5. the fused serving path: phase 3's run with ``--fused-attn`` (per-block
+   migration signals, first-block admission, per-block device waits before
+   each decode step).  Launch counts zeroed before; K1-K3 must launch.
+   Every request's tokens must equal phase 3's and the single-PE baseline
+   bitwise, the counters balance, the completion queue ends empty, and the
+   mean first-resident-block step must be strictly below phase 3's.  Then
+   K11 (``fused_paged_attn``: device waits, K3, K2) on the pool that phase
+   leaves, bitwise equal to ``assemble`` + K2 at qwen3-4b widths;
+6. the ring attention path: ``serve.seq_parallel_report`` at qwen3-4b's
+   attention widths (32 heads of 128), 8 PEs, S = 32768, f32: K/V shards
+   rotate by work-group ``put_signal_nbi`` and device waits, one K10
+   partial per causal (PE, shard) pair (exactly 36), merged and held
+   against K2 over the whole sequence within 5e-5; then once more at
+   unit-scale inputs, where a mask error at a shard border would exceed
+   that limit.
 
-The line before the last is the ``kernels`` JSON record; the last is
+K9 (``reduce_tile``) has no caller on these paths (only the reference's
+benchmark and tests call it): its row sums its counts over the four path
+runs, and the check fails if that is not 0.  The line before
+the last is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
 beside this file, it exits nonzero before printing any result.
 """
@@ -65,6 +84,10 @@ MAIN_ARGV = ["--disagg", "--full", "--arch", "qwen3-4b", "--seed", "0",
              "--kv-blocks", "256", "--block-tokens", "16"]
 COLL_ARGV = ["--full", "--arch", "qwen3-4b", "--npes", "8", "--seed", "0",
              "--prefill-tokens", "512", "--decode-batch", "8"]
+FUSED_ARGV = MAIN_ARGV + ["--fused-attn"]
+RING = dict(npes=8, prompt_len=32768, full=True, arch="qwen3-4b", seed=0)
+RING_PARTIALS = 8 * 9 // 2           # causal (PE, shard) pairs
+RING_TOL = 5e-5                      # tests/test_device.py ring attention
 SERVE_KERNELS = ("copy_into", "flash_attention", "paged_gather")
 RING_KERNELS = ("remote_put", "ring_allgather", "ring_reduce_scatter",
                 "push_broadcast", "barrier_push")
@@ -409,6 +432,278 @@ def check_ring(torch, rc, rma_copy, _build, dev, deferred):
     return rows_out + [barrier]
 
 
+def check_reduce_tile(torch, rt, dev, deferred):
+    """K9 at T in {1, 2, 5, 8}, N in {128, 640, 1024}, every op and dtype,
+    and with a base pointer off the 16-byte grid, bitwise; timed at the 8
+    PE partials of the prefill hidden that the engine-path reduce folds,
+    (8, 1310720) f32 sum."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    checks = 0
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        for op in ("sum", "max", "min", "prod"):
+            scale = 3 if op == "prod" else 50
+            for T in (1, 2, 5, 8):
+                for N in (128, 640, 1024):
+                    x = (torch.randn(T, N, generator=gen, device=dev)
+                         * scale).to(dt)
+                    got = rt.reduce_tile(x, op)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, rt.reduce_tile_plain(x, op)):
+                        fail(f"K9 reduce_tile differs from its plain "
+                             f"version: {dt} {op} T={T} N={N}")
+                    checks += 1
+            flat = (torch.randn(3 * 640 + 1, generator=gen, device=dev)
+                    * scale).to(dt)
+            x = flat[1:].view(3, 640)               # off the 16-byte grid
+            if not torch.equal(rt.reduce_tile(x, op),
+                               rt.reduce_tile_plain(x, op)):
+                fail(f"K9 reduce_tile differs at an unaligned base: {dt} "
+                     f"{op}")
+            checks += 1
+    say(f"K9 edge shapes: {checks} checks, bitwise equal to the plain "
+        "version")
+    rows = torch.randn(8, 1310720, generator=gen, device=dev)
+    if not torch.equal(rt.reduce_tile(rows), rt.reduce_tile_plain(rows)):
+        fail("K9 reduce_tile differs from its plain version at (8, 1310720)")
+    out = {"name": "reduce_tile", "route": "cuda",
+           "source": "src/repro_torch/csrc/reduce_tile.cu",
+           "replaces": "src/repro/kernels/reduce_tile.py:39",
+           "max_abs_err": 0.0,
+           "ms": time_ms(torch, lambda: rt.reduce_tile(rows)),
+           "plain_ms": time_ms(torch, lambda: rt.reduce_tile_plain(rows)),
+           "bound_ms": 9 * rows[0].numel() * 4 / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "library_ms": time_ms(torch, lambda: rows.sum(0)),
+           "shape": "rows (8, 1310720) f32, sum: the 8 PE partials of the "
+                    "prefill hidden (512, 2560)"}
+    deferred.append((out, "device_ms", lambda: rt.reduce_tile(rows),
+                     "reduce_tile_kernel"))
+    return out
+
+
+def _partial_errs(torch, got, want, seen):
+    """Largest |difference| of the raw acc, of the normalised acc/l, of m
+    and of l on the rows that see a key, and whether each is within TOL
+    float32.  acc is a sum of up to l weighted values, so its rounding
+    grows with l: raw acc is held within TOL * (l + |acc|) per row, the
+    others within TOL absolute and relative."""
+    tol = TOL["float32"]
+    (a, m, l), (pa, pm, pl) = got, want
+    quads = ((a, pa, (tol * pl[..., None]).expand_as(pa)),
+             (a / l[..., None], pa / pl[..., None], None), (m, pm, None),
+             (l, pl, None))
+    errs, ok = [], True
+    for x, y, atol in quads:
+        x, y = x[:, seen], y[:, seen]
+        atol = tol if atol is None else atol[:, seen]
+        errs.append(float((x - y).abs().max()) if x.numel() else 0.0)
+        ok = ok and bool(((x - y).abs() <= atol + tol * y.abs()).all())
+    return errs, ok
+
+
+def check_flash_partial(torch, dev_kern, dev, deferred):
+    """K10 at edge shapes (Sq != Skv, bf16, head dims 64 and 128, tiles
+    whose rows see no key) against its plain version; then at the ring
+    path's shapes, 8 PEs over S = 32768: one diagonal partial (PE 7's own
+    shard) and one off-diagonal partial (PE 7 against shard 0), H = 32,
+    hd = 128, f32, timed beside the plain version and one call of the
+    memory-efficient SDPA kernel with the offset mask as its bias and the
+    log-sum-exp (the same function: acc = out * l, lse = m + log l)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tol = TOL["float32"]
+    for dt in (torch.float32, torch.bfloat16):
+        for Sq, Skv, qo, ko, H, hd in ((64, 64, 0, 0, 4, 128),
+                                       (100, 37, 50, 10, 2, 64),
+                                       (37, 100, 0, 20, 3, 128),
+                                       (128, 128, 0, 128, 2, 128),
+                                       (96, 160, 64, 0, 2, 64)):
+            q = torch.randn(1, Sq, H, hd, generator=gen, device=dev).to(dt)
+            k = torch.randn(1, Skv, H, hd, generator=gen, device=dev).to(dt)
+            v = torch.randn(1, Skv, H, hd, generator=gen, device=dev).to(dt)
+            got = dev_kern.flash_partial(q, k, v, q_off=qo, k_off=ko)
+            want = dev_kern.flash_partial_plain(q, k, v, q_off=qo, k_off=ko)
+            torch.cuda.synchronize()
+            seen = qo + torch.arange(Sq, device=dev) >= ko
+            errs, ok = _partial_errs(torch, got, want, seen)
+            blind = ~seen
+            blind_ok = (bool((got[1][:, blind] == -1e30).all())
+                        and bool((got[2][:, blind] == Skv).all())
+                        and bool(torch.isclose(got[0][:, blind],
+                                               want[0][:, blind], rtol=tol,
+                                               atol=tol).all()))
+            merged = float((dev_kern.merge_partials([got]) -
+                            dev_kern.merge_partials([want])).abs().max())
+            say(f"K10 {dt} Sq={Sq} Skv={Skv} q_off={qo} k_off={ko} H={H} "
+                f"hd={hd}: max|err| acc {errs[0]:.3e} acc/l {errs[1]:.3e} m "
+                f"{errs[2]:.3e} l {errs[3]:.3e} merged {merged:.3e}; "
+                f"{int(blind.sum())} blind rows")
+            if not (ok and blind_ok and merged <= tol):
+                fail(f"K10 flash_partial differs from its plain version "
+                     f"({dt}, Sq={Sq}, Skv={Skv}, offsets {qo}/{ko})")
+    Sh, H, hd, me = 4096, 32, 128, 7
+    q, k, v = (torch.randn(1, Sh, H, hd, generator=gen, device=dev)
+               for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rows, worst, raw_acc = {}, 0.0, 0.0
+    for tag, k_off in (("diag", me * Sh), ("offdiag", 0)):
+        q_off = me * Sh
+
+        def kernel():
+            return dev_kern.flash_partial(q, k, v, q_off=q_off, k_off=k_off)
+
+        def plain():
+            return dev_kern.flash_partial_plain(q, k, v, q_off=q_off,
+                                                k_off=k_off)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        seen = torch.ones(Sh, dtype=torch.bool, device=dev)
+        errs, ok = _partial_errs(torch, got, want, seen)
+        say(f"K10 {tag} (1,{Sh},{H},{hd}) f32 q_off={q_off} k_off={k_off}: "
+            f"max|err| acc {errs[0]:.3e} acc/l {errs[1]:.3e} m "
+            f"{errs[2]:.3e} l {errs[3]:.3e} (l up to "
+            f"{float(want[2].max()):.1f})")
+        if not ok:
+            fail(f"K10 flash_partial differs from its plain version at the "
+                 f"ring path's {tag} shape")
+        worst = max(worst, errs[1], errs[2])
+        raw_acc = max(raw_acc, errs[0])
+        qpos = q_off + torch.arange(Sh, device=dev)
+        kpos = k_off + torch.arange(Sh, device=dev)
+        visible = kpos[None, :] <= qpos[:, None]
+        pairs = int(visible.sum()) * H
+        bias = torch.zeros(Sh, Sh, device=dev).masked_fill(
+            ~visible, float("-inf"))[None, None].expand(1, H, Sh, Sh)
+        library_ms, why = None, ""
+        try:
+            out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, bias, True)[:2]
+            lse = lse[..., :Sh]
+            lib_err = float((out.transpose(1, 2) -
+                             got[0] / got[2][..., None]).abs().max())
+            say(f"K10 {tag} library yardstick agrees to {lib_err:.3e} "
+                f"(out vs acc/l)")
+            library_ms = time_ms(torch, lambda: torch.ops.aten.
+                                 _scaled_dot_product_efficient_attention(
+                                     qt, kt, vt, bias, True), iters=5)
+        except RuntimeError as exc:          # the yardstick only
+            why = str(exc).splitlines()[0]
+            say(f"K10 {tag} library yardstick refused: {why}")
+        del got, want
+        flops = 4 * hd * pairs
+        nbytes = (4 * Sh * H * hd + 2 * Sh * H) * 4   # q, k, v, acc; m, l
+        t_ops = flops / PEAK_FLOPS["float32"]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        rows[tag] = {
+            "ms": time_ms(torch, kernel, iters=5),
+            "plain_ms": time_ms(torch, plain, iters=5),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "library_refused": why or None}
+        torch.cuda.empty_cache()
+    off = rows["offdiag"]
+    out = {"name": "flash_partial", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_partial.cu",
+           "replaces": "src/repro/kernels/ishmem_device.py:213",
+           "max_abs_err": worst, **{k: off[k] for k in (
+               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+           "shape": f"q/k/v (1,{Sh},{H},{hd}) f32, PE 7 against shard 0 "
+                    "(all keys visible; 28 of the 36 ring partials are "
+                    "off-diagonal); max_abs_err over acc/l and m of both "
+                    "partials",
+           "raw_acc_err": raw_acc,
+           "diag": rows["diag"]}
+    if off["library_refused"]:
+        out["library_refused"] = off["library_refused"]
+    deferred.append((out, "device_ms", lambda: dev_kern.flash_partial(
+        q, k, v, q_off=me * Sh, k_off=0), "flash_partial_kernel"))
+    return out
+
+
+def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
+    """K11 on the decode pool that the fused serving run leaves: every slot
+    of decode PE 2 mapped to a full request's table of blocks (which hold
+    that run's K/V), qwen3-4b's 32 query heads over 8 KV heads, bf16.
+    ``fused_paged_attn`` (device wait, work-group get, K3, K2) must equal
+    ``assemble`` + K2 bitwise at the first and the last layer; timed beside
+    the same composition on the plain versions."""
+    from repro_torch.core import device as device_mod
+    from repro_torch.core.heap import TORCH_DTYPES
+    from repro_torch.serve.paged_attn import PagedDecodeView
+    pe = sched.decode_pes[0]
+    pool, heap = sched.pool, sched.heap
+    lay = pool.layout
+    view = PagedDecodeView(pool, pe, len(sched.banks[pe].active))
+    for s in range(view.num_slots):
+        rid = 1_000_000 + s
+        if pool.alloc(rid, lay.blocks_per_request) is None:
+            fail("K11 check: the pool has no free table for a slot")
+        view.slots[s] = rid
+    leaf = next(x for x in lay.paged if x.key == "k")
+    gen = torch.Generator(device=heap.device).manual_seed(7)
+    q = torch.randn(view.num_slots, leaf.width, sched.engine.cfg.num_heads,
+                    leaf.hd, generator=gen, device=heap.device).to(
+                        TORCH_DTYPES[lay.kv_dtype])
+    wg = device_mod.work_group(sched.ctx, pe=pe)
+    waits = [(pool.sig_ptr(s), 0) for s in range(view.num_slots)]
+    cache = sched.banks[pe].cache
+    assembled = view.assemble(heap, cache)
+    for layer in (0, leaf.reps - 1):
+        _, got = dev_kern.fused_paged_attn(wg, heap, view, q, layer=layer,
+                                           waits=waits)
+        k = assembled["blocks"][leaf.unit_idx]["k"][layer].contiguous()
+        v = assembled["blocks"][leaf.unit_idx]["v"][layer].contiguous()
+        want = flash_attn.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not bool(got.isfinite().all()):
+            fail(f"K11 fused_paged_attn differs from assemble + K2 at layer "
+                 f"{layer}")
+    say(f"K11 fused_paged_attn bitwise equal to assemble + K2 at layers 0 "
+        f"and {leaf.reps - 1}: q {tuple(q.shape)} {lay.kv_dtype} over "
+        f"{view.num_slots} x {lay.blocks_per_request} blocks")
+    ops.reset_launches()
+    dev_kern.fused_paged_attn(wg, heap, view, q, waits=waits)
+    per_call = {k: n for k, n in ops.LAUNCHES.items() if n}
+
+    def fused():
+        return dev_kern.fused_paged_attn(wg, heap, view, q, waits=waits)
+
+    def plain():
+        data = heap.read(pool.data, pe).reshape(pool.num_blocks,
+                                                lay.block_words)
+        table = torch.from_numpy(view.table()).to(data.device)
+        pay = dev_kern.paged_gather_plain(data, table)
+        offs = dev_kern._leaf_offsets(lay)
+        kv = [dev_kern._extract_leaf(pay, lay, x, view.num_slots,
+                                     offs[(x.unit_idx, x.key)])[0]
+              for x in lay.paged if x.unit_idx == leaf.unit_idx]
+        return flash_attn.flash_attention_plain(q, *kv)
+
+    # the function's least bytes: q and out, and one layer's K and V of the
+    # mapped blocks (a block payload holds all the layers'); its operations:
+    # causal QK^T and PV over the assembled width
+    width, nq = leaf.width, q.shape[2]
+    nbytes = 2 * q.numel() * q.element_size() + \
+        2 * view.num_slots * width * leaf.nkv * leaf.hd * q.element_size()
+    flops = 4 * leaf.hd * nq * view.num_slots * width * (width + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    row = {"name": "fused_paged_attn", "ms": time_ms(torch, fused, iters=5),
+           "plain_ms": time_ms(torch, plain, iters=5),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "launches_per_call": per_call,
+           "q": tuple(q.shape)}
+    # device time of the composition: its K3 and its K2 launches (taken
+    # here, not last, so that the pool it reads is freed before phase 6)
+    row["device_ms_gather"] = device_ms(torch, fused, "paged_gather_kernel",
+                                        iters=10)
+    row["device_ms_flash"] = device_ms(torch, fused, "flash_fwd_kernel",
+                                       iters=10)
+    for s in range(view.num_slots):
+        pool.release(1_000_000 + s)
+    return row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -417,7 +712,7 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build, flash_attn, ishmem_device, ops, \
-        ring_collectives, rma_copy
+        reduce_tile, ring_collectives, rma_copy
     from repro_torch.launch import serve, shmem_collectives
 
     # ---- 1. device and build ------------------------------------------------
@@ -442,6 +737,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows += check_ring(torch, ring_collectives, rma_copy, _build, dev,
                        deferred)
+    torch.cuda.empty_cache()
+    rows += [check_reduce_tile(torch, reduce_tile, dev, deferred),
+             check_flash_partial(torch, ishmem_device, dev, deferred)]
     for r in rows:
         lib_ms = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -486,6 +784,9 @@ def main() -> None:
     torch.cuda.synchronize()
     say(f"8/8 requests bitwise equal to the single-PE baseline "
         f"({time.perf_counter() - t0:.2f} s for the baseline)")
+    barrier_out = {rid: list(r.out) for rid, r in sched.requests.items()}
+    barrier_fb = sum(st.ttfd_first_block_steps) / len(
+        st.ttfd_first_block_steps)
     _, logits, _ = eng.prefill_request(sched.requests[0].batch)
     if logits.shape != (1, sched.engine.cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -513,15 +814,113 @@ def main() -> None:
     if missing:
         fail(f"collectives path never launched {missing}")
 
+    # ---- 5. the fused serving path ------------------------------------------
+    say("fused serving path: serve " + " ".join(FUSED_ARGV))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = serve.main(FUSED_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused_launches = dict(ops.LAUNCHES)
+    st = sched.stats
+    fused_fb = sum(st.ttfd_first_block_steps) / len(st.ttfd_first_block_steps)
+    say(f"fused serving path: {wall:.2f} s wall, {st.decode_steps} decode "
+        f"steps, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+        f"launches {fused_launches}; mean first-resident-block step "
+        f"{fused_fb:.3f} (barrier protocol, phase 3: {barrier_fb:.3f})")
+    missing = [k for k in SERVE_KERNELS if fused_launches[k] == 0]
+    if missing:
+        fail(f"fused serving path never launched {missing}")
+    counts = (st.prefills, st.migrations, st.admissions, st.evictions)
+    if counts != (8, 8, 8, 8) or len(sched.ctx.pending) or \
+            not sched.fused_attn:
+        fail(f"fused scheduler counters {counts} do not balance or "
+             f"{len(sched.ctx.pending)} ops stay pending")
+    if not fused_fb < barrier_fb:
+        fail(f"fused mean first-block step {fused_fb} is not below the "
+             f"barrier protocol's {barrier_fb}")
+    eng, slots = sched.engine, len(sched.banks[sched.decode_pes[0]].active)
+    for rid, req in sorted(sched.requests.items()):
+        base = eng.generate_in_slot(req.batch, sched.scfg, num_slots=slots,
+                                    slot=req.slot)
+        if req.out != barrier_out[rid] or req.out != base:
+            fail(f"request {rid}: fused tokens {req.out} != phase 3's "
+                 f"{barrier_out[rid]} or the single-PE baseline {base}")
+    say("8/8 fused requests bitwise equal to phase 3 and to the single-PE "
+        "baseline")
+    k11 = check_fused_paged_attn(torch, ishmem_device, flash_attn, ops, sched)
+    say(f"fused_paged_attn (K11) [q {k11['q']}]: {k11['ms']:.4f} ms, plain "
+        f"{k11['plain_ms']:.4f} ms, bound {k11['bound_ms']:.4f} ms "
+        f"({k11['bound_by']}), library none (no one PyTorch call gathers "
+        f"through a block table and attends); device ms K3 "
+        f"{k11['device_ms_gather']} + K2 {k11['device_ms_flash']}; launches "
+        f"per call {k11['launches_per_call']}")
+    del sched, eng
+    torch.cuda.empty_cache()
+
+    # ---- 6. the ring attention path -----------------------------------------
+    say(f"ring attention path: serve.seq_parallel_report {RING}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring = serve.seq_parallel_report(**RING, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ring_launches = dict(ops.LAUNCHES)
+    say(f"ring attention path: {wall:.2f} s wall, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
+        f"{ring_launches}; max|err| vs K2 {ring['max_abs_err']:.3e}")
+    if ring_launches["flash_partial"] != RING_PARTIALS or \
+            ring["partials"] != RING_PARTIALS:
+        fail(f"ring path launched flash_partial "
+             f"{ring_launches['flash_partial']} times, not {RING_PARTIALS}")
+    if not ring_launches["flash_attention"]:
+        fail("ring path never launched K2 for its check")
+    if not (ring["finite"] and ring["shape"] == (1, 32768, 32, 128)
+            and ring["max_abs_err"] <= RING_TOL):
+        fail(f"ring attention output {ring['shape']} (finite "
+             f"{ring['finite']}) is {ring['max_abs_err']:.3e} from K2, "
+             f"above {RING_TOL}")
+    torch.cuda.empty_cache()
+    # the demo's 0.1 scale flattens the softmax, so far along the sequence
+    # one key masked wrongly at a shard border moves an output by less than
+    # RING_TOL; at unit scale such an error stays above it
+    ops.reset_launches()
+    unit = serve.seq_parallel_report(**RING, scale=1.0, device=dev)
+    torch.cuda.synchronize()
+    unit_launches = dict(ops.LAUNCHES)
+    say(f"ring attention path at unit-scale inputs: launches "
+        f"{unit_launches}; max|err| vs K2 {unit['max_abs_err']:.3e}")
+    if unit_launches["flash_partial"] != RING_PARTIALS or not (
+            unit["finite"] and unit["max_abs_err"] <= RING_TOL):
+        fail(f"ring attention at unit scale: {unit_launches['flash_partial']}"
+             f" partials, {unit['max_abs_err']:.3e} from K2 (limit "
+             f"{RING_TOL})")
+    del unit
+    torch.cuda.empty_cache()
+
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match in deferred:
         row[key] = device_ms(torch, fn, match)
         say(f"{row['name']} {key}: " + ("not measured" if row[key] is None
                                         else f"{row[key]:.5f} ms"))
 
+    path_launches = {k: launches[k] for k in SERVE_KERNELS}
+    path_launches.update({k: coll_launches[k] for k in RING_KERNELS})
+    path_launches["flash_partial"] = ring_launches["flash_partial"]
+    path_launches["reduce_tile"] = sum(
+        run["reduce_tile"] for run in (launches, coll_launches,
+                                       fused_launches, ring_launches))
+    if path_launches["reduce_tile"]:
+        fail(f"K9 launched {path_launches['reduce_tile']} times on the "
+             f"paths, which should not call it")
     for r in rows:
-        r["launches"] = (launches if r["name"] in SERVE_KERNELS
-                         else coll_launches)[r["name"]]
+        r["launches"] = path_launches[r["name"]]
+    rows[-2]["path"] = "none: only the reference's benchmark and tests " \
+        "call K9"
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Adaptive transport selection — the paper's "cutover" engine (§III-B, §IV).
 
 A copy of ``repro/core/cutover.py``'s point-to-point chooser, collective
-cost models and ring-allreduce overlap model.  Three transports: ``direct``
+cost models, and ring-allreduce and ring-attention overlap models.  Three transports: ``direct``
 (kernel-initiated stores), ``engine`` (a copy engine started outside the
 kernel) and ``proxy`` (the host-proxy scale-out path).  The cutover between
 ``direct`` and ``engine`` depends on the message size and the work-group
@@ -10,8 +10,7 @@ size, and for collectives also on the number of PEs.
 The :class:`HwParams` defaults are the reference's MODELED constants, kept
 equal so that path choices and the telemetry records match the JAX package
 op for op.  They are not measurements of any card, and nothing in the port
-states them as H100 figures.  The ring-attention model comes with ring
-attention (ROADMAP queue 1, item 9).
+states them as H100 figures.
 """
 from __future__ import annotations
 
@@ -229,6 +228,44 @@ def overlap_efficiency(nbytes: int, npes: int, *, work_items: int | None = None,
               step_compute_bytes=step_compute_bytes)
     tb = t_ring_allreduce(nbytes, npes, overlap=False, **kw)
     tn = t_ring_allreduce(nbytes, npes, overlap=True, **kw)
+    return tb / tn if tn > 0 else 1.0
+
+
+def t_ring_attention(kv_bytes_per_shard: int, compute_bytes_per_step: float,
+                     npes: int, *, overlap: bool = True,
+                     work_items: int | None = None, tier: str = "ici",
+                     hw: HwParams = HwParams(),
+                     tuning: Tuning = Tuning()) -> float:
+    """Sequence-parallel ring attention over ``npes`` PEs: each PE computes
+    a partial flash step against its resident K/V shard and rotates shards
+    around the ring ``npes - 1`` times.  Blocking serialises each
+    rotation and its compute; the device-initiated schedule issues step
+    k+1's rotation (nbi put_signal) before consuming step k's shard, so a
+    steady step costs ``max(t_xfer, t_compute)``, plus the two direct
+    launch latencies of the closing quiet."""
+    work_items = resolve_work_items(work_items, tuning)
+    t_c = compute_bytes_per_step / hw.reduce_bw
+    if npes <= 1:
+        return t_c
+    t_x = t_ring_step(kv_bytes_per_shard, work_items=work_items, tier=tier,
+                      hw=hw, tuning=tuning)
+    if not overlap:
+        return t_c + (npes - 1) * (t_x + t_c)
+    return t_c + (npes - 1) * max(t_x, t_c) + 2 * hw.alpha_direct
+
+
+def ring_attention_overlap(kv_bytes_per_shard: int,
+                           compute_bytes_per_step: float, npes: int, *,
+                           work_items: int | None = None, tier: str = "ici",
+                           hw: HwParams = HwParams(),
+                           tuning: Tuning = Tuning()) -> float:
+    """Modeled speedup of device-initiated ring attention over the
+    blocking rotate-then-compute schedule."""
+    kw = dict(work_items=work_items, tier=tier, hw=hw, tuning=tuning)
+    tb = t_ring_attention(kv_bytes_per_shard, compute_bytes_per_step, npes,
+                          overlap=False, **kw)
+    tn = t_ring_attention(kv_bytes_per_shard, compute_bytes_per_step, npes,
+                          overlap=True, **kw)
     return tb / tn if tn > 0 else 1.0
 
 

@@ -22,7 +22,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("rma_copy.cu", "flash_attn.cu", "ishmem_device.cu",
-           "ring_collectives.cu")
+           "ring_collectives.cu", "flash_partial.cu", "reduce_tile.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libishmem_kernels.so"
@@ -42,6 +42,9 @@ SIGNATURES = {
     "ishmem_push_broadcast": [_I, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ishmem_barrier_push": [_I, _P, _P, _I, _P],
     "ishmem_coop_noop": [_I, _I, _P],
+    "ishmem_flash_partial": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _F, _P],
+    "ishmem_reduce_tile": [_I, _P, _P, _I, _LL, _I, _I, _P],
 }
 
 _lib = None

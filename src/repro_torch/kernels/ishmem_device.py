@@ -1,15 +1,26 @@
-"""K3 — the block-table gather of paged decode (``csrc/ishmem_device.cu``).
+"""Device-initiated kernels: the paged gather, fused paged attention and
+ring attention.
 
-Replaces ``repro/kernels/ishmem_device.py::_paged_gather_pallas`` and its
-wrapper ``paged_gather``, which ``PagedDecodeView.assemble`` did not call
-(it gathered with ``data[table]``); the port's ``assemble`` does.  The
-reference's probe-and-fallback has no counterpart.  Bound by bytes.
+Counterpart of ``repro/kernels/ishmem_device.py``:
+
+- **K3** :func:`paged_gather` (``csrc/ishmem_device.cu``) replaces
+  ``_paged_gather_pallas`` and its wrapper, which the reference's
+  ``PagedDecodeView.assemble`` did not call (it gathered with
+  ``data[table]``); the port's ``assemble`` does.  The reference's
+  probe-and-fallback has no counterpart.  Bound by bytes.
+- **K11** :func:`fused_paged_attn` has no kernel of its own: per-block
+  device ``signal_wait_until`` gates, a work-group get of the pool row, K3
+  and K2, bitwise equal to ``assemble`` followed by K2.
+- **K10** :func:`flash_partial` (``csrc/flash_partial.cu``) replaces the
+  Pallas ``flash_partial``: one ring step's unnormalised causal partial at
+  absolute offsets.  :func:`merge_partials` and :func:`ring_attention`
+  are plain torch over its outputs.  Bound by operations.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attn, ops
 
 MAX_ROWS = 65535            # table entries map to gridDim.y
 
@@ -51,3 +62,182 @@ def paged_gather(data: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                out.data_ptr(), data.data_ptr(), table.data_ptr(),
                table.numel(), data.shape[1] * data.element_size(), R)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K11: fused paged attention (a composition of the device waits, K3 and K2)
+# ---------------------------------------------------------------------------
+
+
+def _leaf_offsets(lay) -> dict:
+    """Word offset of each paged leaf inside a block payload."""
+    offs = {}
+    off = 0
+    for leaf in lay.paged:
+        offs[(leaf.unit_idx, leaf.key)] = off
+        off += leaf.words_per_token * lay.block_tokens
+    return offs
+
+
+def _extract_leaf(pay, lay, leaf, num_slots: int, off: int):
+    """Rebuild one paged leaf ``(reps, num_slots, width, nkv, hd)`` from the
+    gathered payload ``(num_slots, nb, block_words)``: the slicing that
+    ``PagedDecodeView.assemble`` applies, so the leaf is bitwise what a
+    dense cache would hold."""
+    T = lay.block_tokens
+    nb = lay.blocks_per_request
+    n = leaf.words_per_token * T
+    out = pay[:, :, off:off + n].reshape(
+        num_slots, nb, leaf.reps, T, leaf.nkv, leaf.hd)
+    return out.permute(2, 0, 1, 3, 4, 5).reshape(
+        leaf.reps, num_slots, nb * T, leaf.nkv, leaf.hd)[:, :, :leaf.width]
+
+
+def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
+                     layer: int = 0, waits=(), dtype=None):
+    """Device-initiated fused gather + attention over the paged KV pool.
+
+    ``wg`` is the calling work-group (``core.device.work_group``), ``view``
+    a ``serve.paged_attn.PagedDecodeView``.  Each ``(sig_ptr, expected)`` of
+    ``waits`` is a device ``signal_wait_until(sig >= expected)`` on the
+    view's PE, all consumed BEFORE any block byte is read; a wait that no
+    pending traffic can satisfy raises.  ``q``: ``(num_slots, W, nq, hd)``
+    against the assembled width.  Returns ``(heap, out)``, ``out`` bitwise
+    equal to ``assemble`` of the same leaves followed by K2."""
+    from repro_torch.core import device as device_mod
+
+    for sig_ptr, expected in waits:
+        heap, _, ok = device_mod.signal_wait_until(
+            wg, heap, sig_ptr, view.pe, "ge", expected)
+        if not ok:
+            raise RuntimeError(
+                "fused_paged_attn: signal can never satisfy its wait — "
+                "reading a block here would observe pre-signal bytes")
+    lay = view.pool.layout
+    if not lay.paged:
+        raise ValueError("fused_paged_attn requires a paged layout")
+    if unit_idx is None:
+        unit_idx = lay.paged[0].unit_idx
+    k_leaf = next(p for p in lay.paged
+                  if p.unit_idx == unit_idx and p.key == "k")
+    v_leaf = next(p for p in lay.paged
+                  if p.unit_idx == unit_idx and p.key == "v")
+    # collaborative local load of the pool row (device_get telemetry at the
+    # group's width), then K3 through the slot tables; unmapped entries
+    # read zeros, so no zero row is appended to the pool row
+    data = device_mod.get(wg, heap, view.pool.data, view.pe).reshape(
+        view.pool.num_blocks, lay.block_words)
+    table = torch.from_numpy(view.table()).to(data.device)
+    pay = paged_gather(data, table)
+    offs = _leaf_offsets(lay)
+    k = _extract_leaf(pay, lay, k_leaf, view.num_slots,
+                      offs[(unit_idx, "k")])[layer]
+    v = _extract_leaf(pay, lay, v_leaf, view.num_slots,
+                      offs[(unit_idx, "v")])[layer]
+    if dtype is not None:
+        k = k.to(dtype)
+        v = v.to(dtype)
+    return heap, flash_attn.flash_attention(q, k.contiguous(), v.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# K10: one ring step's partial attention, and the ring built from it
+# ---------------------------------------------------------------------------
+
+
+def flash_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, q_off: int, k_off: int):
+    """Plain version of K10, in the reference's order: q scaled by
+    hd**-0.5 in f32 before the dot, keys after the query's absolute
+    position masked to -1e30, then ``m = max``, ``p = exp(s - m)``,
+    ``l = sum p``, ``acc = p @ v``, all in f32.  A row that sees no key gets
+    ``m = -1e30``, ``l = Skv``, ``acc = sum v``, as in the reference."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    qf = q.float() * hd ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    qpos = q_off + torch.arange(Sq, device=q.device)
+    kpos = k_off + torch.arange(Skv, device=q.device)
+    visible = kpos[None, :] <= qpos[:, None]
+    s = torch.where(visible, s, torch.full_like(s, flash_attn.NEG_INF))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
+    return (acc.permute(0, 2, 1, 3).contiguous(),
+            m.permute(0, 2, 1).contiguous(), l.permute(0, 2, 1).contiguous())
+
+
+def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_off: int, k_off: int):
+    """One ring step's partial attention.  q: ``(B, Sq, H, hd)``, the local
+    query shard at absolute position ``q_off``; k, v: ``(B, Skv, H, hd)``,
+    the resident KV shard at ``k_off``; f32 or bf16.  Returns ``(acc, m,
+    l)``: the unnormalised output ``(B, Sq, H, hd)`` and the softmax state
+    ``(B, Sq, H)``, all f32."""
+    B, Sq, H, hd = q.shape
+    if (k.shape != v.shape or k.dim() != 4 or k.shape[0] != B
+            or k.shape[2:] != (H, hd) or k.shape[1] < 1):
+        raise ValueError(f"flash_partial: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    codes = flash_attn._DTYPE_CODE
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in codes:
+        raise TypeError(f"flash_partial: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; takes one of {tuple(codes)}")
+    if ops.on_cpu(q, k, v):
+        return flash_partial_plain(q, k, v, q_off=q_off, k_off=k_off)
+    if hd not in flash_attn.HEAD_DIMS:
+        raise ValueError(f"flash_partial: head_dim {hd} not in "
+                         f"{flash_attn.HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_partial: q, k and v must be contiguous")
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    ops.launch("flash_partial", "ishmem_flash_partial", q.device,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+               m.data_ptr(), l.data_ptr(), B, Sq, k.shape[1], H, hd,
+               int(q_off), int(k_off), codes[q.dtype], hd ** -0.5)
+    return acc, m, l
+
+
+def merge_partials(parts):
+    """Combine per-shard ``(acc, m, l)`` partials into the softmax-correct
+    output: ``m* = max m_i``, ``l* = sum l_i e^{m_i - m*}``,
+    ``o = sum acc_i e^{m_i - m*} / l*``."""
+    ms = torch.stack([m for _, m, _ in parts])          # (n, B, Sq, H)
+    m_tot = ms.amax(0)
+    w = torch.exp(ms - m_tot[None])
+    l_tot = (torch.stack([l for _, _, l in parts]) * w).sum(0)
+    acc = torch.stack([a for a, _, _ in parts])         # (n, B, Sq, H, hd)
+    out = (acc * w[..., None]).sum(0)
+    return out / torch.clamp(l_tot, min=1e-30)[..., None]
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   npes: int):
+    """Sequence-parallel causal attention: PE i holds q/k/v shard i, and at
+    ring step t computes a K10 partial against KV shard ``(i - t) mod
+    npes``, skipping future shards (j > i); the partials merge per PE.
+    q, k, v: ``(B, S, H, hd)``, equal head counts, ``S % npes == 0``.
+    Returns ``(B, S, H, hd)`` in q's dtype, equal to full causal attention
+    up to the order of the softmax sums."""
+    B, S, H, hd = q.shape
+    if S % npes:
+        raise ValueError(f"ring_attention: S={S} does not shard over "
+                         f"{npes} PEs")
+    Sh = S // npes
+    outs = []
+    for i in range(npes):
+        parts = []
+        for t in range(npes):
+            j = (i - t) % npes
+            if j > i:                    # future shard: fully masked, skip
+                continue
+            parts.append(flash_partial(
+                q[:, i * Sh:(i + 1) * Sh].contiguous(),
+                k[:, j * Sh:(j + 1) * Sh].contiguous(),
+                v[:, j * Sh:(j + 1) * Sh].contiguous(),
+                q_off=i * Sh, k_off=j * Sh))
+        outs.append(merge_partials(parts))
+    return torch.cat(outs, dim=1).to(q.dtype)

@@ -1,9 +1,11 @@
-"""Launch plumbing shared by the port's kernel wrappers, and the ring
-allreduces built from them (``repro/kernels/ops.py:77-111``).
+"""Launch plumbing shared by the port's kernel wrappers, K9's entry point
+and the ring allreduces built from the kernels
+(``repro/kernels/ops.py:41-43, 77-111``).
 
 Each wrapper (``rma_copy.copy_into`` and ``remote_put``,
-``flash_attn.flash_attention``, ``ishmem_device.paged_gather``, and
-``ring_collectives``' four) checks its inputs, allocates its outputs and
+``flash_attn.flash_attention``, ``ishmem_device.paged_gather`` and
+``flash_partial``, ``ring_collectives``' four and
+``reduce_tile.reduce_tile``) checks its inputs, allocates its outputs and
 calls :func:`launch`, which runs the C entry point on the tensor's device and
 current stream, raises on a nonzero ``cudaError_t`` (a launch the card
 refuses never runs, and no later synchronise reports it), and counts the
@@ -19,7 +21,8 @@ import torch
 
 LAUNCHES = {"copy_into": 0, "flash_attention": 0, "paged_gather": 0,
             "remote_put": 0, "ring_allgather": 0, "ring_reduce_scatter": 0,
-            "push_broadcast": 0, "barrier_push": 0}
+            "push_broadcast": 0, "barrier_push": 0, "reduce_tile": 0,
+            "flash_partial": 0}
 
 
 def reset_launches() -> None:
@@ -47,6 +50,16 @@ def on_cpu(*tensors) -> bool:
     if len(kinds) == 1 and next(iter(kinds)).type == "cuda":
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+def reduce_tile(rows: torch.Tensor, op: str = "sum",
+                block: int = 512) -> torch.Tensor:
+    """K9: ``(T, N) -> (N,)`` by ``op`` over the rows, f32 accumulation
+    (``repro/kernels/ops.py::reduce_tile``).  ``block`` is the reference's
+    tile width; it changes neither the result nor the launch."""
+    del block
+    from repro_torch.kernels import reduce_tile as rt_mod
+    return rt_mod.reduce_tile(rows, op)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 prefill/decode with SHMEM paged-KV migration and paged decode attention.
 
 Counterpart of ``repro/launch/serve.py`` (its lockstep mode,
-``_run_disagg`` and ``--overlap-report``).  Runs on the current CUDA device
-unless ``--device`` says otherwise; ``--full`` serves the architecture at
-its published widths instead of the reduced test variant.
+``_run_disagg`` with ``--fused-attn``, ``--overlap-report`` and
+``--seq-parallel``).  Runs on the current CUDA device unless ``--device``
+says otherwise; ``--full`` serves the architecture at its published widths
+instead of the reduced test variant.
 
   # lockstep batch
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 4
@@ -17,6 +18,15 @@ its published widths instead of the reduced test variant.
   # full-width qwen3-4b on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \\
       --prompt-len 512 --kv-blocks 256
+
+  # fused protocol: per-block migration signals, first-block admission,
+  # per-signal block consumption before each decode step
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg --fused-attn
+
+  # sequence-parallel ring attention over 8 PEs at qwen3-4b's attention
+  # widths (32 heads of 128) and a 32768-token context
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \\
+      --seq-parallel 8 --prompt-len 32768
 
   # modeled nbi-vs-blocking pricing of the decode allreduces at the
   # architecture's published widths (the cost model, not a measurement)
@@ -74,6 +84,117 @@ def _overlap_report(args) -> None:
                   f"({crossover * per_tok} B per decode step)")
 
 
+def seq_parallel_report(npes: int, *, prompt_len: int, full: bool = False,
+                        arch: str = "qwen3-4b", seed: int = 0,
+                        scale: float = 0.1, device=None) -> dict:
+    """Sequence-parallel ring attention: the context is sharded over
+    ``npes`` PEs, each ring step's K/V rotation is issued device-side (a
+    work-group ``put_signal_nbi`` to the right neighbour, then a device
+    ``signal_wait_until`` before the next K10 partial reads the landed
+    shard), the partials merge per PE, and the result is checked against
+    single-PE flash attention (K2).  Ends with the modeled blocking-vs-
+    overlapped step pricing (``cutover.t_ring_attention``; the cost model,
+    not a measurement).
+
+    Widths: the reference's ``B=1, H=4, hd=32``, or with ``full`` the
+    architecture's attention widths (qwen3-4b: 32 heads of 128); B=1, f32,
+    S from ``prompt_len`` rounded up to a multiple of ``npes``.  q, k and v
+    are standard normal times ``scale``: the reference's 0.1 makes the
+    softmax nearly flat, so far along the sequence one key more or less
+    moves an output by less than the check's 5e-5; 1.0 keeps a mask error
+    at a shard border visible.  Returns the report as a dict."""
+    from repro_torch import _devices
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import context, device as device_mod
+    from repro_torch.core.cutover import ring_attention_overlap, \
+        t_ring_attention
+    from repro_torch.core.heap import ALIGN
+    from repro_torch.core.signal import SIGNAL_ADD
+    from repro_torch.kernels import flash_attn, ishmem_device
+
+    device = _devices.resolve(device)
+    full_cfg = cfgbase.get_config(arch)
+    B, H, hd = (1, full_cfg.num_heads, full_cfg.hd) if full else (1, 4, 32)
+    S = ((max(prompt_len, 8 * npes) + npes - 1) // npes) * npes
+    Sh = S // npes
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device=device)
+               * scale for _ in range(3))
+    shard_words = 2 * B * Sh * H * hd               # k + v, one shard
+    ctx, heap = context.init(
+        npes=npes, node_size=npes, device=device,
+        heap_words=max(1 << 20, -(-shard_words // ALIGN) * ALIGN))
+    buf = heap.malloc((shard_words,), torch.float32)
+    sig = heap.malloc((1,), torch.int32)
+
+    def pack(j):
+        return torch.cat([k[:, j * Sh:(j + 1) * Sh].reshape(-1),
+                          v[:, j * Sh:(j + 1) * Sh].reshape(-1)])
+
+    def unpack(flat):
+        kv = flat.reshape(2, B, Sh, H, hd)
+        return kv[0], kv[1]
+
+    for i in range(npes):                           # shard i starts at PE i
+        heap = heap.write(buf, i, pack(i))
+        heap = heap.write(sig, i, torch.zeros(1, dtype=torch.int32))
+    parts = [[] for _ in range(npes)]
+    for t in range(npes):
+        for i in range(npes):
+            j = (i - t) % npes                      # shard resident at PE i
+            if j <= i:                              # causal: skip future kv
+                kj, vj = unpack(heap.read(buf, i))
+                parts[i].append(ishmem_device.flash_partial(
+                    q[:, i * Sh:(i + 1) * Sh].contiguous(), kj, vj,
+                    q_off=i * Sh, k_off=j * Sh))
+        if t == npes - 1:
+            break
+        # device-side rotation: every PE's work-group pushes its current
+        # shard to the RIGHT neighbour with a signal, then waits for the
+        # shard arriving from the left before the next step reads it
+        shards = [heap.read(buf, i) for i in range(npes)]
+        for i in range(npes):
+            wg = device_mod.work_group(ctx, pe=i)
+            heap = device_mod.put_signal_nbi(
+                wg, heap, buf, shards[i], sig, 1, SIGNAL_ADD,
+                (i + 1) % npes)
+        for i in range(npes):
+            wg = device_mod.work_group(ctx, pe=i)
+            heap, _, ok = device_mod.signal_wait_until(
+                wg, heap, sig, i, "ge", t + 1)
+            if not ok:
+                raise RuntimeError("ring neighbour's shard never landed")
+    out = torch.cat([ishmem_device.merge_partials(parts[i])
+                     for i in range(npes)], dim=1)
+    ref = flash_attn.flash_attention(q, k, v)
+    err = float((out - ref.to(out.dtype)).abs().max())
+    print(f"[serve] seq-parallel ring attention: npes={npes} S={S} "
+          f"(shard {Sh}) max|err| vs single-PE flash = {err:.2e}")
+    dev_ops = sorted({key[0] for key in ctx.telemetry.buckets
+                      if key[0].startswith("device_")})
+    print(f"[serve]   device ops on the wire: {', '.join(dev_ops)}")
+    # modeled step pricing at the full architecture's shapes and a
+    # production context length; per ring step each PE moves one K/V shard
+    # and runs one partial over it, priced as the q + k + v + o bytes
+    S_prod = max(prompt_len, 32768)
+    kv_bytes = 2 * (S_prod // npes) * full_cfg.d_model * 4
+    compute = 4 * (S_prod // npes) * full_cfg.d_model * 4
+    tb = t_ring_attention(kv_bytes, compute, npes, overlap=False,
+                          tuning=ctx.tuning)
+    to = t_ring_attention(kv_bytes, compute, npes, overlap=True,
+                          tuning=ctx.tuning)
+    ratio = ring_attention_overlap(kv_bytes, compute, npes,
+                                   tuning=ctx.tuning)
+    print(f"[serve]   modeled ring step: blocking {tb * 1e6:.1f} us vs "
+          f"overlapped {to * 1e6:.1f} us -> x{ratio:.2f} "
+          f"({'overlap wins' if ratio > 1 else 'alpha-bound'})")
+    return {"npes": npes, "S": S, "shard": Sh, "heads": H, "head_dim": hd,
+            "partials": sum(len(p) for p in parts), "max_abs_err": err,
+            "device_ops": dev_ops, "shape": tuple(out.shape),
+            "finite": bool(torch.isfinite(out).all()),
+            "t_blocking": tb, "t_overlap": to, "overlap_ratio": ratio}
+
+
 def _run_disagg(args, cfg, params):
     """Serve ``args.requests`` random prompts disaggregated; prints the
     reference's report lines and returns the finished scheduler."""
@@ -96,7 +217,7 @@ def _run_disagg(args, cfg, params):
         prefill_pes=pre.pes(), decode_pes=dec.pes(), num_slots=args.slots,
         scfg=ServeConfig(max_new_tokens=args.max_new,
                          temperature=args.temperature, seed=args.seed),
-        admit_delay_steps=args.admit_delay)
+        admit_delay_steps=args.admit_delay, fused_attn=args.fused_attn)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     for _ in range(args.requests):
         sched.submit(make_batch(cfg, gen, 1, args.prompt_len, device))
@@ -115,8 +236,9 @@ def _run_disagg(args, cfg, params):
     if st.ttfd_first_block_steps:
         avg_fb = (sum(st.ttfd_first_block_steps)
                   / len(st.ttfd_first_block_steps))
+        mode_tag = "fused admission gate" if args.fused_attn else "observed"
         print(f"[serve]   time-to-first-resident-block: {avg_fb:.1f} sched "
-              f"steps (observed)")
+              f"steps ({mode_tag})")
     print(f"[serve]   stalls: pool={st.stalled_on_pool} "
           f"slots={st.stalled_on_slots}; coalescing ratio "
           f"{ctx.pending.stats.coalescing_ratio():.2f}")
@@ -161,6 +283,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--admit-delay", type=int, default=1,
                     help="modeled wire latency in scheduler steps before a "
                          "migration's signal is polled")
+    ap.add_argument("--fused-attn", action="store_true",
+                    help="device-initiated fused decode protocol: per-block "
+                         "migration signals, first-block admission, and "
+                         "per-signal block consumption before each decode "
+                         "step")
+    ap.add_argument("--seq-parallel", type=int, default=0, metavar="N",
+                    help="sequence-parallel ring attention over N PEs: "
+                         "device-side K/V rotation per ring step, checked "
+                         "against single-PE flash, plus the modeled "
+                         "blocking-vs-overlap step pricing (with --full at "
+                         "the architecture's attention widths)")
     return ap
 
 
@@ -179,21 +312,23 @@ def main(argv=None):
         cfg = cfgbase.reduced(cfg)
     params = model.init_params(cfg, seed=args.seed, device=device)
     if args.disagg:
-        sched = _run_disagg(args, cfg, params)
-        if args.overlap_report:
-            _overlap_report(args)
-        return sched
-    eng = Engine(cfg, params, max_len=args.prompt_len + args.max_new,
-                 device=device)
-    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    batch = make_batch(cfg, gen, args.batch, args.prompt_len, device)
-    out = eng.generate(batch, ServeConfig(max_new_tokens=args.max_new,
-                                          temperature=args.temperature,
-                                          seed=args.seed))
-    print(f"[serve] arch={cfg.name} generated {tuple(out.shape)}:")
-    print(out.cpu().numpy())
+        out = _run_disagg(args, cfg, params)
+    else:
+        eng = Engine(cfg, params, max_len=args.prompt_len + args.max_new,
+                     device=device)
+        gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        batch = make_batch(cfg, gen, args.batch, args.prompt_len, device)
+        out = eng.generate(batch, ServeConfig(max_new_tokens=args.max_new,
+                                              temperature=args.temperature,
+                                              seed=args.seed))
+        print(f"[serve] arch={cfg.name} generated {tuple(out.shape)}:")
+        print(out.cpu().numpy())
     if args.overlap_report:
         _overlap_report(args)
+    if args.seq_parallel:
+        seq_parallel_report(args.seq_parallel, prompt_len=args.prompt_len,
+                            full=args.full, arch=args.arch, seed=args.seed,
+                            device=device)
     return out
 
 

@@ -16,9 +16,13 @@ Counterpart of ``repro/serve/kvxfer.py``, whole-prefill protocol:
    2)``.  Queue order makes the signal the last update to land, so
    observing it proves every byte of the request is resident.
 
-Fused per-block admission (``migrate_fused``, ``consume_blocks``), chunked
-streaming and the host-proxy route come with later slices (ROADMAP queue
-1, items 5a-5b and 10).
+The fused protocol (``migrate_fused``, ``try_admit_fused``,
+``consume_blocks``) inverts the wire order: tail and header first, then
+one work-group ``put_signal_nbi`` per block, so the decode PE admits on the
+first block's signal and consumes the rest through device waits that each
+force only the minimal queue prefix.  Chunked streaming, shared prefixes
+and the host-proxy route come with later slices (ROADMAP queue 1, items 5b
+and 10).
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.core import cutover, rma, signal as signal_mod
+from repro_torch.core import cutover, device as device_mod, rma, \
+    signal as signal_mod
 from repro_torch.serve.kvpool import HEADER_WORDS, KVPool, pack_blocks, \
     pack_tail
 
@@ -37,6 +42,12 @@ EXTRA_SIGNALS = 2
 
 def expected_signal(n_blocks: int) -> int:
     return n_blocks + EXTRA_SIGNALS
+
+
+def fused_admit_signal(n_wire: int) -> int:
+    """Fused-protocol admission threshold: tail + header + the FIRST wire
+    block (or just tail + header when nothing travels)."""
+    return EXTRA_SIGNALS + min(1, n_wire)
 
 
 @dataclasses.dataclass
@@ -54,6 +65,7 @@ class MigrationReport:
     bytes_tail: int
     expected_signal: int
     bytes_dcn: int = 0          # wire bytes that crossed pods
+    fused: bool = False         # per-block signal protocol (migrate_fused)
 
     @property
     def bytes_total(self) -> int:
@@ -73,8 +85,12 @@ def _contiguous_runs(ids: List[int]) -> List[List[int]]:
 class KVMigrator:
     """Streams paged KV blocks between PEs with signal-carried completion."""
 
-    def __init__(self, ctx, pool: KVPool, *,
+    def __init__(self, ctx, pool: KVPool, *, proxy=None,
                  work_items: Optional[int] = None):
+        if proxy is not None:
+            raise NotImplementedError(
+                "cross-pod migration through a HostProxy is not ported yet "
+                "(ROADMAP queue 1, item 10)")
         self.ctx = ctx
         self.pool = pool
         self.work_items = (ctx.tuning.work_group_size
@@ -188,6 +204,49 @@ class KVMigrator:
             tr.flow_start(req_id, "migration", pid, tid)
         return heap, report
 
+    def migrate_fused(self, heap, req_id: int, *, src_pe: int, dst_pe: int,
+                      slot: int, prompt_len: int, first_token: int) -> tuple:
+        """Per-block-signal migration for the fused decode path: tail and
+        header FIRST (each ``SIGNAL_ADD(1)``), then every wire block
+        individually, in table order, as a work-group ``put_signal_nbi``
+        from its home PE with its own ``SIGNAL_ADD(1)``.  No run coalescing:
+        block k is resident once ``sig >= EXTRA_SIGNALS + k``, so the decode
+        PE admits on the first block's signal.  Total increments are
+        unchanged (``n_wire + 2``).  Returns ``(heap, MigrationReport)``."""
+        lay = self.pool.layout
+        send = [i for i in self.pool.blocks_of(req_id)
+                if self.pool.home_of(i) is not None]
+        tier = self.ctx.tier(src_pe, dst_pe)
+        sig = self.pool.sig_ptr(slot)
+        heap = self._send_tail_header(heap, req_id, slot, src_pe, dst_pe,
+                                      prompt_len, first_token, len(send))
+        dcn = lay.tail_words * 4 + HEADER_WORDS * 4 if tier == "dcn" else 0
+        for bid in send:
+            ptr = self.pool.block_ptr(bid)
+            home = self.pool.home_of(bid)
+            wg = device_mod.work_group(self.ctx, size=self.work_items,
+                                       pe=home)
+            heap = device_mod.put_signal_nbi(
+                wg, heap, ptr, heap.read(ptr, home), sig, 1,
+                signal_mod.SIGNAL_ADD, dst_pe)
+            if self.ctx.tier(home, dst_pe) == "dcn":
+                dcn += ptr.nbytes
+        report = MigrationReport(
+            req_id=req_id, slot=slot, src_pe=src_pe, dst_pe=dst_pe,
+            tier=tier, n_blocks=len(send), n_wire=len(send),
+            n_runs=len(send), bytes_paged=len(send) * lay.block_bytes,
+            bytes_tail=lay.tail_words * 4,
+            expected_signal=expected_signal(len(send)), bytes_dcn=dcn,
+            fused=True)
+        tr = self._tracer()
+        if tr is not None:
+            pid, tid = self._track(src_pe)
+            tr.instant("migrate_fused", "kvx", pid, tid, rid=req_id,
+                       dst_pe=dst_pe, tier=tier, blocks=len(send),
+                       bytes=report.bytes_total, bytes_dcn=dcn)
+            tr.flow_start(req_id, "migration", pid, tid)
+        return heap, report
+
     def _note_block(self, nbytes: int, src_pe: int, dst_pe: int) -> None:
         """Advisory per-block cutover record: the path the cutover engine
         would pick for one block.  The bytes are charged when the flush
@@ -226,6 +285,52 @@ class KVMigrator:
             tr.flow_end(hdr[0], "migration", pid, tid)
         return heap, {"req_id": hdr[0], "prompt_len": hdr[1],
                       "first_token": hdr[2], "n_blocks": hdr[3]}
+
+    def try_admit_fused(self, heap, slot: int, dst_pe: int, n_wire: int):
+        """First-block admission for a ``migrate_fused`` hand-off: the
+        decode-side work-group waits for ``fused_admit_signal(n_wire)``
+        through the minimal-prefix device wait, so the modeled comm clock
+        charges one block of wire time instead of the whole request.
+        Returns ``(heap, header|None, blocks_resident)``."""
+        wg = device_mod.work_group(self.ctx, size=self.work_items, pe=dst_pe)
+        heap, cur, ok = device_mod.signal_wait_until(
+            wg, heap, self.pool.sig_ptr(slot), dst_pe, "ge",
+            fused_admit_signal(n_wire))
+        resident = max(0, int(cur) - EXTRA_SIGNALS)
+        if not ok:
+            return heap, None, resident
+        hdr = heap.read(self.pool.header_ptr(slot), dst_pe).tolist()
+        tr = self._tracer()
+        if tr is not None:
+            pid, tid = self._track(dst_pe)
+            tr.instant("admit_fused", "kvx", pid, tid, rid=hdr[0], slot=slot,
+                       expected_signal=fused_admit_signal(n_wire),
+                       resident=resident)
+            tr.flow_end(hdr[0], "migration", pid, tid)
+        return heap, {"req_id": hdr[0], "prompt_len": hdr[1],
+                      "first_token": hdr[2], "n_blocks": hdr[3]}, resident
+
+    def consume_blocks(self, heap, slot: int, dst_pe: int, have: int,
+                       need: int, *, rid: Optional[int] = None):
+        """Per-block device waits: block k of a fused migration is readable
+        once ``sig >= EXTRA_SIGNALS + k``.  Waits blocks ``have+1 .. need``
+        in order, each forcing only the minimal queue prefix that delivers
+        it.  Returns ``(heap, blocks_now_resident)``."""
+        sig_ptr = self.pool.sig_ptr(slot)
+        wg = device_mod.work_group(self.ctx, size=self.work_items, pe=dst_pe)
+        resident = have
+        for k in range(have + 1, need + 1):
+            heap, _, ok = device_mod.signal_wait_until(
+                wg, heap, sig_ptr, dst_pe, "ge", EXTRA_SIGNALS + k)
+            if not ok:
+                break
+            resident = k
+        tr = self._tracer()
+        if tr is not None and rid is not None and resident > have:
+            pid, tid = self._track(dst_pe)
+            tr.instant("consume", "kvx", pid, tid, rid=rid,
+                       blocks=resident - have, resident=resident)
+        return heap, resident
 
     def gather_tail(self, heap, slot: int, pe: int):
         """Decode-side read of an admitted request's tail vector."""

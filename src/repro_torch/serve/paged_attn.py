@@ -77,17 +77,12 @@ class PagedDecodeView:
             self.pool.num_blocks, lay.block_words)
         table = torch.from_numpy(self.table()).to(data.device)
         pay = ishmem_device.paged_gather(data, table)   # (B, nb, words)
-        nb, T = lay.blocks_per_request, lay.block_tokens
+        offs = ishmem_device._leaf_offsets(lay)
         cache = dict(cache)
         blocks = [dict(e) for e in cache["blocks"]]
-        off = 0
         for pl in lay.paged:
-            n = pl.words_per_token * T
-            leaf = pay[:, :, off:off + n].reshape(
-                self.num_slots, nb, pl.reps, T, pl.nkv, pl.hd)
-            off += n
-            leaf = leaf.permute(2, 0, 1, 3, 4, 5).reshape(
-                pl.reps, self.num_slots, nb * T, pl.nkv, pl.hd)[:, :, :pl.width]
+            leaf = ishmem_device._extract_leaf(
+                pay, lay, pl, self.num_slots, offs[(pl.unit_idx, pl.key)])
             ref = blocks[pl.unit_idx][pl.key]
             blocks[pl.unit_idx][pl.key] = leaf.to(ref.dtype)
         cache["blocks"] = blocks

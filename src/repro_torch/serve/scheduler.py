@@ -14,9 +14,18 @@ decode: a migration issued this step stays pending (deferred nbi traffic)
 while decode keeps stepping resident requests, and only pays its flush when
 its slot admits.
 
+``fused_attn=True`` switches to the device-initiated fused protocol:
+migrations send tail + header first and then one signal per block
+(``KVMigrator.migrate_fused``), admission gates on the FIRST resident block
+(``try_admit_fused``), and before each decode step the decode PE consumes
+the blocks still on the wire through per-block device waits
+(``consume_blocks``).  Decode reads the same bytes, so its tokens equal the
+barrier protocol's; the first block is observed resident earlier
+(``SchedStats.ttfd_first_block_steps``).
+
 Other modes of the reference raise ``NotImplementedError`` naming the
-ROADMAP item that brings them: chunked streaming, fused admission, shared
-prefixes, dense rehydrate, admission policies, preemption and recovery.
+ROADMAP item that brings them: chunked streaming, shared prefixes, dense
+rehydrate, admission policies, preemption and recovery.
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ import numpy as np
 
 from repro_torch.serve import kvpool as kvpool_mod
 from repro_torch.serve.engine import Engine, ServeConfig, seeded
-from repro_torch.serve.kvxfer import KVMigrator
+from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, \
+    fused_admit_signal
 from repro_torch.serve.paged_attn import PagedDecodeView
 
 QUEUED, STAGED, MIGRATING, DECODING, FINISHED = (
@@ -56,7 +66,11 @@ class Request:
     admit_ready_step: int = 0       # modeled wire latency gate
     # prefill result parked here while the request waits for pool blocks
     prefill_cache: Optional[dict] = None
+    # fused protocol: wire blocks sent, blocks the decode side has still to
+    # consume per signal, and the first step the first block was observed
+    # resident (-1 = not yet)
     wire_blocks: int = 0
+    fused_pending: int = 0
     first_block_step: int = -1
     # modeled comm clock at arrival / migration issue / admission
     t_arrival: float = 0.0
@@ -107,12 +121,17 @@ class DisaggScheduler:
                  admit_delay_steps: int = 0, paged: bool = True,
                  stream_chunks: int = 0, fused_attn: bool = False,
                  shared_prefix: bool = False, policy=None):
+        if fused_attn and not paged:
+            raise ValueError("fused_attn requires paged decode (the fused "
+                             "kernel gathers K/V straight from the pool)")
+        if fused_attn and stream_chunks > 0:
+            raise ValueError(
+                "fused_attn and chunked streaming are mutually exclusive — "
+                "per-block signals already stream at block granularity")
         if not paged:
             _not_ported("dense-rehydrate admission", "5b")
         if stream_chunks:
             _not_ported("chunked prefill streaming", "5b")
-        if fused_attn:
-            _not_ported("fused per-block admission", "5a")
         if shared_prefix:
             _not_ported("shared-prefix block reuse", "5b")
         if policy is not None:
@@ -135,6 +154,7 @@ class DisaggScheduler:
         # modeled wire latency in scheduler steps: a migration issued at
         # step N is first polled at step N + delay
         self.admit_delay_steps = admit_delay_steps
+        self.fused_attn = fused_attn
         self.views: Dict[int, PagedDecodeView] = {
             pe: PagedDecodeView(pool, pe, num_slots) for pe in decode_pes}
         self.queue: deque = deque()
@@ -283,19 +303,28 @@ class DisaggScheduler:
             return
         req.decode_pe, req.slot = pe, slot
         self.slot_req[pe][slot] = req.rid
-        self.heap, report = self.migrator.migrate(
+        send = (self.migrator.migrate_fused if self.fused_attn
+                else self.migrator.migrate)
+        self.heap, report = send(
             self.heap, req.rid, src_pe=req.prefill_pe, dst_pe=pe, slot=slot,
             prompt_len=req.prompt_len, first_token=req.first_token)
+        delay = self.admit_delay_steps
+        if self.fused_attn:
+            # the modeled wire window covers only what admission waits for:
+            # tail + header + the first block
+            total = report.n_wire + EXTRA_SIGNALS
+            delay = delay * fused_admit_signal(report.n_wire) // total
         req.expected_sig = report.expected_signal
         req.wire_blocks = report.n_wire
         req.state = MIGRATING
         req.migrate_step = self._step
-        req.admit_ready_step = self._step + self.admit_delay_steps
+        req.admit_ready_step = self._step + delay
         req.t_submit = self._comm_clock()
         self._trace_phase(req, "migrating", src_pe=report.src_pe,
                           dst_pe=report.dst_pe, tier=report.tier,
                           bytes=report.bytes_total, bytes_dcn=report.bytes_dcn,
-                          wire_steps=self.admit_delay_steps)
+                          wire_steps=delay,
+                          protocol="fused" if self.fused_attn else "barrier")
         self.migrating.append(req)
         self.stats.migrations += 1
         self.stats.bytes_migrated += report.bytes_total
@@ -305,24 +334,35 @@ class DisaggScheduler:
     def _poll_first_block(self, req: Request) -> None:
         """Record the first step the request's first wire block is
         provably resident: a non-forcing read of the signal word (another
-        admission's flush may have completed this request's prefix)."""
+        admission's flush may have completed this request's prefix).  Wire
+        order sets the threshold: barrier migrations send blocks first
+        (``sig >= 1``), fused ones tail + header first
+        (``sig >= EXTRA_SIGNALS + 1``)."""
         if req.first_block_step >= 0 or req.wire_blocks == 0:
             return
         cur = self.heap.read(self.pool.sig_ptr(req.slot), req.decode_pe)
-        if int(cur) >= 1:
+        thr = EXTRA_SIGNALS + 1 if self.fused_attn else 1
+        if int(cur) >= thr:
             req.first_block_step = self._step
 
     def _phase_admit(self) -> None:
         """A MIGRATING request enters its decode slot once
-        ``signal_wait_until`` observes its threshold."""
+        ``signal_wait_until`` observes its threshold: the whole request's
+        under the barrier protocol, the first block's in fused mode."""
         still = []
         for req in self.migrating:
             self._poll_first_block(req)
             if self._step < req.admit_ready_step:
                 still.append(req)               # wire still "in flight"
                 continue
-            self.heap, hdr = self.migrator.try_admit(
-                self.heap, req.slot, req.decode_pe, req.expected_sig)
+            if self.fused_attn:
+                self.heap, hdr, resident = self.migrator.try_admit_fused(
+                    self.heap, req.slot, req.decode_pe, req.wire_blocks)
+                if hdr is not None:
+                    req.fused_pending = req.wire_blocks - resident
+            else:
+                self.heap, hdr = self.migrator.try_admit(
+                    self.heap, req.slot, req.decode_pe, req.expected_sig)
             if hdr is None:
                 still.append(req)
                 continue
@@ -366,6 +406,27 @@ class DisaggScheduler:
             self._maybe_finish(req)
         self.migrating = still
 
+    def _consume_fused(self, pe: int) -> None:
+        """Per-block device waits for every fused-admitted slot on this PE
+        with blocks still on the wire.  Decode attends over the whole
+        prompt, so every pending block is consumed before the gather reads
+        it; each wait forces only the minimal queue prefix that delivers
+        its block."""
+        for rid in self.slot_req[pe]:
+            if rid is None:
+                continue
+            req = self.requests[rid]
+            if req.state != DECODING or req.fused_pending <= 0:
+                continue
+            have = req.wire_blocks - req.fused_pending
+            self.heap, resident = self.migrator.consume_blocks(
+                self.heap, req.slot, pe, have, req.wire_blocks, rid=rid)
+            req.fused_pending = req.wire_blocks - resident
+            if req.fused_pending > 0:
+                raise RuntimeError(
+                    f"rid {rid}: {req.fused_pending} fused blocks never "
+                    f"landed — decode would read unmigrated bytes")
+
     def _phase_decode(self) -> None:
         """One decode step over every decode PE with an active slot."""
         stepped = False
@@ -374,6 +435,8 @@ class DisaggScheduler:
             bank = self.banks[pe]
             if not bank.active.any():
                 continue
+            if self.fused_attn:
+                self._consume_fused(pe)
             if tr is not None:
                 tr.begin("decode", "sched", self._trace_pid, f"pe{pe}",
                          slots=int(bank.active.sum()))

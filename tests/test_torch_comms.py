@@ -9,8 +9,8 @@ compared bitwise; the reduce-scatter to the reference's 1e-5, the TP layer
 to its 1e-4.  ``ShmemOps`` is held against the JAX ``ShmemOps`` result by
 result and telemetry record by record (modeled seconds equal as floats).
 The reference's ``psum_overlap`` fails on jax 0.9.0, so the port's is held
-against ``EngineOps.psum``.  The ``cuda``-marked tests hold the CUDA
-kernels against their plain versions and run only on a card.
+against ``EngineOps.psum``.  ``tests/test_torch_cuda.py`` holds the CUDA
+kernels against their plain versions on a card.
 """
 import jax
 import jax.numpy as jnp
@@ -58,13 +58,6 @@ def counts():
     yield ops.LAUNCHES
     assert ops.LAUNCHES == {name: 0 for name in ops.LAUNCHES}, \
         "a CPU tensor launched a kernel"
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -455,58 +448,3 @@ def test_ring_models_match_reference(tier):
         assert cutover.cutover_bytes(work_items=wi, tier=tier) == \
             ref_cutover.cutover_bytes(work_items=wi, tier=tier)
     assert cutover.HwParams().reduce_bw == ref_cutover.HwParams().reduce_bw
-
-
-# ---------------------------------------------------------------------------
-# the CUDA kernels themselves (card only)
-# ---------------------------------------------------------------------------
-
-
-def _cuda_inputs(card, dtype, P, n, seed):
-    g = torch.Generator(device=card).manual_seed(seed)
-    return (torch.randn(P, n, generator=g, device=card) * 50).to(dtype)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
-@pytest.mark.parametrize("P", [2, 4, 8])
-def test_cuda_copy_kernels_bitwise(card, dtype, P):
-    for n in (1, 127, 128 * 40 + 37, 1 << 16):
-        x = _cuda_inputs(card, dtype, P, n, n)
-        assert torch.equal(rc.ring_allgather(x), rc.ring_allgather_plain(x))
-        for root in {0, 3 % P, P - 1}:
-            assert torch.equal(rc.push_broadcast(x, root),
-                               rc.push_broadcast_plain(x, root))
-        for off, w in ((1, 1), (3, 4), (1, 128)):
-            assert torch.equal(rma_copy.remote_put(x, target_offset=off,
-                                                   work_items=w),
-                               rma_copy.remote_put_plain(x, off))
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P", [2, 4, 8])
-def test_cuda_reduce_scatter_bitwise(card, dtype, P):
-    for n in (1, 127, 128 * 40 + 37, 1 << 16):
-        g = torch.Generator(device=card).manual_seed(n)
-        x = torch.randn(P, P, n, generator=g, device=card).to(dtype)
-        assert torch.equal(rc.ring_reduce_scatter(x),
-                           rc.ring_reduce_scatter_plain(x))
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-def test_cuda_barrier_and_shmem_ops(card):
-    for P in (1, 2, 8):
-        assert rc.barrier_push(P, device=card).tolist() == [1] * P
-    ops.reset_launches()
-    shmem, eng = api.get_ops("shmem", npes=NPES), api.get_ops("xla")
-    for shape in ((NPES, 64), (NPES, 40, 520)):
-        x = torch.randn(*shape, device=card)
-        torch.testing.assert_close(shmem.psum(x), eng.psum(x), rtol=1e-5,
-                                   atol=1e-5)
-        torch.testing.assert_close(shmem.psum_overlap(x), eng.psum(x),
-                                   rtol=1e-5, atol=1e-5)
-    assert all(ops.LAUNCHES[k] for k in ("remote_put", "ring_allgather",
-                                         "ring_reduce_scatter"))

@@ -1,0 +1,174 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Imports no JAX and nothing of the JAX package, so it runs on a machine
+that has the card and no JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest`` keeps ``tests/conftest.py``, which imports JAX, out; the
+``cuda`` marker is then unregistered, which only warns).  Without a card
+every test here skips.  Data movement (K1, K3-K9) is compared bitwise,
+attention (K2, K10) to the reference's tolerances, 2e-5 in f32 and 2e-2 in
+bf16.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.comms import api
+from repro_torch.kernels import flash_attn, ishmem_device, ops, \
+    reduce_tile as rt, ring_collectives as rc, rma_copy
+
+pytestmark = [pytest.mark.cuda,
+              pytest.mark.skipif("not torch.cuda.is_available()",
+                                 reason="needs a CUDA card")]
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # tests/test_kernels.py
+NPES = 8
+
+
+@pytest.fixture
+def card():
+    return torch.device("cuda")
+
+
+def _qkv(seed, B, S, H, Hkv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, hd)).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# K1-K3 (moved from tests/test_torch_kernels.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_cuda_copy_into_bitwise(card, dtype):
+    for n, off in ((1, 3), (127, 129), (100_000, 1000)):
+        row = (torch.randn(200_000, device=card) * 50).to(getattr(torch, dtype))
+        src = (torch.randn(n, device=card) * 50).to(row.dtype)
+        want = rma_copy.copy_into_plain(row.clone(), src, off)
+        assert torch.equal(rma_copy.copy_into(row, src, off), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 37, 512])
+def test_cuda_flash_attention(card, dtype, S):
+    q, k, v = (torch.from_numpy(x).to(card, getattr(torch, dtype))
+               for x in _qkv(S, 1, S, 32, 8, 128))
+    got = flash_attn.flash_attention(q, k, v)
+    want = flash_attn.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_cuda_paged_gather_bitwise(card):
+    data = torch.randn(64, 4096, device=card).bfloat16()
+    table = torch.randint(0, 65, (3, 9), device=card, dtype=torch.int32)
+    assert torch.equal(ishmem_device.paged_gather(data, table),
+                       ishmem_device.paged_gather_plain(data, table))
+
+
+# ---------------------------------------------------------------------------
+# K4-K8 (moved from tests/test_torch_comms.py)
+# ---------------------------------------------------------------------------
+
+
+def _cuda_inputs(card, dtype, P, n, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return (torch.randn(P, n, generator=g, device=card) * 50).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_cuda_copy_kernels_bitwise(card, dtype, P):
+    for n in (1, 127, 128 * 40 + 37, 1 << 16):
+        x = _cuda_inputs(card, dtype, P, n, n)
+        assert torch.equal(rc.ring_allgather(x), rc.ring_allgather_plain(x))
+        for root in {0, 3 % P, P - 1}:
+            assert torch.equal(rc.push_broadcast(x, root),
+                               rc.push_broadcast_plain(x, root))
+        for off, w in ((1, 1), (3, 4), (1, 128)):
+            assert torch.equal(rma_copy.remote_put(x, target_offset=off,
+                                                   work_items=w),
+                               rma_copy.remote_put_plain(x, off))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_cuda_reduce_scatter_bitwise(card, dtype, P):
+    for n in (1, 127, 128 * 40 + 37, 1 << 16):
+        g = torch.Generator(device=card).manual_seed(n)
+        x = torch.randn(P, P, n, generator=g, device=card).to(dtype)
+        assert torch.equal(rc.ring_reduce_scatter(x),
+                           rc.ring_reduce_scatter_plain(x))
+    torch.cuda.synchronize()
+
+
+def test_cuda_barrier_and_shmem_ops(card):
+    for P in (1, 2, 8):
+        assert rc.barrier_push(P, device=card).tolist() == [1] * P
+    ops.reset_launches()
+    shmem, eng = api.get_ops("shmem", npes=NPES), api.get_ops("xla")
+    for shape in ((NPES, 64), (NPES, 40, 520)):
+        x = torch.randn(*shape, device=card)
+        torch.testing.assert_close(shmem.psum(x), eng.psum(x), rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(shmem.psum_overlap(x), eng.psum(x),
+                                   rtol=1e-5, atol=1e-5)
+    assert all(ops.LAUNCHES[k] for k in ("remote_put", "ring_allgather",
+                                         "ring_reduce_scatter"))
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
+def test_cuda_reduce_tile_bitwise(card, dtype, op):
+    g = torch.Generator(device=card).manual_seed(9)
+    scale = 3 if op == "prod" else 50
+    for T in (1, 2, 5, 8):
+        for N in (128, 640, 1024):
+            x = (torch.randn(T, N, generator=g, device=card) * scale).to(dtype)
+            assert torch.equal(rt.reduce_tile(x, op),
+                               rt.reduce_tile_plain(x, op))
+    # a base pointer off the 16-byte grid takes the one-element path
+    flat = (torch.randn(3 * 640 + 1, generator=g, device=card)
+            * scale).to(dtype)
+    x = flat[1:].view(3, 640)
+    assert torch.equal(rt.reduce_tile(x, op), rt.reduce_tile_plain(x, op))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,q_off,k_off,H,hd", [
+    (64, 64, 0, 0, 4, 128),          # diagonal shard
+    (100, 37, 50, 10, 2, 64),        # past shard, ragged tiles
+    (37, 100, 0, 20, 3, 128),        # some rows see no key
+    (128, 128, 0, 128, 2, 128),      # a future shard: every row masked
+    (96, 160, 64, 0, 2, 64),
+])
+def test_cuda_flash_partial(card, dtype, Sq, Skv, q_off, k_off, H, hd):
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, S, H, hd)).astype(
+        np.float32)).to(card, getattr(torch, dtype))
+        for S in (Sq, Skv, Skv))
+    got = ishmem_device.flash_partial(q, k, v, q_off=q_off, k_off=k_off)
+    want = ishmem_device.flash_partial_plain(q, k, v, q_off=q_off,
+                                             k_off=k_off)
+    # the partials' arithmetic is f32 whatever the input type
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=TOL["float32"],
+                                   rtol=TOL["float32"])
+    blind = (q_off + torch.arange(Sq, device=card)) < k_off
+    assert bool((got[1][:, blind] == flash_attn.NEG_INF).all())
+    assert bool((got[2][:, blind] == Skv).all())
+    torch.testing.assert_close(
+        ishmem_device.merge_partials([got]),
+        ishmem_device.merge_partials([want]), atol=TOL["float32"],
+        rtol=TOL["float32"])

@@ -12,9 +12,9 @@ import torch
 import repro_torch
 from repro_torch import _bridge, _devices
 from repro_torch.configs import base
-from repro_torch.core import context, heap as heap_mod
+from repro_torch.core import context, device, heap as heap_mod
 from repro_torch.core.api import Ishmem
-from repro_torch.kernels import ring_collectives
+from repro_torch.kernels import ops as kernel_ops, ring_collectives
 from repro_torch.launch import serve as launch_serve, shmem_collectives
 from repro_torch.models import model
 from repro_torch.serve.engine import Engine
@@ -78,9 +78,34 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_card):
         Engine(cfg, params, max_len=8)
     with pytest.raises(RuntimeError):
         launch_serve.main(["--disagg", "--requests", "1"])
+    with pytest.raises(RuntimeError):
+        launch_serve.main(["--disagg", "--fused-attn", "--requests", "1"])
+    with pytest.raises(RuntimeError):
+        launch_serve.seq_parallel_report(2, prompt_len=16)
     ctx, heap = context.init(npes=2, device="cpu")
     assert heap.device == torch.device("cpu")
     assert Engine(cfg, params, max_len=8, device="cpu").device.type == "cpu"
+
+
+def test_device_layer_entry_points_raise_without_cuda_unless_cpu(no_card):
+    """The work-group layer runs on a heap, which lives on the card unless
+    the caller asks for the CPU; the new launcher flags take --device."""
+    with pytest.raises(RuntimeError):
+        launch_serve.main(["--seq-parallel", "2", "--batch", "1",
+                           "--prompt-len", "8", "--max-new", "1"])
+    ctx, heap = context.init(npes=2, device="cpu")
+    wg = device.work_group(ctx, pe=0)
+    buf = heap.malloc((128,), "float32")
+    heap = device.put(wg, heap, buf, torch.ones(128), 1)
+    assert device.get(wg, heap, buf, 1).device == torch.device("cpu")
+    rows = torch.ones(3, 128)
+    assert kernel_ops.reduce_tile(rows).tolist() == [3.0] * 128
+    rep = launch_serve.seq_parallel_report(2, prompt_len=16, device="cpu")
+    assert rep["partials"] == 3 and rep["max_abs_err"] < 5e-5
+    sched = launch_serve.main(["--disagg", "--fused-attn", "--device", "cpu",
+                               "--requests", "2", "--prompt-len", "8",
+                               "--max-new", "2"])
+    assert sched.fused_attn and sched.heap.device == torch.device("cpu")
 
 
 def test_collectives_entry_points_raise_without_cuda_unless_cpu(no_card):

@@ -6,8 +6,8 @@ against the reference kernels, run in interpret mode as
 ``tests/test_kernels.py`` runs them.  Inputs come from numpy seeds and go to
 both packages unchanged.  Data movement is compared bitwise; attention to
 the reference's own tolerances (2e-5 in f32, 2e-2 in bf16), since the two
-sum in different orders.  The ``cuda``-marked tests hold the CUDA kernels
-against the same plain versions and run only on a card.
+sum in different orders.  ``tests/test_torch_cuda.py`` holds the CUDA
+kernels against the same plain versions on a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -39,13 +39,6 @@ def counts():
     yield ops.LAUNCHES
     assert ops.LAUNCHES == {name: 0 for name in ops.LAUNCHES}, \
         "a CPU tensor launched a kernel"
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -219,38 +212,3 @@ def test_build_dir_is_keyed_by_sources():
     key = _build.build_dir()
     assert key.parent == _build.BUILD_ROOT and len(key.name) == 16
     assert _build.build_dir() == key
-
-
-# ---------------------------------------------------------------------------
-# the CUDA kernels themselves (card only)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
-def test_cuda_copy_into_bitwise(card, dtype):
-    for n, off in ((1, 3), (127, 129), (100_000, 1000)):
-        row = (torch.randn(200_000, device=card) * 50).to(getattr(torch, dtype))
-        src = (torch.randn(n, device=card) * 50).to(row.dtype)
-        want = rma_copy.copy_into_plain(row.clone(), src, off)
-        assert torch.equal(rma_copy.copy_into(row, src, off), want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [1, 37, 512])
-def test_cuda_flash_attention(card, dtype, S):
-    q, k, v = (torch.from_numpy(x).to(card, getattr(torch, dtype))
-               for x in _qkv(S, 1, S, 32, 8, 128))
-    got = flash_attn.flash_attention(q, k, v)
-    want = flash_attn.flash_attention_plain(q, k, v)
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
-                               rtol=TOL[dtype])
-
-
-@pytest.mark.cuda
-def test_cuda_paged_gather_bitwise(card):
-    data = torch.randn(64, 4096, device=card).bfloat16()
-    table = torch.randint(0, 65, (3, 9), device=card, dtype=torch.int32)
-    assert torch.equal(ishmem_device.paged_gather(data, table),
-                       ishmem_device.paged_gather_plain(data, table))

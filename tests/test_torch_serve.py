@@ -454,7 +454,6 @@ def test_growth_blocks_receive_decode_writes(params):
 
 
 @pytest.mark.parametrize("kw", [{"paged": False}, {"stream_chunks": 1},
-                                {"fused_attn": True},
                                 {"shared_prefix": True},
                                 {"policy": object()}])
 def test_unported_modes_raise(params, kw):
