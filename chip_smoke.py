@@ -7,10 +7,15 @@ Phases, each fatal on failure:
 
 1. device and build: print the card's name and power limit, build the
    port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source,
-   in parallel), TF32 off;
+   in parallel), TF32 off; print ptxas's registers and spills for the bf16
+   K2 kernels and count their HGMMA instructions with ``cuobjdump``, where
+   the toolkit has it (a count of 0 fails);
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge shapes (K1, K3-K9 bitwise; K2 to 2e-5 in f32
-   and 2e-2 in bf16, the reference's tolerances; K10 to 2e-5 on acc/l, m
+   and 2e-2 in bf16, the reference's tolerances, in bf16 over S from 1 to
+   4096, head dims 64 and 128 and head ratios 1, 4 and 8, and bitwise to
+   itself run to run and across batch positions, with a NaN neighbour
+   batch; K10 to 2e-5 on acc/l, m
    and l, its arithmetic being f32 whatever the input type, acc itself
    being a sum over up to 4096 keys), each timed with CUDA events beside
    its plain version and one PyTorch call computing the same function
@@ -22,7 +27,8 @@ Phases, each fatal on failure:
    cannot find an earlier run's equal value.  The bounds count each input
    read once and each output written once, and for K10 only the unmasked
    products.  Rows also carry ``device_ms``, the device-only duration from
-   ``torch.profiler`` (K1, K4 at a small chunk, K8, K9, K10), measured
+   ``torch.profiler`` (K1, K2 and SDPA at both K2 shapes, K4 at a small
+   chunk, K8, K9, K10), measured
    after phase 6 so that the profiler's hooks cannot slow the timed
    phases;
 3. the serving path: ``repro_torch.launch.serve --disagg --full``, qwen3-4b at
@@ -57,7 +63,10 @@ Phases, each fatal on failure:
 
 K9 (``reduce_tile``) has no caller on these paths (only the reference's
 benchmark and tests call it): its row sums its counts over the four path
-runs, and the check fails if that is not 0.  The line before
+runs, and the check fails if that is not 0.  K2's row also carries its
+HGMMA count (``hgmma``) and a ``long`` record at q (1, 4096, 32, 128):
+events, device ms, TFLOP/s and share of its operations bound beside
+SDPA's events and device ms.  The line before
 the last is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
 beside this file, it exits nonzero before printing any result.
@@ -67,6 +76,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -141,9 +152,10 @@ def poisoned(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
-def device_ms(torch, fn, match: str, *, iters: int = 50):
+def device_ms(torch, fn, match, *, iters: int = 50):
     """Mean device-only milliseconds of the kernels whose name contains
-    ``match``, from ``torch.profiler`` over ``iters`` calls of ``fn``; None
+    ``match``, from ``torch.profiler`` over ``iters`` calls of ``fn``; with
+    ``match`` None, of everything ``fn`` runs on the device, per call.  None
     when the profiler shows no device time for them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -156,9 +168,12 @@ def device_ms(torch, fn, match: str, *, iters: int = 50):
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and match in evt.key:
+        if evt.device_type == DeviceType.CUDA and (match is None or
+                                                   match in evt.key):
             total_us += evt.self_device_time_total
             count += evt.count
+    if match is None:
+        count = iters if count else 0
     return total_us / 1e3 / count if count and total_us else None
 
 
@@ -212,51 +227,142 @@ def check_copy(torch, rma_copy, dev, deferred):
     return out
 
 
-def check_flash(torch, flash_attn, dev):
-    """K2 at S in {1, 37, 512}, GQA 32/8, hd 128, bf16 and f32; timed at
-    the main path's prefill shape (B=1, S=512, bf16)."""
-    F = torch.nn.functional
-    gen = torch.Generator(device=dev).manual_seed(2)
-    main_err = None
-    for dt in (torch.float32, torch.bfloat16):
-        for S in (1, 37, 512):
-            q = torch.randn(1, S, 32, 128, generator=gen, device=dev).to(dt)
-            k = torch.randn(1, S, 8, 128, generator=gen, device=dev).to(dt)
-            v = torch.randn(1, S, 8, 128, generator=gen, device=dev).to(dt)
-            got = flash_attn.flash_attention(q, k, v)
-            want = flash_attn.flash_attention_plain(q, k, v)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            tol = TOL[str(dt).removeprefix("torch.")]
-            bad = (~torch.isclose(got.float(), want.float(), rtol=tol,
-                                  atol=tol)).sum().item()
-            say(f"K2 {dt} S={S}: max|err| {err:.3e} (tol {tol})")
-            if bad or not math.isfinite(err):
-                fail(f"K2 flash_attention: {bad} elements outside {tol} "
-                     f"({dt}, S={S})")
-            if dt == torch.bfloat16 and S == 512:
-                main_err = err
-    B, S, H, Hkv, hd = 1, 512, 32, 8, 128
-    q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B, S, Hkv, hd, generator=gen, device=dev).bfloat16()
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * hd * H * B * S * (S + 1) // 2         # causal QK^T and PV
+K2_GRID_S = (1, 37, 63, 64, 65, 129, 512, 528, 1000, 4096)
+K2_GRID_HEADS = ((32, 8), (8, 8), (8, 1))
+
+
+def _qkv(torch, gen, dev, dt, B, S, H, Hkv, hd):
+    return (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt),
+            torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt),
+            torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dt))
+
+
+def _flash_bound(B, S, H, Hkv, hd):
+    """(bound ms, what bounds it, causal FLOPs) of K2 in bf16: q, k, v read
+    once and o written once, against the causal QK^T and PV products."""
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
+    flops = 4 * hd * H * B * S * (S + 1) // 2
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS["bfloat16"]
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attn.cu",
-            "replaces": "src/repro/kernels/flash_attn.py:62",
-            "max_abs_err": main_err,
-            "ms": time_ms(torch, lambda: flash_attn.flash_attention(q, k, v)),
-            "plain_ms": time_ms(
-                torch, lambda: flash_attn.flash_attention_plain(q, k, v)),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16"}
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def hgmma_count(_build, so):
+    """HGMMA instructions in the bf16 K2 kernels of the built library, by
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        name = re.search(r"Function : (\S+)", line)
+        if name:
+            inside = "flash_fwd_wgmma" in name.group(1)
+        elif inside and "HGMMA" in line:
+            count += 1
+    return count
+
+
+def check_flash(torch, flash_attn, dev, deferred):
+    """K2 in f32 at S in {1, 37, 512}, GQA 32/8, hd 128 (the FMA kernel, to
+    2e-5); in bf16 (the wgmma kernel, to 2e-2) over S in K2_GRID_S, hd in
+    {64, 128} and heads 32/8, 8/8 and 8/1, and at K11's B = 3, S = 528.
+    Bitwise: two runs agree, and batch 0 of a B = 2 call whose batch 1 K
+    and V are NaN is finite and equal to the same inputs at B = 1.  Timed
+    at the main path's prefill shape (B=1, S=512, bf16) and at a long
+    prefill, S = 4096."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(2)
+    main_err, worst, cases = None, 0.0, 0
+    grid = [(torch.float32, 1, S, 32, 8, 128) for S in (1, 37, 512)]
+    grid += [(torch.bfloat16, 1, S, H, Hkv, hd) for S in K2_GRID_S
+             for hd in (64, 128) for H, Hkv in K2_GRID_HEADS]
+    grid.append((torch.bfloat16, 3, 528, 32, 8, 128))
+    for dt, B, S, H, Hkv, hd in grid:
+        q, k, v = _qkv(torch, gen, dev, dt, B, S, H, Hkv, hd)
+        got = flash_attn.flash_attention(q, k, v)
+        want = flash_attn.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = TOL[str(dt).removeprefix("torch.")]
+        bad = (~torch.isclose(got.float(), want.float(), rtol=tol,
+                              atol=tol)).sum().item()
+        shape = f"{dt} B={B} S={S} heads {H}/{Hkv} hd={hd}"
+        if dt == torch.float32 or S in (1, 512, 4096) or B > 1:
+            say(f"K2 {shape}: max|err| {err:.3e} (tol {tol})")
+        if bad or not math.isfinite(err):
+            fail(f"K2 flash_attention: {bad} elements outside {tol} "
+                 f"({shape})")
+        if dt == torch.bfloat16:
+            worst, cases = max(worst, err), cases + 1
+            if (B, S, H, Hkv, hd) == (1, 512, 32, 8, 128):
+                main_err = err
+        del q, k, v, got, want
+    say(f"K2 bf16: {cases} shapes within {TOL['bfloat16']}, largest "
+        f"max|err| {worst:.3e}")
+    laws = 0
+    for S, H, Hkv, hd in ((512, 32, 8, 128), (37, 8, 1, 64),
+                          (1000, 8, 8, 128), (528, 32, 8, 64)):
+        q, k, v = _qkv(torch, gen, dev, torch.bfloat16, 2, S, H, Hkv, hd)
+        k[1], v[1] = float("nan"), float("nan")
+        pair = flash_attn.flash_attention(q, k, v)
+        alone = flash_attn.flash_attention(q[:1].contiguous(),
+                                           k[:1].contiguous(),
+                                           v[:1].contiguous())
+        again = flash_attn.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        if not bool(pair[0].isfinite().all()):
+            fail(f"K2 bf16: batch 0 not finite beside a NaN batch 1 (S={S}, "
+                 f"heads {H}/{Hkv}, hd={hd})")
+        if not torch.equal(pair[:1], alone):
+            fail(f"K2 bf16: batch 0 of B=2 differs from B=1 (S={S}, heads "
+                 f"{H}/{Hkv}, hd={hd})")
+        if not torch.equal(pair[:1], again[:1]) or not torch.equal(
+                pair[1].isnan(), again[1].isnan()):
+            fail(f"K2 bf16: two runs differ (S={S}, heads {H}/{Hkv}, "
+                 f"hd={hd})")
+        laws += 1
+    say(f"K2 bf16: {laws} shapes bitwise run to run and batch-invariant, "
+        f"batch 0 finite beside a NaN batch")
+
+    def row(B, S, H, Hkv, hd):
+        q, k, v = _qkv(torch, gen, dev, torch.bfloat16, B, S, H, Hkv, hd)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound, by, flops = _flash_bound(B, S, H, Hkv, hd)
+        # at S = 512 a call is shorter than its host launch cost, so the
+        # events time the host: 200 calls average out its hiccups
+        iters = 200 if S <= 512 else 20
+        out = {"ms": time_ms(torch, lambda: flash_attn.flash_attention(
+                   q, k, v), iters=iters),
+               "plain_ms": time_ms(
+                   torch, lambda: flash_attn.flash_attention_plain(q, k, v),
+                   iters=20 if S <= 512 else 5),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   iters=iters),
+               "shape": f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) "
+                        "bf16", "flops": flops}
+        deferred.append((out, "device_ms",
+                         lambda: flash_attn.flash_attention(q, k, v),
+                         "flash_fwd_wgmma"))
+        deferred.append((out, "library_device_ms",
+                         lambda: F.scaled_dot_product_attention(
+                             qt, kt, vt, is_causal=True, enable_gqa=True),
+                         None))
+        return out
+
+    out = row(1, 512, 32, 8, 128)        # the deferred timings fill it in
+    out.update(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attn.cu",
+               replaces="src/repro/kernels/flash_attn.py:62",
+               max_abs_err=main_err, long=row(1, 4096, 32, 8, 128))
+    return out
 
 
 def check_gather(torch, ishmem_device, dev):
@@ -697,7 +803,7 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
     # here, not last, so that the pool it reads is freed before phase 6)
     row["device_ms_gather"] = device_ms(torch, fused, "paged_gather_kernel",
                                         iters=10)
-    row["device_ms_flash"] = device_ms(torch, fused, "flash_fwd_kernel",
+    row["device_ms_flash"] = device_ms(torch, fused, "flash_fwd_wgmma",
                                        iters=10)
     for s in range(view.num_slots):
         pool.release(1_000_000 + s)
@@ -728,11 +834,25 @@ def main() -> None:
     _build.lib()
     say(f"torch {torch.__version__} (CUDA {torch.version.cuda}); kernels "
         f"built in {time.perf_counter() - t0:.1f} s -> {so.name}")
+    entry = ""                       # ptxas's report on the bf16 K2 kernels
+    for line in (so.parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "setmaxnreg" in line or "flash_fwd_wgmma" in entry and (
+                "spill" in line or "Used" in line):
+            hd = 128 if "ILi128E" in entry else 64
+            say(f"ptxas, bf16 K2 hd {hd}: {line.strip()}")
+    hgmma = hgmma_count(_build, so)
+    say(f"bf16 K2 kernels: {hgmma} HGMMA instructions in the built library"
+        if hgmma is not None else "bf16 K2 kernels: no cuobjdump, HGMMA "
+        "not counted")
+    if hgmma == 0:
+        fail("the bf16 K2 kernels hold no HGMMA instruction")
 
     # ---- 2. kernels against their plain versions ----------------------------
     deferred = []                    # device-only timings, taken last
     rows = [check_copy(torch, rma_copy, dev, deferred),
-            check_flash(torch, flash_attn, dev),
+            check_flash(torch, flash_attn, dev, deferred),
             check_gather(torch, ishmem_device, dev)]
     torch.cuda.empty_cache()
     rows += check_ring(torch, ring_collectives, rma_copy, _build, dev,
@@ -905,9 +1025,21 @@ def main() -> None:
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match in deferred:
         row[key] = device_ms(torch, fn, match)
-        say(f"{row['name']} {key}: " + ("not measured" if row[key] is None
-                                        else f"{row[key]:.5f} ms"))
+        say(f"{row.get('name', row['shape'])} {key}: " + (
+            "not measured" if row[key] is None else f"{row[key]:.5f} ms"))
 
+    k2 = rows[1]
+    k2["hgmma"] = hgmma
+    long = k2["long"]
+    if long.get("device_ms"):
+        long["tflops"] = long["flops"] / long["device_ms"] / 1e9
+        long["bound_share"] = long["bound_ms"] / long["device_ms"]
+    say(f"K2 bf16 {long['shape']}: {long['ms']:.4f} ms by events, device "
+        f"{long.get('device_ms')} ms, {long.get('tflops')} TFLOP/s, "
+        f"{long.get('bound_share')} of its {long['bound_ms']:.4f} ms bound "
+        f"({long['bound_by']}); SDPA {long['library_ms']:.4f} ms by events, "
+        f"device {long.get('library_device_ms')} ms; plain "
+        f"{long['plain_ms']:.4f} ms")
     path_launches = {k: launches[k] for k in SERVE_KERNELS}
     path_launches.update({k: coll_launches[k] for k in RING_KERNELS})
     path_launches["flash_partial"] = ring_launches["flash_partial"]

@@ -4,26 +4,70 @@
 // that keeps each score tile in VMEM) together with the GQA head repeat of
 // repro/kernels/ops.py::flash_attention.  q: (B, S, H, hd); k, v:
 // (B, S, Hkv, hd), H a multiple of Hkv; out: (B, S, H, hd) in q's type.
+// GQA reads kv head h / (H / Hkv) instead of materialising the repeat.
+// Both paths keep the online softmax (running max m, denominator l,
+// accumulator acc) in f32 and write acc / max(l, 1e-30) rounded to q's
+// type once.  Sums run in another order than on the TPU, so results agree
+// to a tolerance, not bitwise.
 //
-// Arithmetic follows the reference step for step: q is scaled by hd^-0.5
-// in f32 before the dot, scores of keys after the query are -1e30, the
-// softmax is online in f32 (running max m, denominator l, accumulator acc),
-// and the output is acc / max(l, 1e-30) rounded to q's type.  Sums run in
-// another order than on the TPU, so results agree to a tolerance, not
-// bitwise.
+// bf16 (the serving path's prefill and K11): a Hopper kernel on wgmma
+// tensor cores fed by TMA.  Bound: at the main path's prefill shape
+// (B = 1, S = 512, 32/8 heads of 128) the bytes of q, k, v and o (3.1 us
+// at 3.35 TB/s) exceed the causal products (2.2 us at 989 TFLOP/s); from
+// S of about 750 on, and at the long-prefill shape S = 4096 (0.139 ms), the
+// products bound it.  Design:
+//  - one CTA of three warpgroups per (q tile of 128 rows, head, batch);
+//    warpgroups 0 and 1 each own 64 query rows and run wgmma, one thread
+//    of warpgroup 2 issues every load (setmaxnreg moves the producer's
+//    registers to the consumers: 24 against 240);
+//  - q, k and v are read through one 4-D tensor map each over
+//    (B, S, heads, hd), boxes of 64 columns (128 bytes, the 128-byte
+//    swizzle atom) by 128 rows; hd = 128 takes two boxes per tile.  Rows
+//    past S are TMA's zero fill, never the next batch's rows;
+//  - q is loaded once; K/V tiles of BK = 128 keys go through a ring of two
+//    stages with mbarrier completion (K and V on separate barriers, so
+//    Q.K^T starts while V lands), so the next tile's copy overlaps this
+//    tile's math.  Shared memory: q 32 KB + 2 x (K + V) 64 KB at hd = 128
+//    (three stages measured no faster);
+//  - S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
+//    memory (the (BK, hd) K tile already is).  The f32 scores are scaled by
+//    hd^-0.5 * log2(e) inside one FFMA with the running max, and 2^x is one
+//    MUFU op (ex2.approx): with exp2f's range handling the softmax, not the
+//    tensor cores, set the pace, and the kernel was measurably slower;
+//  - O += P.V takes P from registers: the S accumulator's layout is the A
+//    fragment's, so P is the softmax output rounded to bf16 in place.  V's
+//    (BK, hd) row-major tile is the MN-major B operand (the transpose bit
+//    of 16-bit wgmma); no transposed copy is written;
+//  - BQ = BK, so only the last (diagonal) key tile of a q tile is masked
+//    and the key loop stops at the causal limit;
+//  - q tiles launch heaviest first (blockIdx.y counts down from the
+//    diagonal's far end), so causal imbalance leaves no tail;
+//  - within a warpgroup, S, softmax and P.V run in turn; the two consumer
+//    warpgroups interleave on the tensor cores.  Issuing the next tile's S
+//    beside this tile's P.V, to hide the softmax, measured slower: ptxas
+//    serialized its wgmma (C7515: the softmax writes registers inside the
+//    pipeline stage) and, though SASS carries the setmaxnreg requests, kept
+//    the consumers within the entry's 168 registers, so hd = 128 spilled.
+// Determinism: no atomics and no split over keys; the tile schedule depends
+// on S, hd and the head ratio only, so one run gives the bits of the next,
+// and row b of a B-batch call gives the bits of the same inputs at B = 1.
+// cuTensorMapEncodeTiled comes from the driver through
+// cudaGetDriverEntryPoint, so the library links without -lcuda.
 //
-// Bound: at the main path's shapes (S = 512, hd = 128) the bytes of q, k,
-// v and o set the floor, not the tensor-core rate.  This first version does
-// not reach either: it uses plain FMA, one CTA of 256 threads per
-// (q tile of 64 rows, head, batch), four threads per query row holding a
-// quarter of its head dimension each (interleaved, so shared-memory reads
-// of a key row are conflict-free), and key/value tiles of 32 rows staged
-// in shared memory as f32.  Scores never leave registers.  GQA reads kv
-// head h / (H / Hkv) instead of materialising the repeat, and the ragged
-// last q and kv tiles are masked instead of shrinking the blocks.
-// wgmma, TMA and a pipelined producer are later work.
+// f32 (the oracle of ring attention and of the f32 tests, not the serving
+// path): the first version's plain-FMA kernel, unchanged.  The reference's
+// 2e-5 f32 tolerance rules out bf16 and TF32 tensor cores there.  q is
+// scaled by hd^-0.5 in f32 before the dot, masked scores are -1e30; one CTA
+// of 256 threads per (q tile of 64 rows, head, batch), four threads per
+// query row holding a quarter of its head dimension each (interleaved, so
+// shared-memory reads of a key row are conflict-free), key/value tiles of
+// 32 rows staged in shared memory as f32, scores in registers, the ragged
+// last q and kv tiles masked.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -34,13 +78,9 @@ constexpr int kThreads = kBQ * kLanes;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -128,6 +168,445 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+constexpr int kBQ = 128;          // query rows per CTA (two warpgroups of 64)
+constexpr int kBK = 128;          // keys per tile; equal to kBQ (see above)
+constexpr int kStages = 2;        // K/V ring depth
+constexpr int kThreads = 384;     // warpgroups 0, 1 consume; 2 produces
+constexpr int kConsumers = 256;   // arrivals that free a K/V stage
+constexpr int kCols = 64;         // bf16 columns of one 128-byte swizzle row
+constexpr int kHalf = kBK * 128;  // bytes of one 64-column box of a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD> struct Layout {
+  static constexpr int kQ = kBQ * HD * 2;                  // q tile bytes
+  static constexpr int kKV = kBK * HD * 2;                 // one K or V tile
+  static constexpr int kDynamic = kQ + kStages * 2 * kKV + 1024;  // + align
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed; traps
+// after 10 s, so that a protocol fault ends the launch instead of hanging
+// the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t since = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (since == 0) since = now;
+    else if (now - since > 10000000000ull) __trap();
+  }
+}
+
+// one box of the 4-D map (hd, heads, S, B) into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
+        "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptors for the 128-byte swizzle (layout type 1):
+// start address >> 4 in bits 0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45.
+// K-major: rows of 128 bytes, 8-row groups SBO = 1024 bytes apart (LBO is
+// not read).  MN-major: 8-key groups SBO = 1024 bytes apart, 64-column
+// boxes LBO = `box` bytes apart.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t box) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(box >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins the accumulator registers after wait_group, so no read of them is
+// scheduled before the asynchronous product has written them
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x in one MUFU op (flushes subnormal results to 0; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d[0:64] (+)= A(desc, K-major) . B(desc, K-major), m64n128k16
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0:64] += A(registers, bf16 pairs) . B(desc, MN-major), m64n128k16
+__device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0:32] += A(registers, bf16 pairs) . B(desc, MN-major), m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// O += P.V for one k16 step: m64n128 at hd = 128, m64n64 at hd = 64
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 128) wgmma_rs_n128_mn(d, a, db);
+  else wgmma_rs_n64_mn(d, a, db);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int kBoxes = HD / kCols;
+  extern __shared__ uint8_t fa_smem[];
+  // barriers: q, K full x2, V full x2, stage empty x2
+  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+  const uint32_t sq = (smem_addr(fa_smem) + 1023) & ~1023u;  // swizzle atom
+  const uint32_t skv = sq + L::kQ;        // stage s: K at skv + 2s kKV, V after
+  const uint32_t qbar = smem_addr(&bars[0]);
+  const uint32_t kfull = qbar + 8, vfull = kfull + 8 * kStages,
+                 empty = vfull + 8 * kStages;
+
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int hk = h / (H / Hkv);
+  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
+  const int q0 = qt * kBQ;
+  const int ntiles = qt + 1;                   // up to the diagonal tile
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kfull + 8 * s, 1);
+      mbar_init(vfull + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, L::kQ);
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load(sq + x * kBQ * 128, &tq, qbar, x * kCols, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t ks = skv + 2 * s * L::kKV, vs = ks + L::kKV;
+        mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(kfull + 8 * s, L::kKV);
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(ks + x * kHalf, &tk, kfull + 8 * s, x * kCols, hk,
+                   t * kBK, b);
+        mbar_expect_tx(vfull + 8 * s, L::kKV);
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(vs + x * kHalf, &tv, vfull + 8 * s, x * kCols, hk,
+                   t * kBK, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    // accumulator layout: this thread holds rows r and r + 8, and in each
+    // 8-column block j the columns 8j + c and 8j + c + 1
+    const int r = q0 + wg * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+    const int c = (tid % 4) * 2;
+    const uint32_t qa = sq + wg * 64 * 128;   // this warpgroup's q rows
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(qbar, 0);
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % kStages;
+      const uint32_t parity = (t / kStages) & 1;
+      const uint32_t ks = skv + 2 * s * L::kKV, vs = ks + L::kKV;
+
+      // S = Q.K^T: hd / 16 steps of k16, 32 bytes along each 128-byte row
+      float sc[kBK / 2];
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+      mbar_wait(kfull + 8 * s, parity);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+        wgmma_ss_n128(sc, kmajor_desc(qa + off), kmajor_desc(ks + off), kk);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sc);
+
+      // online softmax in f32, log2 units; only the diagonal tile masks
+      const bool diag = t == ntiles - 1;
+      const int k0 = t * kBK;
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (diag) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + c + (e & 1) > r + 8 * (e >> 1))
+              sc[4 * j + e] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+        corr[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -m[e >> 1]));
+          l[e >> 1] += sc[4 * j + e];
+        }
+      }
+      // P as the A fragment of k16 step kk: keys 16kk .. 16kk + 15
+      uint32_t pf[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        pf[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pf[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pf[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      // O += P.V: V's rows are keys (K), its columns hd (N, MN-major)
+      mbar_wait(vfull + 8 * s, parity);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_pv<HD>(acc, pf[kk], mn_desc(vs + kk * 16 * 128, kHalf));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    const long long row_stride = static_cast<long long>(H) * HD;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const float denom = fmaxf(li, 1e-30f);
+      const int row = r + 8 * i;
+      if (row < S) {
+        __nv_bfloat16* dst = o + (static_cast<long long>(b) * S + row) *
+                                     row_stride + h * HD + c;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i] / denom,
+                                    acc[4 * j + 2 * i + 1] / denom);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (B, S, heads, hd) bf16, contiguous, in boxes of (64, 1, kBK, 1); rows past
+// S read as zeros
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B,
+              int S, int heads, int hd) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {kCols, 1, kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(int device, const void* q, const void* k, const void* v, void* o,
+           int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);  // TMA needs 16 B
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, encode, q, B, S, H, HD) ||
+      !make_map(&mk, encode, k, B, S, Hkv, HD) ||
+      !make_map(&mv, encode, v, B, S, Hkv, HD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool sized[64] = {};              // per device: dynamic smem raised
+  if (device < 0 || device >= 64 || !sized[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<HD>::kDynamic);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device >= 0 && device < 64) sized[device] = true;
+  }
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_fwd_wgmma<HD><<<grid, kThreads, Layout<HD>::kDynamic, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, Hkv,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hop
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  hd must be 64 or 128; the wrapper has
@@ -145,8 +624,8 @@ extern "C" int ishmem_flash_attention(int device, const void* q, const void* k,
   if (dtype == 0 && hd == 64)
     return launch<float, 64>(q, k, v, o, B, S, H, Hkv, scale, st);
   if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, Hkv, scale, st);
+    return hop::launch<128>(device, q, k, v, o, B, S, H, Hkv, scale, st);
   if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, Hkv, scale, st);
+    return hop::launch<64>(device, q, k, v, o, B, S, H, Hkv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,9 +4,12 @@ The sources under ``repro_torch/csrc`` have a plain C interface.  At first
 use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source,
 all started together, then one link) into ``repro_torch/_build/<hash>/``,
 keyed by a hash of the sources and flags, and loaded with ``ctypes``.  No
-PyTorch header is compiled, so a build takes seconds.  ``nvcc`` comes from
-``PATH`` or ``CUDA_HOME``; without it the build raises — there is no CPU
-stand-in for a CUDA tensor.
+PyTorch header is compiled, so a build takes seconds.  The library links
+without ``-lcuda``: a kernel that needs a driver function (K2's TMA tensor
+maps, ``cuTensorMapEncodeTiled``) takes it through
+``cudaGetDriverEntryPoint``.  ``nvcc`` comes from ``PATH`` or
+``CUDA_HOME``; without it the build raises — there is no CPU stand-in for a
+CUDA tensor.
 """
 from __future__ import annotations
 

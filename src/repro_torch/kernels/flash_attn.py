@@ -2,9 +2,12 @@
 
 Replaces ``repro/kernels/flash_attn.py::flash_attention`` and the GQA head
 repeat of ``repro/kernels/ops.py::flash_attention``.  Layout is the
-reference's: q ``(B, S, H, hd)``, k and v ``(B, S, Hkv, hd)``.  At the main
-path's shapes it is bound by bytes; the first version runs on plain FMA
-(see the source).
+reference's: q ``(B, S, H, hd)``, k and v ``(B, S, Hkv, hd)``.  bf16 runs on
+``wgmma`` tensor cores with TMA-fed K/V tiles (P rounded to bf16 before
+P.V, the softmax in f32); it is bound by bytes at the main path's prefill
+shape and by operations from S of about 750 on, and gives the same bits run
+to run and at every batch position.  f32 keeps the plain-FMA kernel, whose
+arithmetic meets the reference's 2e-5 (see the source).
 """
 from __future__ import annotations
 
@@ -57,8 +60,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    ptrs = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if q.dtype == torch.bfloat16 and (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        raise ValueError("flash_attention: bf16 q, k and v must start on a "
+                         "16-byte boundary (TMA)")
     out = torch.empty_like(q)
     ops.launch("flash_attention", "ishmem_flash_attention", q.device,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               B, S, H, Hkv, hd, _DTYPE_CODE[q.dtype], hd ** -0.5)
+               *ptrs, out.data_ptr(), B, S, H, Hkv, hd,
+               _DTYPE_CODE[q.dtype], hd ** -0.5)
     return out

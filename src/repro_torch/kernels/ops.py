@@ -33,7 +33,9 @@ def reset_launches() -> None:
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     from repro_torch.kernels import _build
     lib = _build.lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
+    # the current stream's handle, as torch.cuda.current_stream(device)
+    # .cuda_stream gives it, without building a Stream object each launch
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     rc = getattr(lib, entry)(device.index, *args, stream)
     if rc:
         msg = lib.ishmem_error_string(rc).decode()

@@ -30,7 +30,7 @@ from collections import defaultdict
 import torch
 
 GROUPS = (("K1 copy_into", ("::copy_kernel<",)),
-          ("K2 flash_attention", ("flash_fwd_kernel",)),
+          ("K2 flash_attention", ("flash_fwd_kernel", "flash_fwd_wgmma")),
           ("K3 paged_gather", ("paged_gather_kernel",)),
           ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "splitk")),
           ("memcpy/memset (pool clones)", ("memcpy", "memset")),

@@ -9,7 +9,8 @@ that has the card and no JAX:
 ``cuda`` marker is then unregistered, which only warns).  Without a card
 every test here skips.  Data movement (K1, K3-K9) is compared bitwise,
 attention (K2, K10) to the reference's tolerances, 2e-5 in f32 and 2e-2 in
-bf16.
+bf16; K2's bf16 kernel is also held bitwise to itself run to run and across
+batch positions.
 """
 import numpy as np
 import pytest
@@ -62,6 +63,65 @@ def test_cuda_flash_attention(card, dtype, S):
     want = flash_attn.flash_attention_plain(q, k, v)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+def _bf16_qkv(card, seed, B, S, H, Hkv, hd):
+    return (torch.from_numpy(x).to(card, torch.bfloat16)
+            for x in _qkv(seed, B, S, H, Hkv, hd))
+
+
+@pytest.mark.parametrize("S", [1, 37, 63, 64, 65, 129, 512, 528, 1000])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (8, 8), (8, 1)])
+def test_cuda_flash_bf16_grid(card, S, hd, H, Hkv):
+    """The wgmma kernel over ragged tiles, both head dims and head ratios
+    1:1, 4:1 and 8:1, within bf16's 2e-2 of the plain version."""
+    q, k, v = _bf16_qkv(card, S * 7 + H + Hkv + hd, 1, S, H, Hkv, hd)
+    got = flash_attn.flash_attention(q, k, v)
+    want = flash_attn.flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16 and bool(got.isfinite().all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd", [(3, 528, 32, 8, 128),
+                                          (1, 4096, 32, 8, 128),
+                                          (2, 1000, 8, 1, 64)])
+def test_cuda_flash_bf16_batched_and_long(card, B, S, H, Hkv, hd):
+    """K11's shape (3 slots of 528 keys), the long prefill and a ragged
+    batched 8:1 case."""
+    q, k, v = _bf16_qkv(card, S + B, B, S, H, Hkv, hd)
+    got = flash_attn.flash_attention(q, k, v)
+    want = flash_attn.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("S,H,Hkv,hd", [(512, 32, 8, 128), (37, 8, 1, 64),
+                                        (1000, 8, 8, 128), (528, 32, 8, 64)])
+def test_cuda_flash_bf16_bitwise_laws(card, S, H, Hkv, hd):
+    """Run to run and batch position give the same bits (the serving
+    path's bitwise laws rest on both); a NaN neighbour batch stays out of
+    batch 0, since rows past S are the tensor map's zero fill."""
+    q, k, v = _bf16_qkv(card, S + hd, 2, S, H, Hkv, hd)
+    k[1], v[1] = float("nan"), float("nan")
+    pair = flash_attn.flash_attention(q, k, v)
+    again = flash_attn.flash_attention(q, k, v)
+    alone = flash_attn.flash_attention(q[:1].contiguous(), k[:1].contiguous(),
+                                       v[:1].contiguous())
+    assert bool(pair[0].isfinite().all())
+    assert torch.equal(pair[:1], alone)
+    assert torch.equal(pair[:1], again[:1])
+    assert torch.equal(pair[1].isnan(), again[1].isnan())
+
+
+def test_cuda_flash_bf16_rejects_unaligned_base(card):
+    """TMA reads from 16-byte aligned bases only; an offset view raises."""
+    q, k, v = _bf16_qkv(card, 0, 1, 64, 8, 8, 64)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=card)
+    shifted = flat[1:].view(q.shape)
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention(shifted, k, v)
 
 
 def test_cuda_paged_gather_bitwise(card):

@@ -133,6 +133,71 @@ def test_flash_gqa_matches_ops_flash_attention(dtype, S, H, Hkv, hd, counts):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _wgmma_flash_emulation(q, k, v, tile=128):
+    """The bf16 K2 kernel's arithmetic, tile by tile, on the CPU: scores of
+    bf16 q and k summed in f32 and then scaled by hd**-0.5 * log2(e), an
+    online softmax in f32 (exp2) over key tiles of ``tile`` that stops at
+    the diagonal tile (the only one masked), P rounded to bf16 before P.V,
+    and ``acc / max(l, 1e-30)`` rounded to bf16 once."""
+    B, S, H, hd = q.shape
+    g = H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    out = torch.empty(B, H, S, hd)
+    for q0 in range(0, S, tile):
+        rows = torch.arange(q0, min(S, q0 + tile))
+        m = torch.full((B, H, len(rows), 1), float("-inf"))
+        l = torch.zeros(B, H, len(rows), 1)
+        acc = torch.zeros(B, H, len(rows), hd)
+        for k0 in range(0, q0 + 1, tile):
+            keys = torch.arange(k0, min(S, k0 + tile))
+            x = (qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)) * scale
+            if k0 == q0:
+                x = x.masked_fill(keys[None, :] > rows[:, None],
+                                  float("-inf"))
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.bfloat16().float() @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,ref", [
+    (1, 128, 2, 2, 64, (64, 64)), (2, 256, 4, 4, 32, (128, 64)),
+    (1, 512, 1, 1, 128, (256, 256)),
+    (2, 1, 8, 2, 64, None), (2, 37, 8, 2, 64, None), (2, 64, 4, 1, 32, None),
+    (2, 128, 8, 4, 128, None),
+])
+def test_flash_bf16_tile_emulation_matches_pallas(B, S, H, Hkv, hd, ref,
+                                                  counts):
+    """The card kernel's bf16 arithmetic, emulated, is within bf16's 2e-2
+    of the Pallas reference on the grids of the two tests above (equal
+    heads against ``flash_attn.flash_attention`` with its tile sizes, GQA
+    against ``ops.flash_attention``); the emulation runs over several key
+    tiles where S allows, with tiles of 64 as well as the kernel's 128."""
+    seed = B * S + H if ref else S * 131 + H
+    q, k, v = _qkv(seed, B, S, H, Hkv, hd)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, "bfloat16") for x in (q, k, v))
+    if ref:
+        want = ref_flash.flash_attention(jq, jk, jv, block_q=ref[0],
+                                         block_k=ref[1])
+    else:
+        want = ref_ops.flash_attention(jq, jk, jv, block_q=64, block_k=64)
+    want = _t(want).float().numpy()
+    for tile in (64, 128):
+        got = _wgmma_flash_emulation(tq, tk, tv, tile=tile)
+        assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"])
+
+
 def test_flash_rejects_bad_input(counts):
     q, k, v = (torch.from_numpy(x) for x in _qkv(0, 1, 8, 4, 2, 16))
     with pytest.raises(ValueError):
