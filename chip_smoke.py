@@ -7,9 +7,10 @@ Phases, each fatal on failure:
 
 1. device and build: print the card's name and power limit, build the
    port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source,
-   in parallel), TF32 off; print ptxas's registers and spills for the bf16
-   K2 kernels and count their HGMMA instructions with ``cuobjdump``, where
-   the toolkit has it (a count of 0 fails);
+   in parallel), TF32 off for PyTorch's own products; print ptxas's
+   registers and spills for the bf16 K2 kernels and the K10 kernels (its
+   split pass too) and count the HGMMA instructions of both with
+   ``cuobjdump``, where the toolkit has it (a count of 0 fails);
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge shapes (K1, K3-K9 bitwise; K2 to 2e-5 in f32
    and 2e-2 in bf16, the reference's tolerances, in bf16 over S from 1 to
@@ -17,18 +18,22 @@ Phases, each fatal on failure:
    itself run to run and across batch positions, with a NaN neighbour
    batch; K10 to 2e-5 on acc/l, m
    and l, its arithmetic being f32 whatever the input type, acc itself
-   being a sum over up to 4096 keys), each timed with CUDA events beside
+   being a sum over up to 4096 keys, at eleven edge shapes in f32 and
+   bf16, bitwise run to run, its split pass bitwise to the split's plain
+   version), each timed with CUDA events beside
    its plain version and one PyTorch call computing the same function
    (timed only; the port never calls it).  The ring kernels K4-K8 run at
    2, 4 and 8 PEs, chunk lengths 1, 127, 5157 and the main shapes, every
    dtype each takes, roots 0, 3 and 7 and offsets 1 and 3, each check 20
-   times over to catch ordering races, with every new output, landing and
-   flag block poisoned (NaN or the integer maximum) so that a stale read
+   times over to catch ordering races, with every new output and flag
+   block poisoned (NaN or the integer maximum) so that a stale read
    cannot find an earlier run's equal value.  The bounds count each input
    read once and each output written once, and for K10 only the unmasked
-   products.  Rows also carry ``device_ms``, the device-only duration from
-   ``torch.profiler`` (K1, K2 and SDPA at both K2 shapes, K4 at a small
-   chunk, K8, K9, K10), measured
+   products, three TF32 products each at 495 TFLOP/s (its row also
+   carries the f32 FMA bound and the split pass's time).  Rows also carry
+   ``device_ms``, the device-only duration from ``torch.profiler`` (K1,
+   K2 and SDPA at both K2 shapes, K4 at a small chunk, K6, K8, K9, K10 at
+   both ring shapes and its split pass), measured
    after phase 6 so that the profiler's hooks cannot slow the timed
    phases;
 3. the serving path: ``repro_torch.launch.serve --disagg --full``, qwen3-4b at
@@ -56,7 +61,8 @@ Phases, each fatal on failure:
 6. the ring attention path: ``serve.seq_parallel_report`` at qwen3-4b's
    attention widths (32 heads of 128), 8 PEs, S = 32768, f32: K/V shards
    rotate by work-group ``put_signal_nbi`` and device waits, one K10
-   partial per causal (PE, shard) pair (exactly 36), merged and held
+   partial per causal (PE, shard) pair (exactly 36, each with one split
+   pass), merged and held
    against K2 over the whole sequence within 5e-5; then once more at
    unit-scale inputs, where a mask error at a shard border would exceed
    that limit.
@@ -86,7 +92,8 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12,    # dense tensor cores
+              "float32": 67e12}                       # FMA, no tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}             # tests/test_kernels.py
 
 MAIN_ARGV = ["--disagg", "--full", "--arch", "qwen3-4b", "--seed", "0",
@@ -248,9 +255,10 @@ def _flash_bound(B, S, H, Hkv, hd):
             "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
-def hgmma_count(_build, so):
-    """HGMMA instructions in the bf16 K2 kernels of the built library, by
-    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+def hgmma_count(_build, so, kernel):
+    """HGMMA instructions in the kernels whose name holds ``kernel`` in the
+    built library, by ``cuobjdump -sass``; None where the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(_build.nvcc()).parent / "cuobjdump")
     if not Path(tool).exists():
@@ -261,7 +269,7 @@ def hgmma_count(_build, so):
     for line in sass.splitlines():
         name = re.search(r"Function : (\S+)", line)
         if name:
-            inside = "flash_fwd_wgmma" in name.group(1)
+            inside = kernel in name.group(1)
         elif inside and "HGMMA" in line:
             count += 1
     return count
@@ -511,6 +519,9 @@ def check_ring(torch, rc, rma_copy, _build, dev, deferred):
                      lambda: rma_copy.remote_put(small, target_offset=1,
                                                  work_items=8),
                      "remote_put_kernel"))
+    deferred.append((rows_out[2], "device_ms",
+                     lambda: rc.ring_reduce_scatter(rows),
+                     "reduce_scatter_pull"))
     rows_out[0]["device_shape"] = "x (8, 2560) f32, work_items 8: " \
         "psum_overlap's small branch at decode"
     lib = _build.lib()
@@ -607,22 +618,30 @@ def _partial_errs(torch, got, want, seen):
     return errs, ok
 
 
+K10_EDGES = ((64, 64, 0, 0, 4, 128), (100, 37, 50, 10, 2, 64),
+             (37, 100, 0, 20, 3, 128), (128, 128, 0, 128, 2, 128),
+             (96, 160, 64, 0, 2, 64), (1, 1, 0, 0, 1, 128),
+             (65, 33, 33, 0, 2, 128), (63, 31, 31, 0, 2, 64),
+             (70, 45, 200, 100, 3, 128), (130, 257, 300, 0, 2, 64),
+             (200, 200, 0, 0, 2, 128))
+
+
 def check_flash_partial(torch, dev_kern, dev, deferred):
-    """K10 at edge shapes (Sq != Skv, bf16, head dims 64 and 128, tiles
-    whose rows see no key) against its plain version; then at the ring
-    path's shapes, 8 PEs over S = 32768: one diagonal partial (PE 7's own
-    shard) and one off-diagonal partial (PE 7 against shard 0), H = 32,
-    hd = 128, f32, timed beside the plain version and one call of the
+    """K10 at edge shapes (Sq != Skv, Sq and Skv off the 64-row and 32-key
+    tiles and off 8, bf16, head dims 64 and 128, tiles whose rows see no
+    key) against its plain version, and its split pass bitwise against the
+    split's plain version; then at the ring path's shapes, 8 PEs over S =
+    32768: one diagonal partial (PE 7's own shard) and one off-diagonal
+    partial (PE 7 against shard 0), H = 32, hd = 128, f32, timed beside the
+    plain version, the split pass alone, and one call of the
     memory-efficient SDPA kernel with the offset mask as its bias and the
-    log-sum-exp (the same function: acc = out * l, lse = m + log l)."""
+    log-sum-exp (the same function: acc = out * l, lse = m + log l).  The
+    bound is the split design's: three TF32 products per unmasked product
+    at 495 TFLOP/s; the f32 FMA bound stands beside it."""
     gen = torch.Generator(device=dev).manual_seed(6)
     tol = TOL["float32"]
     for dt in (torch.float32, torch.bfloat16):
-        for Sq, Skv, qo, ko, H, hd in ((64, 64, 0, 0, 4, 128),
-                                       (100, 37, 50, 10, 2, 64),
-                                       (37, 100, 0, 20, 3, 128),
-                                       (128, 128, 0, 128, 2, 128),
-                                       (96, 160, 64, 0, 2, 64)):
+        for Sq, Skv, qo, ko, H, hd in K10_EDGES:
             q = torch.randn(1, Sq, H, hd, generator=gen, device=dev).to(dt)
             k = torch.randn(1, Skv, H, hd, generator=gen, device=dev).to(dt)
             v = torch.randn(1, Skv, H, hd, generator=gen, device=dev).to(dt)
@@ -646,6 +665,18 @@ def check_flash_partial(torch, dev_kern, dev, deferred):
             if not (ok and blind_ok and merged <= tol):
                 fail(f"K10 flash_partial differs from its plain version "
                      f"({dt}, Sq={Sq}, Skv={Skv}, offsets {qo}/{ko})")
+            again = dev_kern.flash_partial(q, k, v, q_off=qo, k_off=ko)
+            split = dev_kern.flash_partial_split(q, k, v)
+            split_want = dev_kern.flash_partial_split_plain(q, k, v)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"K10 flash_partial: two runs differ ({dt}, Sq={Sq}, "
+                     f"Skv={Skv}, offsets {qo}/{ko})")
+            if not all(torch.equal(a, b) for a, b in zip(split, split_want)):
+                fail(f"K10 split pass differs from its plain version ({dt}, "
+                     f"Sq={Sq}, Skv={Skv}, H={H}, hd={hd})")
+    say(f"K10: {2 * len(K10_EDGES)} edge shapes within {tol}, bitwise run "
+        "to run, split pass bitwise")
     Sh, H, hd, me = 4096, 32, 128, 7
     q, k, v = (torch.randn(1, Sh, H, hd, generator=gen, device=dev)
                for _ in range(3))
@@ -698,15 +729,21 @@ def check_flash_partial(torch, dev_kern, dev, deferred):
         del got, want
         flops = 4 * hd * pairs
         nbytes = (4 * Sh * H * hd + 2 * Sh * H) * 4   # q, k, v, acc; m, l
-        t_ops = flops / PEAK_FLOPS["float32"]
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"]        # three TF32 products
+        t_fma = flops / PEAK_FLOPS["float32"]
         t_bytes = nbytes / HBM_BYTES_PER_S
         rows[tag] = {
             "ms": time_ms(torch, kernel, iters=5),
             "plain_ms": time_ms(torch, plain, iters=5),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "library_refused": why or None}
+            "fma_bound_ms": max(t_fma, t_bytes) * 1e3,
+            "library_ms": library_ms, "library_refused": why or None,
+            "flops": flops, "shape": f"K10 {tag}, q_off {q_off}, k_off "
+                                     f"{k_off}"}
         torch.cuda.empty_cache()
+    split_ms = time_ms(torch, lambda: dev_kern.flash_partial_split(q, k, v),
+                       iters=10)
     off = rows["offdiag"]
     out = {"name": "flash_partial", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_partial.cu",
@@ -717,12 +754,25 @@ def check_flash_partial(torch, dev_kern, dev, deferred):
                     "(all keys visible; 28 of the 36 ring partials are "
                     "off-diagonal); max_abs_err over acc/l and m of both "
                     "partials",
-           "raw_acc_err": raw_acc,
+           "raw_acc_err": raw_acc, "fma_bound_ms": off["fma_bound_ms"],
+           "split_ms": split_ms, "flops": off["flops"],
            "diag": rows["diag"]}
     if off["library_refused"]:
         out["library_refused"] = off["library_refused"]
-    deferred.append((out, "device_ms", lambda: dev_kern.flash_partial(
-        q, k, v, q_off=me * Sh, k_off=0), "flash_partial_kernel"))
+    for row, k_off in ((out, 0), (rows["diag"], me * Sh)):
+        deferred.append((row, "device_ms", lambda k_off=k_off: dev_kern.
+                         flash_partial(q, k, v, q_off=me * Sh, k_off=k_off),
+                         "flash_partial_tf32"))
+    # the split pass's three kernels together, per call
+    deferred.append((out, "split_device_ms",
+                     lambda: dev_kern.flash_partial_split(q, k, v), None))
+    say(f"K10 ring shapes: off-diagonal {off['ms']:.4f} ms, diagonal "
+        f"{rows['diag']['ms']:.4f} ms by events, of which the split pass "
+        f"{split_ms:.4f} ms; bounds (3 x TF32) {off['bound_ms']:.4f} / "
+        f"{rows['diag']['bound_ms']:.4f} ms, f32 FMA "
+        f"{off['fma_bound_ms']:.4f} / {rows['diag']['fma_bound_ms']:.4f} ms; "
+        f"efficient SDPA {off['library_ms']} / {rows['diag']['library_ms']} "
+        "ms")
     return out
 
 
@@ -834,20 +884,32 @@ def main() -> None:
     _build.lib()
     say(f"torch {torch.__version__} (CUDA {torch.version.cuda}); kernels "
         f"built in {time.perf_counter() - t0:.1f} s -> {so.name}")
-    entry = ""                       # ptxas's report on the bf16 K2 kernels
+    entry = ""          # ptxas's report on the bf16 K2 and the K10 kernels
     for line in (so.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line
-        elif "setmaxnreg" in line or "flash_fwd_wgmma" in entry and (
-                "spill" in line or "Used" in line):
-            hd = 128 if "ILi128E" in entry else 64
+            continue
+        hd = 128 if "ILi128E" in entry else 64
+        if "flash_fwd_wgmma" in entry and ("setmaxnreg" in line or "spill"
+                                           in line or "Used" in line):
             say(f"ptxas, bf16 K2 hd {hd}: {line.strip()}")
-    hgmma = hgmma_count(_build, so)
-    say(f"bf16 K2 kernels: {hgmma} HGMMA instructions in the built library"
-        if hgmma is not None else "bf16 K2 kernels: no cuobjdump, HGMMA "
-        "not counted")
-    if hgmma == 0:
-        fail("the bf16 K2 kernels hold no HGMMA instruction")
+        elif "flash_partial_tf32" in entry and ("spill" in line or "Used"
+                                                in line):
+            lo = "f32" if "Lb1E" in entry else "bf16"
+            say(f"ptxas, K10 hd {hd} {lo}: {line.strip()}")
+        elif "split_" in entry and ("spill" in line or "Used" in line):
+            name = "split_vt" if "split_vt" in entry else "split_rows"
+            dt = "bf16" if "bfloat16" in entry else "f32"
+            say(f"ptxas, K10 split pass {name} {dt}: {line.strip()}")
+    hgmma = {}
+    for label, kernel in (("bf16 K2", "flash_fwd_wgmma"),
+                          ("K10", "flash_partial_tf32")):
+        hgmma[label] = hgmma_count(_build, so, kernel)
+        say(f"{label} kernels: {hgmma[label]} HGMMA instructions in the "
+            "built library" if hgmma[label] is not None else
+            f"{label} kernels: no cuobjdump, HGMMA not counted")
+        if hgmma[label] == 0:
+            fail(f"the {label} kernels hold no HGMMA instruction")
 
     # ---- 2. kernels against their plain versions ----------------------------
     deferred = []                    # device-only timings, taken last
@@ -994,9 +1056,11 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
         f"{ring_launches}; max|err| vs K2 {ring['max_abs_err']:.3e}")
     if ring_launches["flash_partial"] != RING_PARTIALS or \
+            ring_launches["flash_partial_split"] != RING_PARTIALS or \
             ring["partials"] != RING_PARTIALS:
         fail(f"ring path launched flash_partial "
-             f"{ring_launches['flash_partial']} times, not {RING_PARTIALS}")
+             f"{ring_launches['flash_partial']} times and its split pass "
+             f"{ring_launches['flash_partial_split']}, not {RING_PARTIALS}")
     if not ring_launches["flash_attention"]:
         fail("ring path never launched K2 for its check")
     if not (ring["finite"] and ring["shape"] == (1, 32768, 32, 128)
@@ -1029,7 +1093,8 @@ def main() -> None:
             "not measured" if row[key] is None else f"{row[key]:.5f} ms"))
 
     k2 = rows[1]
-    k2["hgmma"] = hgmma
+    k2["hgmma"] = hgmma["bf16 K2"]
+    rows[-1]["hgmma"] = hgmma["K10"]
     long = k2["long"]
     if long.get("device_ms"):
         long["tflops"] = long["flops"] / long["device_ms"] / 1e9
@@ -1043,6 +1108,7 @@ def main() -> None:
     path_launches = {k: launches[k] for k in SERVE_KERNELS}
     path_launches.update({k: coll_launches[k] for k in RING_KERNELS})
     path_launches["flash_partial"] = ring_launches["flash_partial"]
+    rows[-1]["split_launches"] = ring_launches["flash_partial_split"]
     path_launches["reduce_tile"] = sum(
         run["reduce_tile"] for run in (launches, coll_launches,
                                        fused_launches, ring_launches))

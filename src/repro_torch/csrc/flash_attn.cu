@@ -51,8 +51,8 @@
 // Determinism: no atomics and no split over keys; the tile schedule depends
 // on S, hd and the head ratio only, so one run gives the bits of the next,
 // and row b of a B-batch call gives the bits of the same inputs at B = 1.
-// cuTensorMapEncodeTiled comes from the driver through
-// cudaGetDriverEntryPoint, so the library links without -lcuda.
+// The barrier, TMA and descriptor helpers and the tensor-map encoding are
+// shared with K10 (tma.cuh).
 //
 // f32 (the oracle of ring attention and of the f32 tests, not the serving
 // path): the first version's plain-FMA kernel, unchanged.  The reference's
@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -190,94 +192,12 @@ template <int HD> struct Layout {
   static constexpr int kDynamic = kQ + kStages * 2 * kKV + 1024;  // + align
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed; traps
-// after 10 s, so that a protocol fault ends the launch instead of hanging
-// the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t since = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-    if (since == 0) since = now;
-    else if (now - since > 10000000000ull) __trap();
-  }
-}
-
-// one box of the 4-D map (hd, heads, S, B) into shared memory at dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
-        "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptors for the 128-byte swizzle (layout type 1):
-// start address >> 4 in bits 0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45.
-// K-major: rows of 128 bytes, 8-row groups SBO = 1024 bytes apart (LBO is
-// not read).  MN-major: 8-key groups SBO = 1024 bytes apart, 64-column
-// boxes LBO = `box` bytes apart.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
+// V's MN-major descriptor: 8-key groups SBO = 1024 bytes apart, 64-column
+// boxes LBO = `box` bytes apart (the K-major one is in tma.cuh)
 __device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t box) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(box >> 4) << 16) | (64ull << 32) |
          (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// pins the accumulator registers after wait_group, so no read of them is
-// scheduled before the asynchronous product has written them
-template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2^x in one MUFU op (flushes subnormal results to 0; -inf gives 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -533,50 +453,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads, hd) bf16, contiguous, in boxes of (64, 1, kBK, 1); rows past
-// S read as zeros
-bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B,
-              int S, int heads, int hd) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {kCols, 1, kBK, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch(int device, const void* q, const void* k, const void* v, void* o,
            int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
@@ -586,9 +462,10 @@ int launch(int device, const void* q, const void* k, const void* v, void* o,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, encode, q, B, S, H, HD) ||
-      !make_map(&mk, encode, k, B, S, Hkv, HD) ||
-      !make_map(&mv, encode, v, B, S, Hkv, HD))
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map(&mq, encode, bf16, q, {HD, H, S, B}, {kCols, 1, kBK, 1}) ||
+      !make_map(&mk, encode, bf16, k, {HD, Hkv, S, B}, {kCols, 1, kBK, 1}) ||
+      !make_map(&mv, encode, bf16, v, {HD, Hkv, S, B}, {kCols, 1, kBK, 1}))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool sized[64] = {};              // per device: dynamic smem raised
   if (device < 0 || device >= 64 || !sized[device]) {

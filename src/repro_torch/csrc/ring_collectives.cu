@@ -5,7 +5,10 @@
 // push_broadcast, barrier_push} (K5-K8).  The reference runs each Pallas
 // kernel once per PE under shard_map, with remote DMAs and DMA semaphores
 // between chips.  On one card the PEs are the leading axis of stacked
-// buffers, and one cooperative launch runs them all:
+// buffers, and one launch runs them all.
+//
+// K4, K5, K7 and K8 keep the reference's push design in one cooperative
+// launch:
 //
 // - a PE is a group of G CTAs (blockIdx.x = g * P + pe: consecutive CTAs
 //   belong to different PEs, so a PE's group spreads over the SMs instead
@@ -23,19 +26,32 @@
 // 0 spins with an acquire load, fences, and __syncthreads() before any
 // thread reads; data another CTA wrote is read through L2 (__ldcg), never
 // from a possibly stale L1 line.  A CTA that spins on a flag set by a CTA
-// that is not resident would hang the card, so every kernel is launched
-// with cudaLaunchCooperativeKernel on a grid sized from the occupancy
-// query, which guarantees that all P * G CTAs are resident at once.
+// that is not resident would hang the card, so every such kernel is
+// launched with cudaLaunchCooperativeKernel on a grid sized from the
+// occupancy query, which guarantees that all P * G CTAs are resident at
+// once.  A flag that never rises is a protocol fault: every spin gives up
+// after 10 s and traps, so the launch fails instead of holding the card.
 //
-// A flag that never rises is a protocol fault: every spin gives up after
-// 10 s and traps, so the launch fails instead of holding the card.
+// K6 pulls instead of pushing.  The TPU ring runs P - 1 flag-gated steps,
+// each reading a landing slot and an addend and writing the neighbour's
+// landing slot: (3P - 1) * P * c bytes on one card against the function's
+// P (P + 1) c (x read once, out written once), 2.6 times as many at P = 8.
+// On one card every PE's rows are loadable by every CTA, which is the
+// paper's direct load/store path: a PE reads its peers' symmetric buffers
+// instead of waiting for them to push.  Each thread owns one vector of
+// one chunk c, issues the P loads x[(c + 1 + j) mod P][c] (in groups of 8)
+// before it folds them in that order, and stores out[c] once: exactly
+// P (P + 1) c bytes, no landing buffer, no flags, and an ordinary launch.
+// On one stream the inputs are complete when the launch starts, so no
+// entry barrier is needed.  The fold order is the ring's:
+//   out[c] = (...((x[c+1][c] + x[c+2][c]) + x[c+3][c]) + ...) + x[c][c]
+// (indices mod P), in the input's type (bf16 through f32 and
+// round-to-nearest-even, which equals a correctly rounded bf16 add), so it
+// equals its plain PyTorch version bitwise.
 //
 // Bound: bytes, for K4-K7 (each input read once, each output written once;
 // chip_smoke.py states each kernel's count).  Copies move 16-byte vectors
-// whenever the chunk and the base pointers allow it, and are bitwise.  K6
-// adds in the input's type in the reference's order (acc = landing + x,
-// bf16 through f32 and round-to-nearest-even, which equals a correctly
-// rounded bf16 add), so it equals its plain PyTorch version bitwise.  K8
+// whenever the chunk and the base pointers allow it, and are bitwise.  K8
 // moves no data: its floor is one empty cooperative launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -200,36 +216,29 @@ __device__ __forceinline__ V vadd(V a, V b) {
   return uc.v;
 }
 
-// x: (P, P, nvec) addend rows; land: (P, P-1, nvec), one landing slot per
-// step so a PE running ahead never overwrites a slot not yet read.  The
-// accumulator is never stored on its own: step s computes
-//   acc_s = x[p][(p-1) mod P]                        (s == 0)
-//   acc_s = land[p][s-1] + x[p][(p-1-s) mod P]       (s >= 1)
-// and stores it straight into the right neighbour's landing slot s; the
-// last step stores it into out[p].
+// x: (P, P, nvec) addend rows; out: (P, nvec).  blockIdx.y is the chunk c,
+// and the thread's vector i of it is folded over the P PEs in ring order.
+constexpr int kFold = 8;   // loads in flight per thread
+
 template <typename Op, typename V>
 __global__ void __launch_bounds__(kThreads)
-reduce_scatter_kernel(V* out, const V* x, V* land, int* flags, int P, int G, long long nvec) {
-  const int p = blockIdx.x % P, g = blockIdx.x / P;
-  const int right = (p + 1) % P;
-  const Slice sl = slice_of(nvec, g, G);
-  const V* xp = x + static_cast<long long>(p) * P * nvec;
-  const V* my_land = land + static_cast<long long>(p) * (P - 1) * nvec;
-  V* right_land = land + static_cast<long long>(right) * (P - 1) * nvec;
-  for (int s = 0; s < P; ++s) {
-    const V* addend = xp + static_cast<long long>((p - 1 - s + 2 * P) % P) * nvec;
-    V* dst = s < P - 1 ? right_land + s * nvec : out + p * nvec;
-    if (s == 0) {
-      for (long long i = sl.lo + threadIdx.x; i < sl.hi; i += kThreads) dst[i] = addend[i];
-    } else {
-      const V* prev = my_land + (s - 1) * nvec;
-      for (long long i = sl.lo + threadIdx.x; i < sl.hi; i += kThreads)
-        dst[i] = vadd<Op>(__ldcg(prev + i), addend[i]);
-    }
-    if (s == P - 1) break;
-    raise_flag(&flags[(right * (P - 1) + s) * G + g]);
-    wait_flag(&flags[(p * (P - 1) + s) * G + g], 1);
+reduce_scatter_pull(V* __restrict__ out, const V* __restrict__ x, int P, long long nvec) {
+  const int c = blockIdx.y;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= nvec) return;
+  const V* col = x + static_cast<long long>(c) * nvec + i;   // x[0][c][i]
+  const long long pe_stride = static_cast<long long>(P) * nvec;
+  V acc{};
+  for (int j0 = 0; j0 < P; j0 += kFold) {
+    V v[kFold];
+#pragma unroll
+    for (int u = 0; u < kFold; ++u)
+      if (j0 + u < P) v[u] = col[((c + 1 + j0 + u) % P) * pe_stride];
+#pragma unroll
+    for (int u = 0; u < kFold; ++u)
+      if (j0 + u < P) acc = j0 + u == 0 ? v[u] : vadd<Op>(acc, v[u]);
   }
+  out[static_cast<long long>(c) * nvec + i] = acc;
 }
 
 // ---------------------------------------------------------------- K7
@@ -365,21 +374,12 @@ int allgather_t(int device, void* out, const void* x, int* flags, long long cap,
 }
 
 template <typename Op, typename V>
-int reduce_scatter_t(int device, void* out, const void* x, void* land, int* flags, long long cap,
-                     int P, long long chunk_bytes, cudaStream_t st) {
-  long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
-  const long long steps = P > 1 ? P - 1 : 1;
-  int G = 0;
-  cudaError_t err = groups_for(reduce_scatter_kernel<Op, V>, device, kThreads, P, want_for(nvec),
-                               steps, cap, &G);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(flags, 0, sizeof(int) * static_cast<size_t>(P) * steps * G, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  V* o = static_cast<V*>(out);
-  const V* xi = static_cast<const V*>(x);
-  V* l = static_cast<V*>(land);
-  void* args[] = {&o, &xi, &l, &flags, &P, &G, &nvec};
-  return coop_launch(reduce_scatter_kernel<Op, V>, P, G, args, kThreads, st);
+int reduce_scatter_t(void* out, const void* x, int P, long long chunk_bytes, cudaStream_t st) {
+  const long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
+  const dim3 grid(static_cast<unsigned>((nvec + kThreads - 1) / kThreads), P);
+  reduce_scatter_pull<Op, V><<<grid, kThreads, 0, st>>>(static_cast<V*>(out),
+                                                       static_cast<const V*>(x), P, nvec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename V>
@@ -402,10 +402,10 @@ uintptr_t bits(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 }  // namespace
 
 // Every entry point: `device` is the CUDA ordinal, `stream` PyTorch's
-// current stream, `flags` an int32 scratch buffer of `flag_cap` words that
-// the wrapper allocated (zeroed here, on the stream, before the launch);
-// the wrapper has checked shapes, types and contiguity.  Returns a
-// cudaError_t code (0 on success).
+// current stream, `flags` (K4, K5, K7) an int32 scratch buffer of
+// `flag_cap` words that the wrapper allocated (zeroed here, on the stream,
+// before the launch); the wrapper has checked shapes, types and
+// contiguity.  Returns a cudaError_t code (0 on success).
 
 extern "C" int ishmem_remote_put(int device, void* out, const void* x, int* flags,
                                  long long flag_cap, int npes, long long chunk_bytes, int offset,
@@ -434,26 +434,22 @@ extern "C" int ishmem_ring_allgather(int device, void* out, const void* x, int* 
   });
 }
 
-// dtype: 0 = float32, 1 = bfloat16; chunk_elems elements per (PE, slot).
-extern "C" int ishmem_ring_reduce_scatter(int device, void* out, const void* x, void* land,
-                                          int* flags, long long flag_cap, int npes,
+// K6 takes no flags: dtype 0 = float32, 1 = bfloat16; chunk_elems
+// elements per (PE, chunk).
+extern "C" int ishmem_ring_reduce_scatter(int device, void* out, const void* x, int npes,
                                           long long chunk_elems, int dtype, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk_elems == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = align_of(chunk_elems * (dtype == 0 ? 4 : 2), bits(out) | bits(x) | bits(land)) == 16;
-  if (dtype == 0) {
-    const long long nbytes = chunk_elems * 4;
-    return vec ? reduce_scatter_t<AddF32, uint4>(device, out, x, land, flags, flag_cap, npes, nbytes, st)
-               : reduce_scatter_t<AddF32, float>(device, out, x, land, flags, flag_cap, npes, nbytes, st);
-  }
-  if (dtype == 1) {
-    const long long nbytes = chunk_elems * 2;
-    return vec ? reduce_scatter_t<AddBF16, uint4>(device, out, x, land, flags, flag_cap, npes, nbytes, st)
-               : reduce_scatter_t<AddBF16, unsigned short>(device, out, x, land, flags, flag_cap, npes,
-                                                           nbytes, st);
-  }
+  const long long nbytes = chunk_elems * (dtype == 0 ? 4 : 2);
+  const bool vec = align_of(nbytes, bits(out) | bits(x)) == 16;
+  if (dtype == 0)
+    return vec ? reduce_scatter_t<AddF32, uint4>(out, x, npes, nbytes, st)
+               : reduce_scatter_t<AddF32, float>(out, x, npes, nbytes, st);
+  if (dtype == 1)
+    return vec ? reduce_scatter_t<AddBF16, uint4>(out, x, npes, nbytes, st)
+               : reduce_scatter_t<AddBF16, unsigned short>(out, x, npes, nbytes, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

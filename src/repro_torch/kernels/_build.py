@@ -3,13 +3,14 @@
 The sources under ``repro_torch/csrc`` have a plain C interface.  At first
 use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source,
 all started together, then one link) into ``repro_torch/_build/<hash>/``,
-keyed by a hash of the sources and flags, and loaded with ``ctypes``.  No
-PyTorch header is compiled, so a build takes seconds.  The library links
-without ``-lcuda``: a kernel that needs a driver function (K2's TMA tensor
-maps, ``cuTensorMapEncodeTiled``) takes it through
+keyed by a hash of the flags and of every file under ``csrc/`` (sources
+and headers), and loaded with ``ctypes``.  No PyTorch header is compiled,
+so a build takes seconds.  The library links without ``-lcuda``: the
+kernels that need a driver function (K2's and K10's TMA tensor maps,
+``cuTensorMapEncodeTiled``, in ``csrc/tma.cuh``) take it through
 ``cudaGetDriverEntryPoint``.  ``nvcc`` comes from ``PATH`` or
-``CUDA_HOME``; without it the build raises — there is no CPU stand-in for a
-CUDA tensor.
+``CUDA_HOME``; without it the build raises — there is no CPU stand-in for
+a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -40,13 +41,14 @@ SIGNATURES = {
     "ishmem_paged_gather": [_I, _P, _P, _P, _LL, _LL, _I, _P],
     "ishmem_remote_put": [_I, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ishmem_ring_allgather": [_I, _P, _P, _P, _LL, _I, _LL, _P],
-    "ishmem_ring_reduce_scatter": [_I, _P, _P, _P, _P, _LL, _I, _LL, _I,
-                                   _P],
+    "ishmem_ring_reduce_scatter": [_I, _P, _P, _I, _LL, _I, _P],
     "ishmem_push_broadcast": [_I, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ishmem_barrier_push": [_I, _P, _P, _I, _P],
     "ishmem_coop_noop": [_I, _I, _P],
+    "ishmem_flash_partial_split": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _F, _P],
     "ishmem_flash_partial": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _P],
+                             _I, _I, _I, _P],
     "ishmem_reduce_tile": [_I, _P, _P, _I, _LL, _I, _I, _P],
 }
 
@@ -67,10 +69,13 @@ def nvcc() -> str:
 
 
 def build_dir() -> Path:
+    """The build's directory, keyed by the flags and every file under
+    ``csrc/`` (headers too: an edit to one must not load a stale
+    library)."""
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
-        digest.update(name.encode())
-        digest.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(path.relative_to(CSRC).as_posix().encode())
+        digest.update(path.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 

@@ -13,8 +13,11 @@ Counterpart of ``repro/kernels/ishmem_device.py``:
   and K2, bitwise equal to ``assemble`` followed by K2.
 - **K10** :func:`flash_partial` (``csrc/flash_partial.cu``) replaces the
   Pallas ``flash_partial``: one ring step's unnormalised causal partial at
-  absolute offsets.  :func:`merge_partials` and :func:`ring_attention`
-  are plain torch over its outputs.  Bound by operations.
+  absolute offsets, on TF32 tensor cores in split precision (three TF32
+  products per matrix product over hi/lo parts that
+  :func:`flash_partial_split` writes).  :func:`merge_partials` and
+  :func:`ring_attention` are plain torch over its outputs.  Bound by
+  operations.
 """
 from __future__ import annotations
 
@@ -168,13 +171,27 @@ def flash_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m.permute(0, 2, 1).contiguous(), l.permute(0, 2, 1).contiguous())
 
 
-def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  q_off: int, k_off: int):
-    """One ring step's partial attention.  q: ``(B, Sq, H, hd)``, the local
-    query shard at absolute position ``q_off``; k, v: ``(B, Skv, H, hd)``,
-    the resident KV shard at ``k_off``; f32 or bf16.  Returns ``(acc, m,
-    l)``: the unnormalised output ``(B, Sq, H, hd)`` and the softmax state
-    ``(B, Sq, H)``, all f32."""
+# Within every group of 8 keys, V^T's position i holds key KEY_ORDER[i]:
+# the order in which the kernel's score accumulator hands P to P.V
+KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` does: the low 13 bits of the magnitude cleared
+    after adding half of their weight."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> torch.Tensor:
+    hi = tf32_round(x)
+    return torch.stack([hi, tf32_round(x - hi)])
+
+
+def _check_partial(q, k, v) -> bool:
+    """Raise on inputs K10 does not take; True when they lie on the CPU
+    (the plain version's route), False on one CUDA device."""
     B, Sq, H, hd = q.shape
     if (k.shape != v.shape or k.dim() != 4 or k.shape[0] != B
             or k.shape[2:] != (H, hd) or k.shape[1] < 1):
@@ -185,19 +202,72 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"flash_partial: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; takes one of {tuple(codes)}")
     if ops.on_cpu(q, k, v):
-        return flash_partial_plain(q, k, v, q_off=q_off, k_off=k_off)
+        return True
     if hd not in flash_attn.HEAD_DIMS:
         raise ValueError(f"flash_partial: head_dim {hd} not in "
                          f"{flash_attn.HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_partial: q, k and v must be contiguous")
+    return False
+
+
+def flash_partial_split_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor):
+    """Plain version of K10's split pass: ``(qs, ks, vt)``, f32 hi/lo
+    planes (hi = TF32 rounding, lo = the rest rounded again).  ``qs``:
+    ``(2, B, Sq, H, hd)`` of ``q * hd**-0.5``; ``ks``: ``(2, B, Skv, H,
+    hd)`` of k; ``vt``: ``(2, B, H, hd, Skv8)`` of v transposed, ``Skv8``
+    = Skv rounded up to 8, zero keys past Skv, and the keys of each group
+    of 8 in :data:`KEY_ORDER`."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    Skv8 = -(-Skv // 8) * 8
+    vf = v.float().new_zeros((B, Skv8, H, hd))
+    vf[:, :Skv] = v.float()
+    perm = torch.tensor(KEY_ORDER, device=v.device)
+    order = (torch.arange(0, Skv8, 8, device=v.device)[:, None]
+             + perm[None, :]).reshape(-1)
+    vt = vf[:, order].permute(0, 2, 3, 1)
+    return _split(q.float() * hd ** -0.5), _split(k.float()), _split(vt)
+
+
+def flash_partial_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """K10's split pass (``split_rows`` and ``split_vt``): the hi/lo planes
+    that :func:`flash_partial_split_plain` describes, in one call."""
+    if _check_partial(q, k, v):
+        return flash_partial_split_plain(q, k, v)
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qs = torch.empty((2, B, Sq, H, hd), **f32)
+    ks = torch.empty((2, B, Skv, H, hd), **f32)
+    vt = torch.empty((2, B, H, hd, -(-Skv // 8) * 8), **f32)
+    ops.launch("flash_partial_split", "ishmem_flash_partial_split", q.device,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(),
+               ks.data_ptr(), vt.data_ptr(), B, Sq, Skv, H, hd,
+               flash_attn._DTYPE_CODE[q.dtype], hd ** -0.5)
+    return qs, ks, vt
+
+
+def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_off: int, k_off: int):
+    """One ring step's partial attention.  q: ``(B, Sq, H, hd)``, the local
+    query shard at absolute position ``q_off``; k, v: ``(B, Skv, H, hd)``,
+    the resident KV shard at ``k_off``; f32 or bf16.  Returns ``(acc, m,
+    l)``: the unnormalised output ``(B, Sq, H, hd)`` and the softmax state
+    ``(B, Sq, H)``, all f32.  On the card: the split pass, then the
+    partial over its planes."""
+    if _check_partial(q, k, v):
+        return flash_partial_plain(q, k, v, q_off=q_off, k_off=k_off)
+    B, Sq, H, hd = q.shape
+    qs, ks, vt = flash_partial_split(q, k, v)
     acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     ops.launch("flash_partial", "ishmem_flash_partial", q.device,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+               qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), acc.data_ptr(),
                m.data_ptr(), l.data_ptr(), B, Sq, k.shape[1], H, hd,
-               int(q_off), int(k_off), codes[q.dtype], hd ** -0.5)
+               int(q_off), int(k_off), int(q.dtype == torch.float32))
     return acc, m, l
 
 

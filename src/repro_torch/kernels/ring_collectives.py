@@ -4,11 +4,12 @@ Replaces ``repro/kernels/ring_collectives.py``: ``ring_allgather`` (K5),
 ``ring_reduce_scatter`` (K6), ``push_broadcast`` (K7) and ``barrier_push``
 (K8).  The reference calls each once per PE inside ``shard_map``; the port
 takes PE-stacked tensors instead: the leading axis is the PE axis, and
-``out[p]`` is what PE p's call returns in the reference.  On the card one
-cooperative launch runs every PE as a group of CTAs, with flag words in
-place of DMA semaphores (see the source for the design).  Each kernel has a
-plain PyTorch version that follows the same ring order; a wrapper takes it
-for CPU tensors only.
+``out[p]`` is what PE p's call returns in the reference.  On the card K5,
+K7 and K8 run every PE as a group of CTAs in one cooperative launch, with
+flag words in place of DMA semaphores; K6 pulls each chunk's addends from
+every PE's rows in the ring's fold order, in one ordinary launch (see the
+source for both designs).  Each kernel has a plain PyTorch version that
+follows the reference's order; a wrapper takes it for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -87,7 +88,8 @@ def ring_allgather(x: torch.Tensor) -> torch.Tensor:
 def ring_reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of K6, in the reference's order and in x's dtype:
     ``acc = x[p][(p-1) mod P]``; step s: ``acc = left's acc + x[p][(p-2-s)
-    mod P]``."""
+    mod P]``.  So chunk c is folded as ``(...(x[c+1][c] + x[c+2][c]) +
+    ...) + x[c][c]`` (indices mod P), the order the kernel pulls in."""
     P = x.shape[0]
     acc = [x[p, (p - 1) % P].clone() for p in range(P)]
     for s in range(P - 1):
@@ -105,14 +107,11 @@ def ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
                          f"got {tuple(x.shape)}")
     if ops.on_cpu(x):
         return ring_reduce_scatter_plain(x)
-    chunk = tuple(x.shape[2:])
-    out = torch.empty((P,) + chunk, dtype=x.dtype, device=x.device)
-    land = torch.empty((P, max(0, P - 1)) + chunk, dtype=x.dtype,
-                       device=x.device)
-    flags = flags_for(x)
+    out = torch.empty((P,) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
     ops.launch("ring_reduce_scatter", "ishmem_ring_reduce_scatter", x.device,
-               out.data_ptr(), x.data_ptr(), land.data_ptr(), flags.data_ptr(),
-               flags.numel(), P, x[0, 0].numel(), REDUCE_DTYPES[x.dtype])
+               out.data_ptr(), x.data_ptr(), P, x[0, 0].numel(),
+               REDUCE_DTYPES[x.dtype])
     return out
 
 

@@ -148,6 +148,32 @@ def test_reduce_scatter_bf16_adds_in_bf16(counts):
     assert got.dtype == torch.bfloat16 and torch.equal(got, torch.stack(acc))
 
 
+@pytest.mark.parametrize("npes", [1, 2, 5, 8, 11])
+def test_reduce_scatter_fold_order(npes, counts):
+    """Chunk c is folded as ``(...(x[c+1][c] + x[c+2][c]) + ...) +
+    x[c][c]`` (indices mod P), the order the kernel pulls in (11 PEs take
+    two groups of 8 loads).  The data mix magnitudes so that bf16 rounding
+    tells this order from a sum over p = 0 .. P-1."""
+    rng = np.random.default_rng(70 + npes)
+    x = torch.from_numpy((rng.normal(size=(npes, npes, 96)) * 10.0 ** rng
+                          .integers(-3, 4, size=(npes, npes, 96)))
+                         .astype(np.float32)).bfloat16()
+    want, naive = [], []
+    for c in range(npes):
+        acc = x[(c + 1) % npes, c]
+        for j in range(1, npes):
+            acc = (acc.float() + x[(c + 1 + j) % npes, c].float()).bfloat16()
+        want.append(acc)
+        acc = x[0, c]
+        for p in range(1, npes):
+            acc = (acc.float() + x[p, c].float()).bfloat16()
+        naive.append(acc)
+    got = rc.ring_reduce_scatter(x)
+    assert torch.equal(got, torch.stack(want))
+    if npes > 2:
+        assert not torch.equal(got, torch.stack(naive))
+
+
 def test_wrappers_reject_bad_input(counts):
     with pytest.raises(ValueError):
         rc.ring_reduce_scatter(torch.zeros(4, 3, 8))     # not (P, P, ...)

@@ -158,11 +158,19 @@ def test_cuda_copy_kernels_bitwise(card, dtype, P):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P", [2, 4, 8])
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
 def test_cuda_reduce_scatter_bitwise(card, dtype, P):
+    """The pull kernel in the ring's fold order: 16-byte vectors where the
+    chunk and base allow, one element otherwise (odd chunks, and a base
+    one element off the 16-byte grid)."""
     for n in (1, 127, 128 * 40 + 37, 1 << 16):
         g = torch.Generator(device=card).manual_seed(n)
         x = torch.randn(P, P, n, generator=g, device=card).to(dtype)
+        assert torch.equal(rc.ring_reduce_scatter(x),
+                           rc.ring_reduce_scatter_plain(x))
+        flat = torch.randn(P * P * n + 1, generator=g, device=card).to(dtype)
+        x = flat[1:].view(P, P, n)              # contiguous, base off-grid
+        assert x.is_contiguous() and x.data_ptr() % 16
         assert torch.equal(rc.ring_reduce_scatter(x),
                            rc.ring_reduce_scatter_plain(x))
     torch.cuda.synchronize()
@@ -205,19 +213,31 @@ def test_cuda_reduce_tile_bitwise(card, dtype, op):
     assert torch.equal(rt.reduce_tile(x, op), rt.reduce_tile_plain(x, op))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Skv,q_off,k_off,H,hd", [
+K10_SHAPES = [
     (64, 64, 0, 0, 4, 128),          # diagonal shard
     (100, 37, 50, 10, 2, 64),        # past shard, ragged tiles
     (37, 100, 0, 20, 3, 128),        # some rows see no key
     (128, 128, 0, 128, 2, 128),      # a future shard: every row masked
     (96, 160, 64, 0, 2, 64),
-])
+    (1, 1, 0, 0, 1, 128),            # one query, one key
+    (65, 33, 33, 0, 2, 128),         # Sq = 64 + 1, Skv = 32 + 1
+    (63, 31, 31, 0, 2, 64),          # one short of the tiles
+    (70, 45, 200, 100, 3, 128),      # Skv not a multiple of 8, past shard
+    (130, 257, 300, 0, 2, 64),       # Skv = 8 * 32 + 1
+    (200, 200, 0, 0, 2, 128),        # diagonal, ragged q and key tiles
+]
+
+
+def _k10_inputs(card, dtype, Sq, Skv, H, hd, seed=None):
+    rng = np.random.default_rng(Sq + Skv if seed is None else seed)
+    return tuple(torch.from_numpy(rng.normal(size=(1, S, H, hd)).astype(
+        np.float32)).to(card, getattr(torch, dtype)) for S in (Sq, Skv, Skv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,q_off,k_off,H,hd", K10_SHAPES)
 def test_cuda_flash_partial(card, dtype, Sq, Skv, q_off, k_off, H, hd):
-    rng = np.random.default_rng(Sq + Skv)
-    q, k, v = (torch.from_numpy(rng.normal(size=(1, S, H, hd)).astype(
-        np.float32)).to(card, getattr(torch, dtype))
-        for S in (Sq, Skv, Skv))
+    q, k, v = _k10_inputs(card, dtype, Sq, Skv, H, hd)
     got = ishmem_device.flash_partial(q, k, v, q_off=q_off, k_off=k_off)
     want = ishmem_device.flash_partial_plain(q, k, v, q_off=q_off,
                                              k_off=k_off)
@@ -232,3 +252,40 @@ def test_cuda_flash_partial(card, dtype, Sq, Skv, q_off, k_off, H, hd):
         ishmem_device.merge_partials([got]),
         ishmem_device.merge_partials([want]), atol=TOL["float32"],
         rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,H,hd", [(37, 100, 3, 128), (100, 37, 2, 64),
+                                         (1, 1, 1, 64), (130, 257, 2, 128)])
+def test_cuda_flash_partial_split_bitwise(card, dtype, Sq, Skv, H, hd):
+    """The split pass against its plain version: the TF32 hi/lo planes of
+    q * hd**-0.5 and k, and V^T in KEY_ORDER with zero keys to Skv8."""
+    q, k, v = _k10_inputs(card, dtype, Sq, Skv, H, hd)
+    q, k, v = (torch.cat([t, t * 3]) for t in (q, k, v))      # B = 2
+    got = ishmem_device.flash_partial_split(q, k, v)
+    want = ishmem_device.flash_partial_split_plain(q, k, v)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,q_off,k_off,H,hd", [
+    (200, 200, 0, 0, 2, 128), (37, 100, 0, 20, 3, 64),
+    (96, 70, 0, 64, 2, 128)])
+def test_cuda_flash_partial_run_to_run(card, dtype, Sq, Skv, q_off, k_off,
+                                       H, hd):
+    """Bitwise run to run; rows that see no key exactly m = -1e30, l = Skv;
+    batch 0 of B = 2 bitwise equal to B = 1."""
+    q, k, v = _k10_inputs(card, dtype, Sq, Skv, H, hd, seed=3)
+    first = ishmem_device.flash_partial(q, k, v, q_off=q_off, k_off=k_off)
+    again = ishmem_device.flash_partial(q, k, v, q_off=q_off, k_off=k_off)
+    pair = ishmem_device.flash_partial(
+        *(torch.cat([t, t.flip(1)[:, :t.shape[1]]]) for t in (q, k, v)),
+        q_off=q_off, k_off=k_off)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, pair):
+        assert torch.equal(a, b) and torch.equal(a, c[:1])
+    blind = (q_off + torch.arange(Sq, device=card)) < k_off
+    assert bool((first[1][:, blind] == flash_attn.NEG_INF).all())
+    assert bool((first[2][:, blind] == Skv).all())

@@ -277,3 +277,17 @@ def test_build_dir_is_keyed_by_sources():
     key = _build.build_dir()
     assert key.parent == _build.BUILD_ROOT and len(key.name) == 16
     assert _build.build_dir() == key
+
+
+@pytest.mark.parametrize("name", ["tma.cuh", "flash_partial.cu"])
+def test_build_dir_sees_every_csrc_file(name, monkeypatch, tmp_path):
+    """An edit to a header changes the build's key as an edit to a source
+    does, so no stale library is loaded."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    key = _build.build_dir()
+    with open(csrc / name, "a") as f:
+        f.write("\n// edited\n")
+    assert _build.build_dir() != key
