@@ -20,7 +20,12 @@ Phases, each fatal on failure:
    and l, its arithmetic being f32 whatever the input type, acc itself
    being a sum over up to 4096 keys, at eleven edge shapes in f32 and
    bf16, bitwise run to run, its split pass bitwise to the split's plain
-   version), each timed with CUDA events beside
+   version; K3 at the main shape with the numpy table the serving path
+   passes, under PyTorch's sync debug mode set to raise, so the call is
+   shown to make no device sync, with a card-table call as the control
+   that the mode sees one, then at six edge shapes with host and card
+   tables, and an out-of-range host table refused before any launch),
+   each timed with CUDA events beside
    its plain version and one PyTorch call computing the same function
    (timed only; the port never calls it).  The ring kernels K4-K8 run at
    2, 4 and 8 PEs, chunk lengths 1, 127, 5157 and the main shapes, every
@@ -32,8 +37,9 @@ Phases, each fatal on failure:
    products, three TF32 products each at 495 TFLOP/s (its row also
    carries the f32 FMA bound and the split pass's time).  Rows also carry
    ``device_ms``, the device-only duration from ``torch.profiler`` (K1,
-   K2 and SDPA at both K2 shapes, K4 at a small chunk, K6, K8, K9, K10 at
-   both ring shapes and its split pass), measured
+   K2 and SDPA at both K2 shapes, K3 and ``index_select``,
+   K4 at a small chunk, K5 and ``expand`` + ``contiguous``, K6, K8, K9,
+   K10 at both ring shapes and its split pass), measured
    after phase 6 so that the profiler's hooks cannot slow the timed
    phases;
 3. the serving path: ``repro_torch.launch.serve --disagg --full``, qwen3-4b at
@@ -373,9 +379,38 @@ def check_flash(torch, flash_attn, dev, deferred):
     return out
 
 
-def check_gather(torch, ishmem_device, dev):
+def _gather_cases(torch, gen, dev, R, data):
+    """(label, data, host table) for K3's edge shapes: every table entry
+    unmapped, one entry, the odd width 37 (4-byte units), a data base off
+    the 16-byte grid (4-byte units), a row of one CTA's 32 KB and 16 bytes
+    (a second CTA with one vector), and 264 entries at the main row width."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    odd = torch.randn(10, 37, generator=gen, device=dev)
+    flat = torch.randn(64 * 4096 + 1, generator=gen, device=dev)
+    shifted = flat[1:].view(64, 4096)
+    long_row = torch.randn(20, 16392, generator=gen, device=dev).bfloat16()
+    many = rng.integers(0, R + 1, size=(8, 33)).astype(np.int32)
+    return [
+        ("all unmapped", data, np.full((3, 33), R, np.int32)),
+        ("one entry", data, np.array([[R // 2]], np.int32)),
+        ("odd width 37", odd, np.array([[3, 10], [10, 0]], np.int32)),
+        ("base off the 16-byte grid", shifted,
+         rng.integers(0, 65, size=(3, 9)).astype(np.int32)),
+        ("row of one CTA's chunk + 16 bytes", long_row,
+         rng.integers(0, 21, size=(4, 5)).astype(np.int32)),
+        ("8 slots x 33 at the main width", data, many),
+    ]
+
+
+def check_gather(torch, ishmem_device, ops, dev, deferred):
     """K3 at the main path's pool row (256 blocks of 1,179,648 bf16 words)
-    and table (3 slots x 33 entries), with unmapped entries; bitwise."""
+    and table (3 slots x 33 entries), with unmapped entries, bitwise, with
+    the table as the serving path passes it (a numpy array on the host,
+    under PyTorch's sync debug mode set to raise, so the call is shown to
+    make no device-to-host sync) and as a tensor on the card; then at
+    K3's edge shapes, both ways.  Timed with the host table, as the
+    serving path calls it, and with the card table (one sync a call)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     R, W, slots, nb = 256, 1179648, 3, 33
     data = torch.randn(R, W, generator=gen, device=dev).bfloat16()
@@ -384,32 +419,75 @@ def check_gather(torch, ishmem_device, dev):
     table[0] = perm[:nb]
     table[1] = perm[nb:2 * nb]
     table[2, :10] = perm[2 * nb:2 * nb + 10]       # a partly mapped slot
-    got = ishmem_device.paged_gather(data, table)
+    host = table.cpu().numpy()
     want = ishmem_device.paged_gather_plain(data, table)
+    ishmem_device.paged_gather(data, host)          # warm the pinned pool
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ishmem_device.paged_gather(data, host)
+        try:          # the control: a card table's range read is a sync
+            ishmem_device.paged_gather(data, table)
+            fail("PyTorch's sync debug mode missed the card table's sync")
+        except RuntimeError:
+            pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        fail("K3 paged_gather differs from its plain version")
-    small = torch.randn(10, 37, generator=gen, device=dev)
-    stab = torch.tensor([[3, 10], [10, 0]], dtype=torch.int32, device=dev)
-    if not torch.equal(ishmem_device.paged_gather(small, stab),
-                       ishmem_device.paged_gather_plain(small, stab)):
-        fail("K3 paged_gather differs from its plain version (odd width)")
+        fail("K3 paged_gather (host table) differs from its plain version")
+    if not torch.equal(ishmem_device.paged_gather(data, table), want):
+        fail("K3 paged_gather (card table) differs from its plain version")
+    del got, want
+    cases = _gather_cases(torch, gen, dev, R, data)
+    for label, d, tab in cases:
+        want = ishmem_device.paged_gather_plain(
+            d, torch.from_numpy(tab).to(dev))
+        for kind, t in (("host", tab), ("card", torch.from_numpy(tab).to(dev))):
+            got = ishmem_device.paged_gather(d, t)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K3 paged_gather differs from its plain version: "
+                     f"{label}, {kind} table")
+    bad = host.copy()
+    bad[0, 0] = R + 1
+    before = ops.LAUNCHES["paged_gather"]
+    try:
+        ishmem_device.paged_gather(data, bad)
+        fail("K3 took a host table entry outside [0, R]")
+    except IndexError:
+        pass
+    if ops.LAUNCHES["paged_gather"] != before:
+        fail("K3 launched before it refused a host table")
+    say(f"K3: main shape bitwise with a host table (no device sync) and a "
+        f"card table; {len(cases)} edge shapes bitwise both ways; an "
+        f"out-of-range host table refused before any launch")
+
     padded = torch.cat([data, data.new_zeros(1, W)])
     idx = table.reshape(-1).long()
     mapped = int((table < R).sum())
     nbytes = (mapped + table.numel()) * W * 2 + table.numel() * 4
-    return {"name": "paged_gather", "route": "cuda",
-            "source": "src/repro_torch/csrc/ishmem_device.cu",
-            "replaces": "src/repro/kernels/ishmem_device.py:47",
-            "max_abs_err": 0.0,
-            "ms": time_ms(torch, lambda: ishmem_device.paged_gather(data, table)),
-            "plain_ms": time_ms(
-                torch, lambda: ishmem_device.paged_gather_plain(data, table)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": time_ms(
-                torch, lambda: torch.index_select(padded, 0, idx)),
-            "shape": f"data ({R},{W}) bf16, table ({slots},{nb}), "
-                     f"{mapped} mapped"}
+    out = {"name": "paged_gather", "route": "cuda",
+           "source": "src/repro_torch/csrc/ishmem_device.cu",
+           "replaces": "src/repro/kernels/ishmem_device.py:47",
+           "max_abs_err": 0.0,
+           "ms": time_ms(torch, lambda: ishmem_device.paged_gather(data,
+                                                                    host)),
+           "card_table_ms": time_ms(
+               torch, lambda: ishmem_device.paged_gather(data, table)),
+           "plain_ms": time_ms(
+               torch, lambda: ishmem_device.paged_gather_plain(data, table)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": time_ms(
+               torch, lambda: torch.index_select(padded, 0, idx)),
+           "shape": f"data ({R},{W}) bf16, host table ({slots},{nb}), "
+                    f"{mapped} mapped"}
+    deferred.append((out, "device_ms",
+                     lambda: ishmem_device.paged_gather(data, host),
+                     "paged_gather_kernel"))
+    deferred.append((out, "library_device_ms",
+                     lambda: torch.index_select(padded, 0, idx), None))
+    return out
 
 
 def _ring_cases(rc, rma_copy, P, n, dt, dev, gen, torch):
@@ -519,6 +597,11 @@ def check_ring(torch, rc, rma_copy, _build, dev, deferred):
                      lambda: rma_copy.remote_put(small, target_offset=1,
                                                  work_items=8),
                      "remote_put_kernel"))
+    deferred.append((rows_out[1], "device_ms",
+                     lambda: rc.ring_allgather(shard), "allgather_pull"))
+    deferred.append((rows_out[1], "library_device_ms",
+                     lambda: shard.unsqueeze(0).expand(
+                         P, *shard.shape).contiguous(), None))
     deferred.append((rows_out[2], "device_ms",
                      lambda: rc.ring_reduce_scatter(rows),
                      "reduce_scatter_pull"))
@@ -915,7 +998,7 @@ def main() -> None:
     deferred = []                    # device-only timings, taken last
     rows = [check_copy(torch, rma_copy, dev, deferred),
             check_flash(torch, flash_attn, dev, deferred),
-            check_gather(torch, ishmem_device, dev)]
+            check_gather(torch, ishmem_device, ops, dev, deferred)]
     torch.cuda.empty_cache()
     rows += check_ring(torch, ring_collectives, rma_copy, _build, dev,
                        deferred)
@@ -1092,6 +1175,16 @@ def main() -> None:
         say(f"{row.get('name', row['shape'])} {key}: " + (
             "not measured" if row[key] is None else f"{row[key]:.5f} ms"))
 
+    by_name = {r["name"]: r for r in rows}
+    for r in (by_name["paged_gather"], by_name["ring_allgather"]):
+        if r.get("device_ms"):
+            r["bound_share"] = r["bound_ms"] / r["device_ms"]
+        say(f"{r['name']} [{r['shape']}]: {r['ms']:.4f} ms by events, "
+            f"device {r.get('device_ms')} ms ({r.get('bound_share')} of its "
+            f"{r['bound_ms']:.4f} ms bound); library {r['library_ms']:.4f} ms "
+            f"by events, device {r.get('library_device_ms')} ms")
+    say(f"paged_gather with the card table (one sync a call): "
+        f"{by_name['paged_gather']['card_table_ms']:.4f} ms by events")
     k2 = rows[1]
     k2["hgmma"] = hgmma["bf16 K2"]
     rows[-1]["hgmma"] = hgmma["K10"]

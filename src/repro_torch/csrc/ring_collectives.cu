@@ -7,8 +7,7 @@
 // between chips.  On one card the PEs are the leading axis of stacked
 // buffers, and one launch runs them all.
 //
-// K4, K5, K7 and K8 keep the reference's push design in one cooperative
-// launch:
+// K4, K7 and K8 keep the reference's push design in one cooperative launch:
 //
 // - a PE is a group of G CTAs (blockIdx.x = g * P + pe: consecutive CTAs
 //   belong to different PEs, so a PE's group spreads over the SMs instead
@@ -18,8 +17,8 @@
 //   "remote DMA" is the group's stores into another PE's row, and a CTA
 //   only ever waits on flags of its own slice, set by CTA g of another PE;
 // - a DMA semaphore is an int32 flag in a global buffer indexed by
-//   (PE, step, slice), zeroed on the stream before each launch, so no flag
-//   of an earlier launch satisfies this one.
+//   (PE, slice), zeroed on the stream before each launch, so no flag of an
+//   earlier launch satisfies this one.
 //
 // Ordering: the writer stores its slice, __syncthreads(), then one thread
 // runs __threadfence() and a release add on the flag.  The reader's thread
@@ -32,22 +31,32 @@
 // once.  A flag that never rises is a protocol fault: every spin gives up
 // after 10 s and traps, so the launch fails instead of holding the card.
 //
-// K6 pulls instead of pushing.  The TPU ring runs P - 1 flag-gated steps,
-// each reading a landing slot and an addend and writing the neighbour's
-// landing slot: (3P - 1) * P * c bytes on one card against the function's
-// P (P + 1) c (x read once, out written once), 2.6 times as many at P = 8.
-// On one card every PE's rows are loadable by every CTA, which is the
-// paper's direct load/store path: a PE reads its peers' symmetric buffers
-// instead of waiting for them to push.  Each thread owns one vector of
-// one chunk c, issues the P loads x[(c + 1 + j) mod P][c] (in groups of 8)
-// before it folds them in that order, and stores out[c] once: exactly
-// P (P + 1) c bytes, no landing buffer, no flags, and an ordinary launch.
-// On one stream the inputs are complete when the launch starts, so no
-// entry barrier is needed.  The fold order is the ring's:
-//   out[c] = (...((x[c+1][c] + x[c+2][c]) + x[c+3][c]) + ...) + x[c][c]
-// (indices mod P), in the input's type (bf16 through f32 and
-// round-to-nearest-even, which equals a correctly rounded bf16 add), so it
-// equals its plain PyTorch version bitwise.
+// K5 and K6 pull instead of pushing.  On one card every PE's rows are
+// loadable by every CTA, which is the paper's direct load/store path: a PE
+// reads its peers' symmetric buffers instead of waiting for them to push.
+// On one stream the inputs are complete when the launch starts, so neither
+// needs flags, a landing buffer, an entry barrier or a cooperative launch:
+// each is one ordinary launch of grid (vector blocks, P), every thread
+// keeping up to kFold loads in flight before it stores.
+//
+// - K5 (fcollect, out[p][q] = x[q]).  The TPU ring runs P - 1 flag-gated
+//   steps; from the second on, each PE re-reads from out the slot its
+//   neighbour has just written, about 2 P^2 c bytes on one card against
+//   the function's P (P + 1) c.  Here blockIdx.y is the source PE q: each
+//   thread loads its vectors of x[q], then streams them (__stcs: nothing
+//   reads out again here) to out[p][q] for every p.  x is read once and out
+//   written once: exactly P (P + 1) c bytes.
+// - K6 (reduce-scatter).  The TPU ring runs P - 1 flag-gated steps, each
+//   reading a landing slot and an addend and writing the neighbour's
+//   landing slot: (3P - 1) * P * c bytes on one card against the function's
+//   P (P + 1) c (x read once, out written once), 2.6 times as many at
+//   P = 8.  Here blockIdx.y is the chunk c: each thread issues the P loads
+//   x[(c + 1 + j) mod P][c] (in groups of kFold) before it folds them in
+//   that order, and stores out[c] once.  The fold order is the ring's:
+//     out[c] = (...((x[c+1][c] + x[c+2][c]) + x[c+3][c]) + ...) + x[c][c]
+//   (indices mod P), in the input's type (bf16 through f32 and
+//   round-to-nearest-even, which equals a correctly rounded bf16 add), so
+//   it equals its plain PyTorch version bitwise.
 //
 // Bound: bytes, for K4-K7 (each input read once, each output written once;
 // chip_smoke.py states each kernel's count).  Copies move 16-byte vectors
@@ -61,6 +70,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kUnitsPerThread = 4;   // vectors per thread per CTA slice
+constexpr int kFold = 8;                   // loads in flight per thread (K5, K6)
+// K5's CTAs: each writes P times what it reads, so small CTAs (640 at the
+// collectives path's main shape) spread those stores evenly over the SMs;
+// 256-thread CTAs (160 there) left some SMs two CTAs' stores to finish
+constexpr int kPullThreads = 64;
 
 __device__ __forceinline__ void red_release_add(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
@@ -165,24 +179,26 @@ remote_put_kernel(V* out, const V* x, int* flags, int P, int G, long long nvec, 
 }
 
 // ---------------------------------------------------------------- K5
-// out[p][p] = x[p]; step s forwards slot (p - s) mod P of out[p] into
-// out[right], then waits for the left neighbour's step-s slot.
+// x: (P, nvec); out: (P, P, nvec).  blockIdx.y is the source PE q.
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
-allgather_kernel(V* out, const V* x, int* flags, int P, int G, long long nvec) {
-  const int p = blockIdx.x % P, g = blockIdx.x / P;
-  const int right = (p + 1) % P;
-  const Slice sl = slice_of(nvec, g, G);
-  V* mine = out + static_cast<long long>(p) * P * nvec;
-  V* theirs = out + static_cast<long long>(right) * P * nvec;
-  const V* own = x + p * nvec;
-  copy_slice(mine + p * nvec, own, sl);
-  for (int s = 0; s < P - 1; ++s) {
-    const int slot = (p - s + P) % P;
-    // step 0 forwards the own chunk straight from x: no read-after-write
-    copy_slice(theirs + slot * nvec, s == 0 ? own : mine + slot * nvec, sl);
-    raise_flag(&flags[(right * (P - 1) + s) * G + g]);
-    wait_flag(&flags[(p * (P - 1) + s) * G + g], 1);
+__global__ void __launch_bounds__(kPullThreads)
+allgather_pull(V* __restrict__ out, const V* __restrict__ x, int P, long long nvec) {
+  const int q = blockIdx.y;
+  const long long i0 = static_cast<long long>(blockIdx.x) * kPullThreads * kFold + threadIdx.x;
+  const V* src = x + static_cast<long long>(q) * nvec;
+  V v[kFold];
+#pragma unroll
+  for (int u = 0; u < kFold; ++u) {
+    const long long i = i0 + static_cast<long long>(u) * kPullThreads;
+    if (i < nvec) v[u] = src[i];
+  }
+  for (int p = 0; p < P; ++p) {
+    V* dst = out + (static_cast<long long>(p) * P + q) * nvec;
+#pragma unroll
+    for (int u = 0; u < kFold; ++u) {
+      const long long i = i0 + static_cast<long long>(u) * kPullThreads;
+      if (i < nvec) __stcs(dst + i, v[u]);
+    }
   }
 }
 
@@ -218,7 +234,6 @@ __device__ __forceinline__ V vadd(V a, V b) {
 
 // x: (P, P, nvec) addend rows; out: (P, nvec).  blockIdx.y is the chunk c,
 // and the thread's vector i of it is folded over the P PEs in ring order.
-constexpr int kFold = 8;   // loads in flight per thread
 
 template <typename Op, typename V>
 __global__ void __launch_bounds__(kThreads)
@@ -358,19 +373,13 @@ int remote_put_t(int device, void* out, const void* x, int* flags, long long cap
 }
 
 template <typename V>
-int allgather_t(int device, void* out, const void* x, int* flags, long long cap, int P,
-                long long chunk_bytes, cudaStream_t st) {
-  long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
-  const long long steps = P > 1 ? P - 1 : 1;
-  int G = 0;
-  cudaError_t err = groups_for(allgather_kernel<V>, device, kThreads, P, want_for(nvec), steps, cap, &G);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(flags, 0, sizeof(int) * static_cast<size_t>(P) * steps * G, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  V* o = static_cast<V*>(out);
-  const V* xi = static_cast<const V*>(x);
-  void* args[] = {&o, &xi, &flags, &P, &G, &nvec};
-  return coop_launch(allgather_kernel<V>, P, G, args, kThreads, st);
+int allgather_t(void* out, const void* x, int P, long long chunk_bytes, cudaStream_t st) {
+  const long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
+  const long long per_cta = static_cast<long long>(kPullThreads) * kFold;
+  const dim3 grid(static_cast<unsigned>((nvec + per_cta - 1) / per_cta), P);
+  allgather_pull<V><<<grid, kPullThreads, 0, st>>>(static_cast<V*>(out),
+                                                  static_cast<const V*>(x), P, nvec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Op, typename V>
@@ -402,7 +411,7 @@ uintptr_t bits(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 }  // namespace
 
 // Every entry point: `device` is the CUDA ordinal, `stream` PyTorch's
-// current stream, `flags` (K4, K5, K7) an int32 scratch buffer of
+// current stream, `flags` (K4, K7) an int32 scratch buffer of
 // `flag_cap` words that the wrapper allocated (zeroed here, on the stream,
 // before the launch); the wrapper has checked shapes, types and
 // contiguity.  Returns a cudaError_t code (0 on success).
@@ -421,16 +430,16 @@ extern "C" int ishmem_remote_put(int device, void* out, const void* x, int* flag
   });
 }
 
-extern "C" int ishmem_ring_allgather(int device, void* out, const void* x, int* flags,
-                                     long long flag_cap, int npes, long long chunk_bytes,
-                                     void* stream) {
+// K5 takes no flags: chunk_bytes bytes per PE.
+extern "C" int ishmem_ring_allgather(int device, void* out, const void* x, int npes,
+                                     long long chunk_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk_bytes == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_unit(align_of(chunk_bytes, bits(out) | bits(x)), [&](auto u) {
     using V = typename decltype(u)::type;
-    return allgather_t<V>(device, out, x, flags, flag_cap, npes, chunk_bytes, st);
+    return allgather_t<V>(out, x, npes, chunk_bytes, st);
   });
 }
 

@@ -40,7 +40,7 @@ SIGNATURES = {
                                _F, _P],
     "ishmem_paged_gather": [_I, _P, _P, _P, _LL, _LL, _I, _P],
     "ishmem_remote_put": [_I, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
-    "ishmem_ring_allgather": [_I, _P, _P, _P, _LL, _I, _LL, _P],
+    "ishmem_ring_allgather": [_I, _P, _P, _I, _LL, _P],
     "ishmem_ring_reduce_scatter": [_I, _P, _P, _I, _LL, _I, _P],
     "ishmem_push_broadcast": [_I, _P, _P, _P, _LL, _I, _LL, _I, _P],
     "ishmem_barrier_push": [_I, _P, _P, _I, _P],

@@ -21,6 +21,7 @@ Counterpart of ``repro/kernels/ishmem_device.py``:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import flash_attn, ops
@@ -38,27 +39,44 @@ def paged_gather_plain(data: torch.Tensor,
     return out
 
 
-def paged_gather(data: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def paged_gather(data: torch.Tensor, table) -> torch.Tensor:
     """Gather block payload rows through a block table.
 
     ``data``: ``(num_rows, block_words)``, any dtype; ``table``:
     ``(num_slots, nb)`` int32 with entries in ``[0, num_rows]``, where
     ``num_rows`` marks an unmapped slot that reads zeros.  Returns
     ``(num_slots, nb, block_words)``, bitwise what ``data[table]`` gives
-    over ``data`` with a zero row appended."""
+    over ``data`` with a zero row appended.
+
+    ``data`` alone decides the route: on the CPU the plain version (the
+    table must lie on the CPU too), on the card the kernel.  The table may
+    be a numpy array or a CPU tensor (a host table, as the serving path
+    passes it): its range is checked on the host and it reaches the card in
+    one non-blocking copy from pinned memory, so the call never waits for
+    the device.  A table already on the card is checked with one
+    ``torch.aminmax`` read, which waits for the device once."""
     if data.dim() != 2 or not data.is_contiguous():
         raise ValueError("paged_gather: data must be a contiguous 2-D array")
+    if isinstance(table, np.ndarray):
+        table = torch.from_numpy(np.ascontiguousarray(table))
     if table.dim() != 2 or table.dtype != torch.int32:
         raise TypeError("paged_gather: table must be a 2-D int32 array")
     R = data.shape[0]
-    if table.numel() and (int(table.min()) < 0 or int(table.max()) > R):
-        raise IndexError(f"paged_gather: table entries outside [0, {R}]")
-    if ops.on_cpu(data, table):
+    host = table.device.type == "cpu"
+    if ops.on_cpu(data) or not host:
+        ops.on_cpu(data, table)          # both on the CPU, or on one card
+    if table.numel():
+        lo, hi = torch.stack(torch.aminmax(table)).tolist()
+        if lo < 0 or hi > R:
+            raise IndexError(f"paged_gather: table entries outside [0, {R}]")
+    if data.device.type == "cpu":
         return paged_gather_plain(data, table)
     if table.numel() > MAX_ROWS:
         raise ValueError(f"paged_gather: {table.numel()} entries exceed "
                          f"{MAX_ROWS}")
     table = table.contiguous()
+    if host:
+        table = table.pin_memory().to(data.device, non_blocking=True)
     out = torch.empty((*table.shape, data.shape[1]), dtype=data.dtype,
                       device=data.device)
     ops.launch("paged_gather", "ishmem_paged_gather", data.device,
@@ -130,8 +148,7 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
     # read zeros, so no zero row is appended to the pool row
     data = device_mod.get(wg, heap, view.pool.data, view.pe).reshape(
         view.pool.num_blocks, lay.block_words)
-    table = torch.from_numpy(view.table()).to(data.device)
-    pay = paged_gather(data, table)
+    pay = paged_gather(data, view.table())     # a host table: no sync
     offs = _leaf_offsets(lay)
     k = _extract_leaf(pay, lay, k_leaf, view.num_slots,
                       offs[(unit_idx, "k")])[layer]

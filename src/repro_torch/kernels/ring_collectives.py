@@ -4,12 +4,13 @@ Replaces ``repro/kernels/ring_collectives.py``: ``ring_allgather`` (K5),
 ``ring_reduce_scatter`` (K6), ``push_broadcast`` (K7) and ``barrier_push``
 (K8).  The reference calls each once per PE inside ``shard_map``; the port
 takes PE-stacked tensors instead: the leading axis is the PE axis, and
-``out[p]`` is what PE p's call returns in the reference.  On the card K5,
-K7 and K8 run every PE as a group of CTAs in one cooperative launch, with
-flag words in place of DMA semaphores; K6 pulls each chunk's addends from
-every PE's rows in the ring's fold order, in one ordinary launch (see the
-source for both designs).  Each kernel has a plain PyTorch version that
-follows the reference's order; a wrapper takes it for CPU tensors only.
+``out[p]`` is what PE p's call returns in the reference.  On the card K7
+and K8 run every PE as a group of CTAs in one cooperative launch, with
+flag words in place of DMA semaphores; K5 and K6 pull from every PE's rows
+in one ordinary launch (K5 each source row once, K6 each chunk's addends in
+the ring's fold order; see the source for both designs).  Each kernel has a
+plain PyTorch version that follows the reference's order; a wrapper takes
+it for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from repro_torch.kernels import ops
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 REDUCE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C dtype code
-# one launch runs at most this many CTAs (npes x CTAs per PE); the flag
-# buffer holds one word per (CTA, step)
+# one cooperative launch runs at most this many CTAs (npes x CTAs per PE);
+# the flag buffer holds one word per CTA
 MAX_CTAS = 2048
 
 
@@ -38,10 +39,9 @@ def check_stacked(name: str, x: torch.Tensor, dtypes, min_dim: int = 1):
 
 
 def flags_for(x: torch.Tensor) -> torch.Tensor:
-    """Scratch flag words for one launch over ``x`` (zeroed by the C entry
-    point on the stream)."""
-    steps = max(1, x.shape[0] - 1)
-    return torch.empty(steps * MAX_CTAS, dtype=torch.int32, device=x.device)
+    """Scratch flag words for one cooperative launch (K4, K7) over ``x``
+    (zeroed by the C entry point on the stream)."""
+    return torch.empty(MAX_CTAS, dtype=torch.int32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +73,9 @@ def ring_allgather(x: torch.Tensor) -> torch.Tensor:
     P = x.shape[0]
     out = torch.empty((P, P) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    flags = flags_for(x)
     ops.launch("ring_allgather", "ishmem_ring_allgather", x.device,
-               out.data_ptr(), x.data_ptr(), flags.data_ptr(), flags.numel(),
-               P, x[0].numel() * x.element_size())
+               out.data_ptr(), x.data_ptr(), P,
+               x.numel() // P * x.element_size())
     return out
 
 

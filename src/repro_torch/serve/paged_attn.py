@@ -75,8 +75,8 @@ class PagedDecodeView:
             return cache
         data = heap.read(self.pool.data, self.pe).reshape(
             self.pool.num_blocks, lay.block_words)
-        table = torch.from_numpy(self.table()).to(data.device)
-        pay = ishmem_device.paged_gather(data, table)   # (B, nb, words)
+        # a host table: checked on the host, one non-blocking copy
+        pay = ishmem_device.paged_gather(data, self.table())  # (B, nb, words)
         offs = ishmem_device._leaf_offsets(lay)
         cache = dict(cache)
         blocks = [dict(e) for e in cache["blocks"]]

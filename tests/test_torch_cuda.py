@@ -131,6 +131,72 @@ def test_cuda_paged_gather_bitwise(card):
                        ishmem_device.paged_gather_plain(data, table))
 
 
+def _gather_case(card, case):
+    """(data, numpy table) of one K3 edge shape."""
+    rng = np.random.default_rng(len(case))
+    g = torch.Generator(device=card).manual_seed(len(case))
+    if case == "odd width":                     # 4-byte units
+        return (torch.randn(10, 37, generator=g, device=card),
+                rng.integers(0, 11, size=(3, 4)).astype(np.int32))
+    if case == "base off the grid":             # 4-byte units
+        flat = torch.randn(64 * 4096 + 1, generator=g, device=card)
+        return (flat[1:].view(64, 4096),
+                rng.integers(0, 65, size=(3, 9)).astype(np.int32))
+    if case == "rows of several chunks":       # 32 KB a CTA, a short last one
+        return (torch.randn(20, 3 * 16384 + 8, generator=g,
+                            device=card).bfloat16(),
+                rng.integers(0, 21, size=(4, 5)).astype(np.int32))
+    data = torch.randn(64, 4096, generator=g, device=card).bfloat16()
+    if case == "all unmapped":
+        return data, np.full((3, 9), 64, np.int32)
+    if case == "one entry":
+        return data, np.array([[17]], np.int32)
+    assert case == "more CTAs than SMs"
+    return data, rng.integers(0, 65, size=(40, 33)).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["all unmapped", "one entry", "odd width",
+                                  "base off the grid", "rows of several chunks",
+                                  "more CTAs than SMs"])
+def test_cuda_paged_gather_host_and_card_tables(card, case):
+    """Bitwise with a host table (numpy and a CPU tensor) and with the same
+    table on the card; the host tables make no device-to-host sync, which
+    PyTorch's sync debug mode would turn into an error, as it does for the
+    card table's one range read."""
+    data, table = _gather_case(card, case)
+    want = ishmem_device.paged_gather_plain(data,
+                                            torch.from_numpy(table).to(card))
+    ishmem_device.paged_gather(data, table)      # first pinned allocation
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        from_numpy = ishmem_device.paged_gather(data, table)
+        from_cpu = ishmem_device.paged_gather(data, torch.from_numpy(table))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    card_table = torch.from_numpy(table).to(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:        # the card table's range read is a sync, and the mode sees it
+        with pytest.raises(RuntimeError):
+            ishmem_device.paged_gather(data, card_table)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    from_card = ishmem_device.paged_gather(data, card_table)
+    for got in (from_numpy, from_cpu, from_card):
+        assert torch.equal(got, want)
+
+
+def test_cuda_paged_gather_refuses_before_launch(card):
+    data = torch.randn(8, 256, device=card)
+    before = ops.LAUNCHES["paged_gather"]
+    for bad in (np.array([[0, 9]], np.int32), np.array([[-1, 0]], np.int32)):
+        with pytest.raises(IndexError):
+            ishmem_device.paged_gather(data, bad)
+        with pytest.raises(IndexError):
+            ishmem_device.paged_gather(data, torch.from_numpy(bad).to(card))
+    assert ops.LAUNCHES["paged_gather"] == before
+
+
 # ---------------------------------------------------------------------------
 # K4-K8 (moved from tests/test_torch_comms.py)
 # ---------------------------------------------------------------------------
@@ -154,6 +220,29 @@ def test_cuda_copy_kernels_bitwise(card, dtype, P):
             assert torch.equal(rma_copy.remote_put(x, target_offset=off,
                                                    work_items=w),
                                rma_copy.remote_put_plain(x, off))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+def test_cuda_allgather_pull_bitwise(card, dtype, P):
+    """The pull all-gather: 16-byte vectors where the chunk and base allow,
+    narrower units otherwise (odd chunks, a base one element off the
+    16-byte grid); every output word overwritten on poisoned memory."""
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    try:
+        for n in (1, 127, 128 * 40 + 37):
+            x = _cuda_inputs(card, dtype, P, n, n)
+            assert torch.equal(rc.ring_allgather(x),
+                               rc.ring_allgather_plain(x))
+            flat = _cuda_inputs(card, dtype, 1, P * n + 1, n)[0]
+            x = flat[1:].view(P, n)             # contiguous, base off-grid
+            assert x.is_contiguous() and x.data_ptr() % 16
+            assert torch.equal(rc.ring_allgather(x),
+                               rc.ring_allgather_plain(x))
+    finally:
+        torch.use_deterministic_algorithms(False)
     torch.cuda.synchronize()
 
 

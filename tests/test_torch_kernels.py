@@ -215,12 +215,20 @@ def test_flash_rejects_bad_input(counts):
 # ---------------------------------------------------------------------------
 
 
+_GATHER_SHAPES = [(6, 128, 3, 4), (16, 384, 2, 8), (5, 37, 4, 3)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
-@pytest.mark.parametrize("R,W,slots,nb", [(6, 128, 3, 4), (16, 384, 2, 8),
-                                          (5, 37, 4, 3)])
-def test_paged_gather_matches_reference(dtype, R, W, slots, nb, counts):
+@pytest.mark.parametrize("R,W,slots,nb,form", [
+    pytest.param(*shape, form, id="-".join(map(str, shape)) + suffix)
+    for form, suffix in (("tensor", ""), ("numpy", "-numpy"))
+    for shape in _GATHER_SHAPES])
+def test_paged_gather_matches_reference(dtype, R, W, slots, nb, form,
+                                        counts):
     """Bitwise, with unmapped entries (index R) that read zeros; the
-    reference appends the zero row itself, the port's kernel needs none."""
+    reference appends the zero row itself, the port's kernel needs none.
+    The table goes in as a CPU tensor or as the numpy array the serving
+    path passes (a host table)."""
     rng = np.random.default_rng(R * 1000 + W)
     data = rng.normal(size=(R, W)).astype(np.float32) * 100
     table = rng.integers(0, R + 1, size=(slots, nb)).astype(np.int32)
@@ -228,7 +236,8 @@ def test_paged_gather_matches_reference(dtype, R, W, slots, nb, counts):
     jd, td = _both(data, dtype)
     want = ref_dev.paged_gather(
         jnp.concatenate([jd, jnp.zeros((1, W), jd.dtype)]), table)
-    got = ishmem_device.paged_gather(td, torch.from_numpy(table))
+    got = ishmem_device.paged_gather(
+        td, torch.from_numpy(table) if form == "tensor" else table)
     assert torch.equal(got, _t(want))
 
 
@@ -241,6 +250,65 @@ def test_paged_gather_rejects_bad_table(counts):
                                    torch.tensor([[-1]], dtype=torch.int32))
     with pytest.raises(TypeError):
         ishmem_device.paged_gather(data, torch.tensor([[1]]))   # int64
+
+
+@pytest.mark.parametrize("entry", [-1, 5])
+def test_paged_gather_rejects_host_table_outside_range(entry, counts):
+    """A numpy table is range-checked on the host: -1 and R + 1 raise."""
+    data = torch.ones(4, 8)
+    table = np.array([[0, entry], [4, 1]], np.int32)
+    with pytest.raises(IndexError):
+        ishmem_device.paged_gather(data, table)
+    with pytest.raises(TypeError):
+        ishmem_device.paged_gather(data, table.astype(np.int64))
+
+
+def test_paged_gather_card_table_with_cpu_data_raises(counts):
+    """``data`` decides the route; a table on the card beside CPU data is
+    refused before any of its values is read (a fake tensor stands in for
+    the card's, which this machine may lack)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        table = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    assert table.device.type == "cuda"
+    with pytest.raises(ValueError):
+        ishmem_device.paged_gather(torch.ones(4, 8), table)
+
+
+def test_assemble_host_table_matches_tensor_table(monkeypatch, counts):
+    """``PagedDecodeView.assemble`` passes its numpy table as it is; the
+    same table as a tensor gives the same leaves bitwise (a full slot, an
+    unmapped slot that reads zeros, a partly mapped slot)."""
+    from repro_torch.configs import base
+    from repro_torch.core import context
+    from repro_torch.core.heap import TORCH_DTYPES
+    from repro_torch.serve.kvpool import KVPool
+    from repro_torch.serve.paged_attn import PagedDecodeView
+    cfg = base.reduced(base.get_config("qwen3-4b"))
+    _, heap = context.init(npes=2, node_size=2, device="cpu")
+    pool = KVPool.create(heap, cfg, 24, num_blocks=12, max_slots=3,
+                         block_tokens=4)
+    rng = np.random.default_rng(0)
+    row = rng.normal(size=pool.data.size).astype(np.float32)
+    heap = heap.write(pool.data, 1, torch.from_numpy(row).to(
+        TORCH_DTYPES[pool.data.dtype]))
+    view = PagedDecodeView(pool, 1, 3)
+    nb = pool.layout.blocks_per_request
+    for slot, rid, n in ((0, 7, nb), (2, 8, nb - 2)):
+        assert pool.alloc(rid, n) is not None
+        view.slots[slot] = rid
+    units = 1 + max(leaf.unit_idx for leaf in pool.layout.paged)
+    cache = {"blocks": [{"k": torch.zeros(1), "v": torch.zeros(1)}
+                        for _ in range(units)]}
+    host = view.assemble(heap, cache)
+    table = view.table()
+    assert isinstance(table, np.ndarray)
+    monkeypatch.setattr(view, "table", lambda: torch.from_numpy(table))
+    as_tensor = view.assemble(heap, cache)
+    for leaf in pool.layout.paged:
+        got = host["blocks"][leaf.unit_idx][leaf.key]
+        assert torch.equal(got, as_tensor["blocks"][leaf.unit_idx][leaf.key])
+        assert not got[:, 1].any() and got[:, 0].any()
 
 
 # ---------------------------------------------------------------------------
