@@ -36,12 +36,18 @@ Phases, each fatal on failure:
    read once and each output written once, and for K10 only the unmasked
    products, three TF32 products each at 495 TFLOP/s (its row also
    carries the f32 FMA bound and the split pass's time).  Rows also carry
-   ``device_ms``, the device-only duration from ``torch.profiler`` (K1,
-   K2 and SDPA at both K2 shapes, K3 and ``index_select``,
-   K4 at a small chunk, K5 and ``expand`` + ``contiguous``, K6, K8, K9,
-   K10 at both ring shapes and its split pass), measured
-   after phase 6 so that the profiler's hooks cannot slow the timed
-   phases;
+   ``device_ms``, the device-only duration from ``torch.profiler``, and
+   ``library_device_ms``, the library call's (K1 and ``copy_`` per store
+   over the same 32-offset loop, K2 and SDPA at both K2 shapes, K3 and
+   ``index_select``, K4 at a small chunk and at its main shape beside
+   ``torch.roll``, K5 and ``expand`` + ``contiguous``, K6 and
+   ``x.sum(0)``, K7 and ``expand_as`` + ``contiguous``, K8, K9 and
+   ``rows.sum(0)``, K10 at both ring shapes and its split pass; K7 also
+   summed over one run of phase 4's broadcasts), measured after phase 6
+   so that the profiler's hooks cannot slow the timed phases.  K1's row
+   also carries the host cost of a call of its entry point that stores 0
+   bytes (``cudaSetDevice``, then return) beside the same arguments into
+   a function that makes no CUDA call;
 3. the serving path: ``repro_torch.launch.serve --disagg --full``, qwen3-4b at
    its published widths and depth, 2 prefill + 2 decode PEs, 8 requests of
    512 tokens, 16 new tokens each, 3 slots per decode PE, 256 KV blocks of
@@ -86,6 +92,8 @@ beside this file, it exits nonzero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import io
 import json
 import math
 import re
@@ -165,11 +173,13 @@ def poisoned(torch, dev):
         torch.use_deterministic_algorithms(False)
 
 
-def device_ms(torch, fn, match, *, iters: int = 50):
-    """Mean device-only milliseconds of the kernels whose name contains
-    ``match``, from ``torch.profiler`` over ``iters`` calls of ``fn``; with
-    ``match`` None, of everything ``fn`` runs on the device, per call.  None
-    when the profiler shows no device time for them."""
+def device_ms(torch, fn, match, *, iters: int = 50, per_call=None):
+    """Mean device-only milliseconds per launch of the kernels whose name
+    contains ``match``, from ``torch.profiler`` over ``iters`` calls of
+    ``fn``; with ``per_call`` = k, per k-th of one call of ``fn`` instead
+    (k = 1: their total per call).  With ``match`` None, of everything
+    ``fn`` runs on the device, per call unless ``per_call`` says otherwise.
+    None when the profiler shows no device time for them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -185,15 +195,32 @@ def device_ms(torch, fn, match, *, iters: int = 50):
                                                    match in evt.key):
             total_us += evt.self_device_time_total
             count += evt.count
-    if match is None:
-        count = iters if count else 0
+    if match is None and per_call is None:
+        per_call = 1
+    if per_call and count:
+        count = iters * per_call
     return total_us / 1e3 / count if count and total_us else None
 
 
-def check_copy(torch, rma_copy, dev, deferred):
+def host_us(fn, *, iters: int = 20000) -> float:
+    """Mean host microseconds of one call of ``fn`` (best of three runs)."""
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    return best / iters * 1e6
+
+
+def check_copy(torch, rma_copy, _build, dev, deferred):
     """K1 at edge shapes (bitwise), then timed at the main path's block
-    payload: 32 blocks of one request staged at distinct offsets, so the
-    source and destination bytes exceed the 50 MB L2."""
+    payload: 32 blocks of one request stored at distinct offsets, so the
+    source and destination bytes exceed the 50 MB L2.  Its device time and
+    ``copy_``'s are taken over the same 32-offset loop, per store.  The
+    host cost of the entry's ``cudaSetDevice`` is read from a call that
+    stores 0 bytes (``cudaSetDevice``, then return) beside a call with the
+    same arguments into a function that makes no CUDA call."""
     gen = torch.Generator(device=dev).manual_seed(1)
     for dt in (torch.float32, torch.bfloat16, torch.int32):
         for n, off in ((1, 3), (127, 129), (1179648, 1000), (1179648, 256)):
@@ -223,6 +250,26 @@ def check_copy(torch, rma_copy, dev, deferred):
         for src, off in zip(srcs, offs):
             row[off:off + n].copy_(src)
 
+    kernel()
+    want = row.clone()
+    row.zero_()
+    library()
+    torch.cuda.synchronize()
+    if not torch.equal(row, want):
+        fail("K1 copy_into over the 32-offset loop differs from copy_")
+    del want
+    # the same five ctypes conversions into a library function that makes
+    # no CUDA call: the error-string lookup, bound a second time with K1's
+    # argument types (its extra arguments are ignored, its pointer result
+    # read as an int and dropped)
+    entry = _build.entries()["ishmem_copy_into"]
+    probe = ctypes.CDLL(_build.lib()._name).ishmem_error_string
+    probe.argtypes = _build.SIGNATURES["ishmem_copy_into"]
+    probe.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    index = dev.index or 0
+    set_device_us = host_us(lambda: entry(index, 0, 0, 0, stream))
+    floor_us = host_us(lambda: probe(0, 0, 0, 0, stream))
     nbytes = 2 * n * 2
     out = {"name": "copy_into", "route": "cuda",
             "source": "src/repro_torch/csrc/rma_copy.cu",
@@ -232,11 +279,16 @@ def check_copy(torch, rma_copy, dev, deferred):
             "plain_ms": time_ms(torch, plain, per_call=blocks),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": time_ms(torch, library, per_call=blocks),
+            "host_us_set_device_call": set_device_us,
+            "host_us_same_args_no_cuda": floor_us,
             "shape": f"{n} bf16 words (one KV block payload) x {blocks} "
                      "offsets"}
-    deferred.append((out, "device_ms",
-                     lambda: rma_copy.copy_into(row, srcs[0], 0),
-                     "copy_kernel"))
+    say(f"K1 host: a 0-byte store (cudaSetDevice, then return) "
+        f"{set_device_us:.3f} us a call, the same arguments into a "
+        f"function that makes no CUDA call {floor_us:.3f} us")
+    deferred.append((out, "device_ms", kernel, "copy_kernel"))
+    deferred.append((out, "library_device_ms", library, None,
+                     {"per_call": blocks}))
     return out
 
 
@@ -605,6 +657,13 @@ def check_ring(torch, rc, rma_copy, _build, dev, deferred):
     deferred.append((rows_out[2], "device_ms",
                      lambda: rc.ring_reduce_scatter(rows),
                      "reduce_scatter_pull"))
+    for row, case in zip(rows_out, main):        # at each main shape
+        if row["name"] != "ring_allgather":      # K5's is taken above
+            deferred.append((row, "library_device_ms", case[5], None))
+    deferred.append((rows_out[0], "main_device_ms", main[0][3],
+                     "remote_put_kernel"))
+    deferred.append((rows_out[3], "device_ms",
+                     lambda: rc.push_broadcast(leaf, 0), "broadcast_pull"))
     rows_out[0]["device_shape"] = "x (8, 2560) f32, work_items 8: " \
         "psum_overlap's small branch at decode"
     lib = _build.lib()
@@ -678,6 +737,7 @@ def check_reduce_tile(torch, rt, dev, deferred):
                     "prefill hidden (512, 2560)"}
     deferred.append((out, "device_ms", lambda: rt.reduce_tile(rows),
                      "reduce_tile_kernel"))
+    deferred.append((out, "library_device_ms", lambda: rows.sum(0), None))
     return out
 
 
@@ -996,7 +1056,7 @@ def main() -> None:
 
     # ---- 2. kernels against their plain versions ----------------------------
     deferred = []                    # device-only timings, taken last
-    rows = [check_copy(torch, rma_copy, dev, deferred),
+    rows = [check_copy(torch, rma_copy, _build, dev, deferred),
             check_flash(torch, flash_attn, dev, deferred),
             check_gather(torch, ishmem_device, ops, dev, deferred)]
     torch.cuda.empty_cache()
@@ -1078,6 +1138,15 @@ def main() -> None:
     missing = [k for k in RING_KERNELS if coll_launches[k] == 0]
     if missing:
         fail(f"collectives path never launched {missing}")
+
+    def collectives_quiet():
+        with contextlib.redirect_stdout(io.StringIO()):
+            shmem_collectives.main(COLL_ARGV)
+
+    # K7's device time summed over one run of this path's broadcasts
+    k7 = next(r for r in rows if r["name"] == "push_broadcast")
+    deferred.append((k7, "path_device_ms", collectives_quiet,
+                     "broadcast_pull", {"iters": 1, "per_call": 1}))
 
     # ---- 5. the fused serving path ------------------------------------------
     say("fused serving path: serve " + " ".join(FUSED_ARGV))
@@ -1170,19 +1239,23 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- device-only times of the short kernels (torch.profiler) -----------
-    for row, key, fn, match in deferred:
-        row[key] = device_ms(torch, fn, match)
+    for row, key, fn, match, *kw in deferred:
+        row[key] = device_ms(torch, fn, match, **(kw[0] if kw else {}))
         say(f"{row.get('name', row['shape'])} {key}: " + (
             "not measured" if row[key] is None else f"{row[key]:.5f} ms"))
 
     by_name = {r["name"]: r for r in rows}
-    for r in (by_name["paged_gather"], by_name["ring_allgather"]):
+    for r in (by_name["copy_into"], by_name["paged_gather"],
+              by_name["ring_allgather"], by_name["push_broadcast"]):
         if r.get("device_ms"):
             r["bound_share"] = r["bound_ms"] / r["device_ms"]
         say(f"{r['name']} [{r['shape']}]: {r['ms']:.4f} ms by events, "
             f"device {r.get('device_ms')} ms ({r.get('bound_share')} of its "
             f"{r['bound_ms']:.4f} ms bound); library {r['library_ms']:.4f} ms "
             f"by events, device {r.get('library_device_ms')} ms")
+    say(f"push_broadcast over the collectives path's "
+        f"{coll_launches['push_broadcast']} launches: "
+        f"{k7.get('path_device_ms')} ms device in all")
     say(f"paged_gather with the card table (one sync a call): "
         f"{by_name['paged_gather']['card_table_ms']:.4f} ms by events")
     k2 = rows[1]

@@ -7,12 +7,11 @@
 // between chips.  On one card the PEs are the leading axis of stacked
 // buffers, and one launch runs them all.
 //
-// K4, K7 and K8 keep the reference's push design in one cooperative launch:
+// K4 and K8 push, as the reference does, in one cooperative launch:
 //
 // - a PE is a group of G CTAs (blockIdx.x = g * P + pe: consecutive CTAs
 //   belong to different PEs, so a PE's group spreads over the SMs instead
-//   of filling a few of them, which matters for K7, where only the root's
-//   group copies);
+//   of filling a few of them);
 // - CTA g of every PE owns the same column slice g of the chunk, so a
 //   "remote DMA" is the group's stores into another PE's row, and a CTA
 //   only ever waits on flags of its own slice, set by CTA g of another PE;
@@ -31,21 +30,31 @@
 // once.  A flag that never rises is a protocol fault: every spin gives up
 // after 10 s and traps, so the launch fails instead of holding the card.
 //
-// K5 and K6 pull instead of pushing.  On one card every PE's rows are
+// K5, K6 and K7 pull instead of pushing.  On one card every PE's rows are
 // loadable by every CTA, which is the paper's direct load/store path: a PE
 // reads its peers' symmetric buffers instead of waiting for them to push.
-// On one stream the inputs are complete when the launch starts, so neither
-// needs flags, a landing buffer, an entry barrier or a cooperative launch:
-// each is one ordinary launch of grid (vector blocks, P), every thread
+// On one stream the inputs are complete when the launch starts, so none of
+// them needs flags, a landing buffer, an entry barrier, an occupancy query
+// or a cooperative launch: each is one ordinary launch, every thread
 // keeping up to kFold loads in flight before it stores.
 //
-// - K5 (fcollect, out[p][q] = x[q]).  The TPU ring runs P - 1 flag-gated
-//   steps; from the second on, each PE re-reads from out the slot its
-//   neighbour has just written, about 2 P^2 c bytes on one card against
-//   the function's P (P + 1) c.  Here blockIdx.y is the source PE q: each
-//   thread loads its vectors of x[q], then streams them (__stcs: nothing
-//   reads out again here) to out[p][q] for every p.  x is read once and out
-//   written once: exactly P (P + 1) c bytes.
+// - K5 (fcollect, out[p][q] = x[q]) and K7 (broadcast, out[p] = x[root])
+//   share one body, fan_out: each thread loads its vectors of one source
+//   row, then streams them (__stcs: nothing reads out again here) to that
+//   row's slot in every PE's output.  The source row is blockIdx.y for K5
+//   (grid (vector blocks, P)) and root for K7 (grid (vector blocks, 1));
+//   the stride between PEs' slots is P * c for K5 and c for K7.  Each
+//   source byte is read once and each output byte written once: exactly
+//   P (P + 1) c bytes for K5 and (P + 1) c for K7.
+// - K5's TPU ring runs P - 1 flag-gated steps; from the second on, each PE
+//   re-reads from out the slot its neighbour has just written, about
+//   2 P^2 c bytes on one card against the function's P (P + 1) c.
+// - K7 is a fan-out, not "each PE copies its own row".  On one card it
+//   does not matter which CTA stores a row, and a copy per row would read
+//   x[root] P times: 2 P c bytes against (P + 1) c, since a 49.8 MB leaf
+//   does not stay in the 50 MB L2 beside the stores.  The TPU's push
+//   design (the root's CTAs copy while every other PE's CTAs spin on their
+//   flags) left P - 1 of P CTA groups idle.
 // - K6 (reduce-scatter).  The TPU ring runs P - 1 flag-gated steps, each
 //   reading a landing slot and an addend and writing the neighbour's
 //   landing slot: (3P - 1) * P * c bytes on one card against the function's
@@ -69,11 +78,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kUnitsPerThread = 4;   // vectors per thread per CTA slice
-constexpr int kFold = 8;                   // loads in flight per thread (K5, K6)
-// K5's CTAs: each writes P times what it reads, so small CTAs (640 at the
-// collectives path's main shape) spread those stores evenly over the SMs;
-// 256-thread CTAs (160 there) left some SMs two CTAs' stores to finish
+constexpr int kFold = 8;                   // loads in flight per thread (K5-K7)
+// K5's and K7's CTAs: each writes P times what it reads, so small CTAs
+// (640 at K5's main shape on the collectives path) spread those stores
+// evenly over the SMs; 256-thread CTAs (160 there) left some SMs two CTAs'
+// stores to finish
 constexpr int kPullThreads = 64;
 
 __device__ __forceinline__ void red_release_add(int* p, int v) {
@@ -178,14 +187,14 @@ remote_put_kernel(V* out, const V* x, int* flags, int P, int G, long long nvec, 
   wait_flag(&flags[p * G + g], 1);  // the put landing in my own buffer
 }
 
-// ---------------------------------------------------------------- K5
-// x: (P, nvec); out: (P, P, nvec).  blockIdx.y is the source PE q.
+// ---------------------------------------------------------------- K5, K7
+// The fan-out shared by K5 and K7: each thread loads up to kFold vectors
+// of `src` (one PE's row of nvec vectors) before it stores anything, then
+// stores them to dst + p * pe_stride for every PE p.
 template <typename V>
-__global__ void __launch_bounds__(kPullThreads)
-allgather_pull(V* __restrict__ out, const V* __restrict__ x, int P, long long nvec) {
-  const int q = blockIdx.y;
+__device__ __forceinline__ void fan_out(V* __restrict__ dst, const V* __restrict__ src, int P,
+                                        long long nvec, long long pe_stride) {
   const long long i0 = static_cast<long long>(blockIdx.x) * kPullThreads * kFold + threadIdx.x;
-  const V* src = x + static_cast<long long>(q) * nvec;
   V v[kFold];
 #pragma unroll
   for (int u = 0; u < kFold; ++u) {
@@ -193,13 +202,28 @@ allgather_pull(V* __restrict__ out, const V* __restrict__ x, int P, long long nv
     if (i < nvec) v[u] = src[i];
   }
   for (int p = 0; p < P; ++p) {
-    V* dst = out + (static_cast<long long>(p) * P + q) * nvec;
+    V* row = dst + p * pe_stride;
 #pragma unroll
     for (int u = 0; u < kFold; ++u) {
       const long long i = i0 + static_cast<long long>(u) * kPullThreads;
-      if (i < nvec) __stcs(dst + i, v[u]);
+      if (i < nvec) __stcs(row + i, v[u]);
     }
   }
+}
+
+// K5: x (P, nvec) -> out (P, P, nvec).  blockIdx.y is the source PE q.
+template <typename V>
+__global__ void __launch_bounds__(kPullThreads)
+allgather_pull(V* __restrict__ out, const V* __restrict__ x, int P, long long nvec) {
+  const long long q = blockIdx.y;
+  fan_out(out + q * nvec, x + q * nvec, P, nvec, P * nvec);
+}
+
+// K7: x (P, nvec) -> out (P, nvec), every row x[root].
+template <typename V>
+__global__ void __launch_bounds__(kPullThreads)
+broadcast_pull(V* __restrict__ out, const V* __restrict__ x, int P, long long nvec, int root) {
+  fan_out(out, x + static_cast<long long>(root) * nvec, P, nvec, nvec);
 }
 
 // ---------------------------------------------------------------- K6
@@ -256,29 +280,6 @@ reduce_scatter_pull(V* __restrict__ out, const V* __restrict__ x, int P, long lo
   out[static_cast<long long>(c) * nvec + i] = acc;
 }
 
-// ---------------------------------------------------------------- K7
-// The root pushes x[root] to every PE, the paper's inner loop over
-// destinations: each element is loaded once and stored to its own row,
-// then to root+1+i in order; each destination's flag rises once the
-// slice has landed there.  The other PEs wait on their flags.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-broadcast_kernel(V* out, const V* x, int* flags, int P, int G, long long nvec, int root) {
-  const int p = blockIdx.x % P, g = blockIdx.x / P;
-  const Slice sl = slice_of(nvec, g, G);
-  if (p != root) {
-    wait_flag(&flags[p * G + g], 1);
-    return;
-  }
-  const V* src = x + root * nvec;
-  for (long long base = sl.lo + threadIdx.x; base < sl.hi; base += kUnroll * kThreads) {
-    V v[kUnroll];
-    load_units(v, src, base, sl.hi);
-    for (int d = 0; d < P; ++d) store_units(out + ((root + d) % P) * nvec, v, base, sl.hi);
-  }
-  for (int i = 0; i < P - 1; ++i) raise_flag(&flags[((root + 1 + i) % P) * G + g]);
-}
-
 // ---------------------------------------------------------------- K8
 // One CTA per PE: +1 to every other PE's counter, then wait for P-1.
 __global__ void barrier_kernel(int* out, int* counters, int P) {
@@ -314,10 +315,6 @@ cudaError_t groups_for(K kernel, int device, int threads, int P, long long want,
   if (want < g) g = want < 1 ? 1 : want;
   *G = static_cast<int>(g);
   return cudaSuccess;
-}
-
-long long want_for(long long nvec) {
-  return (nvec + kThreads * kUnitsPerThread - 1) / (kThreads * kUnitsPerThread);
 }
 
 template <typename K>
@@ -372,13 +369,19 @@ int remote_put_t(int device, void* out, const void* x, int* flags, long long cap
   return coop_launch(remote_put_kernel<V>, P, G, args, kThreads, st);
 }
 
+// K5 (root < 0: every row a source, grid (vector blocks, P)) or K7 (the
+// root's row the only source, grid (vector blocks, 1)).
 template <typename V>
-int allgather_t(void* out, const void* x, int P, long long chunk_bytes, cudaStream_t st) {
+int pull_t(void* out, const void* x, int P, long long chunk_bytes, int root, cudaStream_t st) {
   const long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
   const long long per_cta = static_cast<long long>(kPullThreads) * kFold;
-  const dim3 grid(static_cast<unsigned>((nvec + per_cta - 1) / per_cta), P);
-  allgather_pull<V><<<grid, kPullThreads, 0, st>>>(static_cast<V*>(out),
-                                                  static_cast<const V*>(x), P, nvec);
+  const unsigned blocks = static_cast<unsigned>((nvec + per_cta - 1) / per_cta);
+  V* o = static_cast<V*>(out);
+  const V* xi = static_cast<const V*>(x);
+  if (root < 0)
+    allgather_pull<V><<<dim3(blocks, P), kPullThreads, 0, st>>>(o, xi, P, nvec);
+  else
+    broadcast_pull<V><<<blocks, kPullThreads, 0, st>>>(o, xi, P, nvec, root);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,27 +394,12 @@ int reduce_scatter_t(void* out, const void* x, int P, long long chunk_bytes, cud
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename V>
-int broadcast_t(int device, void* out, const void* x, int* flags, long long cap, int P,
-                long long chunk_bytes, int root, cudaStream_t st) {
-  long long nvec = chunk_bytes / static_cast<long long>(sizeof(V));
-  int G = 0;
-  cudaError_t err = groups_for(broadcast_kernel<V>, device, kThreads, P, want_for(nvec), 1, cap, &G);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(flags, 0, sizeof(int) * static_cast<size_t>(P) * G, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  V* o = static_cast<V*>(out);
-  const V* xi = static_cast<const V*>(x);
-  void* args[] = {&o, &xi, &flags, &P, &G, &nvec, &root};
-  return coop_launch(broadcast_kernel<V>, P, G, args, kThreads, st);
-}
-
 uintptr_t bits(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 
 }  // namespace
 
 // Every entry point: `device` is the CUDA ordinal, `stream` PyTorch's
-// current stream, `flags` (K4, K7) an int32 scratch buffer of
+// current stream, `flags` (K4) an int32 scratch buffer of
 // `flag_cap` words that the wrapper allocated (zeroed here, on the stream,
 // before the launch); the wrapper has checked shapes, types and
 // contiguity.  Returns a cudaError_t code (0 on success).
@@ -439,7 +427,7 @@ extern "C" int ishmem_ring_allgather(int device, void* out, const void* x, int n
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_unit(align_of(chunk_bytes, bits(out) | bits(x)), [&](auto u) {
     using V = typename decltype(u)::type;
-    return allgather_t<V>(out, x, npes, chunk_bytes, st);
+    return pull_t<V>(out, x, npes, chunk_bytes, -1, st);
   });
 }
 
@@ -462,16 +450,16 @@ extern "C" int ishmem_ring_reduce_scatter(int device, void* out, const void* x, 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int ishmem_push_broadcast(int device, void* out, const void* x, int* flags,
-                                     long long flag_cap, int npes, long long chunk_bytes, int root,
-                                     void* stream) {
+// K7 takes no flags: chunk_bytes bytes per PE, 0 <= root < npes.
+extern "C" int ishmem_push_broadcast(int device, void* out, const void* x, int npes,
+                                     long long chunk_bytes, int root, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk_bytes == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_unit(align_of(chunk_bytes, bits(out) | bits(x)), [&](auto u) {
     using V = typename decltype(u)::type;
-    return broadcast_t<V>(device, out, x, flags, flag_cap, npes, chunk_bytes, root, st);
+    return pull_t<V>(out, x, npes, chunk_bytes, root, st);
   });
 }
 

@@ -35,14 +35,14 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t code
 SIGNATURES = {
-    "ishmem_copy_into": [_I, _P, _P, _LL, _LL, _I, _P],
+    "ishmem_copy_into": [_I, _P, _P, _LL, _P],
     "ishmem_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _P],
     "ishmem_paged_gather": [_I, _P, _P, _P, _LL, _LL, _I, _P],
     "ishmem_remote_put": [_I, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ishmem_ring_allgather": [_I, _P, _P, _I, _LL, _P],
     "ishmem_ring_reduce_scatter": [_I, _P, _P, _I, _LL, _I, _P],
-    "ishmem_push_broadcast": [_I, _P, _P, _P, _LL, _I, _LL, _I, _P],
+    "ishmem_push_broadcast": [_I, _P, _P, _I, _LL, _I, _P],
     "ishmem_barrier_push": [_I, _P, _P, _I, _P],
     "ishmem_coop_noop": [_I, _I, _P],
     "ishmem_flash_partial_split": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -54,6 +54,9 @@ SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+# every entry point of SIGNATURES as a ctypes function with its argtypes and
+# restype set, bound once when the library loads; ops.launch indexes it
+ENTRIES: dict = {}
 
 
 def nvcc() -> str:
@@ -116,16 +119,33 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use).  Once it is loaded
+    this takes no lock: the lock guards only the first build and load."""
+    if _lib is not None:
+        return _lib
+    return _load()
+
+
+def entries() -> dict:
+    """``ENTRIES``, loading the library at first use."""
+    if not ENTRIES:
+        _load()
+    return ENTRIES
+
+
+def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
+            bound = {}
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                bound[name] = fn
             handle.ishmem_error_string.argtypes = [ctypes.c_int]
             handle.ishmem_error_string.restype = ctypes.c_char_p
+            ENTRIES.update(bound)
             _lib = handle
         return _lib

@@ -65,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention: bf16 q, k and v must start on a "
                          "16-byte boundary (TMA)")
     out = torch.empty_like(q)
-    ops.launch("flash_attention", "ishmem_flash_attention", q.device,
-               *ptrs, out.data_ptr(), B, S, H, Hkv, hd,
+    ops.launch("flash_attention", "ishmem_flash_attention",
+               q.get_device(), *ptrs, out.data_ptr(), B, S, H, Hkv, hd,
                _DTYPE_CODE[q.dtype], hd ** -0.5)
     return out

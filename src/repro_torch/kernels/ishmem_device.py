@@ -79,7 +79,7 @@ def paged_gather(data: torch.Tensor, table) -> torch.Tensor:
         table = table.pin_memory().to(data.device, non_blocking=True)
     out = torch.empty((*table.shape, data.shape[1]), dtype=data.dtype,
                       device=data.device)
-    ops.launch("paged_gather", "ishmem_paged_gather", data.device,
+    ops.launch("paged_gather", "ishmem_paged_gather", data.get_device(),
                out.data_ptr(), data.data_ptr(), table.data_ptr(),
                table.numel(), data.shape[1] * data.element_size(), R)
     return out
@@ -259,9 +259,9 @@ def flash_partial_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     qs = torch.empty((2, B, Sq, H, hd), **f32)
     ks = torch.empty((2, B, Skv, H, hd), **f32)
     vt = torch.empty((2, B, H, hd, -(-Skv // 8) * 8), **f32)
-    ops.launch("flash_partial_split", "ishmem_flash_partial_split", q.device,
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(),
-               ks.data_ptr(), vt.data_ptr(), B, Sq, Skv, H, hd,
+    ops.launch("flash_partial_split", "ishmem_flash_partial_split",
+               q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), B, Sq, Skv, H, hd,
                flash_attn._DTYPE_CODE[q.dtype], hd ** -0.5)
     return qs, ks, vt
 
@@ -281,7 +281,7 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    ops.launch("flash_partial", "ishmem_flash_partial", q.device,
+    ops.launch("flash_partial", "ishmem_flash_partial", q.get_device(),
                qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), acc.data_ptr(),
                m.data_ptr(), l.data_ptr(), B, Sq, k.shape[1], H, hd,
                int(q_off), int(k_off), int(q.dtype == torch.float32))

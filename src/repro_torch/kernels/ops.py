@@ -6,8 +6,9 @@ Each wrapper (``rma_copy.copy_into`` and ``remote_put``,
 ``flash_attn.flash_attention``, ``ishmem_device.paged_gather``,
 ``flash_partial_split`` and ``flash_partial``, ``ring_collectives``' four
 and ``reduce_tile.reduce_tile``) checks its inputs, allocates its outputs
-and calls :func:`launch`, which runs the C entry point on the tensor's device and
-current stream, raises on a nonzero ``cudaError_t`` (a launch the card
+and calls :func:`launch`, which runs the C entry point (bound once, when the
+library loads, in ``_build.ENTRIES``) on the tensor's device and current
+stream, raises on a nonzero ``cudaError_t`` (a launch the card
 refuses never runs, and no later synchronise reports it), and counts the
 launch.  A wrapper given CPU tensors runs its plain PyTorch version instead
 and counts nothing.
@@ -18,6 +19,8 @@ through the kernels.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import _build
 
 LAUNCHES = {"copy_into": 0, "flash_attention": 0, "paged_gather": 0,
             "remote_put": 0, "ring_allgather": 0, "ring_reduce_scatter": 0,
@@ -30,28 +33,37 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def launch(name: str, entry: str, device: torch.device, *args) -> None:
-    from repro_torch.kernels import _build
-    lib = _build.lib()
+def launch(name: str, entry: str, device: int, *args) -> None:
+    """Run C entry point ``entry`` of ``_build.ENTRIES`` on CUDA device
+    ``device`` (an ordinal, as ``Tensor.get_device()`` gives it) and its
+    current stream, raise on a nonzero ``cudaError_t``, and count the
+    launch under ``name``."""
     # the current stream's handle, as torch.cuda.current_stream(device)
     # .cuda_stream gives it, without building a Stream object each launch
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    rc = getattr(lib, entry)(device.index, *args, stream)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    rc = _build.entries()[entry](device, *args, stream)
     if rc:
-        msg = lib.ishmem_error_string(rc).decode()
+        msg = _build.lib().ishmem_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
     LAUNCHES[name] += 1
 
 
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU (the plain-version route);
-    False when every one lies on one CUDA device; raises otherwise."""
-    kinds = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in kinds):
+    False when every one lies on one CUDA device; raises otherwise.  The
+    CUDA case reads no ``torch.device``: it is every launch's test."""
+    first = tensors[0]
+    if first.is_cuda:
+        index = first.get_device()
+        for t in tensors[1:]:
+            if not (t.is_cuda and t.get_device() == index):
+                break
+        else:
+            return False
+    elif all(t.is_cpu for t in tensors):
         return True
-    if len(kinds) == 1 and next(iter(kinds)).type == "cuda":
-        return False
-    raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+    raise ValueError(f"tensors on mixed or unsupported devices: "
+                     f"{[str(t.device) for t in tensors]}")
 
 
 def reduce_tile(rows: torch.Tensor, op: str = "sum",

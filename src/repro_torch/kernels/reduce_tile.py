@@ -47,7 +47,7 @@ def reduce_tile(rows: torch.Tensor, op: str = "sum") -> torch.Tensor:
         raise ValueError("reduce_tile: rows must be contiguous")
     T, N = rows.shape
     out = torch.empty(N, dtype=rows.dtype, device=rows.device)
-    ops.launch("reduce_tile", "ishmem_reduce_tile", rows.device,
+    ops.launch("reduce_tile", "ishmem_reduce_tile", rows.get_device(),
                rows.data_ptr(), out.data_ptr(), T, N,
                _DTYPE_CODE[rows.dtype], _OP_CODE[op])
     return out

@@ -4,13 +4,15 @@ Replaces ``repro/kernels/ring_collectives.py``: ``ring_allgather`` (K5),
 ``ring_reduce_scatter`` (K6), ``push_broadcast`` (K7) and ``barrier_push``
 (K8).  The reference calls each once per PE inside ``shard_map``; the port
 takes PE-stacked tensors instead: the leading axis is the PE axis, and
-``out[p]`` is what PE p's call returns in the reference.  On the card K7
-and K8 run every PE as a group of CTAs in one cooperative launch, with
-flag words in place of DMA semaphores; K5 and K6 pull from every PE's rows
-in one ordinary launch (K5 each source row once, K6 each chunk's addends in
-the ring's fold order; see the source for both designs).  Each kernel has a
-plain PyTorch version that follows the reference's order; a wrapper takes
-it for CPU tensors only.
+``out[p]`` is what PE p's call returns in the reference.  On the card K8
+(and K4, in ``rma_copy``) push as the reference does: every PE a group of
+CTAs in one cooperative launch, with flag words in place of DMA
+semaphores.  K5, K6 and K7 pull from the PEs' rows in one ordinary launch
+with no flags: K5 and K7 share one fan-out body (each source row loaded
+once and stored to every PE's slot; K5's sources are all the rows, K7's
+the root's alone), K6 folds each chunk's addends in the ring's order (see
+the source for the designs).  Each kernel has a plain PyTorch version that
+follows the reference's order; a wrapper takes it for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.kernels import ops
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 REDUCE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C dtype code
-# one cooperative launch runs at most this many CTAs (npes x CTAs per PE);
+# K4's cooperative launch runs at most this many CTAs (npes x CTAs per PE);
 # the flag buffer holds one word per CTA
 MAX_CTAS = 2048
 
@@ -39,8 +41,9 @@ def check_stacked(name: str, x: torch.Tensor, dtypes, min_dim: int = 1):
 
 
 def flags_for(x: torch.Tensor) -> torch.Tensor:
-    """Scratch flag words for one cooperative launch (K4, K7) over ``x``
-    (zeroed by the C entry point on the stream)."""
+    """Scratch flag words for one cooperative launch of K4 over ``x``
+    (zeroed by the C entry point on the stream); the pull kernels (K5-K7)
+    take none."""
     return torch.empty(MAX_CTAS, dtype=torch.int32, device=x.device)
 
 
@@ -73,8 +76,8 @@ def ring_allgather(x: torch.Tensor) -> torch.Tensor:
     P = x.shape[0]
     out = torch.empty((P, P) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    ops.launch("ring_allgather", "ishmem_ring_allgather", x.device,
-               out.data_ptr(), x.data_ptr(), P,
+    ops.launch("ring_allgather", "ishmem_ring_allgather",
+               x.get_device(), out.data_ptr(), x.data_ptr(), P,
                x.numel() // P * x.element_size())
     return out
 
@@ -108,8 +111,9 @@ def ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
         return ring_reduce_scatter_plain(x)
     out = torch.empty((P,) + tuple(x.shape[2:]), dtype=x.dtype,
                       device=x.device)
-    ops.launch("ring_reduce_scatter", "ishmem_ring_reduce_scatter", x.device,
-               out.data_ptr(), x.data_ptr(), P, x[0, 0].numel(),
+    ops.launch("ring_reduce_scatter", "ishmem_ring_reduce_scatter",
+               x.get_device(), out.data_ptr(), x.data_ptr(), P,
+               x.numel() // (P * P),
                REDUCE_DTYPES[x.dtype])
     return out
 
@@ -139,10 +143,9 @@ def push_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     if ops.on_cpu(x):
         return push_broadcast_plain(x, root)
     out = torch.empty_like(x)
-    flags = flags_for(x)
-    ops.launch("push_broadcast", "ishmem_push_broadcast", x.device,
-               out.data_ptr(), x.data_ptr(), flags.data_ptr(), flags.numel(),
-               P, x[0].numel() * x.element_size(), root)
+    ops.launch("push_broadcast", "ishmem_push_broadcast", x.get_device(),
+               out.data_ptr(), x.data_ptr(), P,
+               x.numel() // P * x.element_size(), root)
     return out
 
 
@@ -177,6 +180,6 @@ def barrier_push(npes: int, *, device=None) -> torch.Tensor:
         dev = torch.device("cuda", torch.cuda.current_device())
     out = torch.empty(npes, dtype=torch.int32, device=dev)
     counters = torch.empty(npes, dtype=torch.int32, device=dev)
-    ops.launch("barrier_push", "ishmem_barrier_push", dev, out.data_ptr(),
-               counters.data_ptr(), npes)
+    ops.launch("barrier_push", "ishmem_barrier_push", dev.index,
+               out.data_ptr(), counters.data_ptr(), npes)
     return out

@@ -30,22 +30,27 @@ def copy_into(dst_row: torch.Tensor, src: torch.Tensor,
     place, and return ``dst_row``.  The caller owns ``dst_row``: the
     functional heap passes a freshly cloned pool row, so no snapshot sees
     the store."""
+    # every launch on the heap's store path runs these checks: each reads
+    # an attribute once, the cheaper forms (ndim, itemsize) where there are
+    # two, in the order that decides which error a bad call raises
     n = src.numel()
-    if dst_row.dim() != 1 or not dst_row.is_contiguous():
+    if dst_row.ndim != 1 or not dst_row.is_contiguous():
         raise ValueError("copy_into: dst_row must be a contiguous 1-D row")
     if not src.is_contiguous():
         raise ValueError("copy_into: src must be contiguous")
-    if src.dtype != dst_row.dtype or dst_row.dtype not in DTYPES:
-        raise TypeError(f"copy_into: {src.dtype} into {dst_row.dtype}; "
+    dtype = dst_row.dtype
+    if src.dtype != dtype or dtype not in DTYPES:
+        raise TypeError(f"copy_into: {src.dtype} into {dtype}; "
                         f"takes one of {DTYPES}")
     if not 0 <= offset <= dst_row.numel() - n:
         raise IndexError(f"copy_into: [{offset}, {offset + n}) outside a row "
                          f"of {dst_row.numel()}")
     if ops.on_cpu(dst_row, src):
         return copy_into_plain(dst_row, src, offset)
-    ops.launch("copy_into", "ishmem_copy_into", dst_row.device,
-               dst_row.data_ptr(), src.data_ptr(), n, offset,
-               dst_row.element_size())
+    itemsize = dst_row.itemsize
+    ops.launch("copy_into", "ishmem_copy_into", dst_row.get_device(),
+               dst_row.data_ptr() + int(offset) * itemsize, src.data_ptr(),
+               n * itemsize)
     return dst_row
 
 
@@ -76,7 +81,9 @@ def remote_put(x: torch.Tensor, *, target_offset: int = 1,
         return remote_put_plain(x, target_offset)
     out = torch.empty_like(x)
     flags = ring_collectives.flags_for(x)
-    ops.launch("remote_put", "ishmem_remote_put", x.device, out.data_ptr(),
-               x.data_ptr(), flags.data_ptr(), flags.numel(), x.shape[0],
-               x[0].numel() * x.element_size(), target_offset, work_items)
+    P = x.shape[0]
+    ops.launch("remote_put", "ishmem_remote_put", x.get_device(),
+               out.data_ptr(), x.data_ptr(), flags.data_ptr(), flags.numel(),
+               P, x.numel() // P * x.element_size(), target_offset,
+               work_items)
     return out

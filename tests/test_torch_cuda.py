@@ -246,6 +246,61 @@ def test_cuda_allgather_pull_bitwise(card, dtype, P):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+def test_cuda_broadcast_pull_bitwise(card, dtype, P):
+    """The fan-out broadcast at every root: 16-byte vectors where the chunk
+    and base allow, narrower units otherwise (odd chunks, a base one
+    element off the 16-byte grid); every output word overwritten on
+    poisoned memory."""
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    try:
+        for n in (1, 127, 128 * 40 + 37, 1 << 16):
+            aligned = _cuda_inputs(card, dtype, P, n, n)
+            flat = _cuda_inputs(card, dtype, 1, P * n + 1, n)[0]
+            shifted = flat[1:].view(P, n)       # contiguous, base off-grid
+            assert shifted.is_contiguous() and shifted.data_ptr() % 16
+            for x in (aligned, shifted):
+                for root in range(P):
+                    assert torch.equal(rc.push_broadcast(x, root),
+                                       rc.push_broadcast_plain(x, root))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+
+
+def test_cuda_launches_run_on_the_callers_stream(card):
+    """K1 and K7 called under a side stream launch on it, ordered after a
+    producer kernel there: the side stream first sleeps, then fills the
+    inputs, so a launch on any other stream would read them unfilled (NaN)
+    and differ from the plain versions."""
+    gen = torch.Generator(device=card).manual_seed(17)
+    n, P, root = 1 << 20, 8, 5
+    src_vals = torch.randn(n, generator=gen, device=card).bfloat16()
+    x_vals = torch.randn(P, n, generator=gen, device=card).bfloat16()
+    src = torch.full_like(src_vals, float("nan"))
+    x = torch.full_like(x_vals, float("nan"))
+    row = torch.zeros(3 * n, dtype=torch.bfloat16, device=card)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=card)
+    before = dict(ops.LAUNCHES)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)           # tens of milliseconds
+        src.copy_(src_vals)                     # the producers
+        x.copy_(x_vals)
+        stored = rma_copy.copy_into(row, src, n + 3)
+        out = rc.push_broadcast(x, root)
+    side.synchronize()
+    torch.cuda.synchronize()
+    want_row = rma_copy.copy_into_plain(torch.zeros_like(row), src_vals,
+                                        n + 3)
+    assert stored is row and torch.equal(row, want_row)
+    assert torch.equal(out, rc.push_broadcast_plain(x_vals, root))
+    assert ops.LAUNCHES["copy_into"] == before["copy_into"] + 1
+    assert ops.LAUNCHES["push_broadcast"] == before["push_broadcast"] + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P", [1, 2, 4, 8])
 def test_cuda_reduce_scatter_bitwise(card, dtype, P):

@@ -330,6 +330,103 @@ def test_non_cpu_tensors_never_take_the_plain_version(counts):
         ops.on_cpu(torch.zeros(1), torch.zeros(1, device=meta))
 
 
+def _on(device: str, *shape, dtype=torch.float32) -> torch.Tensor:
+    """A tensor on ``device``; a CUDA one is a fake tensor (shape, dtype
+    and device only), which this machine can make without a card."""
+    if device.startswith("cuda"):
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            return torch.zeros(shape, dtype=dtype, device=device)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("devices,want", [
+    (("cpu",), True), (("cpu", "cpu"), True), (("cpu", "cpu", "cpu"), True),
+    (("cuda",), False), (("cuda", "cuda", "cuda"), False),
+    (("cuda:1", "cuda:1"), False),
+    (("cpu", "meta"), ValueError), (("meta", "cpu"), ValueError),
+    (("meta",), ValueError), (("cuda", "cpu"), ValueError),
+    (("cpu", "cuda"), ValueError), (("cuda", "cuda:1"), ValueError),
+    (("cuda", "meta"), ValueError),
+], ids=lambda v: "-".join(v) if isinstance(v, tuple) else str(v))
+def test_on_cpu_contract(devices, want):
+    """True for all-CPU tensors, False for tensors on one CUDA device,
+    ValueError for anything else."""
+    tensors = [_on(d, 4) for d in devices]
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            ops.on_cpu(*tensors)
+    else:
+        assert ops.on_cpu(*tensors) is want
+
+
+_F64 = torch.float64
+COPY_BAD = {
+    "offset past the end": (lambda: (_on("cpu", 256), _on("cpu", 10), 250),
+                            IndexError),
+    "negative offset": (lambda: (_on("cpu", 256), _on("cpu", 10), -1),
+                        IndexError),
+    "dtypes differ": (lambda: (_on("cpu", 256),
+                               _on("cpu", 10, dtype=torch.int32), 0),
+                      TypeError),
+    "dtype not taken": (lambda: (_on("cpu", 8, dtype=_F64),
+                                 _on("cpu", 2, dtype=_F64), 0), TypeError),
+    "2-D row": (lambda: (_on("cpu", 4, 4), _on("cpu", 4), 0), ValueError),
+    "strided row": (lambda: (_on("cpu", 512)[::2], _on("cpu", 4), 0),
+                    ValueError),
+    "strided src": (lambda: (_on("cpu", 256), _on("cpu", 20)[::2], 0),
+                    ValueError),
+    "2-D row of a bad dtype": (lambda: (_on("cpu", 4, 4, dtype=_F64),
+                                        _on("cpu", 4, dtype=_F64), 0),
+                               ValueError),
+    "bad dtype past the end": (lambda: (_on("cpu", 256),
+                                        _on("cpu", 10, dtype=torch.int32),
+                                        250), TypeError),
+    "cpu row, meta src": (lambda: (_on("cpu", 256), _on("meta", 10), 0),
+                          ValueError),
+    "cuda row, cpu src": (lambda: (_on("cuda", 256), _on("cpu", 10), 0),
+                          ValueError),
+    "cpu row, cuda src": (lambda: (_on("cpu", 256), _on("cuda", 10), 0),
+                          ValueError),
+    "row and src on two cards": (lambda: (_on("cuda", 256),
+                                          _on("cuda:1", 10), 0), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", COPY_BAD)
+def test_copy_into_raises(case, counts):
+    """Each bad input raises its exception before any launch, the first
+    failing check deciding which (shape, contiguity, dtype, range, then
+    devices)."""
+    make, exc = COPY_BAD[case]
+    row, src, offset = make()
+    with pytest.raises(exc):
+        rma_copy.copy_into(row, src, offset)
+
+
+BROADCAST_BAD = {
+    "dtype not taken": (lambda: (_on("cpu", 4, 8, dtype=_F64), 0), TypeError),
+    "not contiguous": (lambda: (_on("cpu", 8, 4).t(), 0), ValueError),
+    "root = npes": (lambda: (_on("cpu", 4, 8), 4), ValueError),
+    "negative root": (lambda: (_on("cpu", 4, 8), -1), ValueError),
+    "no PE axis": (lambda: (_on("cpu"), 0), ValueError),
+    "no PEs": (lambda: (_on("cpu", 0, 8), 0), ValueError),
+    "meta": (lambda: (_on("meta", 4, 8), 0), ValueError),
+    "bad dtype and root": (lambda: (_on("cpu", 4, 8, dtype=_F64), 9),
+                           TypeError),
+    "cuda, root outside": (lambda: (_on("cuda", 4, 8), 4), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", BROADCAST_BAD)
+def test_push_broadcast_raises(case, counts):
+    from repro_torch.kernels import ring_collectives
+    make, exc = BROADCAST_BAD[case]
+    x, root = make()
+    with pytest.raises(exc):
+        ring_collectives.push_broadcast(x, root)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No nvcc on PATH or under CUDA_HOME: the build says so, and nothing
     falls back."""
