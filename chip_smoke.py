@@ -8,9 +8,10 @@ Phases, each fatal on failure:
 1. device and build: print the card's name and power limit, build the
    port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source,
    in parallel), TF32 off for PyTorch's own products; print ptxas's
-   registers and spills for the bf16 K2 kernels and the K10 kernels (its
-   split pass too) and count the HGMMA instructions of both with
-   ``cuobjdump``, where the toolkit has it (a count of 0 fails);
+   registers and spills for the bf16 K2 kernels, K11's paged kernels
+   (a spill there fails) and the K10 kernels (its split pass too) and
+   count the HGMMA instructions of all three with ``cuobjdump``, where the
+   toolkit has it (a count of 0 fails);
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge shapes (K1, K3-K9 bitwise; K2 to 2e-5 in f32
    and 2e-2 in bf16, the reference's tolerances, in bf16 over S from 1 to
@@ -32,7 +33,8 @@ Phases, each fatal on failure:
    dtype each takes, roots 0, 3 and 7 and offsets 1 and 3, each check 20
    times over to catch ordering races, with every new output and flag
    block poisoned (NaN or the integer maximum) so that a stale read
-   cannot find an earlier run's equal value.  The bounds count each input
+   cannot find an earlier run's equal value; K8 also over 800 calls whose
+   PE count changes every call (its counters persist across calls).  The bounds count each input
    read once and each output written once, and for K10 only the unmasked
    products, three TF32 products each at 495 TFLOP/s (its row also
    carries the f32 FMA bound and the split pass's time).  Rows also carry
@@ -41,7 +43,9 @@ Phases, each fatal on failure:
    over the same 32-offset loop, K2 and SDPA at both K2 shapes, K3 and
    ``index_select``, K4 at a small chunk and at its main shape beside
    ``torch.roll``, K5 and ``expand`` + ``contiguous``, K6 and
-   ``x.sum(0)``, K7 and ``expand_as`` + ``contiguous``, K8, K9 and
+   ``x.sum(0)``, K7 and ``expand_as`` + ``contiguous``, K8 (every device
+   operation of one call, and its kernel alone) beside an empty
+   cooperative launch, K9 and
    ``rows.sum(0)``, K10 at both ring shapes and its split pass; K7 also
    summed over one run of phase 4's broadcasts), measured after phase 6
    so that the profiler's hooks cannot slow the timed phases.  K1's row
@@ -68,8 +72,14 @@ Phases, each fatal on failure:
    Every request's tokens must equal phase 3's and the single-PE baseline
    bitwise, the counters balance, the completion queue ends empty, and the
    mean first-resident-block step must be strictly below phase 3's.  Then
-   K11 (``fused_paged_attn``: device waits, K3, K2) on the pool that phase
-   leaves, bitwise equal to ``assemble`` + K2 at qwen3-4b widths;
+   K11 (``fused_paged_attn``: device waits, then one launch of the paged
+   kernel, which spins on the signal words and reads one layer's K/V
+   through the slot table) on the pool that phase leaves, and on a copy
+   whose unused blocks are NaN: exactly one K11 launch and no K3 or K2
+   launch per call, bitwise equal to ``assemble`` + K2 at layers 0 and 35
+   at qwen3-4b widths, within 2e-2 of its plain version; timed beside the
+   route it replaces (device waits, K3 over every table block, K2), by
+   events and on the device;
 6. the ring attention path: ``serve.seq_parallel_report`` at qwen3-4b's
    attention widths (32 heads of 128), 8 PEs, S = 32768, f32: K/V shards
    rotate by work-group ``put_signal_nbi`` and device waits, one K10
@@ -81,7 +91,10 @@ Phases, each fatal on failure:
 
 K9 (``reduce_tile``) has no caller on these paths (only the reference's
 benchmark and tests call it): its row sums its counts over the four path
-runs, and the check fails if that is not 0.  K2's row also carries its
+runs, and the check fails if that is not 0.  K11 has none either (the
+fused serving path reads through ``assemble``, as the reference's does):
+its row's ``launches`` is phase 5's count, 0, beside its launches per
+call.  K2's row also carries its
 HGMMA count (``hgmma``) and a ``long`` record at q (1, 4096, 32, 128):
 events, device ms, TFLOP/s and share of its operations bound beside
 SDPA's events and device ms.  The line before
@@ -591,6 +604,12 @@ def check_ring(torch, rc, rma_copy, _build, dev, deferred):
                 if got.tolist() != [1] * P:
                     fail(f"K8 barrier_push returned {got.tolist()} at P={P}")
                 checks += 1
+        # K8's counters persist under an epoch; a change of P zeroes them
+        outs = [rc.barrier_push(1 + i % 8, device=dev) for i in range(800)]
+        torch.cuda.synchronize()
+        if not bool((torch.cat(outs) == 1).all()):
+            fail("K8 barrier_push missed a PE over calls whose P changes")
+        checks += len(outs)
     say(f"K4-K8 edge shapes: {checks} checks on poisoned memory, bitwise "
         "equal to the plain versions")
 
@@ -684,7 +703,11 @@ def check_ring(torch, rc, rma_copy, _build, dev, deferred):
         "bound_ms": time_ms(torch, noop), "bound_by": "operations",
         "library_ms": None,
         "shape": "8 PEs; bound = one empty cooperative launch of 8 CTAs"}
+    # every device operation of one call (a memset would show), and the
+    # kernel alone
     deferred.append((barrier, "device_ms",
+                     lambda: rc.barrier_push(P, device=dev), None))
+    deferred.append((barrier, "kernel_device_ms",
                      lambda: rc.barrier_push(P, device=dev),
                      "barrier_kernel"))
     deferred.append((barrier, "noop_device_ms", noop, "noop_kernel"))
@@ -923,9 +946,12 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
     """K11 on the decode pool that the fused serving run leaves: every slot
     of decode PE 2 mapped to a full request's table of blocks (which hold
     that run's K/V), qwen3-4b's 32 query heads over 8 KV heads, bf16.
-    ``fused_paged_attn`` (device wait, work-group get, K3, K2) must equal
-    ``assemble`` + K2 bitwise at the first and the last layer; timed beside
-    the same composition on the plain versions."""
+    ``fused_paged_attn`` must launch the paged kernel once and neither K3
+    nor K2, and equal ``assemble`` + K2 bitwise at the first and the last
+    layer, on that pool and on a copy whose unused blocks are NaN; then it
+    is held to its plain version (2e-2, bf16) and timed beside it and
+    beside the route it replaces (device waits, K3 over every table block,
+    K2: the port's K11 before this kernel)."""
     from repro_torch.core import device as device_mod
     from repro_torch.core.heap import TORCH_DTYPES
     from repro_torch.serve.paged_attn import PagedDecodeView
@@ -946,37 +972,79 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
     wg = device_mod.work_group(sched.ctx, pe=pe)
     waits = [(pool.sig_ptr(s), 0) for s in range(view.num_slots)]
     cache = sched.banks[pe].cache
-    assembled = view.assemble(heap, cache)
-    for layer in (0, leaf.reps - 1):
-        _, got = dev_kern.fused_paged_attn(wg, heap, view, q, layer=layer,
-                                           waits=waits)
-        k = assembled["blocks"][leaf.unit_idx]["k"][layer].contiguous()
-        v = assembled["blocks"][leaf.unit_idx]["v"][layer].contiguous()
-        want = flash_attn.flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want) or not bool(got.isfinite().all()):
-            fail(f"K11 fused_paged_attn differs from assemble + K2 at layer "
-                 f"{layer}")
-    say(f"K11 fused_paged_attn bitwise equal to assemble + K2 at layers 0 "
-        f"and {leaf.reps - 1}: q {tuple(q.shape)} {lay.kv_dtype} over "
-        f"{view.num_slots} x {lay.blocks_per_request} blocks")
-    ops.reset_launches()
-    dev_kern.fused_paged_attn(wg, heap, view, q, waits=waits)
-    per_call = {k: n for k, n in ops.LAUNCHES.items() if n}
+    table = view.table()
+    unused = sorted(set(range(pool.num_blocks)) - set(table.ravel().tolist()))
+    nan_pools = heap.pools[pool.data.dtype].clone()
+    nan_pools[pe, pool.data.offset:pool.data.offset + pool.data.size].view(
+        pool.num_blocks, lay.block_words)[unused] = float("nan")
+    nan_heap = heap.replace_pool(pool.data.dtype, nan_pools)
+    per_call = None
+    for label, h in (("phase 5's pool", heap),
+                     (f"its copy with {len(unused)} unused blocks NaN",
+                      nan_heap)):
+        assembled = view.assemble(h, cache)
+        for layer in (0, leaf.reps - 1):
+            ops.reset_launches()
+            _, got = dev_kern.fused_paged_attn(wg, h, view, q, layer=layer,
+                                               waits=waits)
+            per_call = {k: n for k, n in ops.LAUNCHES.items() if n}
+            if per_call != {"fused_paged_attn": 1}:
+                fail(f"K11 launched {per_call} in one call, not one "
+                     "fused_paged_attn and no K3 or K2")
+            k = assembled["blocks"][leaf.unit_idx]["k"][layer].contiguous()
+            v = assembled["blocks"][leaf.unit_idx]["v"][layer].contiguous()
+            want = flash_attn.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or not bool(got.isfinite().all()):
+                fail(f"K11 fused_paged_attn differs from assemble + K2 at "
+                     f"layer {layer} on {label}")
+        say(f"K11 fused_paged_attn: one launch a call, bitwise equal to "
+            f"assemble + K2 at layers 0 and {leaf.reps - 1} on {label}: q "
+            f"{tuple(q.shape)} {lay.kv_dtype} over {view.num_slots} x "
+            f"{lay.blocks_per_request} blocks")
+        del assembled
+    del nan_heap, nan_pools
+    torch.cuda.empty_cache()
+    offs = dev_kern._leaf_offsets(lay)
+    v_leaf = next(x for x in lay.paged
+                  if x.unit_idx == leaf.unit_idx and x.key == "v")
 
     def fused():
-        return dev_kern.fused_paged_attn(wg, heap, view, q, waits=waits)
+        return dev_kern.fused_paged_attn(wg, heap, view, q, waits=waits)[1]
 
     def plain():
         data = heap.read(pool.data, pe).reshape(pool.num_blocks,
                                                 lay.block_words)
-        table = torch.from_numpy(view.table()).to(data.device)
-        pay = dev_kern.paged_gather_plain(data, table)
-        offs = dev_kern._leaf_offsets(lay)
-        kv = [dev_kern._extract_leaf(pay, lay, x, view.num_slots,
-                                     offs[(x.unit_idx, x.key)])[0]
-              for x in lay.paged if x.unit_idx == leaf.unit_idx]
-        return flash_attn.flash_attention_plain(q, *kv)
+        return dev_kern.fused_paged_attn_plain(
+            data, view.table(), q, k_off=offs[(leaf.unit_idx, "k")],
+            v_off=offs[(leaf.unit_idx, "v")], leaf=leaf, layer=0,
+            block_tokens=lay.block_tokens)
+
+    def composed():
+        # the port's K11 before this kernel: device waits, a work-group
+        # get, K3 over every table block's payload, K2 on layer 0
+        h = heap
+        for sig_ptr, expected in waits:
+            h, _, _ = device_mod.signal_wait_until(wg, h, sig_ptr, pe, "ge",
+                                                   expected)
+        data = device_mod.get(wg, h, pool.data, pe).reshape(
+            pool.num_blocks, lay.block_words)
+        pay = dev_kern.paged_gather(data, view.table())
+        k, v = (dev_kern._extract_leaf(pay, lay, x, view.num_slots,
+                                       offs[(x.unit_idx, x.key)])[0]
+                for x in (leaf, v_leaf))
+        return flash_attn.flash_attention(q, k.contiguous(), v.contiguous())
+
+    got, want, before = fused(), plain(), composed()
+    torch.cuda.synchronize()
+    if not torch.equal(got, before):
+        fail("K11 differs from the K3 + K2 route it replaces at layer 0")
+    err = float((got.float() - want.float()).abs().max())
+    if not bool(torch.isclose(got.float(), want.float(), rtol=TOL[
+            "bfloat16"], atol=TOL["bfloat16"]).all()):
+        fail(f"K11 is {err:.3e} from its plain version, outside "
+             f"{TOL['bfloat16']}")
+    del got, want, before
 
     # the function's least bytes: q and out, and one layer's K and V of the
     # mapped blocks (a block payload holds all the layers'); its operations:
@@ -986,18 +1054,28 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
         2 * view.num_slots * width * leaf.nkv * leaf.hd * q.element_size()
     flops = 4 * leaf.hd * nq * view.num_slots * width * (width + 1) // 2
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
-    row = {"name": "fused_paged_attn", "ms": time_ms(torch, fused, iters=5),
+    row = {"name": "fused_paged_attn", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attn.cu",
+           "replaces": "src/repro/kernels/ishmem_device.py:116",
+           "max_abs_err": err, "ms": time_ms(torch, fused),
            "plain_ms": time_ms(torch, plain, iters=5),
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "launches_per_call": per_call,
-           "q": tuple(q.shape)}
-    # device time of the composition: its K3 and its K2 launches (taken
-    # here, not last, so that the pool it reads is freed before phase 6)
-    row["device_ms_gather"] = device_ms(torch, fused, "paged_gather_kernel",
-                                        iters=10)
-    row["device_ms_flash"] = device_ms(torch, fused, "flash_fwd_wgmma",
-                                       iters=10)
+           "before_ms": time_ms(torch, composed),
+           "shape": f"q {tuple(q.shape)} bf16 over decode PE {pe}'s pool "
+                    f"({pool.num_blocks} blocks of {lay.block_words} words)"}
+    # device times, taken here, not last, so that the pool they read is
+    # freed before phase 6: the kernel alone, every device operation of one
+    # call (the table's copy too), and the route it replaces, whole and in
+    # its K3 and K2 launches
+    row["device_ms"] = device_ms(torch, fused, "paged_flash_wgmma", iters=20)
+    row["call_device_ms"] = device_ms(torch, fused, None, iters=20)
+    row["before_device_ms"] = device_ms(torch, composed, None, iters=20)
+    row["before_device_ms_gather"] = device_ms(
+        torch, composed, "paged_gather_kernel", iters=20)
+    row["before_device_ms_flash"] = device_ms(torch, composed,
+                                              "flash_fwd_wgmma", iters=20)
     for s in range(view.num_slots):
         pool.release(1_000_000 + s)
     return row
@@ -1036,6 +1114,13 @@ def main() -> None:
         if "flash_fwd_wgmma" in entry and ("setmaxnreg" in line or "spill"
                                            in line or "Used" in line):
             say(f"ptxas, bf16 K2 hd {hd}: {line.strip()}")
+        elif "paged_flash_wgmma" in entry and ("spill" in line or "Used"
+                                               in line):
+            say(f"ptxas, K11 hd {hd}: {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and (int(spill[1]) or int(spill[2])):
+                fail(f"the K11 kernel at hd {hd} spills: {line.strip()}")
         elif "flash_partial_tf32" in entry and ("spill" in line or "Used"
                                                 in line):
             lo = "f32" if "Lb1E" in entry else "bf16"
@@ -1046,6 +1131,7 @@ def main() -> None:
             say(f"ptxas, K10 split pass {name} {dt}: {line.strip()}")
     hgmma = {}
     for label, kernel in (("bf16 K2", "flash_fwd_wgmma"),
+                          ("K11", "paged_flash_wgmma"),
                           ("K10", "flash_partial_tf32")):
         hgmma[label] = hgmma_count(_build, so, kernel)
         say(f"{label} kernels: {hgmma[label]} HGMMA instructions in the "
@@ -1185,12 +1271,19 @@ def main() -> None:
     say("8/8 fused requests bitwise equal to phase 3 and to the single-PE "
         "baseline")
     k11 = check_fused_paged_attn(torch, ishmem_device, flash_attn, ops, sched)
-    say(f"fused_paged_attn (K11) [q {k11['q']}]: {k11['ms']:.4f} ms, plain "
-        f"{k11['plain_ms']:.4f} ms, bound {k11['bound_ms']:.4f} ms "
-        f"({k11['bound_by']}), library none (no one PyTorch call gathers "
-        f"through a block table and attends); device ms K3 "
-        f"{k11['device_ms_gather']} + K2 {k11['device_ms_flash']}; launches "
-        f"per call {k11['launches_per_call']}")
+    k11["path"] = "none: the fused serving path reads through assemble, " \
+        "as the reference's does"
+    rows.append(k11)
+    say(f"fused_paged_attn (K11) [{k11['shape']}]: {k11['ms']:.4f} ms by "
+        f"events, device {k11['device_ms']} ms (every device operation of "
+        f"a call {k11['call_device_ms']}), launches per call "
+        f"{k11['launches_per_call']}; bound {k11['bound_ms']:.4f} ms "
+        f"({k11['bound_by']}); plain {k11['plain_ms']:.4f} ms; library none "
+        f"(no one PyTorch call gathers through a block table and attends); "
+        f"max|err| vs plain {k11['max_abs_err']:.3e}; before (device waits "
+        f"+ K3 + K2): {k11['before_ms']:.4f} ms by events, device "
+        f"{k11['before_device_ms']} ms (K3 {k11['before_device_ms_gather']}"
+        f" + K2 {k11['before_device_ms_flash']})")
     del sched, eng
     torch.cuda.empty_cache()
 
@@ -1256,11 +1349,18 @@ def main() -> None:
     say(f"push_broadcast over the collectives path's "
         f"{coll_launches['push_broadcast']} launches: "
         f"{k7.get('path_device_ms')} ms device in all")
+    k8 = by_name["barrier_push"]
+    say(f"barrier_push (K8) [{k8['shape']}]: {k8['ms']:.4f} ms by events, "
+        f"{k8['ms'] / k8['bound_ms']:.2f}x the empty launch's; device "
+        f"{k8.get('device_ms')} ms over every device operation of a call "
+        f"(kernel alone {k8.get('kernel_device_ms')}), empty launch "
+        f"{k8.get('noop_device_ms')} ms")
     say(f"paged_gather with the card table (one sync a call): "
         f"{by_name['paged_gather']['card_table_ms']:.4f} ms by events")
     k2 = rows[1]
     k2["hgmma"] = hgmma["bf16 K2"]
-    rows[-1]["hgmma"] = hgmma["K10"]
+    by_name["flash_partial"]["hgmma"] = hgmma["K10"]
+    k11["hgmma"] = hgmma["K11"]
     long = k2["long"]
     if long.get("device_ms"):
         long["tflops"] = long["flops"] / long["device_ms"] / 1e9
@@ -1274,7 +1374,9 @@ def main() -> None:
     path_launches = {k: launches[k] for k in SERVE_KERNELS}
     path_launches.update({k: coll_launches[k] for k in RING_KERNELS})
     path_launches["flash_partial"] = ring_launches["flash_partial"]
-    rows[-1]["split_launches"] = ring_launches["flash_partial_split"]
+    path_launches["fused_paged_attn"] = fused_launches["fused_paged_attn"]
+    by_name["flash_partial"]["split_launches"] = \
+        ring_launches["flash_partial_split"]
     path_launches["reduce_tile"] = sum(
         run["reduce_tile"] for run in (launches, coll_launches,
                                        fused_launches, ring_launches))
@@ -1283,8 +1385,8 @@ def main() -> None:
              f"paths, which should not call it")
     for r in rows:
         r["launches"] = path_launches[r["name"]]
-    rows[-2]["path"] = "none: only the reference's benchmark and tests " \
-        "call K9"
+    by_name["reduce_tile"]["path"] = "none: only the reference's " \
+        "benchmark and tests call K9"
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

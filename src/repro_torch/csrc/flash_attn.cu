@@ -1,4 +1,4 @@
-// K2: causal flash attention, forward.
+// K2: causal flash attention, forward; K11: the same over a paged pool.
 //
 // Replaces repro/kernels/flash_attn.py::flash_attention (the Pallas kernel
 // that keeps each score tile in VMEM) together with the GQA head repeat of
@@ -10,7 +10,7 @@
 // type once.  Sums run in another order than on the TPU, so results agree
 // to a tolerance, not bitwise.
 //
-// bf16 (the serving path's prefill and K11): a Hopper kernel on wgmma
+// bf16 (the serving path's prefill; K11's body): a Hopper kernel on wgmma
 // tensor cores fed by TMA.  Bound: at the main path's prefill shape
 // (B = 1, S = 512, 32/8 heads of 128) the bytes of q, k, v and o (3.1 us
 // at 3.35 TB/s) exceed the causal products (2.2 us at 989 TFLOP/s); from
@@ -53,6 +53,20 @@
 // and row b of a B-batch call gives the bits of the same inputs at B = 1.
 // The barrier, TMA and descriptor helpers and the tensor-map encoding are
 // shared with K10 (tma.cuh).
+//
+// K11 (repro/kernels/ishmem_device.py::fused_paged_attn, bf16): the same
+// kernel body with another K/V source.  Its reference gathers every table
+// block's whole payload (all layers of all leaves, 2.36 MB a block at
+// qwen3-4b) and then attends over one layer's K and V (64 KB a block); here
+// the producer thread reads that layer's K and V straight from the decode
+// PE's pool row through the slot table, one TMA box of T rows per block,
+// so the kernel moves the bytes of q, out and one layer's K/V, its bound.
+// Before the first K/V load it spins (acquire loads, bounded) on the signal
+// words that gate the blocks, so no block byte is read before its signal.
+// Unmapped entries and blocks past the table read TMA's zero fill, and
+// keys at or past the leaf's width are zeroed in shared memory, so the
+// tiles are the bytes K2 sees after the gather, and the output is bitwise
+// K2's on the gathered leaf.
 //
 // f32 (the oracle of ring attention and of the f32 tests, not the serving
 // path): the first version's plain-FMA kernel, unchanged.  The reference's
@@ -280,13 +294,75 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
   else wgmma_rs_n64_mn(d, a, db);
 }
 
+// K11's K/V source: a decode PE's pool row read through a slot table.
+// The K and V maps then run over one paged leaf, (hd, Hkv, reps * T rows,
+// num_blocks) with a block stride of the payload's bytes, in boxes of T
+// rows; batch b is slot b, and key tile t is blocks t * (kBK / T) onward
+// of the slot's table.  Entries equal to num_blocks (unmapped) and blocks
+// past nb are the map's zero fill.
+struct PagedSrc {
+  const int* table;         // (B, nb) block ids
+  const long long* waits;   // n_waits pairs (signal word address, value)
+  int n_waits, nb, T;
+  int row0;                 // the layer's first row in the leaf: layer * T
+  int num_blocks;
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Spin until every signal word reaches its value (acquire loads), then
+// order those loads before the TMA reads of the blocks they guard.  A word
+// that never arrives is a protocol fault: trap after 10 s.
+__device__ __forceinline__ void wait_signals(const long long* waits, int n) {
+  for (int i = 0; i < n; ++i) {
+    const int* word = reinterpret_cast<const int*>(waits[2 * i]);
+    const int want = static_cast<int>(waits[2 * i + 1]);
+    uint64_t since = 0;
+    while (ld_acquire(word) < want) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (since == 0) since = now;
+      else if (now - since > 10000000000ull) __trap();
+    }
+  }
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// Zero rows from..kBK-1 of a K or V tile (every 64-column box) and make the
+// stores visible to this warpgroup's wgmma.  Whole 128-byte rows map onto
+// themselves under the swizzle.  Both consumer warpgroups zero the same
+// rows with the same bytes, so neither waits for the other.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
-                const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
-                float scale_log2) {
+__device__ __forceinline__ void zero_rows(uint32_t tile, int from, int wg) {
+  const int per_box = (kBK - from) * 8;           // 16-byte chunks
+  for (int i = threadIdx.x % 128; i < per_box * (HD / kCols); i += 128) {
+    const uint32_t at = tile + (i / per_box) * kHalf + from * 128 +
+                        (i % per_box) * 16;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at),
+                 "r"(0) : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// The body of K2's bf16 kernel (kPaged false, K/V from dense (B, S, Hkv,
+// hd) maps) and of K11 (kPaged true, K/V through the slot table): only the
+// producer's K/V loads differ, and K11's consumers zero the rows at or
+// past S of its last key tile, which the pool may fill with anything and
+// which K2's map reads as zeros.  With the same tiles in shared memory the
+// consumers compute the same bits.
+template <int HD, bool kPaged>
+__device__ __forceinline__ void attend(const CUtensorMap& tq,
+                                       const CUtensorMap& tk,
+                                       const CUtensorMap& tv,
+                                       __nv_bfloat16* __restrict__ o, int S,
+                                       int H, int Hkv, float scale_log2,
+                                       const PagedSrc& pg) {
   using L = Layout<HD>;
   constexpr int kBoxes = HD / kCols;
   extern __shared__ uint8_t fa_smem[];
@@ -303,6 +379,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest tiles first
   const int q0 = qt * kBQ;
   const int ntiles = qt + 1;                   // up to the diagonal tile
+
+  // K11: this CTA's table entries, copied by every thread into the shared
+  // memory past the K/V stages; entries past nb read as unmapped
+  int* tab = nullptr;
+  if constexpr (kPaged) {
+    tab = reinterpret_cast<int*>(fa_smem + (sq - smem_addr(fa_smem)) +
+                                 L::kQ + 2 * kStages * L::kKV);
+    const int n = ntiles * (kBK / pg.T);
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      tab[i] = i < pg.nb ? pg.table[static_cast<long long>(b) * pg.nb + i]
+                         : pg.num_blocks;
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -323,18 +411,40 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(qbar, L::kQ);
       for (int x = 0; x < kBoxes; ++x)
         tma_load(sq + x * kBQ * 128, &tq, qbar, x * kCols, h, q0, b);
+      if constexpr (kPaged) wait_signals(pg.waits, pg.n_waits);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % kStages;
         const uint32_t ks = skv + 2 * s * L::kKV, vs = ks + L::kKV;
         mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(kfull + 8 * s, L::kKV);
-        for (int x = 0; x < kBoxes; ++x)
-          tma_load(ks + x * kHalf, &tk, kfull + 8 * s, x * kCols, hk,
-                   t * kBK, b);
-        mbar_expect_tx(vfull + 8 * s, L::kKV);
-        for (int x = 0; x < kBoxes; ++x)
-          tma_load(vs + x * kHalf, &tv, vfull + 8 * s, x * kCols, hk,
-                   t * kBK, b);
+        if constexpr (kPaged) {
+          // one box of T rows per block: block j of the tile lands at row
+          // j * T, a multiple of 8 rows, so on the 1 KB swizzle pattern
+          // of one 128-row box
+          const int per_tile = kBK / pg.T;
+          mbar_expect_tx(kfull + 8 * s, L::kKV);
+          for (int j = 0; j < per_tile; ++j) {
+            const int blk = tab[t * per_tile + j];
+            for (int x = 0; x < kBoxes; ++x)
+              tma_load(ks + x * kHalf + j * pg.T * 128, &tk, kfull + 8 * s,
+                       x * kCols, hk, pg.row0, blk);
+          }
+          mbar_expect_tx(vfull + 8 * s, L::kKV);
+          for (int j = 0; j < per_tile; ++j) {
+            const int blk = tab[t * per_tile + j];
+            for (int x = 0; x < kBoxes; ++x)
+              tma_load(vs + x * kHalf + j * pg.T * 128, &tv, vfull + 8 * s,
+                       x * kCols, hk, pg.row0, blk);
+          }
+        } else {
+          mbar_expect_tx(kfull + 8 * s, L::kKV);
+          for (int x = 0; x < kBoxes; ++x)
+            tma_load(ks + x * kHalf, &tk, kfull + 8 * s, x * kCols, hk,
+                     t * kBK, b);
+          mbar_expect_tx(vfull + 8 * s, L::kKV);
+          for (int x = 0; x < kBoxes; ++x)
+            tma_load(vs + x * kHalf, &tv, vfull + 8 * s, x * kCols, hk,
+                     t * kBK, b);
+        }
       }
     }
   } else {
@@ -356,12 +466,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       const int s = t % kStages;
       const uint32_t parity = (t / kStages) & 1;
       const uint32_t ks = skv + 2 * s * L::kKV, vs = ks + L::kKV;
+      const int k0 = t * kBK;
+      // K11: keys at or past S in a mapped block are the pool's bytes
+      const bool ragged = kPaged && k0 + kBK > S;
 
       // S = Q.K^T: hd / 16 steps of k16, 32 bytes along each 128-byte row
       float sc[kBK / 2];
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
       mbar_wait(kfull + 8 * s, parity);
+      if (ragged) zero_rows<HD>(ks, S - k0, wg);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
@@ -374,7 +488,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
       // online softmax in f32, log2 units; only the diagonal tile masks
       const bool diag = t == ntiles - 1;
-      const int k0 = t * kBK;
       float mx[2] = {-INFINITY, -INFINITY};
       if (diag) {
 #pragma unroll
@@ -422,6 +535,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
       // O += P.V: V's rows are keys (K), its columns hd (N, MN-major)
       mbar_wait(vfull + 8 * s, parity);
+      if (ragged) zero_rows<HD>(vs, S - k0, wg);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
@@ -454,6 +568,26 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                float scale_log2) {
+  attend<HD, false>(tq, tk, tv, o, S, H, Hkv, scale_log2, PagedSrc{});
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_flash_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                  float scale_log2, const PagedSrc pg) {
+  attend<HD, true>(tq, tk, tv, o, S, H, Hkv, scale_log2, pg);
+}
+
+template <int HD>
 int launch(int device, const void* q, const void* k, const void* v, void* o,
            int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -482,6 +616,52 @@ int launch(int device, const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K11.  k and v: the first block's K and V leaf (the pool row's base plus
+// the leaf's offset); meta: n_waits (address, value) int64 pairs, then the
+// (B, nb) int32 table.
+template <int HD>
+int launch_paged(int device, const void* q, const void* k, const void* v,
+                 void* o, const void* meta, int n_waits, int B, int S, int H,
+                 int Hkv, long long leaf_rows, long long num_blocks,
+                 long long block_bytes, int nb, int T, int layer, float scale,
+                 cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | static_cast<uintptr_t>(block_bytes)) &
+      15)
+    return static_cast<int>(cudaErrorMisalignedAddress);  // TMA needs 16 B
+  if (T < 8 || T % 8 || kBK % T || num_blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map(&mq, encode, bf16, q, {HD, H, S, B}, {kCols, 1, kBK, 1}) ||
+      !make_map(&mk, encode, bf16, k, {HD, Hkv, leaf_rows, num_blocks},
+                {kCols, 1, T, 1}, block_bytes) ||
+      !make_map(&mv, encode, bf16, v, {HD, Hkv, leaf_rows, num_blocks},
+                {kCols, 1, T, 1}, block_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (S + kBQ - 1) / kBQ;
+  const int smem = Layout<HD>::kDynamic + (tiles * (kBK / T) * 4 + 15) / 16 * 16;
+  static int sized[64] = {};         // per device: dynamic smem raised to
+  if (device < 0 || device >= 64 || sized[device] < smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_flash_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device >= 0 && device < 64) sized[device] = smem;
+  }
+  const PagedSrc pg{
+      static_cast<const int*>(meta) + 4 * n_waits,
+      static_cast<const long long*>(meta), n_waits, nb, T, layer * T,
+      static_cast<int>(num_blocks)};
+  const dim3 grid(B * H, tiles);
+  paged_flash_wgmma<HD><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, Hkv, scale * kLog2e,
+      pg);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace hop
 
 }  // namespace
@@ -504,5 +684,33 @@ extern "C" int ishmem_flash_attention(int device, const void* q, const void* k,
     return hop::launch<128>(device, q, k, v, o, B, S, H, Hkv, scale, st);
   if (dtype == 1 && hd == 64)
     return hop::launch<64>(device, q, k, v, o, B, S, H, Hkv, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K11, bf16 only: causal GQA attention of q (B slots, S = the leaf's width,
+// H, hd) against one layer of one paged K/V leaf, read through the slot
+// table in `meta` after the signal words there reach their values.  The
+// wrapper has checked shapes, the table's range and every alignment.
+extern "C" int ishmem_fused_paged_attn(int device, const void* q,
+                                       const void* k, const void* v, void* o,
+                                       const void* meta, int n_waits, int B,
+                                       int S, int H, int Hkv, int hd,
+                                       long long leaf_rows,
+                                       long long num_blocks,
+                                       long long block_bytes, int nb,
+                                       int block_tokens, int layer,
+                                       float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B == 0 || S == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128)
+    return hop::launch_paged<128>(device, q, k, v, o, meta, n_waits, B, S, H,
+                                  Hkv, leaf_rows, num_blocks, block_bytes, nb,
+                                  block_tokens, layer, scale, st);
+  if (hd == 64)
+    return hop::launch_paged<64>(device, q, k, v, o, meta, n_waits, B, S, H,
+                                 Hkv, leaf_rows, num_blocks, block_bytes, nb,
+                                 block_tokens, layer, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,8 +16,9 @@
 //   "remote DMA" is the group's stores into another PE's row, and a CTA
 //   only ever waits on flags of its own slice, set by CTA g of another PE;
 // - a DMA semaphore is an int32 flag in a global buffer indexed by
-//   (PE, slice), zeroed on the stream before each launch, so no flag of an
-//   earlier launch satisfies this one.
+//   (PE, slice): K4's are zeroed on the stream before each launch, so no
+//   flag of an earlier launch satisfies this one; K8's counters persist and
+//   each barrier waits for its own epoch's count instead.
 //
 // Ordering: the writer stores its slice, __syncthreads(), then one thread
 // runs __threadfence() and a release add on the flag.  The reader's thread
@@ -26,8 +27,8 @@
 // from a possibly stale L1 line.  A CTA that spins on a flag set by a CTA
 // that is not resident would hang the card, so every such kernel is
 // launched with cudaLaunchCooperativeKernel on a grid sized from the
-// occupancy query, which guarantees that all P * G CTAs are resident at
-// once.  A flag that never rises is a protocol fault: every spin gives up
+// occupancy query (asked once per kernel and device), which guarantees
+// that all P * G CTAs are resident at once.  A flag that never rises is a protocol fault: every spin gives up
 // after 10 s and traps, so the launch fails instead of holding the card.
 //
 // K5, K6 and K7 pull instead of pushing.  On one card every PE's rows are
@@ -70,7 +71,9 @@
 // Bound: bytes, for K4-K7 (each input read once, each output written once;
 // chip_smoke.py states each kernel's count).  Copies move 16-byte vectors
 // whenever the chunk and the base pointers allow it, and are bitwise.  K8
-// moves no data: its floor is one empty cooperative launch.
+// moves no data: its floor is one empty cooperative launch, and a call is
+// that launch alone (its counters persist across calls under an epoch, so
+// no memset precedes it; see barrier_kernel).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -281,13 +284,29 @@ reduce_scatter_pull(V* __restrict__ out, const V* __restrict__ x, int P, long lo
 }
 
 // ---------------------------------------------------------------- K8
-// One CTA per PE: +1 to every other PE's counter, then wait for P-1.
-__global__ void barrier_kernel(int* out, int* counters, int P) {
+// One warp per PE: +1 to every other PE's counter (release), then wait for
+// its own.  Lane i adds to PE p + 1 + i, so the P - 1 release adds are one
+// warp instruction and order once, not P - 1 times in turn.  Lane 0 then
+// spins with acquire loads, with no fence after, and reads the clock for
+// its 10 s limit only every 256 polls.  The counters are never reset
+// between barriers: barrier number `epoch` (counted by the wrapper from 1
+// on each counter buffer) passes when counters[p] reaches epoch * (P - 1).
+// The difference is taken in 32-bit two's complement, so the counters and
+// the target may wrap; a counter is never more than P - 1 behind its
+// target, since the launches on one stream run in turn.
+__global__ void barrier_kernel(int* out, int* counters, int P, int epoch) {
   const int p = blockIdx.x;
+  for (int i = threadIdx.x; i < P - 1; i += blockDim.x)
+    red_release_add(&counters[(p + 1 + i) % P], 1);
   if (threadIdx.x == 0) {
-    __threadfence();
-    for (int i = 0; i < P - 1; ++i) red_release_add(&counters[(p + 1 + i) % P], 1);
-    spin_until(&counters[p], P - 1);
+    const unsigned target = static_cast<unsigned>(epoch) * static_cast<unsigned>(P - 1);
+    unsigned long long t0 = 0;
+    for (unsigned n = 0;
+         static_cast<int>(static_cast<unsigned>(ld_acquire(&counters[p])) - target) < 0; ++n) {
+      if (n % 256) continue;
+      if (n == 0) t0 = global_ns();
+      else if (global_ns() - t0 > kSpinLimitNs) __trap();
+    }
     out[p] = 1;
   }
 }
@@ -296,11 +315,17 @@ __global__ void noop_kernel() {}
 
 // ---------------------------------------------------------------- launch
 
-// CTAs per PE for a cooperative launch of `kernel`: as many as `want`, no
-// more than keep P groups resident at once and fit the flag buffer.
+// CTAs of `kernel` (`threads` each) that the card keeps resident at once,
+// the bound of a cooperative launch: the cooperative-launch attribute, the
+// SM count and the occupancy query, asked once per kernel and device and
+// cached (a kernel is always launched here with the same block size).
 template <typename K>
-cudaError_t groups_for(K kernel, int device, int threads, int P, long long want,
-                       long long flags_per_cta, long long flag_cap, int* G) {
+cudaError_t resident_ctas(K kernel, int device, int threads, long long* ctas) {
+  static long long cached[64] = {};
+  if (device >= 0 && device < 64 && cached[device]) {
+    *ctas = cached[device];
+    return cudaSuccess;
+  }
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return err;
@@ -309,7 +334,20 @@ cudaError_t groups_for(K kernel, int device, int threads, int P, long long want,
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   if (err != cudaSuccess) return err;
-  long long g = static_cast<long long>(per_sm) * sms / P;
+  *ctas = static_cast<long long>(per_sm) * sms;
+  if (device >= 0 && device < 64) cached[device] = *ctas;
+  return cudaSuccess;
+}
+
+// CTAs per PE for a cooperative launch of `kernel`: as many as `want`, no
+// more than keep P groups resident at once and fit the flag buffer.
+template <typename K>
+cudaError_t groups_for(K kernel, int device, int threads, int P, long long want,
+                       long long flags_per_cta, long long flag_cap, int* G) {
+  long long resident = 0;
+  cudaError_t err = resident_ctas(kernel, device, threads, &resident);
+  if (err != cudaSuccess) return err;
+  long long g = resident / P;
   if (flags_per_cta > 0 && flag_cap / (P * flags_per_cta) < g) g = flag_cap / (P * flags_per_cta);
   if (g < 1) return cudaErrorCooperativeLaunchTooLarge;  // P groups cannot all be resident
   if (want < g) g = want < 1 ? 1 : want;
@@ -463,18 +501,21 @@ extern "C" int ishmem_push_broadcast(int device, void* out, const void* x, int n
   });
 }
 
-// out: (npes,) int32; counters: npes int32 words (zeroed here).
-extern "C" int ishmem_barrier_push(int device, int* out, int* counters, int npes, void* stream) {
+// out: (npes,) int32; counters: npes int32 words that the wrapper keeps
+// for this (device, stream), zeroed when it made them or npes changed, and
+// `epoch` the number of this barrier on them (see barrier_kernel).  One
+// cooperative launch and nothing else: no memset, and the residency check
+// is asked once per device.
+extern "C" int ishmem_barrier_push(int device, int* out, int* counters, int npes, int epoch,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int G = 0;
-  err = groups_for(barrier_kernel, device, 32, npes, 1, 0, 0, &G);
+  long long resident = 0;
+  err = resident_ctas(barrier_kernel, device, 32, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(counters, 0, sizeof(int) * static_cast<size_t>(npes), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&out, &counters, &npes};
-  return coop_launch(barrier_kernel, npes, 1, args, 32, st);
+  if (npes > resident) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&out, &counters, &npes, &epoch};
+  return coop_launch(barrier_kernel, npes, 1, args, 32, static_cast<cudaStream_t>(stream));
 }
 
 // An empty cooperative launch of npes CTAs: K8's floor, for timing only.

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the TMA-fed wgmma kernels (K2's bf16
-// path in flash_attn.cu, K10 in flash_partial.cu): mbarriers, 4-D TMA tile
-// loads, wgmma descriptors and fences, a one-instruction 2^x, and the host
-// side's tensor-map encoding.
+// path and K11 in flash_attn.cu, K10 in flash_partial.cu): mbarriers, 4-D
+// TMA tile loads, wgmma descriptors and fences, a one-instruction 2^x, and
+// the host side's tensor-map encoding.
 //
 // cuTensorMapEncodeTiled comes from the driver through
 // cudaGetDriverEntryPoint, so the library links without -lcuda.
@@ -128,10 +128,13 @@ EncodeTiled encode_tiled() {
 // A 4-D map over a contiguous array of `type` (2 or 4 bytes an element)
 // whose extents, innermost first, are dims[0..3], read in boxes of
 // box[0..3] with the 128-byte swizzle (box[0] elements must fill 128
-// bytes).  Reads past an edge are zeros.
+// bytes).  Reads past an edge are zeros.  A nonzero `outer_stride` gives
+// the bytes between steps of dims[3] instead (K11 walks a pool row's
+// blocks, whose payload holds more than the mapped leaf); it must be a
+// multiple of 16.
 bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
               const void* base, const long long (&dims)[4],
-              const int (&box)[4]) {
+              const int (&box)[4], long long outer_stride = 0) {
   const cuuint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   cuuint64_t extent[4], strides[3];
   cuuint32_t boxes[4];
@@ -143,6 +146,7 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, CUtensorMapDataType type,
     if (i > 0) strides[i - 1] = stride;
     stride *= extent[i];
   }
+  if (outer_stride) strides[2] = static_cast<cuuint64_t>(outer_stride);
   return encode(map, type, 4, const_cast<void*>(base), extent, strides, boxes,
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

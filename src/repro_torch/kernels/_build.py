@@ -6,8 +6,8 @@ all started together, then one link) into ``repro_torch/_build/<hash>/``,
 keyed by a hash of the flags and of every file under ``csrc/`` (sources
 and headers), and loaded with ``ctypes``.  No PyTorch header is compiled,
 so a build takes seconds.  The library links without ``-lcuda``: the
-kernels that need a driver function (K2's and K10's TMA tensor maps,
-``cuTensorMapEncodeTiled``, in ``csrc/tma.cuh``) take it through
+kernels that need a driver function (K2's, K10's and K11's TMA tensor
+maps, ``cuTensorMapEncodeTiled``, in ``csrc/tma.cuh``) take it through
 ``cudaGetDriverEntryPoint``.  ``nvcc`` comes from ``PATH`` or
 ``CUDA_HOME``; without it the build raises — there is no CPU stand-in for
 a CUDA tensor.
@@ -39,11 +39,13 @@ SIGNATURES = {
     "ishmem_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _P],
     "ishmem_paged_gather": [_I, _P, _P, _P, _LL, _LL, _I, _P],
+    "ishmem_fused_paged_attn": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _LL, _LL, _LL, _I, _I, _I, _F, _P],
     "ishmem_remote_put": [_I, _P, _P, _P, _LL, _I, _LL, _I, _I, _P],
     "ishmem_ring_allgather": [_I, _P, _P, _I, _LL, _P],
     "ishmem_ring_reduce_scatter": [_I, _P, _P, _I, _LL, _I, _P],
     "ishmem_push_broadcast": [_I, _P, _P, _I, _LL, _I, _P],
-    "ishmem_barrier_push": [_I, _P, _P, _I, _P],
+    "ishmem_barrier_push": [_I, _P, _P, _I, _I, _P],
     "ishmem_coop_noop": [_I, _I, _P],
     "ishmem_flash_partial_split": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _F, _P],

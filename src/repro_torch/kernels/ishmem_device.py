@@ -8,9 +8,13 @@ Counterpart of ``repro/kernels/ishmem_device.py``:
   ``PagedDecodeView.assemble`` did not call (it gathered with
   ``data[table]``); the port's ``assemble`` does.  The reference's
   probe-and-fallback has no counterpart.  Bound by bytes.
-- **K11** :func:`fused_paged_attn` has no kernel of its own: per-block
-  device ``signal_wait_until`` gates, a work-group get of the pool row, K3
-  and K2, bitwise equal to ``assemble`` followed by K2.
+- **K11** :func:`fused_paged_attn`: per-block device ``signal_wait_until``
+  gates and a work-group get of the pool row, then, for a bf16 pool and q,
+  one kernel (:func:`paged_flash_attention`, ``csrc/flash_attn.cu``) that
+  spins on the signal words and attends over one layer's K and V read
+  through the slot table: K2's bf16 body with a paged K/V source, bitwise
+  equal to ``assemble`` followed by K2.  Other dtypes on the card take K3
+  and K2's f32 kernel.  Bound by bytes: q, out and one layer's K/V.
 - **K10** :func:`flash_partial` (``csrc/flash_partial.cu``) replaces the
   Pallas ``flash_partial``: one ring step's unnormalised causal partial at
   absolute offsets, on TF32 tensor cores in split precision (three TF32
@@ -86,7 +90,7 @@ def paged_gather(data: torch.Tensor, table) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K11: fused paged attention (a composition of the device waits, K3 and K2)
+# K11: fused paged attention
 # ---------------------------------------------------------------------------
 
 
@@ -114,6 +118,125 @@ def _extract_leaf(pay, lay, leaf, num_slots: int, off: int):
         leaf.reps, num_slots, nb * T, leaf.nkv, leaf.hd)[:, :, :leaf.width]
 
 
+def paged_layer_plain(data: torch.Tensor, table: torch.Tensor, off: int,
+                      leaf, layer: int, block_tokens: int) -> torch.Tensor:
+    """One layer of one paged leaf, ``(num_slots, width, nkv, hd)``: the
+    leaf at word ``off`` of each block payload holds ``(reps, T, nkv, hd)``,
+    so layer L's tokens are ``T * nkv * hd`` words from ``off + L * T * nkv
+    * hd``.  Only those words of each mapped block are read; an unmapped
+    entry (``== data.shape[0]``) reads zeros, and keys past ``leaf.width``
+    are cut.  Bitwise ``_extract_leaf`` of K3's gather at that layer."""
+    n = block_tokens * leaf.nkv * leaf.hd
+    start = off + layer * n
+    idx = table.long()
+    mapped = idx < data.shape[0]
+    rows = data.new_zeros((*table.shape, n))
+    rows[mapped] = data[idx[mapped], start:start + n]
+    return rows.reshape(table.shape[0], table.shape[1] * block_tokens,
+                        leaf.nkv, leaf.hd)[:, :leaf.width]
+
+
+def fused_paged_attn_plain(data: torch.Tensor, table, q: torch.Tensor, *,
+                           k_off: int, v_off: int, leaf, layer: int,
+                           block_tokens: int, dtype=None) -> torch.Tensor:
+    """Plain version of K11: one layer's K and V gathered by table
+    arithmetic (:func:`paged_layer_plain`; the payloads of the other layers
+    and leaves are never read), cast to ``dtype`` if given, then K2's plain
+    version."""
+    table = torch.as_tensor(table, device=data.device)
+    k, v = (paged_layer_plain(data, table, off, leaf, layer, block_tokens)
+            for off in (k_off, v_off))
+    if dtype is not None:
+        k, v = k.to(dtype), v.to(dtype)
+    return flash_attn.flash_attention_plain(q, k.contiguous(),
+                                            v.contiguous())
+
+
+def paged_flash_attention(data: torch.Tensor, table, q: torch.Tensor, *,
+                          k_off: int, v_off: int, leaf, layer: int,
+                          block_tokens: int, signals=()) -> torch.Tensor:
+    """K11's kernel: causal GQA attention of ``q`` ``(num_slots, width, nq,
+    hd)`` against layer ``layer`` of the K and V leaves at word offsets
+    ``k_off`` and ``v_off`` of the block payloads in ``data`` ``(num_blocks,
+    block_words)``, read through ``table`` ``(num_slots, nb)`` (entries in
+    ``[0, num_blocks]``, ``num_blocks`` unmapped).  ``leaf`` gives ``reps``,
+    ``width``, ``nkv`` and ``hd`` (a ``PagedLeaf``).  Returns ``(num_slots,
+    width, nq, hd)``, bitwise K2 on the gathered layer.
+
+    On the CPU: the plain version.  On the card, bf16 only: one launch.
+    The table (numpy or a CPU tensor) is range-checked on the host and
+    reaches the card with the ``signals`` (pairs of a one-word int32 card
+    tensor and the value it must reach) in one non-blocking copy from
+    pinned memory; the kernel spins on each word before it reads a block.
+    TMA needs q, each leaf's first block and the block stride on the
+    16-byte grid, and T a multiple of 8 dividing 128: otherwise it
+    raises."""
+    T = block_tokens
+    if data.dim() != 2 or not data.is_contiguous():
+        raise ValueError("paged attention: data must be a contiguous 2-D "
+                         "array")
+    if isinstance(table, np.ndarray):
+        table = torch.from_numpy(np.ascontiguousarray(table))
+    if table.dim() != 2 or table.dtype != torch.int32 or table.is_cuda:
+        raise TypeError("paged attention: the table must be a 2-D int32 "
+                        "host array")
+    B, W, nq, hd = q.shape
+    R, words = data.shape
+    if (table.shape[0] != B or W != leaf.width or hd != leaf.hd
+            or nq % leaf.nkv or table.shape[1] * T < W):
+        raise ValueError(f"paged attention: q {tuple(q.shape)} against a "
+                         f"({table.shape[0]}, {table.shape[1]}) table of "
+                         f"{T}-token blocks, leaf width {leaf.width}, "
+                         f"{leaf.nkv} kv heads of {leaf.hd}")
+    if max(k_off, v_off) + leaf.reps * T * leaf.nkv * hd > words:
+        raise ValueError(f"paged attention: a leaf at {k_off} or {v_off} "
+                         f"overruns the {words}-word payload")
+    if table.numel():
+        lo, hi = torch.stack(torch.aminmax(table)).tolist()
+        if lo < 0 or hi > R:
+            raise IndexError(f"paged attention: table entries outside "
+                             f"[0, {R}]")
+    if ops.on_cpu(data, q):
+        return fused_paged_attn_plain(data, table, q, k_off=k_off,
+                                      v_off=v_off, leaf=leaf, layer=layer,
+                                      block_tokens=T)
+    if not data.dtype == q.dtype == torch.bfloat16:
+        raise TypeError(f"paged attention: the kernel takes a bf16 pool and "
+                        f"q, got {data.dtype} and {q.dtype}")
+    if hd not in flash_attn.HEAD_DIMS:
+        raise ValueError(f"paged attention: head_dim {hd} not in "
+                         f"{flash_attn.HEAD_DIMS}")
+    if T % 8 or 128 % T:
+        raise ValueError(f"paged attention: {T}-token blocks; the kernel "
+                         f"takes a multiple of 8 that divides 128")
+    if not q.is_contiguous():
+        raise ValueError("paged attention: q must be contiguous")
+    base, esize = data.data_ptr(), data.element_size()
+    kp, vp = base + k_off * esize, base + v_off * esize
+    if (q.data_ptr() | kp | vp | words * esize) % 16:
+        raise ValueError("paged attention: q, the K and V leaves' first "
+                         "block and the block stride must lie on the "
+                         "16-byte grid (TMA)")
+    words_of = []
+    for word, value in signals:
+        if word.numel() != 1 or word.dtype != torch.int32:
+            raise TypeError("paged attention: a signal is one int32 word")
+        ops.on_cpu(data, word)             # on the pool's card
+        words_of += [word.data_ptr(), int(value)]
+    meta = np.empty(2 * len(words_of) + table.numel(), np.int32)
+    meta[:2 * len(words_of)].view(np.int64)[:] = words_of
+    meta[2 * len(words_of):] = table.reshape(-1).numpy()
+    meta = torch.from_numpy(meta).pin_memory().to(data.device,
+                                                  non_blocking=True)
+    out = torch.empty_like(q)
+    ops.launch("fused_paged_attn", "ishmem_fused_paged_attn",
+               data.get_device(), q.data_ptr(), kp, vp, out.data_ptr(),
+               meta.data_ptr(), len(signals), B, W, nq, leaf.nkv, hd,
+               leaf.reps * T, R, words * esize, table.shape[1], T, layer,
+               hd ** -0.5)
+    return out
+
+
 def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
                      layer: int = 0, waits=(), dtype=None):
     """Device-initiated fused gather + attention over the paged KV pool.
@@ -124,7 +247,13 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
     view's PE, all consumed BEFORE any block byte is read; a wait that no
     pending traffic can satisfy raises.  ``q``: ``(num_slots, W, nq, hd)``
     against the assembled width.  Returns ``(heap, out)``, ``out`` bitwise
-    equal to ``assemble`` of the same leaves followed by K2."""
+    equal to ``assemble`` of the same leaves followed by K2.
+
+    Routes, by where the pool lies and its dtype: on the CPU the plain
+    version; on the card, a bf16 pool and q with ``dtype`` None or bf16
+    launch K11 once (:func:`paged_flash_attention`; it spins on the same
+    signal words itself); any other dtype on the card gathers every table
+    block with K3 and runs K2's f32 kernel on the extracted layer."""
     from repro_torch.core import device as device_mod
 
     for sig_ptr, expected in waits:
@@ -143,21 +272,48 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
                   if p.unit_idx == unit_idx and p.key == "k")
     v_leaf = next(p for p in lay.paged
                   if p.unit_idx == unit_idx and p.key == "v")
+    if (k_leaf.reps, k_leaf.width, k_leaf.nkv, k_leaf.hd) != \
+            (v_leaf.reps, v_leaf.width, v_leaf.nkv, v_leaf.hd):
+        raise ValueError("fused_paged_attn: K and V leaves of unit "
+                         f"{unit_idx} differ in shape")
     # collaborative local load of the pool row (device_get telemetry at the
-    # group's width), then K3 through the slot tables; unmapped entries
-    # read zeros, so no zero row is appended to the pool row
+    # group's width): a view, no copy
     data = device_mod.get(wg, heap, view.pool.data, view.pe).reshape(
         view.pool.num_blocks, lay.block_words)
-    pay = paged_gather(data, view.table())     # a host table: no sync
     offs = _leaf_offsets(lay)
-    k = _extract_leaf(pay, lay, k_leaf, view.num_slots,
-                      offs[(unit_idx, "k")])[layer]
-    v = _extract_leaf(pay, lay, v_leaf, view.num_slots,
-                      offs[(unit_idx, "v")])[layer]
-    if dtype is not None:
-        k = k.to(dtype)
-        v = v.to(dtype)
-    return heap, flash_attn.flash_attention(q, k.contiguous(), v.contiguous())
+    k_off, v_off = offs[(unit_idx, "k")], offs[(unit_idx, "v")]
+    route = fused_route(data, q, dtype)
+    if route == "composition":
+        pay = paged_gather(data, view.table())     # a host table: no sync
+        k = _extract_leaf(pay, lay, k_leaf, view.num_slots, k_off)[layer]
+        v = _extract_leaf(pay, lay, v_leaf, view.num_slots, v_off)[layer]
+        if dtype is not None:
+            k, v = k.to(dtype), v.to(dtype)
+        return heap, flash_attn.flash_attention(q, k.contiguous(),
+                                                v.contiguous())
+    if route == "plain":
+        return heap, fused_paged_attn_plain(
+            data, view.table(), q, k_off=k_off, v_off=v_off, leaf=k_leaf,
+            layer=layer, block_tokens=lay.block_tokens, dtype=dtype)
+    signals = [(heap.read(sig_ptr, view.pe), expected)
+               for sig_ptr, expected in waits]
+    return heap, paged_flash_attention(
+        data, view.table(), q, k_off=k_off, v_off=v_off, leaf=k_leaf,
+        layer=layer, block_tokens=lay.block_tokens, signals=signals)
+
+
+def fused_route(data, q, dtype=None) -> str:
+    """The route :func:`fused_paged_attn` takes: ``"plain"`` for a pool
+    row on the CPU; ``"kernel"`` (K11, one launch) for a bf16 pool and q on
+    the card with ``dtype`` None or bf16; ``"composition"`` (K3 over every
+    table block, then K2 on the extracted layer) for any other dtype on the
+    card."""
+    if not data.is_cuda:
+        return "plain"
+    bf16 = torch.bfloat16
+    if data.dtype == q.dtype == bf16 and dtype in (None, bf16):
+        return "kernel"
+    return "composition"
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ and the ring allreduces built from the kernels
 
 Each wrapper (``rma_copy.copy_into`` and ``remote_put``,
 ``flash_attn.flash_attention``, ``ishmem_device.paged_gather``,
-``flash_partial_split`` and ``flash_partial``, ``ring_collectives``' four
-and ``reduce_tile.reduce_tile``) checks its inputs, allocates its outputs
+``paged_flash_attention``, ``flash_partial_split`` and ``flash_partial``,
+``ring_collectives``' four and ``reduce_tile.reduce_tile``) checks its
+inputs, allocates its outputs
 and calls :func:`launch`, which runs the C entry point (bound once, when the
 library loads, in ``_build.ENTRIES``) on the tensor's device and current
 stream, raises on a nonzero ``cudaError_t`` (a launch the card
@@ -25,7 +26,8 @@ from repro_torch.kernels import _build
 LAUNCHES = {"copy_into": 0, "flash_attention": 0, "paged_gather": 0,
             "remote_put": 0, "ring_allgather": 0, "ring_reduce_scatter": 0,
             "push_broadcast": 0, "barrier_push": 0, "reduce_tile": 0,
-            "flash_partial_split": 0, "flash_partial": 0}
+            "flash_partial_split": 0, "flash_partial": 0,
+            "fused_paged_attn": 0}
 
 
 def reset_launches() -> None:

@@ -7,7 +7,7 @@ takes PE-stacked tensors instead: the leading axis is the PE axis, and
 ``out[p]`` is what PE p's call returns in the reference.  On the card K8
 (and K4, in ``rma_copy``) push as the reference does: every PE a group of
 CTAs in one cooperative launch, with flag words in place of DMA
-semaphores.  K5, K6 and K7 pull from the PEs' rows in one ordinary launch
+semaphores (K8's kept across calls, so a barrier is that launch alone).  K5, K6 and K7 pull from the PEs' rows in one ordinary launch
 with no flags: K5 and K7 share one fan-out body (each source row loaded
 once and stored to every PE's slot; K5's sources are all the rows, K7's
 the root's alone), K6 folds each chunk's addends in the ring's order (see
@@ -165,10 +165,18 @@ def barrier_push_plain(npes: int, device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
+# K8's counters per (device, stream handle): [counters, npes, epoch].  Kept
+# across calls, so a barrier is one cooperative launch with no memset: the
+# kernel waits for its epoch's count (see csrc/ring_collectives.cu).
+_BARRIERS: dict = {}
+
+
 def barrier_push(npes: int, *, device=None) -> torch.Tensor:
     """Push barrier over ``npes`` PEs on ``device`` (the current CUDA
     device unless given); returns ``(npes,)`` int32 ones once every PE has
-    arrived."""
+    arrived.  On the card the counters live on in ``_BARRIERS`` for the
+    device and its current stream; a call with another ``npes`` than the
+    last one there zeroes them once, on the stream."""
     if npes < 1:
         raise ValueError(f"barrier_push: npes must be >= 1, got {npes}")
     dev = _devices.resolve(device)
@@ -176,10 +184,19 @@ def barrier_push(npes: int, *, device=None) -> torch.Tensor:
         return barrier_push_plain(npes, dev)
     if dev.type != "cuda":
         raise ValueError(f"barrier_push: no kernel for device {dev}")
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    out = torch.empty(npes, dtype=torch.int32, device=dev)
-    counters = torch.empty(npes, dtype=torch.int32, device=dev)
-    ops.launch("barrier_push", "ishmem_barrier_push", dev.index,
-               out.data_ptr(), counters.data_ptr(), npes)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    state = _BARRIERS.get(key)
+    if state is None or state[1] != npes:
+        if state is None or state[0].numel() < npes:
+            counters = torch.zeros(npes, dtype=torch.int32, device=index)
+        else:
+            counters = state[0].zero_()
+        state = _BARRIERS[key] = [counters, npes, 0]
+    epoch = (state[2] + 1) & 0xFFFFFFFF         # the kernel's int32 wraps
+    out = torch.empty(npes, dtype=torch.int32, device=index)
+    ops.launch("barrier_push", "ishmem_barrier_push", index, out.data_ptr(),
+               state[0].data_ptr(), npes,
+               epoch - (1 << 32) if epoch >> 31 else epoch)
+    state[2] = epoch
     return out

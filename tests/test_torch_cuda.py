@@ -10,8 +10,10 @@ that has the card and no JAX:
 every test here skips.  Data movement (K1, K3-K9) is compared bitwise,
 attention (K2, K10) to the reference's tolerances, 2e-5 in f32 and 2e-2 in
 bf16; K2's bf16 kernel is also held bitwise to itself run to run and across
-batch positions.
+batch positions, and K11 bitwise to K3 followed by K2.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ import torch
 from repro_torch.comms import api
 from repro_torch.kernels import flash_attn, ishmem_device, ops, \
     reduce_tile as rt, ring_collectives as rc, rma_copy
+from repro_torch.serve.kvpool import PagedLeaf
 
 pytestmark = [pytest.mark.cuda,
               pytest.mark.skipif("not torch.cuda.is_available()",
@@ -198,6 +201,152 @@ def test_cuda_paged_gather_refuses_before_launch(card):
 
 
 # ---------------------------------------------------------------------------
+# K11
+# ---------------------------------------------------------------------------
+
+# (hd, q heads, kv heads, width, block tokens, layers): chip_smoke.py's
+# heads and width, GQA 4, 1 and 8, widths off the block and off 128, blocks
+# of 8, 16 and 32 tokens
+K11_CASES = [(128, 32, 8, 528, 16, 3), (64, 8, 2, 37, 8, 3),
+             (128, 8, 8, 45, 16, 2), (64, 4, 4, 300, 32, 2),
+             (128, 8, 1, 130, 16, 2)]
+
+
+def _k11_pool(card, case, seed):
+    """A two-unit layout, its bf16 pool row on the card, a (3, nb) host
+    table (slot 0 maps every block, slot 1 its first half, slot 2 none) and
+    q.  The free blocks and the rows past the width in slot 0's last block
+    hold NaN: the kernel must read neither."""
+    hd, nq, nkv, width, T, reps = case
+    nb = -(-width // T)
+    leaves = tuple(PagedLeaf(u, key, reps, width, nkv, hd)
+                   for u in (0, 1) for key in ("k", "v"))
+    lay = types.SimpleNamespace(
+        block_tokens=T, blocks_per_request=nb, paged=leaves,
+        block_words=sum(x.words_per_token for x in leaves) * T)
+    rng = np.random.default_rng(seed)
+    R = 2 * nb + 3
+    data = torch.from_numpy(rng.normal(size=(R, lay.block_words)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    ids, half = rng.permutation(R), nb // 2 + 1
+    table = np.full((3, nb), R, np.int32)
+    table[0] = np.sort(ids[:nb])
+    table[1, :half] = np.sort(ids[nb:nb + half])
+    data[torch.from_numpy(ids[nb + half:]).to(card)] = float("nan")
+    off, tail = 0, width - (nb - 1) * T
+    for leaf in leaves:
+        n = leaf.words_per_token * T
+        data[int(table[0, -1]), off:off + n].view(
+            reps, T, nkv, hd)[:, tail:] = float("nan")
+        off += n
+    q = torch.from_numpy(rng.normal(size=(3, width, nq, hd)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    return lay, data, table, q
+
+
+def _k11_composition(data, table, q, lay, unit, layer):
+    """K3 over every table block, the leaf slicing of ``assemble``, K2."""
+    pay = ishmem_device.paged_gather(data, table)
+    offs = ishmem_device._leaf_offsets(lay)
+    k, v = (ishmem_device._extract_leaf(pay, lay, x, q.shape[0],
+                                        offs[(unit, x.key)])[layer]
+            for x in lay.paged if x.unit_idx == unit)
+    return flash_attn.flash_attention(q, k.contiguous(), v.contiguous())
+
+
+def _k11_kwargs(lay, unit, layer):
+    offs = ishmem_device._leaf_offsets(lay)
+    return dict(k_off=offs[(unit, "k")], v_off=offs[(unit, "v")],
+                leaf=lay.paged[2 * unit], layer=layer,
+                block_tokens=lay.block_tokens)
+
+
+@pytest.mark.parametrize("case", K11_CASES)
+def test_cuda_fused_paged_attn_bitwise(card, case):
+    """One launch, no K3 or K2, bitwise equal to K3 + K2 at the first and
+    the last layer of both units, on a pool whose free blocks and rows past
+    the width are NaN; within bf16's 2e-2 of the plain version."""
+    lay, data, table, q = _k11_pool(card, case, sum(case))
+    for unit in (0, 1):
+        for layer in (0, case[-1] - 1):
+            kw = _k11_kwargs(lay, unit, layer)
+            ops.reset_launches()
+            got = ishmem_device.paged_flash_attention(data, table, q, **kw)
+            assert {k: n for k, n in ops.LAUNCHES.items() if n} == \
+                {"fused_paged_attn": 1}
+            want = _k11_composition(data, table, q, lay, unit, layer)
+            torch.cuda.synchronize()
+            assert bool(got.isfinite().all())
+            assert torch.equal(got, want)
+    plain = ishmem_device.fused_paged_attn_plain(data, table, q, **kw)
+    torch.testing.assert_close(got.float(), plain.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_cuda_fused_paged_attn_waits_on_signal_words(card):
+    """Words already at (or past) their values let the kernel through, and
+    the output is the same bits as with no words."""
+    lay, data, table, q = _k11_pool(card, K11_CASES[1], 5)
+    kw = _k11_kwargs(lay, 1, 2)
+    words = torch.tensor([3, 5], dtype=torch.int32, device=card)
+    got = ishmem_device.paged_flash_attention(
+        data, table, q, signals=[(words[0:1], 3), (words[1:2], 4)], **kw)
+    assert torch.equal(got, ishmem_device.paged_flash_attention(
+        data, table, q, **kw))
+
+
+def test_cuda_fused_paged_attn_routes_by_dtype(card):
+    """Through ``fused_paged_attn`` on a card heap: a bf16 pool and q launch
+    K11 once, bitwise the composition; a cast through ``dtype`` or an f32
+    pool keeps K3 + K2."""
+    from repro_torch.core import context, device as device_mod
+    from repro_torch.serve.paged_attn import PagedDecodeView
+    lay, data, table, q = _k11_pool(card, K11_CASES[2], 6)
+    R = data.shape[0]
+    tables = {s: [int(b) for b in table[s] if b < R] for s in (0, 1)}
+    composed = {"paged_gather": 1, "flash_attention": 1}
+    for pool_dt, cast, launched in (
+            (torch.bfloat16, None, {"fused_paged_attn": 1}),
+            (torch.bfloat16, torch.float32, composed),
+            (torch.float32, None, composed)):
+        ctx, heap = context.init(npes=2, node_size=2, heap_words=1 << 21,
+                                 device=card)
+        name = str(pool_dt).removeprefix("torch.")
+        ptr, sig = heap.calloc((data.numel(),), name), \
+            heap.calloc((), "int32")
+        heap = heap.write(ptr, 1, data.reshape(-1).to(pool_dt))
+        heap = heap.write(sig, 1, torch.tensor([1], dtype=torch.int32))
+        pool = types.SimpleNamespace(layout=lay, data=ptr, num_blocks=R,
+                                     blocks_of=lambda rid: tables[rid])
+        view = PagedDecodeView(pool, 1, 3)
+        view.slots.update({0: 0, 1: 1})
+        wg = device_mod.work_group(ctx, size=128, pe=1)
+        qq = q.to(cast or pool_dt)
+        ops.reset_launches()
+        _, got = ishmem_device.fused_paged_attn(
+            wg, heap, view, qq, layer=1, waits=[(sig, 1)], dtype=cast)
+        assert {k: n for k, n in ops.LAUNCHES.items() if n} == launched
+        assert bool(got.isfinite().all())
+        if cast is None and pool_dt == torch.bfloat16:
+            row = heap.read(ptr, 1).reshape(R, lay.block_words)
+            assert torch.equal(got, _k11_composition(row, table, qq, lay,
+                                                     0, 1))
+
+
+def test_cuda_fused_paged_attn_refuses_misaligned_pool(card):
+    """TMA reads from 16-byte aligned bases only: a pool row one element
+    off the grid raises before any launch."""
+    lay, data, table, q = _k11_pool(card, K11_CASES[1], 7)
+    flat = torch.zeros(data.numel() + 1, dtype=data.dtype, device=card)
+    shifted = flat[1:].view(data.shape)
+    before = ops.LAUNCHES["fused_paged_attn"]
+    with pytest.raises(ValueError, match="16-byte"):
+        ishmem_device.paged_flash_attention(shifted, table, q,
+                                            **_k11_kwargs(lay, 0, 0))
+    assert ops.LAUNCHES["fused_paged_attn"] == before
+
+
+# ---------------------------------------------------------------------------
 # K4-K8 (moved from tests/test_torch_comms.py)
 # ---------------------------------------------------------------------------
 
@@ -333,6 +482,26 @@ def test_cuda_barrier_and_shmem_ops(card):
                                    rtol=1e-5, atol=1e-5)
     assert all(ops.LAUNCHES[k] for k in ("remote_put", "ring_allgather",
                                          "ring_reduce_scatter"))
+
+
+def test_cuda_barrier_epochs(card):
+    """K8 keeps its counters across calls under an epoch: ones over 10,000
+    back-to-back barriers at every P in 1-8, over calls whose P changes
+    each time, and on a second stream beside the first."""
+    for P in range(1, 9):
+        outs = [rc.barrier_push(P, device=card) for _ in range(10_000)]
+        assert bool((torch.stack(outs) == 1).all()), P
+    outs = [rc.barrier_push(1 + i % 8, device=card) for i in range(2000)]
+    assert bool((torch.cat(outs) == 1).all())
+    side = torch.cuda.Stream(device=card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        beside = [rc.barrier_push(8, device=card) for _ in range(2000)]
+    main = [rc.barrier_push(8, device=card) for _ in range(2000)]
+    torch.cuda.synchronize()
+    assert bool((torch.stack(beside + main) == 1).all())
+    index = torch.cuda.current_device()
+    assert len([k for k in rc._BARRIERS if k[0] == index]) >= 2
 
 
 # ---------------------------------------------------------------------------
