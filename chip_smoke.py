@@ -87,10 +87,35 @@ Phases, each fatal on failure:
    pass), merged and held
    against K2 over the whole sequence within 5e-5; then once more at
    unit-scale inputs, where a mask error at a shard border would exceed
-   that limit.
+   that limit;
+7. the streamed serving path: phase 3's run with ``--stream-chunks 4``
+   and ``--trace``: each request's 32 prompt blocks leave in 8
+   installments against a pool stream-signal word, slot-less until the
+   close binds a slot.  K1-K3 must launch; every request's tokens must
+   equal phase 3's (tracing on against off), the installments number 64,
+   the counters balance, the completion queue ends empty, every stream
+   word is back on the free list, the mean modeled TTFD window
+   (``ttfd_model_s``) is strictly below phase 3's, the Chrome trace
+   validates and every request's chain passes through streaming, parked,
+   migrating and decoding with no gap;
+8. the shared-prefix serving path: the same shape at a 520-token prompt
+   with ``--shared-prefix`` (every request a sample of one prompt; 520 is
+   not a multiple of 16, so the first decode write copies the partial
+   boundary block), stepped here through ``serve.build_disagg``: after
+   every step each prefix-entry block resident at a decode PE must equal
+   its home row bitwise (copy-on-write keeps it pristine).  K1-K3 must
+   launch; 7 prefix hits, 8 copy-on-writes (the registrar's too), wire
+   bytes saved, the counters balance, and every request's tokens equal
+   the single-PE baseline at S = 520;
+9. the dense-rehydrate serving path: phase 3's run with
+   ``--dense-rehydrate`` (admission gathers the payloads into the slot
+   bank, decode reads that): K1 and K2 must launch and K3 never; tokens
+   equal to phase 3's.  Phases 3, 5 and 7-9 print their wall time and
+   peak device memory, and K1-K3's rows carry their launches in phases
+   7-9 (``launches_by_phase``).
 
 K9 (``reduce_tile``) has no caller on these paths (only the reference's
-benchmark and tests call it): its row sums its counts over the four path
+benchmark and tests call it): its row sums its counts over the path
 runs, and the check fails if that is not 0.  K11 has none either (the
 fused serving path reads through ``assemble``, as the reference's does):
 its row's ``launches`` is phase 5's count, 0, beside its launches per
@@ -130,6 +155,12 @@ MAIN_ARGV = ["--disagg", "--full", "--arch", "qwen3-4b", "--seed", "0",
 COLL_ARGV = ["--full", "--arch", "qwen3-4b", "--npes", "8", "--seed", "0",
              "--prefill-tokens", "512", "--decode-batch", "8"]
 FUSED_ARGV = MAIN_ARGV + ["--fused-attn"]
+STREAM_ARGV = MAIN_ARGV + ["--stream-chunks", "4"]          # + --trace PATH
+PREFIX_LEN = 520                     # 520 % 16 = 8: a partial boundary block
+PREFIX_ARGV = MAIN_ARGV + ["--prompt-len", str(PREFIX_LEN), "--shared-prefix"]
+DENSE_ARGV = MAIN_ARGV + ["--dense-rehydrate"]
+STREAM_CHUNKS = 8 * 8                # 32 prompt blocks in 8 installments
+PREFIX_HITS, COW_COPIES = 7, 8       # the registrar reserves a COW block too
 RING = dict(npes=8, prompt_len=32768, full=True, arch="qwen3-4b", seed=0)
 RING_PARTIALS = 8 * 9 // 2           # causal (PE, shard) pairs
 RING_TOL = 5e-5                      # tests/test_device.py ring attention
@@ -963,7 +994,7 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
         rid = 1_000_000 + s
         if pool.alloc(rid, lay.blocks_per_request) is None:
             fail("K11 check: the pool has no free table for a slot")
-        view.slots[s] = rid
+        heap = view.attach(heap, s, rid, fresh_ids=[])
     leaf = next(x for x in lay.paged if x.key == "k")
     gen = torch.Generator(device=heap.device).manual_seed(7)
     q = torch.randn(view.num_slots, leaf.width, sched.engine.cfg.num_heads,
@@ -1081,6 +1112,164 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
     return row
 
 
+def _serve_phase(torch, ops, serve, argv, label):
+    """Run the serving launcher with launch counts zeroed just before;
+    returns (sched, launches, wall s, peak GiB)."""
+    say(f"{label}: serve " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = serve.main(argv)
+    torch.cuda.synchronize()
+    return (sched, dict(ops.LAUNCHES), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _balanced(sched, label):
+    st = sched.stats
+    counts = (st.prefills, st.migrations, st.admissions, st.evictions)
+    if counts != (8, 8, 8, 8) or len(sched.ctx.pending) or \
+            sched.pool.stats()["blocks_in_use"]:
+        fail(f"{label}: counters {counts} do not balance, "
+             f"{len(sched.ctx.pending)} ops stay pending or "
+             f"{sched.pool.stats()['blocks_in_use']} blocks stay in use")
+
+
+def _same_tokens(sched, want, label):
+    for rid, req in sorted(sched.requests.items()):
+        if req.out != want[rid]:
+            fail(f"{label}: request {rid} tokens {req.out} != {want[rid]}")
+
+
+def phase_stream(torch, ops, serve, export, barrier_out, barrier_ttfd):
+    """Phase 7: phase 3's run with 4-block installments and the span
+    tracer on.  Returns its launch counts."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(Path(tmp) / "trace.json")
+        sched, launches, wall, peak = _serve_phase(
+            torch, ops, serve, STREAM_ARGV + ["--trace", trace],
+            "streamed serving path")
+        doc = json.loads(Path(trace).read_text())
+    st = sched.stats
+    ttfd = sum(st.ttfd_model_s) / len(st.ttfd_model_s)
+    say(f"streamed serving path: {wall:.2f} s wall, {st.decode_steps} "
+        f"decode steps, peak {peak:.1f} GiB; launches {launches}; "
+        f"{st.stream_chunks} installments; mean modeled TTFD window "
+        f"{ttfd * 1e6:.3f} us (phase 3: {barrier_ttfd * 1e6:.3f} us); trace "
+        f"{len(doc['traceEvents'])} events")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"streamed serving path never launched {missing}")
+    _balanced(sched, "streamed serving path")
+    if st.stream_chunks != STREAM_CHUNKS:
+        fail(f"{st.stream_chunks} installments, not {STREAM_CHUNKS}")
+    if sched.pool.stats()["streams_active"]:
+        fail("a stream-signal word never went back to the free list")
+    if not ttfd < barrier_ttfd:
+        fail(f"streamed mean TTFD window {ttfd} is not below phase 3's "
+             f"{barrier_ttfd}")
+    errors = export.validate(doc)
+    if errors:
+        fail(f"the streamed run's trace does not validate: {errors[:3]}")
+    chains = export.request_chains_doc(doc)
+    want = ["streaming", "parked", "migrating", "decoding"]
+    for rid in range(8):
+        phases = [e["phase"] for e in chains.get(rid, [])]
+        if [p for p in phases if p in want] != want or \
+                export.chain_gaps(chains[rid]):
+            fail(f"request {rid}: chain {phases} does not pass through "
+                 f"{want} without gaps")
+    _same_tokens(sched, barrier_out, "streamed serving path (vs phase 3, "
+                 "traced against untraced)")
+    say("8/8 streamed requests bitwise equal to phase 3 (tracing on "
+        "against off); 8 chains through streaming, parked, migrating, "
+        "decoding")
+    return launches
+
+
+def phase_prefix(torch, ops, serve):
+    """Phase 8: every request a sample of one 520-token prompt, stepped
+    here so that the prefix entry's resident blocks are held to their home
+    rows after every step.  Returns its launch counts."""
+    say("shared-prefix serving path: serve " + " ".join(PREFIX_ARGV))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched, args = serve.build_disagg(PREFIX_ARGV)
+    pool, checked, steps = sched.pool, 0, 0
+    while not sched.done():
+        if steps >= 10_000:
+            fail("shared-prefix scheduler wedged")
+        sched.step()
+        steps += 1
+        for entry in sched.prefix_index.values():
+            for pe, ids in entry.resident.items():
+                for bid in ids:
+                    ptr = pool.block_ptr(bid)
+                    if not torch.equal(sched.heap.read(ptr, pe),
+                                       sched.heap.read(ptr, entry.home_pe)):
+                        fail(f"step {steps}: prefix block {bid} at PE {pe} "
+                             f"differs from its home row on PE "
+                             f"{entry.home_pe}")
+                    checked += 1
+    serve.report_disagg(sched, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = sched.stats
+    say(f"shared-prefix serving path: {wall:.2f} s wall (the pristine "
+        f"checks included), {st.decode_steps} decode steps, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
+        f"{launches}; {st.prefix_hits} prefix hits, "
+        f"{st.blocks_prefix_shared} blocks mapped, {st.bytes_wire_saved} "
+        f"wire B saved, {st.cow_copies} copy-on-writes; {checked} resident "
+        f"prefix blocks held bitwise to their home rows")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"shared-prefix serving path never launched {missing}")
+    _balanced(sched, "shared-prefix serving path")
+    if (st.prefix_hits, st.cow_copies) != (PREFIX_HITS, COW_COPIES) or \
+            not st.bytes_wire_saved > 0 or not checked:
+        fail(f"prefix hits {st.prefix_hits} (want {PREFIX_HITS}), COW "
+             f"copies {st.cow_copies} (want {COW_COPIES}), wire bytes saved "
+             f"{st.bytes_wire_saved}, {checked} pristine checks")
+    eng, base = sched.engine, {}
+    for rid, req in sorted(sched.requests.items()):
+        if req.slot not in base:
+            base[req.slot] = eng.generate_in_slot(
+                req.batch, sched.scfg, num_slots=args.slots, slot=req.slot)
+        if req.out != base[req.slot]:
+            fail(f"request {rid}: shared-prefix tokens {req.out} != "
+                 f"single-PE baseline {base[req.slot]} at S = {PREFIX_LEN}")
+    say(f"8/8 shared-prefix requests bitwise equal to the single-PE "
+        f"baseline at S = {PREFIX_LEN}")
+    return launches
+
+
+def phase_dense(torch, ops, serve, barrier_out):
+    """Phase 9: phase 3's run with dense-rehydrate admission: K3 must not
+    launch.  Returns its launch counts."""
+    sched, launches, wall, peak = _serve_phase(
+        torch, ops, serve, DENSE_ARGV, "dense-rehydrate serving path")
+    say(f"dense-rehydrate serving path: {wall:.2f} s wall, "
+        f"{sched.stats.decode_steps} decode steps, peak {peak:.1f} GiB; "
+        f"launches {launches}")
+    if not (launches["copy_into"] and launches["flash_attention"]) or \
+            launches["paged_gather"]:
+        fail(f"dense-rehydrate path launched K1 {launches['copy_into']}, "
+             f"K2 {launches['flash_attention']}, K3 "
+             f"{launches['paged_gather']} times (want K1, K2 and no K3)")
+    _balanced(sched, "dense-rehydrate serving path")
+    _same_tokens(sched, barrier_out, "dense-rehydrate serving path (vs "
+                 "phase 3)")
+    say("8/8 dense-rehydrate requests bitwise equal to phase 3; no K3 "
+        "launch")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1091,6 +1280,7 @@ def main() -> None:
     from repro_torch.kernels import _build, flash_attn, ishmem_device, ops, \
         reduce_tile, ring_collectives, rma_copy
     from repro_torch.launch import serve, shmem_collectives
+    from repro_torch.obs import export
 
     # ---- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1198,6 +1388,7 @@ def main() -> None:
     barrier_out = {rid: list(r.out) for rid, r in sched.requests.items()}
     barrier_fb = sum(st.ttfd_first_block_steps) / len(
         st.ttfd_first_block_steps)
+    barrier_ttfd = sum(st.ttfd_model_s) / len(st.ttfd_model_s)
     _, logits, _ = eng.prefill_request(sched.requests[0].batch)
     if logits.shape != (1, sched.engine.cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
@@ -1331,6 +1522,15 @@ def main() -> None:
     del unit
     torch.cuda.empty_cache()
 
+    # ---- 7-9. streamed, shared-prefix and dense-rehydrate serving ----------
+    mode_launches = {"7": phase_stream(torch, ops, serve, export, barrier_out,
+                                       barrier_ttfd)}
+    torch.cuda.empty_cache()
+    mode_launches["8"] = phase_prefix(torch, ops, serve)
+    torch.cuda.empty_cache()
+    mode_launches["9"] = phase_dense(torch, ops, serve, barrier_out)
+    torch.cuda.empty_cache()
+
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match, *kw in deferred:
         row[key] = device_ms(torch, fn, match, **(kw[0] if kw else {}))
@@ -1379,12 +1579,16 @@ def main() -> None:
         ring_launches["flash_partial_split"]
     path_launches["reduce_tile"] = sum(
         run["reduce_tile"] for run in (launches, coll_launches,
-                                       fused_launches, ring_launches))
+                                       fused_launches, ring_launches,
+                                       *mode_launches.values()))
     if path_launches["reduce_tile"]:
         fail(f"K9 launched {path_launches['reduce_tile']} times on the "
              f"paths, which should not call it")
     for r in rows:
         r["launches"] = path_launches[r["name"]]
+    for name in SERVE_KERNELS:
+        by_name[name]["launches_by_phase"] = {
+            phase: run[name] for phase, run in mode_launches.items()}
     by_name["reduce_tile"]["path"] = "none: only the reference's " \
         "benchmark and tests call K9"
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,8 +2,9 @@
 prefill/decode with SHMEM paged-KV migration and paged decode attention.
 
 Counterpart of ``repro/launch/serve.py`` (its lockstep mode,
-``_run_disagg`` with ``--fused-attn``, ``--overlap-report`` and
-``--seq-parallel``).  Runs on the current CUDA device unless ``--device``
+``_run_disagg`` with ``--fused-attn``, ``--stream-chunks``,
+``--shared-prefix``, ``--dense-rehydrate`` and ``--trace``,
+``--overlap-report`` and ``--seq-parallel``).  Runs on the current CUDA device unless ``--device``
 says otherwise; ``--full`` serves the architecture at its published widths
 instead of the reduced test variant.
 
@@ -22,6 +23,19 @@ instead of the reduced test variant.
   # fused protocol: per-block migration signals, first-block admission,
   # per-signal block consumption before each decode step
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --fused-attn
+
+  # chunked streaming: 4 blocks per installment mid-prefill, slot-less
+  # until the close; write the span trace (load it in ui.perfetto.dev)
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
+      --stream-chunks 4 --trace /tmp/serve_trace.json
+
+  # every request a sample of one prompt: the prefix blocks are mapped,
+  # not staged again, and copied on the first divergent write
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg --shared-prefix
+
+  # the A/B control: admission rehydrates a dense slot cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
+      --dense-rehydrate
 
   # sequence-parallel ring attention over 8 PEs at qwen3-4b's attention
   # widths (32 heads of 128) and a 32768-token context
@@ -195,10 +209,12 @@ def seq_parallel_report(npes: int, *, prompt_len: int, full: bool = False,
             "t_blocking": tb, "t_overlap": to, "overlap_ratio": ratio}
 
 
-def _run_disagg(args, cfg, params):
-    """Serve ``args.requests`` random prompts disaggregated; prints the
-    reference's report lines and returns the finished scheduler."""
+def _build_disagg(args, cfg, params):
+    """The disaggregated scheduler for ``args`` with its requests submitted
+    and nothing run.  ``--trace`` puts a recording span tracer on the
+    context."""
     from repro_torch.core import context, teams
+    from repro_torch.obs.tracer import SpanTracer
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.kvpool import KVPool
     from repro_torch.serve.kvxfer import KVMigrator
@@ -207,6 +223,8 @@ def _run_disagg(args, cfg, params):
     device = params["embed"].device
     npes = args.prefill_pes + args.decode_pes
     ctx, heap = context.init(npes=npes, node_size=npes, device=device)
+    if args.trace:
+        ctx.tracer = SpanTracer()
     pre, dec = teams.disagg_partition(teams.world(npes), args.prefill_pes)
     max_len = args.prompt_len + args.max_new
     eng = Engine(cfg, params, max_len=max_len, device=device)
@@ -217,14 +235,41 @@ def _run_disagg(args, cfg, params):
         prefill_pes=pre.pes(), decode_pes=dec.pes(), num_slots=args.slots,
         scfg=ServeConfig(max_new_tokens=args.max_new,
                          temperature=args.temperature, seed=args.seed),
-        admit_delay_steps=args.admit_delay, fused_attn=args.fused_attn)
+        admit_delay_steps=args.admit_delay, paged=not args.dense_rehydrate,
+        stream_chunks=args.stream_chunks, fused_attn=args.fused_attn,
+        shared_prefix=args.shared_prefix)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    for _ in range(args.requests):
-        sched.submit(make_batch(cfg, gen, 1, args.prompt_len, device))
-    outs = sched.run()
-    st = sched.stats
-    print(f"[serve] disagg arch={cfg.name} prefill={pre.pes()} "
-          f"decode={dec.pes()} tier=ici decode-cache=paged")
+    if args.shared_prefix:
+        # many samples of one prompt: every request maps the same prefix
+        base = make_batch(cfg, gen, 1, args.prompt_len, device)
+        for _ in range(args.requests):
+            sched.submit(dict(base), prefix_len=args.prompt_len)
+    else:
+        for _ in range(args.requests):
+            sched.submit(make_batch(cfg, gen, 1, args.prompt_len, device))
+    return sched
+
+
+def build_disagg(argv=None):
+    """Parse ``argv`` (with ``--disagg``), build the model and return
+    ``(sched, args)``: the scheduler with its requests submitted, for a
+    caller that steps it itself and then calls :func:`report_disagg`."""
+    args = build_parser().parse_args(argv)
+    if not args.disagg:
+        raise ValueError("build_disagg needs --disagg")
+    cfg, params = _model(args)
+    return _build_disagg(args, cfg, params), args
+
+
+def report_disagg(sched, args) -> None:
+    """Print the reference's report lines for a finished run; with
+    ``--trace``, write the Chrome trace and fail if it does not validate."""
+    st, ctx, pool = sched.stats, sched.ctx, sched.pool
+    outs = {rid: r.out for rid, r in sched.requests.items()}
+    mode = "dense-rehydrate" if args.dense_rehydrate else "paged"
+    print(f"[serve] disagg arch={sched.engine.cfg.name} "
+          f"prefill={sched.prefill_pes} decode={sched.decode_pes} tier=ici "
+          f"decode-cache={mode}")
     print(f"[serve]   {st.prefills} prefills, {st.migrations} migrations "
           f"({st.bytes_migrated} B), {st.admissions} admissions, "
           f"{st.evictions} evictions over {st.decode_steps} decode steps")
@@ -239,6 +284,14 @@ def _run_disagg(args, cfg, params):
         mode_tag = "fused admission gate" if args.fused_attn else "observed"
         print(f"[serve]   time-to-first-resident-block: {avg_fb:.1f} sched "
               f"steps ({mode_tag})")
+    if args.stream_chunks:
+        print(f"[serve]   streaming: {st.stream_chunks} wire installments "
+              f"of {args.stream_chunks} block(s)")
+    if args.shared_prefix:
+        print(f"[serve]   shared prefix: {st.prefix_hits} hits, "
+              f"{st.blocks_prefix_shared} blocks mapped, "
+              f"{st.bytes_wire_saved} wire B saved, "
+              f"{st.cow_copies} copy-on-writes")
     print(f"[serve]   stalls: pool={st.stalled_on_pool} "
           f"slots={st.stalled_on_slots}; coalescing ratio "
           f"{ctx.pending.stats.coalescing_ratio():.2f}")
@@ -247,7 +300,24 @@ def _run_disagg(args, cfg, params):
           f"blocks in use; heap: {ps['heap']['bytes_in_use']} B in use, "
           f"{ps['heap']['bytes_free']} B free")
     for rid in sorted(outs)[:4]:
-        print(f"[serve]   req {rid}: {outs[rid].tolist()}")
+        print(f"[serve]   req {rid}: {outs[rid]}")
+    if args.trace:
+        from repro_torch.obs.export import validate, write_chrome_trace
+        doc = write_chrome_trace(ctx.tracer, args.trace)
+        errors = validate(doc)
+        if errors:
+            raise RuntimeError(f"trace {args.trace} does not validate: "
+                               f"{errors[:5]}")
+        print(f"[serve]   trace: {len(doc['traceEvents'])} events -> "
+              f"{args.trace} (load in ui.perfetto.dev)")
+
+
+def _run_disagg(args, cfg, params):
+    """Serve ``args.requests`` random prompts disaggregated; prints the
+    reference's report lines and returns the finished scheduler."""
+    sched = _build_disagg(args, cfg, params)
+    sched.run()
+    report_disagg(sched, args)
     return sched
 
 
@@ -282,12 +352,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-tokens", type=int, default=16)
     ap.add_argument("--admit-delay", type=int, default=1,
                     help="modeled wire latency in scheduler steps before a "
-                         "migration's signal is polled")
+                         "migration's signal is polled (streamed closes "
+                         "scale it by the final installment's share)")
+    ap.add_argument("--stream-chunks", type=int, default=0,
+                    metavar="BLOCKS",
+                    help="chunked prefill streaming: put BLOCKS filled "
+                         "blocks on the wire per scheduler step mid-prefill "
+                         "(0 = whole-prefill migration)")
+    ap.add_argument("--shared-prefix", action="store_true",
+                    help="serve every request as a sample of one shared "
+                         "prompt: prefix blocks are mapped (incref), not "
+                         "re-staged, with copy-on-write on divergence")
+    ap.add_argument("--dense-rehydrate", action="store_true",
+                    help="dense-cache admission (gather + insert) instead "
+                         "of paged decode attention: the A/B control")
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="record causal spans and write a Chrome trace "
+                         "(fails if it does not validate)")
     ap.add_argument("--fused-attn", action="store_true",
                     help="device-initiated fused decode protocol: per-block "
                          "migration signals, first-block admission, and "
                          "per-signal block consumption before each decode "
-                         "step")
+                         "step (excludes --stream-chunks)")
     ap.add_argument("--seq-parallel", type=int, default=0, metavar="N",
                     help="sequence-parallel ring attention over N PEs: "
                          "device-side K/V rotation per ring step, checked "
@@ -297,20 +383,28 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
-    """Run the launcher; returns the finished scheduler (``--disagg``) or
-    the generated ids (lockstep)."""
-    args = build_parser().parse_args(argv)
+def _model(args):
+    """(cfg, params) on the resolved device: the architecture at its
+    published widths with ``--full``, else its reduced variant."""
     from repro_torch import _devices
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import model
-    from repro_torch.serve.engine import Engine, ServeConfig
 
     device = _devices.resolve(args.device)
     cfg = cfgbase.get_config(args.arch)
     if not args.full:
         cfg = cfgbase.reduced(cfg)
-    params = model.init_params(cfg, seed=args.seed, device=device)
+    return cfg, model.init_params(cfg, seed=args.seed, device=device)
+
+
+def main(argv=None):
+    """Run the launcher; returns the finished scheduler (``--disagg``) or
+    the generated ids (lockstep)."""
+    args = build_parser().parse_args(argv)
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, params = _model(args)
+    device = params["embed"].device
     if args.disagg:
         out = _run_disagg(args, cfg, params)
     else:

@@ -15,10 +15,16 @@ block id a cluster-wide address.
 - **header** — 4 int32 words per slot ``(req_id, prompt_len,
   first_token, n_blocks)``.
 - **signal** — one int32 word per slot, the admission target.
+- **stream signals** — ``max_streams`` int32 words, allocated right after
+  the slot signals as the reference does, so a chunked migration ramps a
+  signal while it is parked: its blocks land before any decode slot is
+  bound, and the slot binds only at ``stream_close``.
 
-Block metadata (free list, ref counts, tables) is host-side.  Shared-prefix
-mapping, copy-on-write reserves and per-stream signal words come with the
-streaming/prefix slice (ROADMAP queue 1, item 5b).
+Block metadata (free list, ref counts, tables) is host-side.  Shared
+prefixes map another request's blocks by reference (``alloc_with_prefix``,
+``incref``); copy-on-write targets are anonymous reserves (``reserve``)
+that ``remap`` moves into a table or ``release_ids`` returns.
+``insert_blocks`` rebuilds a dense slot cache for the dense-rehydrate mode.
 """
 from __future__ import annotations
 
@@ -163,15 +169,18 @@ def _unpack_leaf_f32(flat: torch.Tensor, shape, dtype: str) -> torch.Tensor:
 
 
 def pack_blocks(layout: KVLayout, cache, *, batch_idx: int = 0,
-                n_blocks: Optional[int] = None) -> List[torch.Tensor]:
+                n_blocks: Optional[int] = None,
+                start: int = 0) -> List[torch.Tensor]:
     """Slice one request out of a cache into ``n_blocks`` flat
-    ``(block_words,)`` payloads covering token blocks [0, n_blocks)."""
+    ``(block_words,)`` payloads covering token blocks
+    [start, start + n_blocks); shared-prefix staging skips the blocks
+    another request staged by passing ``start``."""
     if n_blocks is None:
-        n_blocks = layout.blocks_per_request
+        n_blocks = layout.blocks_per_request - start
     T = layout.block_tokens
     dtype = TORCH_DTYPES[layout.kv_dtype]
     payloads = []
-    for b in range(n_blocks):
+    for b in range(start, start + n_blocks):
         parts = []
         for pl in layout.paged:
             leaf = cache["blocks"][pl.unit_idx][pl.key]
@@ -196,6 +205,33 @@ def pack_tail(layout: KVLayout, cache, *, batch_idx: int = 0,
         return torch.zeros(layout.tail_words, dtype=torch.float32,
                            device=device)
     return torch.cat(parts)
+
+
+def insert_blocks(layout: KVLayout, cache, slot: int,
+                  payloads: List[torch.Tensor]):
+    """Scatter migrated block payloads into slot ``slot`` of a batched
+    decode cache (inverse of :func:`pack_blocks`; the dense-rehydrate
+    admission).  Returns a new cache dict; leaves it writes are cloned
+    first."""
+    T = layout.block_tokens
+    cache = dict(cache)
+    blocks = [dict(e) for e in cache["blocks"]]
+    off = 0
+    for pl in layout.paged:
+        n = pl.words_per_token * T
+        leaf = blocks[pl.unit_idx][pl.key].clone()
+        for b, payload in enumerate(payloads):
+            t0 = b * T
+            width = min(T, pl.width - t0)
+            if width <= 0:
+                continue
+            sl = payload.reshape(-1)[off:off + n].reshape(pl.reps, T, pl.nkv,
+                                                          pl.hd)
+            leaf[:, slot, t0:t0 + width] = sl[:, :width].to(leaf.dtype)
+        blocks[pl.unit_idx][pl.key] = leaf
+        off += n
+    cache["blocks"] = blocks
+    return cache
 
 
 def insert_tail(layout: KVLayout, cache, slot: int, tail_vec):
@@ -225,28 +261,33 @@ class KVPool:
     """Ref-counted paged block pool over one symmetric heap allocation."""
 
     def __init__(self, heap: SymmetricHeap, layout: KVLayout, *,
-                 num_blocks: int, max_slots: int):
+                 num_blocks: int, max_slots: int, max_streams: int = 16):
         self.layout = layout
         self.num_blocks = num_blocks
         self.max_slots = max_slots
+        self.max_streams = max_streams
         self.data = heap.calloc((num_blocks * layout.block_words,),
                                 layout.kv_dtype)
         self.tails = heap.calloc((max_slots * layout.tail_words,), "float32")
         self.headers = heap.calloc((max_slots * HEADER_WORDS,), "int32")
         self.signals = heap.calloc((max_slots,), "int32")
+        self.stream_sigs = heap.calloc((max(1, max_streams),), "int32")
+        self._stream_free: List[int] = list(range(max_streams - 1, -1, -1))
         self._refcnt: List[int] = [0] * num_blocks
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))
         self.block_tables: Dict[int, List[int]] = {}
         # block id -> PE whose heap row holds the staged payload (the wire
-        # source; growth blocks have no home and never travel)
+        # source; growth and copy-on-write blocks have no home and never
+        # travel)
         self._home: Dict[int, int] = {}
 
     @classmethod
     def create(cls, heap: SymmetricHeap, cfg, max_len: int, *,
-               num_blocks: int, max_slots: int,
-               block_tokens: int = 16) -> "KVPool":
+               num_blocks: int, max_slots: int, block_tokens: int = 16,
+               max_streams: int = 16) -> "KVPool":
         layout = build_layout(cfg, max_len, block_tokens=block_tokens)
-        return cls(heap, layout, num_blocks=num_blocks, max_slots=max_slots)
+        return cls(heap, layout, num_blocks=num_blocks, max_slots=max_slots,
+                   max_streams=max_streams)
 
     # ---------------------------------------------------------- addressing
     def block_ptr(self, block_id: int) -> SymPtr:
@@ -275,24 +316,75 @@ class KVPool:
         return SymPtr("int32", self.signals.offset + self._check_slot(slot),
                       ())
 
+    def stream_sig_ptr(self, stream_id: int) -> SymPtr:
+        if not 0 <= stream_id < self.max_streams:
+            raise IndexError(
+                f"stream {stream_id} outside pool of {self.max_streams}")
+        return SymPtr("int32", self.stream_sigs.offset + stream_id, ())
+
+    def alloc_stream_sig(self) -> Optional[int]:
+        """Reserve a parked-stream signal word, or None when every word is
+        carried by an in-flight stream."""
+        return self._stream_free.pop() if self._stream_free else None
+
+    def free_stream_sig(self, stream_id: int) -> None:
+        if stream_id in self._stream_free:
+            raise ValueError(f"double free of stream signal {stream_id}")
+        self._stream_free.append(stream_id)
+
     # ---------------------------------------------------------- accounting
-    def alloc(self, req_id: int, n_blocks: int) -> Optional[List[int]]:
-        """Reserve ``n_blocks`` blocks (refcount 1 each) in token-block
-        order, or None when the pool cannot satisfy the request.  Ids come
-        off the tail of the LIFO list, sorted so heap-contiguous blocks end
-        up queue-adjacent for write combining."""
-        if req_id in self.block_tables:
-            raise ValueError(f"request {req_id} already has blocks")
+    def _alloc_free(self, n_blocks: int) -> Optional[List[int]]:
+        """Pop ``n_blocks`` ids (refcount 1 each) off the tail of the LIFO
+        free list, or None.  Sorted so heap-contiguous blocks end up
+        queue-adjacent for write combining."""
         if n_blocks < 0:
             raise ValueError(f"negative block count {n_blocks}")
         if n_blocks > len(self._free):
             return None
-        ids = sorted(self._free[len(self._free) - n_blocks:])
-        del self._free[len(self._free) - n_blocks:]
+        if n_blocks == 0:
+            return []
+        ids = sorted(self._free[-n_blocks:])
+        del self._free[-n_blocks:]
         for i in ids:
             self._refcnt[i] = 1
+        return ids
+
+    def alloc(self, req_id: int, n_blocks: int) -> Optional[List[int]]:
+        """Reserve ``n_blocks`` blocks for a request in token-block order,
+        or None when the pool cannot satisfy it."""
+        if req_id in self.block_tables:
+            raise ValueError(f"request {req_id} already has blocks")
+        ids = self._alloc_free(n_blocks)
+        if ids is None:
+            return None
         self.block_tables[req_id] = ids
         return ids
+
+    def alloc_with_prefix(self, req_id: int, shared_ids: List[int],
+                          n_total: int) -> Optional[List[int]]:
+        """Shared-prefix table: map ``shared_ids`` (incref'd in place) and
+        allocate the other ``n_total - len(shared_ids)`` fresh.  All or
+        nothing: a failed allocation takes no references."""
+        if req_id in self.block_tables:
+            raise ValueError(f"request {req_id} already has blocks")
+        fresh = self._alloc_free(n_total - len(shared_ids))
+        if fresh is None:
+            return None
+        self.incref(shared_ids)
+        self.block_tables[req_id] = list(shared_ids) + fresh
+        return self.block_tables[req_id]
+
+    def reserve(self, n_blocks: int) -> Optional[List[int]]:
+        """Anonymous refcounted blocks outside any table: copy-on-write
+        targets, moved into a table by :meth:`remap` or returned unused by
+        :meth:`release_ids`."""
+        return self._alloc_free(n_blocks)
+
+    def incref(self, block_ids: List[int]) -> None:
+        for i in block_ids:
+            if self._refcnt[i] <= 0:
+                raise ValueError(f"incref on free block {i}")
+            self._refcnt[i] += 1
 
     def _decref(self, i: int) -> int:
         self._refcnt[i] -= 1
@@ -309,8 +401,27 @@ class KVPool:
         ids = self.block_tables.pop(req_id, [])
         return sum(self._decref(i) for i in ids)
 
+    def release_ids(self, block_ids: List[int]) -> int:
+        """Drop one reference each on table-less blocks (unused COW
+        reserves, a dead prefix entry).  Returns the number freed."""
+        return sum(self._decref(i) for i in block_ids)
+
+    def remap(self, req_id: int, index: int, new_id: int) -> int:
+        """Copy-on-write: table entry ``index`` becomes ``new_id`` (the
+        caller's reserve reference moves into the table) and this table's
+        reference on the old, shared block is dropped.  Returns the old
+        id."""
+        table = self.block_tables[req_id]
+        old = table[index]
+        table[index] = new_id
+        self._decref(old)
+        return old
+
     def blocks_of(self, req_id: int) -> List[int]:
         return list(self.block_tables[req_id])
+
+    def refcount(self, block_id: int) -> int:
+        return self._refcnt[block_id]
 
     def free_blocks(self) -> int:
         return len(self._free)
@@ -333,6 +444,8 @@ class KVPool:
             "bytes_in_use": used * self.layout.block_bytes,
             "utilization": used / self.num_blocks if self.num_blocks else 0.0,
             "requests_resident": len(self.block_tables),
+            "blocks_shared": sum(1 for r in self._refcnt if r > 1),
+            "streams_active": self.max_streams - len(self._stream_free),
         }
         if heap is not None:
             out["heap"] = heap.stats()

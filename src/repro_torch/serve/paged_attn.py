@@ -10,58 +10,82 @@ the decode-side KV cache, indexed per slot through block tables:
   decode step is bitwise the dense one;
 - **writeback** — stores each active slot's freshly projected K/V token
   into its owning block (a local store on the decode PE);
-- **attach** zeroes a request's never-migrated growth blocks at admission.
+- **attach** zeroes a request's never-migrated growth blocks at admission;
+- **copy-on-write** — a slot whose table maps blocks shared with another
+  request never writes them: the first write into one copies its payload
+  into the slot's reserved private block (``rma.put``, so K1 on the card),
+  remaps the table entry and drops the shared reference, so shared rows
+  stay pristine at every PE.
 
-Copy-on-write of shared-prefix blocks comes with the streaming/prefix slice
-(ROADMAP queue 1, item 5b).
+``detach_keep`` (preemption keeps the un-fired reserves) waits for ROADMAP
+queue 1, item 10.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import rma
 from repro_torch.core.heap import TORCH_DTYPES
 from repro_torch.kernels import ishmem_device
 from repro_torch.serve.kvpool import KVPool
 
 
+@dataclasses.dataclass
+class _SlotMap:
+    """Host-side per-slot decode state: which request, which COW targets."""
+    req_id: int
+    cow: Dict[int, int]          # table index -> reserved private block id
+
+
 class PagedDecodeView:
-    """Per-decode-PE window onto the pool: which request each slot holds.
-    Control plane only; the data plane is the decode PE's pool row."""
+    """Per-decode-PE window onto the pool: block tables and copy-on-write
+    bookkeeping.  Control plane only; the data plane is the decode PE's
+    pool row."""
 
     def __init__(self, pool: KVPool, pe: int, num_slots: int):
         self.pool = pool
         self.pe = pe
         self.num_slots = num_slots
-        self.slots: Dict[int, int] = {}      # slot -> request id
+        self.slots: Dict[int, _SlotMap] = {}
+        self.cow_copies = 0
 
     # ------------------------------------------------------------ lifecycle
-    def attach(self, heap, slot: int, req_id: int, *, fresh_ids: List[int]):
+    def attach(self, heap, slot: int, req_id: int, *, fresh_ids: List[int],
+               cow: Optional[Dict[int, int]] = None):
         """Arm a slot at admission and zero its growth blocks on this PE's
         row, so an assembled leaf is byte-identical to a virgin dense
-        cache."""
-        self.slots[slot] = req_id
+        cache.  ``cow`` maps the table indices decode will write whose
+        blocks are shared to their reserved private targets."""
+        self.slots[slot] = _SlotMap(req_id=req_id, cow=dict(cow or {}))
         for bid in fresh_ids:
             ptr = self.pool.block_ptr(bid)
             heap = heap.write(ptr, self.pe, torch.zeros(
                 ptr.size, dtype=TORCH_DTYPES[ptr.dtype], device=heap.device))
         return heap
 
-    def detach(self, slot: int) -> None:
-        self.slots.pop(slot, None)
+    def detach(self, slot: int) -> int:
+        """Disarm a finished slot and release its COW reserves that never
+        fired (the table's references are the scheduler's to release).
+        Returns the number of reserve blocks freed."""
+        sm = self.slots.pop(slot, None)
+        if sm is None:
+            return 0
+        return self.pool.release_ids(list(sm.cow.values()))
 
     def table_of(self, slot: int) -> List[int]:
-        return self.pool.blocks_of(self.slots[slot])
+        return self.pool.blocks_of(self.slots[slot].req_id)
 
     def table(self) -> np.ndarray:
         """(num_slots, blocks_per_request) int32 block table; unmapped
         entries hold ``num_blocks`` (K3's zero row)."""
         nb = self.pool.layout.blocks_per_request
         table = np.full((self.num_slots, nb), self.pool.num_blocks, np.int32)
-        for s, rid in self.slots.items():
-            ids = self.pool.blocks_of(rid)
+        for s, sm in self.slots.items():
+            ids = self.pool.blocks_of(sm.req_id)
             table[s, :len(ids)] = ids
         return table
 
@@ -104,7 +128,8 @@ class PagedDecodeView:
     # ------------------------------------------------------------ writeback
     def writeback(self, ctx, heap, new_cache, pos, active):
         """Store each active slot's just-written K/V token column into its
-        owning pool block.  ``pos`` is the PRE-step cursor."""
+        owning pool block.  ``pos`` is the PRE-step cursor.  Copy-on-write
+        fires here, before the first store into a shared block."""
         lay = self.pool.layout
         if not lay.paged:
             return heap
@@ -117,6 +142,7 @@ class PagedDecodeView:
             if idx >= W:        # dense overrun: the dense write drops it
                 continue
             b, t = divmod(idx, T)
+            heap = self._cow(ctx, heap, s, b)
             ptr = self.pool.block_ptr(self.table_of(s)[b])
             payload = heap.read(ptr, self.pe)
             parts = []
@@ -130,4 +156,20 @@ class PagedDecodeView:
                 parts.append(sl.reshape(-1))
                 off += n
             heap = heap.write(ptr, self.pe, torch.cat(parts))
+        return heap
+
+    def _cow(self, ctx, heap, slot: int, b: int):
+        """First write into table index ``b`` of a shared block: copy its
+        payload into the reserved private block (a local put on this PE),
+        remap the table, drop the shared reference."""
+        sm = self.slots[slot]
+        priv = sm.cow.pop(b, None)
+        if priv is None:
+            return heap
+        src = self.pool.blocks_of(sm.req_id)[b]
+        payload = heap.read(self.pool.block_ptr(src), self.pe)
+        heap = rma.put(ctx, heap, self.pool.block_ptr(priv), payload,
+                       self.pe, src_pe=self.pe)
+        self.pool.remap(sm.req_id, b, priv)
+        self.cow_copies += 1
         return heap

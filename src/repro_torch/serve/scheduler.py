@@ -1,18 +1,35 @@
 """Disaggregated continuous-batching scheduler.
 
-Counterpart of ``repro/serve/scheduler.py`` in its default mode: a FCFS
-request queue feeding a fleet of prefill PEs, whole-prefill paged-KV
-migration to decode PEs (``serve/kvxfer.py``), signal-threshold-gated
-admission into decode slots, paged decode straight out of the block pool
-(``serve/paged_attn.py``), slot rotation and eviction back to the pool.
+Counterpart of ``repro/serve/scheduler.py``: a FCFS request queue feeding a
+fleet of prefill PEs, paged-KV migration to decode PEs
+(``serve/kvxfer.py``), whole-prefill or chunked-streaming, signal-threshold
+gated admission into decode slots, paged decode straight out of the block
+pool (``serve/paged_attn.py``), shared-prefix block reuse with
+copy-on-write, slot rotation and refcount-correct eviction.
 
-Request states: QUEUED --prefill+stage--> STAGED --migrate(nbi)-->
-MIGRATING --signal >= threshold--> DECODING --max_new/eos--> FINISHED.
+Request states::
 
-One ``step()`` advances every stage once, in the order prefill, admit,
-decode: a migration issued this step stays pending (deferred nbi traffic)
-while decode keeps stepping resident requests, and only pays its flush when
-its slot admits.
+    QUEUED --prefill+stage--> STAGED --migrate(nbi)-----------> MIGRATING
+                                \\--open_stream--> STREAMING --> PARKED
+                                          (chunks drain slot-less;   |
+                                           slot binds at close ------/
+                                           tail+header -> MIGRATING)
+    MIGRATING --signal >= threshold--> DECODING --max_new/eos--> FINISHED
+
+One ``step()`` advances every stage once, in the order stream, prefill,
+admit, decode: a migration issued this step stays pending (deferred nbi
+traffic) while decode keeps stepping resident requests, and a streaming
+request's previous installment drains while its next one "computes".
+Streams are slot-less while draining (their blocks park in the pool against
+a stream-signal word), so the admission flush pays only for the close's
+tail + header: the ``ttfd_model_s`` win.
+
+``shared_prefix=True`` maps the blocks of a prompt prefix that another
+request registered (``submit(prefix_len=...)``) instead of staging and
+sending them again; the first decode write into a shared block copies it
+(copy-on-write).  ``paged=False`` is the dense-rehydrate A/B control:
+admission gathers the payloads into the slot bank's dense cache and decode
+reads that (``Engine.decode_slots``), so no block-table gather runs.
 
 ``fused_attn=True`` switches to the device-initiated fused protocol:
 migrations send tail + header first and then one signal per block
@@ -23,9 +40,10 @@ the blocks still on the wire through per-block device waits
 barrier protocol's; the first block is observed resident earlier
 (``SchedStats.ttfd_first_block_steps``).
 
-Other modes of the reference raise ``NotImplementedError`` naming the
-ROADMAP item that brings them: chunked streaming, shared prefixes, dense
-rehydrate, admission policies, preemption and recovery.
+Admission policies, preemption (the reference's ``_preempt_for`` finds no
+victim under its FCFS baseline, and so does this port: a slot-starved
+request stalls) and fault recovery wait for ROADMAP queue 1, item 10:
+``policy=`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,12 +55,13 @@ import numpy as np
 
 from repro_torch.serve import kvpool as kvpool_mod
 from repro_torch.serve.engine import Engine, ServeConfig, seeded
-from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, \
+from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, StreamState, \
     fused_admit_signal
 from repro_torch.serve.paged_attn import PagedDecodeView
 
-QUEUED, STAGED, MIGRATING, DECODING, FINISHED = (
-    "queued", "staged", "migrating", "decoding", "finished")
+(QUEUED, STAGED, STREAMING, PARKED, MIGRATING, DECODING, FINISHED) = (
+    "queued", "staged", "streaming", "parked", "migrating", "decoding",
+    "finished")
 
 
 @dataclasses.dataclass
@@ -66,6 +85,15 @@ class Request:
     admit_ready_step: int = 0       # modeled wire latency gate
     # prefill result parked here while the request waits for pool blocks
     prefill_cache: Optional[dict] = None
+    # shared-prefix state: the declared prefix, its index key, the blocks
+    # mapped from it, and the COW reserves (table index -> block) until
+    # admission hands them to the decode view
+    prefix_len: int = 0
+    prefix_key: Optional[tuple] = None
+    shared_ids: List[int] = dataclasses.field(default_factory=list)
+    cow_plan: Dict[int, int] = dataclasses.field(default_factory=dict)
+    stream: Optional[StreamState] = None
+    park_sig: int = -1              # pool stream-signal id while slot-less
     # fused protocol: wire blocks sent, blocks the decode side has still to
     # consume per signal, and the first step the first block was observed
     # resident (-1 = not yet)
@@ -84,6 +112,21 @@ class Request:
 
 
 @dataclasses.dataclass
+class PrefixEntry:
+    """One registered shareable prefix: its blocks, where their staged
+    payload lives, and which of them each decode PE already holds.
+    Residency is per (PE, block): a shorter-prefix mapper carries only the
+    entry's whole blocks, so a whole-prompt mapper admitted to the same PE
+    later must still send the boundary block."""
+    key: tuple
+    block_ids: List[int]
+    whole_prompt: bool              # ids include the partial boundary block
+    home_pe: int
+    resident: Dict[int, set]        # decode PE -> entry block ids landed there
+    refs: int = 0                   # live requests mapping these blocks
+
+
+@dataclasses.dataclass
 class SchedStats:
     prefills: int = 0
     migrations: int = 0
@@ -95,6 +138,12 @@ class SchedStats:
     bytes_cross_pod: int = 0
     stalled_on_pool: int = 0        # prefills deferred because no free blocks
     stalled_on_slots: int = 0       # migrations deferred because no free slot
+    stalled_on_streams: int = 0     # stream signals exhausted
+    stream_chunks: int = 0          # mid-prefill wire installments issued
+    prefix_hits: int = 0            # requests that mapped an existing prefix
+    blocks_prefix_shared: int = 0   # physical blocks reused via incref
+    bytes_wire_saved: int = 0       # resident-at-dst blocks never re-sent
+    cow_copies: int = 0             # divergent writes that copied a block
     ttfd_steps: List[int] = dataclasses.field(default_factory=list)
     ttfd_model_s: List[float] = dataclasses.field(default_factory=list)
     ttfd_first_block_steps: List[int] = dataclasses.field(
@@ -104,11 +153,6 @@ class SchedStats:
     ttfd_arrival_model_s: List[float] = dataclasses.field(
         default_factory=list)
     e2e_steps: List[int] = dataclasses.field(default_factory=list)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                              f"item {item})")
 
 
 class DisaggScheduler:
@@ -128,14 +172,10 @@ class DisaggScheduler:
             raise ValueError(
                 "fused_attn and chunked streaming are mutually exclusive — "
                 "per-block signals already stream at block granularity")
-        if not paged:
-            _not_ported("dense-rehydrate admission", "5b")
-        if stream_chunks:
-            _not_ported("chunked prefill streaming", "5b")
-        if shared_prefix:
-            _not_ported("shared-prefix block reuse", "5b")
         if policy is not None:
-            _not_ported("admission policies and preemption", "10")
+            raise NotImplementedError(
+                "admission policies and preemption are not ported yet "
+                "(ROADMAP queue 1, item 10)")
         if num_slots > pool.max_slots:
             raise ValueError(
                 f"num_slots ({num_slots}) exceeds the pool's per-PE slot "
@@ -152,15 +192,23 @@ class DisaggScheduler:
                                   if prefills_per_step is None
                                   else prefills_per_step)
         # modeled wire latency in scheduler steps: a migration issued at
-        # step N is first polled at step N + delay
+        # step N is first polled at step N + delay; a streamed close scales
+        # it by the final installment's share of the wire
         self.admit_delay_steps = admit_delay_steps
+        self.paged = paged
+        self.stream_chunks = stream_chunks      # blocks per installment; 0=off
         self.fused_attn = fused_attn
-        self.views: Dict[int, PagedDecodeView] = {
-            pe: PagedDecodeView(pool, pe, num_slots) for pe in decode_pes}
+        self.shared_prefix = shared_prefix
+        self.views: Dict[int, PagedDecodeView] = (
+            {pe: PagedDecodeView(pool, pe, num_slots) for pe in decode_pes}
+            if paged else {})
         self.queue: deque = deque()
         self.requests: Dict[int, Request] = {}
         self.staged: deque = deque()            # blocks held, awaiting a slot
+        self.streaming: List[Request] = []      # chunked migrations in flight
+        self.parked: List[Request] = []         # streams drained, no slot yet
         self.migrating: List[Request] = []
+        self.prefix_index: Dict[tuple, PrefixEntry] = {}
         self.banks = {pe: engine.init_slots(num_slots) for pe in decode_pes}
         self.slot_req: Dict[int, List[Optional[int]]] = {
             pe: [None] * num_slots for pe in decode_pes}
@@ -191,8 +239,11 @@ class DisaggScheduler:
                            "requests", **begin_args)
 
     # ------------------------------------------------------------- intake
-    def submit(self, batch: dict, *, max_new: Optional[int] = None) -> int:
-        """Enqueue one request ({"tokens": (1,S)})."""
+    def submit(self, batch: dict, *, max_new: Optional[int] = None,
+               prefix_len: int = 0) -> int:
+        """Enqueue one request ({"tokens": (1,S)}).  ``prefix_len`` declares
+        its first N prompt tokens shareable with other requests declaring
+        the same tokens (``shared_prefix`` mode)."""
         if max_new is None:
             max_new = self.scfg.max_new_tokens
         S = int(batch["tokens"].shape[1])
@@ -200,19 +251,27 @@ class DisaggScheduler:
             raise ValueError(
                 f"prompt ({S}) + max_new ({max_new}) exceeds the decode "
                 f"cache (max_len={self.engine.max_len})")
-        need = self.pool.layout.blocks_for_decode(S, max_new)
+        if not 0 <= prefix_len <= S:
+            raise ValueError(f"prefix_len {prefix_len} outside [0, {S}]")
+        lay = self.pool.layout
+        need = (lay.blocks_for_decode(S, max_new) if self.paged
+                else lay.blocks_for_prompt(S))
+        if self._needs_boundary_cow(batch, prefix_len, S):
+            need += 1
         if need > self.pool.num_blocks:
             raise ValueError(
                 f"request needs {need} KV blocks but the pool holds only "
                 f"{self.pool.num_blocks} — no schedule can ever admit it")
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid=rid, batch=batch, max_new=max_new)
+        req = Request(rid=rid, batch=batch, max_new=max_new,
+                      prefix_len=prefix_len if self.shared_prefix else 0)
         req.submit_step = req.arrival_step = self._step
         req.t_arrival = self._comm_clock()
         self.requests[rid] = req
         self.queue.append(req)
-        self._trace_phase(req, "queued", prompt_len=S, max_new=max_new)
+        self._trace_phase(req, "queued", prompt_len=S, max_new=max_new,
+                          arrival_step=req.arrival_step)
         return rid
 
     def _comm_clock(self) -> float:
@@ -223,24 +282,104 @@ class DisaggScheduler:
             if k[0] == "kvxfer_block")
         return self.ctx.total_time() - advisory
 
+    # ------------------------------------------------------ prefix sharing
+    def _sharable(self, batch: dict, prefix_len: int) -> bool:
+        """A batch shares only in shared-prefix mode, with a prefix, and
+        with tokens alone: other inputs (frontend embeds) condition K/V
+        beyond the token prefix, which a token-keyed index cannot see."""
+        return (self.shared_prefix and prefix_len > 0
+                and not any(k != "tokens" for k in batch))
+
+    def _needs_boundary_cow(self, batch: dict, prefix_len: int,
+                            prompt_len: int) -> bool:
+        """True when staging this request reserves a private block for a
+        whole-prompt prefix's partial boundary block: the extra demand
+        submit()'s feasibility check must charge."""
+        return (self.paged and self._sharable(batch, prefix_len)
+                and prefix_len == prompt_len
+                and prefix_len % self.pool.layout.block_tokens != 0)
+
+    def _prefix_plan(self, req: Request):
+        """(shared_ids, key, n_entry): the table prefix this request maps
+        from the index (hit) or will register (miss).  Whole blocks inside
+        the declared prefix are sharable, and the partial boundary block
+        too when the prefix is the whole prompt (its first decode write
+        copies it)."""
+        if not self._sharable(req.batch, req.prefix_len):
+            return [], None, 0
+        P, S, T = req.prefix_len, req.prompt_len, self.pool.layout.block_tokens
+        whole = P == S
+        n_own = P // T + (1 if whole and P % T else 0)
+        if n_own == 0:
+            return [], None, 0      # prefix shorter than one block
+        key = tuple(int(t) for t in req.batch["tokens"][0, :P].tolist())
+        entry = self.prefix_index.get(key)
+        if entry is None:
+            return [], key, n_own   # miss: register after staging
+        usable = (entry.block_ids if (whole and entry.whole_prompt)
+                  else entry.block_ids[:P // T])
+        if not usable:
+            return [], None, 0
+        return list(usable), key, len(usable)
+
+    def _cow_range(self, req: Request, n_entry: int):
+        """Table indices decode will write that map prefix-entry blocks:
+        at most the boundary block of a whole-prompt prefix."""
+        if not self.paged or n_entry == 0:
+            return range(0)
+        return range(req.prompt_len // self.pool.layout.block_tokens,
+                     n_entry)
+
     # -------------------------------------------------------------- phases
-    def _next_prefill_pe(self) -> int:
-        pe = self.prefill_pes[self._rr_prefill % len(self.prefill_pes)]
-        self._rr_prefill += 1
-        return pe
+    def _next_prefill_pe(self) -> Optional[int]:
+        """Round-robin over prefill PEs not occupied by a chunked stream (a
+        streaming PE is still computing; parked streams free their PE)."""
+        busy = {r.prefill_pe for r in self.streaming}
+        for _ in range(len(self.prefill_pes)):
+            pe = self.prefill_pes[self._rr_prefill % len(self.prefill_pes)]
+            self._rr_prefill += 1
+            if pe not in busy:
+                return pe
+        return None
+
+    def _phase_stream(self) -> None:
+        """Advance every chunked migration one installment: drain the
+        previous installment's queue prefix, then issue the next or park
+        the stream (all blocks issued, waiting slot-less).  Parked streams
+        keep draining and bind a slot the moment one frees."""
+        for req in list(self.streaming):
+            st = req.stream
+            self.heap = self.migrator.stream_flush(self.heap, st)
+            if st.pending:
+                self.heap = self.migrator.stream_chunk(self.heap, st,
+                                                       self.stream_chunks)
+            if not st.pending:
+                self.streaming.remove(req)
+                req.state = PARKED
+                self.parked.append(req)
+                self._trace_phase(req, "parked",
+                                  end_args={"chunks": st.chunks,
+                                            "blocks_sent": st.sent})
+        for req in list(self.parked):
+            self.heap = self.migrator.stream_flush(self.heap, req.stream)
+            self._try_bind(req)
 
     def _phase_prefill(self) -> None:
-        """Retry slot assignment for staged requests, then prefill queued
-        requests (FCFS) on prefill PEs round-robin, staging and migrating
-        each."""
+        """Advance streams, retry slot assignment for staged requests, then
+        prefill queued requests (FCFS) on free prefill PEs round-robin,
+        staging and migrating each."""
+        self._phase_stream()
         for _ in range(len(self.staged)):
             self._try_migrate(self.staged.popleft())
         for _ in range(self.prefills_per_step):
             if not self.queue:
                 return
-            req = self.queue.popleft()
+            req = self.queue[0]
             if req.prefill_cache is None:            # not prefilled yet
                 pe = self._next_prefill_pe()
+                if pe is None:                       # every PE mid-stream
+                    return
+                self.queue.popleft()
                 req.prefill_pe = pe
                 req.prefill_step = self._step
                 self.stats.queue_delay_steps.append(
@@ -261,25 +400,52 @@ class DisaggScheduler:
                 self.stats.prefills += 1
                 if tr is not None:
                     tr.end("prefill", "sched", self._trace_pid, f"pe{pe}")
+            else:
+                self.queue.popleft()
             if not self._stage(req):                 # pool exhausted: park
                 self.stats.stalled_on_pool += 1      # the prefilled request
                 self.queue.appendleft(req)
                 return
 
     def _stage(self, req: Request) -> bool:
-        """Stage a prefilled request into the pool, all or nothing."""
-        n_table = self.pool.layout.blocks_for_decode(req.prompt_len,
-                                                     req.max_new)
-        if n_table > self.pool.free_blocks():
+        """Stage a prefilled request into the pool: prefix mapping, payload
+        staging, prefix registration and COW reserves, all or nothing
+        against the free list."""
+        lay = self.pool.layout
+        shared_ids, key, n_entry = self._prefix_plan(req)
+        max_new = req.max_new if self.paged else 0
+        n_table = lay.blocks_for_decode(req.prompt_len, max_new)
+        n_cow = len(self._cow_range(req, n_entry))
+        if n_table - len(shared_ids) + n_cow > self.pool.free_blocks():
             return False
         self.heap, ids = self.migrator.stage(
             self.heap, req.rid, req.prefill_cache,
             prompt_len=req.prompt_len, src_pe=req.prefill_pe,
-            max_new=req.max_new)
+            max_new=max_new, shared_ids=shared_ids)
         assert ids is not None       # free-list headroom checked above
+        req.shared_ids = shared_ids
+        if key is not None:
+            if key not in self.prefix_index:
+                self.prefix_index[key] = PrefixEntry(
+                    key=key, block_ids=ids[:n_entry],
+                    whole_prompt=req.prefix_len == req.prompt_len,
+                    home_pe=req.prefill_pe, resident={})
+                # the entry holds its own reference: its blocks outlive
+                # every mapper that copies-on-write away, until the entry
+                # itself dies with its last mapper
+                self.pool.incref(self.prefix_index[key].block_ids)
+            entry = self.prefix_index[key]
+            entry.refs += 1
+            req.prefix_key = key
+            if shared_ids:
+                self.stats.prefix_hits += 1
+                self.stats.blocks_prefix_shared += len(shared_ids)
+        for b in self._cow_range(req, n_entry):
+            req.cow_plan[b] = self.pool.reserve(1)[0]
         req.prefill_cache = None                 # staged in the pool now
         req.state = STAGED
-        self._trace_phase(req, "staged", pe=req.prefill_pe)
+        self._trace_phase(req, "staged", pe=req.prefill_pe,
+                          shared_blocks=len(shared_ids))
         self._try_migrate(req)
         return True
 
@@ -295,7 +461,12 @@ class DisaggScheduler:
         return None, None
 
     def _try_migrate(self, req: Request) -> None:
-        """Put a staged request on the wire into a free (decode PE, slot)."""
+        """Put a staged request on the wire: as a slot-less stream
+        (streaming mode) or whole-prefill into a free (decode PE, slot).
+        With no free slot the request waits (no preemption, item 10)."""
+        if self.stream_chunks > 0:
+            self._open_stream(req)
+            return
         pe, slot = self._pick_slot()
         if slot is None:
             self.stats.stalled_on_slots += 1
@@ -303,17 +474,102 @@ class DisaggScheduler:
             return
         req.decode_pe, req.slot = pe, slot
         self.slot_req[pe][slot] = req.rid
+        skip = self._resident_skip(req, pe)
         send = (self.migrator.migrate_fused if self.fused_attn
                 else self.migrator.migrate)
         self.heap, report = send(
             self.heap, req.rid, src_pe=req.prefill_pe, dst_pe=pe, slot=slot,
-            prompt_len=req.prompt_len, first_token=req.first_token)
+            prompt_len=req.prompt_len, first_token=req.first_token,
+            skip=skip)
         delay = self.admit_delay_steps
         if self.fused_attn:
             # the modeled wire window covers only what admission waits for:
             # tail + header + the first block
             total = report.n_wire + EXTRA_SIGNALS
             delay = delay * fused_admit_signal(report.n_wire) // total
+        self._finish_migrate(req, report, delay=delay)
+
+    def _open_stream(self, req: Request) -> None:
+        """Open a slot-less chunked stream: pick the decode PE now (the
+        wire needs a destination), ramp a pool stream-signal word, and put
+        the first installment out.  The slot binds at close."""
+        sig_id = self.pool.alloc_stream_sig()
+        if sig_id is None:                       # every stream word carried
+            self.stats.stalled_on_streams += 1
+            self.staged.append(req)
+            return
+        pe = self._pick_stream_pe()
+        req.decode_pe = pe
+        req.park_sig = sig_id
+        st = self.migrator.open_stream(
+            req.rid, src_pe=req.prefill_pe, dst_pe=pe, slot=-1,
+            prompt_len=req.prompt_len, first_token=req.first_token,
+            skip=self._resident_skip(req, pe),
+            sig_ptr=self.pool.stream_sig_ptr(sig_id))
+        req.stream = st
+        if not st.pending:
+            # a fully resident prefix: nothing to stream, park now and bind
+            # this step if a slot is free (tail + header only)
+            req.state = PARKED
+            self._trace_phase(req, "parked", dst_pe=pe, resident=True)
+            self.parked.append(req)
+            self._try_bind(req)
+            return
+        req.state = STREAMING
+        self._trace_phase(req, "streaming", dst_pe=pe,
+                          blocks=len(st.pending))
+        self.streaming.append(req)
+        # the first installment leaves the step its blocks fill
+        self.heap = self.migrator.stream_chunk(self.heap, st,
+                                               self.stream_chunks)
+
+    def _pick_stream_pe(self) -> int:
+        """Decode PE for a new stream: most free slots wins, ties resolved
+        round-robin (load balancing: no slot exists yet)."""
+        n = len(self.decode_pes)
+        best, best_free = None, -1
+        for k in range(n):
+            pe = self.decode_pes[(self._rr_decode + k) % n]
+            free = sum(1 for o in self.slot_req[pe] if o is None)
+            if free > best_free:
+                best, best_free = pe, free
+        self._rr_decode += 1
+        return best
+
+    def _try_bind(self, req: Request) -> None:
+        """Bind a parked stream to a free slot on its decode PE and close
+        the stream (tail + header, the only wire left)."""
+        pe = req.decode_pe
+        slot = next((s for s, o in enumerate(self.slot_req[pe])
+                     if o is None), None)
+        if slot is None:
+            self.stats.stalled_on_slots += 1
+            return
+        st = req.stream
+        st.slot = slot
+        req.slot = slot
+        self.slot_req[pe][slot] = req.rid
+        self.parked.remove(req)
+        self.heap, report = self.migrator.stream_close(self.heap, st)
+        # the modeled wire latency scaled by the close's share of the
+        # stream: for a parked stream just tail + header, which rounds DOWN,
+        # so the admission poll may run the step the slot binds
+        total = st.sent + EXTRA_SIGNALS
+        delay = self.admit_delay_steps * st.final_wire // total
+        self._finish_migrate(req, report, delay=delay)
+
+    def _resident_skip(self, req: Request, dst_pe: int) -> frozenset:
+        """Shared blocks an earlier request already migrated to this decode
+        PE never travel again (COW keeps them pristine there).  Only the
+        intersection with the blocks recorded resident at this PE: skipping
+        an absent block would admit stale pool bytes."""
+        if req.prefix_key is None or not req.shared_ids:
+            return frozenset()
+        resident = self.prefix_index[req.prefix_key].resident.get(
+            dst_pe, frozenset())
+        return frozenset(req.shared_ids) & frozenset(resident)
+
+    def _finish_migrate(self, req: Request, report, *, delay: int) -> None:
         req.expected_sig = report.expected_signal
         req.wire_blocks = report.n_wire
         req.state = MIGRATING
@@ -322,13 +578,19 @@ class DisaggScheduler:
         req.t_submit = self._comm_clock()
         self._trace_phase(req, "migrating", src_pe=report.src_pe,
                           dst_pe=report.dst_pe, tier=report.tier,
-                          bytes=report.bytes_total, bytes_dcn=report.bytes_dcn,
+                          bytes=report.bytes_total,
+                          bytes_dcn=report.bytes_dcn, chunks=report.chunks,
                           wire_steps=delay,
-                          protocol="fused" if self.fused_attn else "barrier")
+                          protocol=("stream" if req.park_sig >= 0
+                                    else "fused" if self.fused_attn
+                                    else "barrier"))
         self.migrating.append(req)
         self.stats.migrations += 1
         self.stats.bytes_migrated += report.bytes_total
         self.stats.bytes_cross_pod += report.bytes_dcn
+        self.stats.bytes_wire_saved += report.bytes_skipped
+        if self.stream_chunks > 0:
+            self.stats.stream_chunks += report.chunks
 
     # ----------------------------------------------------------- admission
     def _poll_first_block(self, req: Request) -> None:
@@ -338,7 +600,7 @@ class DisaggScheduler:
         order sets the threshold: barrier migrations send blocks first
         (``sig >= 1``), fused ones tail + header first
         (``sig >= EXTRA_SIGNALS + 1``)."""
-        if req.first_block_step >= 0 or req.wire_blocks == 0:
+        if req.first_block_step >= 0 or req.slot < 0 or req.wire_blocks == 0:
             return
         cur = self.heap.read(self.pool.sig_ptr(req.slot), req.decode_pe)
         thr = EXTRA_SIGNALS + 1 if self.fused_attn else 1
@@ -348,10 +610,12 @@ class DisaggScheduler:
     def _phase_admit(self) -> None:
         """A MIGRATING request enters its decode slot once
         ``signal_wait_until`` observes its threshold: the whole request's
-        under the barrier protocol, the first block's in fused mode."""
+        under the barrier protocol (on the stream signal for a parked
+        stream), the first block's in fused mode."""
         still = []
         for req in self.migrating:
-            self._poll_first_block(req)
+            if req.park_sig < 0:
+                self._poll_first_block(req)
             if self._step < req.admit_ready_step:
                 still.append(req)               # wire still "in flight"
                 continue
@@ -361,28 +625,58 @@ class DisaggScheduler:
                 if hdr is not None:
                     req.fused_pending = req.wire_blocks - resident
             else:
+                sig_ptr = (self.pool.stream_sig_ptr(req.park_sig)
+                           if req.park_sig >= 0 else None)
                 self.heap, hdr = self.migrator.try_admit(
-                    self.heap, req.slot, req.decode_pe, req.expected_sig)
+                    self.heap, req.slot, req.decode_pe, req.expected_sig,
+                    sig_ptr=sig_ptr)
             if hdr is None:
                 still.append(req)
                 continue
             if hdr["req_id"] != req.rid:
                 raise RuntimeError(f"slot {req.slot} header names request "
                                    f"{hdr['req_id']}, expected {req.rid}")
-            # the pool row IS the decode KV cache: only the non-paged tail
-            # enters the slot bank
+            if req.park_sig >= 0:
+                # admission observed the parked stream's signal: recycle
+                # the word (zeroed on the decode PE's row)
+                self.heap = self.migrator.reset_signal(
+                    self.heap, self.pool.stream_sig_ptr(req.park_sig),
+                    req.decode_pe)
+                self.pool.free_stream_sig(req.park_sig)
+                req.park_sig = -1
             bank = self.banks[req.decode_pe]
-            tail = self.migrator.gather_tail(self.heap, req.slot,
-                                             req.decode_pe)
-            bank = dataclasses.replace(bank, cache=kvpool_mod.insert_tail(
-                self.pool.layout, bank.cache, req.slot, tail))
-            growth = [i for i in self.pool.blocks_of(req.rid)
-                      if self.pool.home_of(i) is None]
-            self.heap = self.views[req.decode_pe].attach(
-                self.heap, req.slot, req.rid, fresh_ids=growth)
+            lay = self.pool.layout
+            if self.paged:
+                # the pool row IS the decode KV cache: only the non-paged
+                # tail enters the slot bank
+                tail = self.migrator.gather_tail(self.heap, req.slot,
+                                                 req.decode_pe)
+                bank = dataclasses.replace(bank, cache=kvpool_mod.insert_tail(
+                    lay, bank.cache, req.slot, tail))
+                growth = [i for i in self.pool.blocks_of(req.rid)
+                          if self.pool.home_of(i) is None]
+                self.heap = self.views[req.decode_pe].attach(
+                    self.heap, req.slot, req.rid, fresh_ids=growth,
+                    cow=req.cow_plan)
+                req.cow_plan = {}
+            else:
+                payloads, tail = self.migrator.gather(
+                    self.heap, req.rid, req.slot, req.decode_pe)
+                cache = kvpool_mod.insert_blocks(lay, bank.cache, req.slot,
+                                                 payloads)
+                bank = dataclasses.replace(bank, cache=kvpool_mod.insert_tail(
+                    lay, cache, req.slot, tail))
             self.banks[req.decode_pe] = self.engine.activate_slot(
                 bank, req.slot, pos=hdr["prompt_len"],
                 token=hdr["first_token"])
+            if req.prefix_key is not None:
+                # the admission wait proved every block this request maps
+                # landed at its decode PE (sent or skipped as resident);
+                # COW has not fired yet, so the table still maps the
+                # shared ids
+                entry = self.prefix_index[req.prefix_key]
+                entry.resident.setdefault(req.decode_pe, set()).update(
+                    set(entry.block_ids) & set(self.pool.blocks_of(req.rid)))
             req.state = DECODING
             req.out.append(hdr["first_token"])
             req.admit_step = self._step
@@ -394,7 +688,9 @@ class DisaggScheduler:
             self._trace_phase(
                 req, "decoding",
                 end_args={"wire_model_s": req.t_admit - req.t_submit,
-                          "ttfd_steps": req.admit_step - req.arrival_step},
+                          "ttfd_steps": req.admit_step - req.arrival_step,
+                          "ttfd_model_s": req.t_admit - req.t_arrival,
+                          "first_block_step": req.first_block_step},
                 pe=req.decode_pe, slot=req.slot)
             self.stats.admissions += 1
             self.stats.ttfd_steps.append(req.admit_step - req.submit_step)
@@ -443,9 +739,13 @@ class DisaggScheduler:
             gen = (seeded(self.engine.device, self.scfg.seed,
                           10_000 + self._step, pe)
                    if self.scfg.temperature > 0 else None)
-            bank, toks, self.heap = self.engine.decode_slots_paged(
-                bank, gen, self.ctx, self.heap, self.views[pe],
-                self.scfg.temperature)
+            if self.paged:
+                bank, toks, self.heap = self.engine.decode_slots_paged(
+                    bank, gen, self.ctx, self.heap, self.views[pe],
+                    self.scfg.temperature)
+            else:
+                bank, toks = self.engine.decode_slots(bank, gen,
+                                                      self.scfg.temperature)
             self.banks[pe] = bank
             stepped = True
             if tr is not None:
@@ -476,14 +776,30 @@ class DisaggScheduler:
                 req, None,
                 end_args={"outcome": "finished",
                           "decode_steps": req.finish_step - req.admit_step,
-                          "tokens": len(req.out)})
+                          "e2e_steps": req.finish_step - req.arrival_step,
+                          "tokens": len(req.out),
+                          "preemptions": 0})    # no preemption (item 10)
             self._evict(req)
 
     def _evict(self, req: Request) -> None:
-        """Return the request's blocks, re-arm its slot signal, free the
-        slot."""
-        self.views[req.decode_pe].detach(req.slot)
+        """Refcount-correct teardown: the view releases the COW reserves
+        that never fired, then the table's references go (a shared block
+        frees only with its last mapper), and the prefix entry dies with its
+        last mapper, dropping its own reference.  Then the slot's signal is
+        re-armed and the slot freed."""
+        if self.paged:
+            self.views[req.decode_pe].detach(req.slot)
+            self.stats.cow_copies = sum(v.cow_copies
+                                        for v in self.views.values())
         self.pool.release(req.rid)
+        if req.prefix_key is not None:
+            entry = self.prefix_index.get(req.prefix_key)
+            if entry is not None:
+                entry.refs -= 1
+                if entry.refs <= 0:
+                    self.pool.release_ids(entry.block_ids)
+                    del self.prefix_index[req.prefix_key]
+            req.prefix_key = None
         self.heap = self.migrator.reset_slot(self.heap, req.slot,
                                              req.decode_pe)
         self.migrator.release_tail(req.rid)
@@ -494,7 +810,8 @@ class DisaggScheduler:
 
     # --------------------------------------------------------------- drive
     def step(self) -> None:
-        """Advance every pipeline stage once."""
+        """Advance every pipeline stage once (streams advance inside the
+        prefill phase)."""
         tr = self._tracer()
         if tr is not None:
             tr.clock.set_step(self._step)
@@ -504,7 +821,8 @@ class DisaggScheduler:
         self._step += 1
 
     def done(self) -> bool:
-        return (not self.queue and not self.staged and not self.migrating
+        return (not self.queue and not self.staged and not self.streaming
+                and not self.parked and not self.migrating
                 and all(r.state == FINISHED for r in self.requests.values()))
 
     def run(self, *, max_steps: int = 10_000) -> Dict[int, np.ndarray]:

@@ -12,6 +12,7 @@ attention (K2, K10) to the reference's tolerances, 2e-5 in f32 and 2e-2 in
 bf16; K2's bf16 kernel is also held bitwise to itself run to run and across
 batch positions, and K11 bitwise to K3 followed by K2.
 """
+import json
 import types
 
 import numpy as np
@@ -21,6 +22,8 @@ import torch
 from repro_torch.comms import api
 from repro_torch.kernels import flash_attn, ishmem_device, ops, \
     reduce_tile as rt, ring_collectives as rc, rma_copy
+from repro_torch.launch import serve
+from repro_torch.obs.export import validate
 from repro_torch.serve.kvpool import PagedLeaf
 
 pytestmark = [pytest.mark.cuda,
@@ -319,7 +322,8 @@ def test_cuda_fused_paged_attn_routes_by_dtype(card):
         pool = types.SimpleNamespace(layout=lay, data=ptr, num_blocks=R,
                                      blocks_of=lambda rid: tables[rid])
         view = PagedDecodeView(pool, 1, 3)
-        view.slots.update({0: 0, 1: 1})
+        for s in (0, 1):
+            heap = view.attach(heap, s, s, fresh_ids=[])
         wg = device_mod.work_group(ctx, size=128, pe=1)
         qq = q.to(cast or pool_dt)
         ops.reset_launches()
@@ -602,3 +606,36 @@ def test_cuda_flash_partial_run_to_run(card, dtype, Sq, Skv, q_off, k_off,
     blind = (q_off + torch.arange(Sq, device=card)) < k_off
     assert bool((first[1][:, blind] == flash_attn.NEG_INF).all())
     assert bool((first[2][:, blind] == Skv).all())
+
+
+# ---------------------------------------------------------------------------
+# the serving modes on the card, at reduced widths
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("flags,gather", [
+    (["--stream-chunks", "2"], True), (["--shared-prefix"], True),
+    (["--dense-rehydrate"], False)])
+def test_cuda_serving_modes_match_single_pe(card, tmp_path, flags, gather):
+    """Streamed, prefix-shared (a 20-token prompt over blocks of 8: the
+    first decode write copies the boundary block) and dense-rehydrated
+    serving on the card: every request bitwise equal to the single-PE
+    baseline at the same shapes, K1 and K2 launched, K3 launched except in
+    the dense mode, and the trace valid."""
+    trace = tmp_path / "trace.json"
+    ops.reset_launches()
+    sched = serve.main(["--disagg", "--device", "cuda", "--requests", "6",
+                        "--prompt-len", "20", "--max-new", "5", "--slots",
+                        "2", "--block-tokens", "8", "--kv-blocks", "48",
+                        "--trace", str(trace)] + flags)
+    launches = dict(ops.LAUNCHES)
+    assert launches["copy_into"] and launches["flash_attention"]
+    assert bool(launches["paged_gather"]) == gather
+    st = sched.stats
+    assert (st.admissions, st.evictions) == (6, 6)
+    if "--shared-prefix" in flags:
+        assert (st.prefix_hits, st.cow_copies) == (5, 6)
+    for req in sched.requests.values():
+        assert req.out == sched.engine.generate_in_slot(
+            req.batch, sched.scfg, num_slots=2, slot=req.slot)
+    assert validate(json.loads(trace.read_text())) == []

@@ -166,7 +166,7 @@ def _views(lay, R, tables, rptr, ptr, pe=1):
         PagedDecodeView(pool(ptr), pe, SLOTS)
     for s in tables:
         rview.slots[s] = types.SimpleNamespace(req_id=s)
-        view.slots[s] = s
+        view.slots[s] = types.SimpleNamespace(req_id=s)
     return rview, view
 
 

@@ -25,6 +25,8 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(
 
 def test_every_module_imports_without_jax_or_the_reference():
     assert len(MODULES) > 20
+    assert {"repro_torch.obs.tracer", "repro_torch.obs.export"} <= \
+        set(MODULES)
     code = (
         "import importlib, sys\n"
         f"for name in {MODULES!r}:\n"

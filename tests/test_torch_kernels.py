@@ -296,7 +296,7 @@ def test_assemble_host_table_matches_tensor_table(monkeypatch, counts):
     nb = pool.layout.blocks_per_request
     for slot, rid, n in ((0, 7, nb), (2, 8, nb - 2)):
         assert pool.alloc(rid, n) is not None
-        view.slots[slot] = rid
+        heap = view.attach(heap, slot, rid, fresh_ids=[])
     units = 1 + max(leaf.unit_idx for leaf in pool.layout.paged)
     cache = {"blocks": [{"k": torch.zeros(1), "v": torch.zeros(1)}
                         for _ in range(units)]}

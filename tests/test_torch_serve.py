@@ -2,16 +2,19 @@
 JAX package's, plus the port's own serving laws.
 
 The cross-package run uses the config, weights, prompts and flags of
-``tests/test_disagg.py::_run_disagg`` (reduced qwen3-4b in f32, 4 PEs, 5
-requests over 2 decode PEs of 3 slots).  Both schedulers step in lockstep,
-and after every step the control plane must agree exactly: request states,
-block tables, every int32 heap word (signals, headers), the telemetry
-record sequence, the scheduler counters and the tokens.  Float payloads —
+``tests/test_disagg.py::_run_disagg`` (reduced qwen3-4b in f32, 4 PEs, 4-5
+requests over 2 decode PEs), whole-prefill, streamed, with shared
+prefixes and dense-rehydrated.  Both schedulers step in lockstep, each
+with a span tracer, and after every step the control plane must agree
+exactly: request states, block tables, refcounts, every int32 heap word
+(signals, stream signals, headers), the telemetry record sequence, the
+scheduler counters, the step's trace events and the tokens.  Float payloads —
 pool bytes and each step's logits — agree to 5e-5 (f32 sums in another
 order, as in ``test_torch_model.py``).  The JAX side keeps its defaults
 (no kernels); ``test_torch_kernels.py`` covers the kernels one by one.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +23,10 @@ import pytest
 import torch
 
 from repro.configs import base as ref_base
-from repro.core import context as ref_context
+from repro.core import context as ref_context, teams as ref_teams
 from repro.models import model as ref_model
+from repro.obs.export import chrome_trace as ref_chrome_trace
+from repro.obs.tracer import SpanTracer as RefSpanTracer
 from repro.serve.engine import Engine as RefEngine, \
     ServeConfig as RefServeConfig
 from repro.serve.kvpool import KVPool as RefKVPool
@@ -32,6 +37,9 @@ from repro_torch.configs import base
 from repro_torch.core import context, signal as signal_mod
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model
+from repro_torch.obs.export import chain_gaps, chrome_trace, \
+    request_chains_doc, validate
+from repro_torch.obs.tracer import SpanTracer
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.kvpool import KVPool
@@ -73,7 +81,8 @@ def _setup(params, *, npes=4, num_blocks=32, max_slots=3, block_tokens=8):
 
 
 def _sched(params, *, decode_pes=(2, 3), num_slots=3, NEW=6, admit_delay=0,
-           eos_id=-1, temperature=0.0, seed=0, **kw):
+           eos_id=-1, temperature=0.0, seed=0, paged=True, stream_chunks=0,
+           shared_prefix=False, **kw):
     cfg, ctx, heap, eng, pool = _setup(params, **kw)
     sched = DisaggScheduler(ctx, heap, eng, pool, KVMigrator(ctx, pool),
                             prefill_pes=[0, 1], decode_pes=list(decode_pes),
@@ -82,7 +91,9 @@ def _sched(params, *, decode_pes=(2, 3), num_slots=3, NEW=6, admit_delay=0,
                                              eos_id=eos_id,
                                              temperature=temperature,
                                              seed=seed),
-                            admit_delay_steps=admit_delay)
+                            admit_delay_steps=admit_delay, paged=paged,
+                            stream_chunks=stream_chunks,
+                            shared_prefix=shared_prefix)
     return sched
 
 
@@ -103,20 +114,78 @@ def _int_pool(heap, ref):
     return np.asarray(pool) if ref else pool.numpy()
 
 
-@pytest.mark.parametrize("n_req,num_slots,admit_delay", [(5, 3, 0),
-                                                         (5, 1, 1),
-                                                         (4, 2, 2)])
-def test_disagg_matches_reference_step_by_step(ref_params, params,
-                                               monkeypatch, n_req, num_slots,
-                                               admit_delay):
-    NEW = 6
-    # test_disagg.py::_prompts, handed to both packages as numpy
+def _lockstep_prompts(n_req, prefix):
+    """test_disagg.py::_prompts, handed to both packages as numpy.  With
+    ``prefix="whole"`` every request is a sample of the first prompt; with
+    ``prefix="divergent"`` the requests share its first 8 tokens (one
+    block) and end in 4 tokens of their own."""
     prompts = [np.array(jax.random.randint(
         jax.random.fold_in(jax.random.key(1), i), (1, 10), 0, 512))
         for i in range(n_req)]
+    if prefix == "whole":
+        return [prompts[0]] * n_req, 10
+    if prefix == "divergent":
+        rng = np.random.default_rng(7)
+        return [np.concatenate([prompts[0][:, :8], rng.integers(
+            0, 512, size=(1, 4)).astype(prompts[0].dtype)], axis=1)
+            for _ in range(n_req)], 8
+    return prompts, 0
+
+
+def _event_tuple(ev):
+    return (ev.ph, ev.name, ev.cat, ev.ts, str(ev.pid), str(ev.tid), ev.id)
+
+
+def _same_args(ra, pa):
+    """Event args equal key for key; floats (modeled seconds) to 5e-5."""
+    ra, pa = ra or {}, pa or {}
+    assert sorted(ra) == sorted(pa)
+    for k, v in ra.items():
+        if isinstance(v, float) or isinstance(pa[k], float):
+            assert pa[k] == pytest.approx(float(v), rel=TOL, abs=TOL), k
+        else:
+            assert pa[k] == v, k
+
+
+LOCKSTEP = [
+    pytest.param(dict(n_req=5, num_slots=3, admit_delay=0), id="5-3-0"),
+    pytest.param(dict(n_req=5, num_slots=1, admit_delay=1), id="5-1-1"),
+    pytest.param(dict(n_req=4, num_slots=2, admit_delay=2), id="4-2-2"),
+    pytest.param(dict(n_req=4, num_slots=2, admit_delay=1, stream_chunks=1),
+                 id="stream1"),
+    pytest.param(dict(n_req=4, num_slots=1, admit_delay=1, stream_chunks=2),
+                 id="stream2"),
+    pytest.param(dict(n_req=4, num_slots=1, admit_delay=1, prefix="whole"),
+                 id="prefix-whole-cow"),
+    pytest.param(dict(n_req=4, num_slots=1, admit_delay=1,
+                      prefix="divergent"), id="prefix-divergent"),
+    pytest.param(dict(n_req=4, num_slots=1, admit_delay=1, stream_chunks=1,
+                      prefix="whole"), id="stream1-prefix-whole"),
+    pytest.param(dict(n_req=5, num_slots=2, admit_delay=1, paged=False),
+                 id="dense"),
+]
+
+
+@pytest.mark.parametrize("case", LOCKSTEP)
+def test_disagg_matches_reference_step_by_step(ref_params, params,
+                                               monkeypatch, case):
+    """Both schedulers, each with a span tracer, step in lockstep.  After
+    every step: request states, block tables, refcounts, the whole int32
+    heap (signals, stream signals, headers), the float pools within 5e-5,
+    every SchedStats field, the telemetry sequence, the step's trace events
+    and the tokens.  At the end the exported Chrome traces agree event by
+    event and both validate."""
+    NEW = 6
+    n_req, num_slots, admit_delay = (case["n_req"], case["num_slots"],
+                                     case["admit_delay"])
+    mode = dict(paged=case.get("paged", True),
+                stream_chunks=case.get("stream_chunks", 0),
+                shared_prefix="prefix" in case)
+    prompts, prefix_len = _lockstep_prompts(n_req, case.get("prefix"))
     # reference side (test_disagg.py::_setup / _run_disagg)
     rcfg = ref_base.reduced(ref_base.get_config("qwen3_4b"))
     rctx, rheap = ref_context.init(npes=4, node_size=4)
+    rctx.tracer = RefSpanTracer()
     reng = RefEngine(rcfg, ref_params, max_len=MAXLEN)
     rpool = RefKVPool.create(rheap, rcfg, MAXLEN, num_blocks=32, max_slots=3,
                              block_tokens=8)
@@ -124,9 +193,11 @@ def test_disagg_matches_reference_step_by_step(ref_params, params,
                           prefill_pes=[0, 1], decode_pes=[2, 3],
                           num_slots=num_slots,
                           scfg=RefServeConfig(max_new_tokens=NEW),
-                          admit_delay_steps=admit_delay)
+                          admit_delay_steps=admit_delay, **mode)
     psched = _sched(params, num_slots=num_slots, NEW=NEW,
-                    admit_delay=admit_delay)
+                    admit_delay=admit_delay, **mode)
+    psched.ctx.tracer = SpanTracer()
+    rtr, ptr = rctx.tracer, psched.ctx.tracer
     # every decode step's logits, both sides
     rlogits, plogits = [], []
     rdecode = reng._decode
@@ -136,10 +207,12 @@ def test_disagg_matches_reference_step_by_step(ref_params, params,
     monkeypatch.setattr(engine_mod.model, "decode_step", lambda *a: (
         lambda out: plogits.append(out[0].numpy()) or out)(pdecode(*a)))
     for p in prompts:
-        rsched.submit({"tokens": jnp.asarray(p)})
-        psched.submit(_tok(p))
+        rsched.submit({"tokens": jnp.asarray(p)}, prefix_len=prefix_len)
+        psched.submit(_tok(p), prefix_len=prefix_len)
     steps = 0
     while not (rsched.done() and psched.done()):
+        n_ev = len(rtr.events)
+        assert len(ptr.events) == n_ev
         rsched.step()
         psched.step()
         steps += 1
@@ -148,26 +221,57 @@ def test_disagg_matches_reference_step_by_step(ref_params, params,
                 for r in rsched.requests.values()] == \
             [(r.rid, r.state, r.slot, r.decode_pe)
              for r in psched.requests.values()]
+        assert [r.out for r in rsched.requests.values()] == \
+            [r.out for r in psched.requests.values()]
         assert rpool.block_tables == psched.pool.block_tables
+        assert rpool._refcnt == psched.pool._refcnt
         np.testing.assert_array_equal(_int_pool(rsched.heap, True),
                                       _int_pool(psched.heap, False))
-        np.testing.assert_allclose(
-            psched.heap.pools["float32"].numpy(),
-            np.asarray(rsched.heap.pools["float32"]), atol=TOL, rtol=TOL)
+        for dt, pool in psched.heap.pools.items():
+            if dt != "int32":
+                np.testing.assert_allclose(
+                    pool.float().numpy(),
+                    np.asarray(rsched.heap.pools[dt], np.float32),
+                    atol=TOL, rtol=TOL)
+        for f in dataclasses.fields(psched.stats):
+            assert getattr(rsched.stats, f.name) == getattr(
+                psched.stats, f.name), f.name
+        assert [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
+                for r in rctx.telemetry.trace] == \
+            [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
+             for r in psched.ctx.telemetry.trace]
+        assert [_event_tuple(e) for e in rtr.events[n_ev:]] == \
+            [_event_tuple(e) for e in ptr.events[n_ev:]]
+        for re_, pe_ in zip(rtr.events[n_ev:], ptr.events[n_ev:]):
+            _same_args(re_.args, pe_.args)
     for rid, r in rsched.requests.items():
         assert r.out == psched.requests[rid].out
     assert len(rlogits) == len(plogits) > 0
     for a, b in zip(rlogits, plogits):
         np.testing.assert_allclose(b, a, atol=TOL, rtol=TOL)
-    for f in dataclasses.fields(psched.stats):
-        assert getattr(rsched.stats, f.name) == getattr(psched.stats,
-                                                        f.name), f.name
-    assert [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
-            for r in rctx.telemetry.trace] == \
-        [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
-         for r in psched.ctx.telemetry.trace]
     assert rctx.pending.stats.coalescing_ratio() == \
         psched.ctx.pending.stats.coalescing_ratio()
+    rdoc, pdoc = ref_chrome_trace(rtr), chrome_trace(ptr)
+    assert validate(pdoc) == [] and ptr.open_spans() == \
+        {"slices": {}, "async": {}}
+    assert rdoc["otherData"] == pdoc["otherData"]
+    assert len(rdoc["traceEvents"]) == len(pdoc["traceEvents"])
+    for re_, pe_ in zip(rdoc["traceEvents"], pdoc["traceEvents"]):
+        assert {k: v for k, v in re_.items() if k != "args"} == \
+            {k: v for k, v in pe_.items() if k != "args"}
+        _same_args(re_.get("args"), pe_.get("args"))
+    # the cases exercise what they name
+    st = psched.stats
+    if mode["stream_chunks"]:
+        assert st.stream_chunks >= n_req
+        assert psched.pool.stats()["streams_active"] == 0
+    if case.get("prefix") == "whole":
+        assert (st.prefix_hits, st.cow_copies) == (n_req - 1, n_req)
+    if case.get("prefix") == "divergent":
+        assert (st.prefix_hits, st.cow_copies) == (n_req - 1, 0)
+    if "prefix" in case and not mode["stream_chunks"]:
+        assert st.bytes_wire_saved > 0      # resident blocks skipped
+    assert psched.pool.stats()["blocks_in_use"] == 0
 
 
 def test_migrated_pool_bytes_match_reference(ref_params, params):
@@ -453,15 +557,22 @@ def test_growth_blocks_receive_decode_writes(params):
         max_new_tokens=7))[0].tolist() == sched.requests[0].out
 
 
-@pytest.mark.parametrize("kw", [{"paged": False}, {"stream_chunks": 1},
-                                {"shared_prefix": True},
-                                {"policy": object()}])
+@pytest.mark.parametrize("kw", [{"policy": object()}])
 def test_unported_modes_raise(params, kw):
     cfg, ctx, heap, eng, pool = _setup(params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DisaggScheduler(ctx, heap, eng, pool, KVMigrator(ctx, pool),
                         prefill_pes=[0, 1], decode_pes=[2, 3], num_slots=3,
                         **kw)
+
+
+def test_launcher_refuses_streaming_with_fused_attn():
+    """As in the reference: per-block signals already stream, so
+    ``--stream-chunks`` with ``--fused-attn`` raises."""
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        launch_serve.main(["--disagg", "--device", "cpu", "--requests", "1",
+                           "--prompt-len", "8", "--max-new", "2",
+                           "--fused-attn", "--stream-chunks", "1"])
 
 
 def test_launcher_runs_on_cpu(capsys):
@@ -474,3 +585,73 @@ def test_launcher_runs_on_cpu(capsys):
     out = launch_serve.main(["--device", "cpu", "--batch", "2",
                              "--prompt-len", "6", "--max-new", "3"])
     assert tuple(out.shape) == (2, 3)
+
+
+LAUNCH_MODES = {
+    "stream": ["--stream-chunks", "2"],
+    "prefix": ["--shared-prefix"],
+    "dense": ["--dense-rehydrate"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(LAUNCH_MODES))
+def test_launcher_new_modes_on_cpu(ref_params, capsys, tmp_path, mode):
+    """The launcher's streaming, shared-prefix and dense-rehydrate modes at
+    the smoke's serving shape, reduced (8 requests over 2 + 2 PEs, 3 slots,
+    block 8, a 20-token prompt, so the whole-prompt prefix ends in a
+    partial block), each with ``--trace``: every request bitwise equal to
+    the single-PE baseline, the trace valid with one finished chain per
+    request, and the mode's counters equal to the JAX scheduler's on the
+    same shape."""
+    trace = tmp_path / "trace.json"
+    argv = ["--disagg", "--device", "cpu", "--requests", "8",
+            "--prompt-len", "20", "--max-new", "5", "--slots", "3",
+            "--block-tokens", "8", "--kv-blocks", "64", "--trace",
+            str(trace)] + LAUNCH_MODES[mode]
+    sched = launch_serve.main(argv)
+    out = capsys.readouterr().out
+    st = sched.stats
+    assert (st.prefills, st.migrations, st.admissions, st.evictions) == \
+        (8, 8, 8, 8)
+    assert len(sched.ctx.pending) == 0
+    assert sched.pool.stats()["blocks_in_use"] == 0
+    for rid, req in sched.requests.items():
+        assert sched.engine.generate(req.batch, ServeConfig(
+            max_new_tokens=5))[0].tolist() == req.out
+    doc = json.loads(trace.read_text())
+    assert validate(doc) == []
+    chains = request_chains_doc(doc)
+    assert sorted(chains) == list(range(8))
+    for chain in chains.values():
+        assert chain_gaps(chain) == []
+        assert chain[-1]["args"]["outcome"] == "finished"
+    assert "trace:" in out
+    # the JAX scheduler on the same shape (counters do not depend on the
+    # weights: no eos)
+    rcfg = ref_base.reduced(ref_base.get_config("qwen3_4b"))
+    rctx, rheap = ref_context.init(npes=4, node_size=4)
+    pre, dec = ref_teams.disagg_partition(ref_teams.world(4), 2)
+    reng = RefEngine(rcfg, ref_params, max_len=25)
+    rpool = RefKVPool.create(rheap, rcfg, 25, num_blocks=64, max_slots=3,
+                             block_tokens=8)
+    rsched = RefScheduler(
+        rctx, rheap, reng, rpool, RefKVMigrator(rctx, rpool),
+        prefill_pes=pre.pes(), decode_pes=dec.pes(), num_slots=3,
+        scfg=RefServeConfig(max_new_tokens=5), admit_delay_steps=1,
+        paged=mode != "dense", stream_chunks=2 if mode == "stream" else 0,
+        shared_prefix=mode == "prefix")
+    for req in sched.requests.values():
+        rsched.submit({"tokens": jnp.asarray(req.batch["tokens"].numpy())},
+                      prefix_len=20 if mode == "prefix" else 0)
+    rsched.run()
+    for f in dataclasses.fields(st):
+        assert getattr(rsched.stats, f.name) == getattr(st, f.name), f.name
+    if mode == "stream":
+        assert st.stream_chunks == 8 * 2        # 3 blocks: 2 + 1 a request
+        assert "streaming: 16 wire installments of 2 block(s)" in out
+    if mode == "prefix":
+        assert (st.prefix_hits, st.cow_copies) == (7, 8)
+        assert st.bytes_wire_saved > 0
+        assert "shared prefix: 7 hits" in out
+    if mode == "dense":
+        assert "decode-cache=dense-rehydrate" in out
