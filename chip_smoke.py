@@ -9,15 +9,18 @@ Phases, each fatal on failure:
    port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source,
    in parallel), TF32 off for PyTorch's own products; print ptxas's
    registers and spills for the bf16 K2 kernels, K11's paged kernels
-   (a spill there fails) and the K10 kernels (its split pass too) and
+   (a spill there fails; head dims 64, 80 and 128) and the K10 kernels
+   (its split pass too) and
    count the HGMMA instructions of all three with ``cuobjdump``, where the
    toolkit has it (a count of 0 fails);
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at edge shapes (K1, K3-K9 bitwise; K2 to 2e-5 in f32
    and 2e-2 in bf16, the reference's tolerances, in bf16 over S from 1 to
-   4096, head dims 64 and 128 and head ratios 1, 4 and 8, and bitwise to
-   itself run to run and across batch positions, with a NaN neighbour
-   batch; K10 to 2e-5 on acc/l, m
+   4096, head dims 64, 80 and 128 and head ratios 1, 4 and 8, and bitwise
+   to itself run to run and across batch positions, with a NaN neighbour
+   batch; K2 at head dim 80 again at zamba2's prefill shape, q, k and v
+   (1, 512, 32, 80), in f32 and bf16, bitwise run to run, in a row of its
+   own beside SDPA; K10 to 2e-5 on acc/l, m
    and l, its arithmetic being f32 whatever the input type, acc itself
    being a sum over up to 4096 keys, at eleven edge shapes in f32 and
    bf16, bitwise run to run, its split pass bitwise to the split's plain
@@ -110,16 +113,34 @@ Phases, each fatal on failure:
 9. the dense-rehydrate serving path: phase 3's run with
    ``--dense-rehydrate`` (admission gathers the payloads into the slot
    bank, decode reads that): K1 and K2 must launch and K3 never; tokens
-   equal to phase 3's.  Phases 3, 5 and 7-9 print their wall time and
-   peak device memory, and K1-K3's rows carry their launches in phases
-   7-9 (``launches_by_phase``).
+   equal to phase 3's;
+10. the zamba2 serving path: phase 3's traffic served by zamba2-2.7b at
+   its published widths and depth (54 layers: 45 Mamba2, 9 repeats of the
+   weight-shared attention block of 32 heads of 80), bf16.  A block holds
+   the two paged K/V leaves (737,280 words), a request's tail the 45
+   Mamba2 states and conv windows (15,454,080 f32 words).  K1-K3 must
+   launch (K2 at head dim 80); every request's tokens equal the single-PE
+   baseline bitwise, and the counters balance;
+11. phase 10 with ``--fused-attn``: tokens equal phase 10's, the mean
+   first-resident-block step strictly below phase 10's; then K11 at head
+   dim 80 on that pool, q (3, 528, 32, 80), as in phase 5 (bitwise equal
+   to assemble + K2 at shared-attention repeats 0 and 8, on the pool and
+   on a copy whose unused blocks are NaN), in a row of its own;
+12. the xlstm serving path: the same traffic served by xlstm-125m at its
+   published widths and depth (6 mLSTM, 6 sLSTM blocks): a tail-only
+   migration (no paged leaf), so K1 launches and K2 and K3 never; tokens
+   equal the single-PE baseline bitwise.
+Phases 3, 5 and 7-12 print their wall time and peak device memory, and
+K1-K3's rows carry their launches in phases 7-12
+(``launches_by_phase``).
 
 K9 (``reduce_tile``) has no caller on these paths (only the reference's
 benchmark and tests call it): its row sums its counts over the path
 runs, and the check fails if that is not 0.  K11 has none either (the
 fused serving path reads through ``assemble``, as the reference's does):
 its row's ``launches`` is phase 5's count, 0, beside its launches per
-call.  K2's row also carries its
+call; the head-dim-80 row of K11 likewise, phase 11's count.  K2's
+head-dim-80 row carries phase 10's launches.  K2's row also carries its
 HGMMA count (``hgmma``) and a ``long`` record at q (1, 4096, 32, 128):
 events, device ms, TFLOP/s and share of its operations bound beside
 SDPA's events and device ms.  The line before
@@ -159,6 +180,12 @@ STREAM_ARGV = MAIN_ARGV + ["--stream-chunks", "4"]          # + --trace PATH
 PREFIX_LEN = 520                     # 520 % 16 = 8: a partial boundary block
 PREFIX_ARGV = MAIN_ARGV + ["--prompt-len", str(PREFIX_LEN), "--shared-prefix"]
 DENSE_ARGV = MAIN_ARGV + ["--dense-rehydrate"]
+ZAMBA_ARGV = [{"qwen3-4b": "zamba2-2.7b"}.get(a, a) for a in MAIN_ARGV]
+ZAMBA_FUSED_ARGV = ZAMBA_ARGV + ["--fused-attn"]
+XLSTM_ARGV = [{"qwen3-4b": "xlstm-125m"}.get(a, a) for a in MAIN_ARGV]
+# zamba2 at 528 tokens: 2 paged leaves x 9 repeats x 16 tokens x 32 x 80,
+# and 5 Mamba2 positions x 9 repeats x (80 x 64 x 64 state + 3 x 5248 conv)
+ZAMBA_BLOCK_WORDS, ZAMBA_TAIL_WORDS = 737_280, 15_454_080
 STREAM_CHUNKS = 8 * 8                # 32 prompt blocks in 8 installments
 PREFIX_HITS, COW_COPIES = 7, 8       # the registrar reserves a COW block too
 RING = dict(npes=8, prompt_len=32768, full=True, arch="qwen3-4b", seed=0)
@@ -380,7 +407,7 @@ def hgmma_count(_build, so, kernel):
 def check_flash(torch, flash_attn, dev, deferred):
     """K2 in f32 at S in {1, 37, 512}, GQA 32/8, hd 128 (the FMA kernel, to
     2e-5); in bf16 (the wgmma kernel, to 2e-2) over S in K2_GRID_S, hd in
-    {64, 128} and heads 32/8, 8/8 and 8/1, and at K11's B = 3, S = 528.
+    {64, 80, 128} and heads 32/8, 8/8 and 8/1, and at K11's B = 3, S = 528.
     Bitwise: two runs agree, and batch 0 of a B = 2 call whose batch 1 K
     and V are NaN is finite and equal to the same inputs at B = 1.  Timed
     at the main path's prefill shape (B=1, S=512, bf16) and at a long
@@ -390,7 +417,7 @@ def check_flash(torch, flash_attn, dev, deferred):
     main_err, worst, cases = None, 0.0, 0
     grid = [(torch.float32, 1, S, 32, 8, 128) for S in (1, 37, 512)]
     grid += [(torch.bfloat16, 1, S, H, Hkv, hd) for S in K2_GRID_S
-             for hd in (64, 128) for H, Hkv in K2_GRID_HEADS]
+             for hd in (64, 80, 128) for H, Hkv in K2_GRID_HEADS]
     grid.append((torch.bfloat16, 3, 528, 32, 8, 128))
     for dt, B, S, H, Hkv, hd in grid:
         q, k, v = _qkv(torch, gen, dev, dt, B, S, H, Hkv, hd)
@@ -472,6 +499,58 @@ def check_flash(torch, flash_attn, dev, deferred):
                source="src/repro_torch/csrc/flash_attn.cu",
                replaces="src/repro/kernels/flash_attn.py:62",
                max_abs_err=main_err, long=row(1, 4096, 32, 8, 128))
+    return out
+
+
+def check_flash80(torch, flash_attn, dev, deferred):
+    """K2 at head dim 80, zamba2's shared attention at the serving path's
+    prefill shape: q, k and v (1, 512, 32, 80), MHA, in f32 (the FMA
+    kernel, to 2e-5) and bf16 (the wgmma kernel over tiles padded to 128
+    columns, to 2e-2), each bitwise run to run; timed in bf16 beside its
+    plain version and SDPA."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(80)
+    B, S, H, hd = 1, 512, 32, 80
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(torch, gen, dev, dt, B, S, H, H, hd)
+        got = flash_attn.flash_attention(q, k, v)
+        again = flash_attn.flash_attention(q, k, v)
+        want = flash_attn.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        tol = TOL[name]
+        errs[name] = float((got.float() - want.float()).abs().max())
+        if not bool(torch.isclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol).all()) or \
+                not bool(got.isfinite().all()):
+            fail(f"K2 hd 80 {name}: max|err| {errs[name]:.3e} outside {tol}")
+        if not torch.equal(got, again):
+            fail(f"K2 hd 80 {name}: two runs differ")
+        say(f"K2 {name} q/k/v ({B},{S},{H},{hd}): max|err| "
+            f"{errs[name]:.3e} (tol {tol}), bitwise run to run")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bound, by, flops = _flash_bound(B, S, H, H, hd)
+    out = {"name": "flash_attention_hd80", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attn.cu",
+           "replaces": "src/repro/kernels/flash_attn.py:62",
+           "max_abs_err": errs["bfloat16"],
+           "max_abs_err_f32": errs["float32"],
+           "ms": time_ms(torch, lambda: flash_attn.flash_attention(q, k, v),
+                         iters=200),
+           "plain_ms": time_ms(
+               torch, lambda: flash_attn.flash_attention_plain(q, k, v)),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": time_ms(
+               torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), iters=200),
+           "shape": f"q/k/v ({B},{S},{H},{hd}) bf16", "flops": flops}
+    deferred.append((out, "device_ms",
+                     lambda: flash_attn.flash_attention(q, k, v),
+                     "flash_fwd_wgmma"))
+    deferred.append((out, "library_device_ms",
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True), None))
     return out
 
 
@@ -973,10 +1052,11 @@ def check_flash_partial(torch, dev_kern, dev, deferred):
     return out
 
 
-def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
-    """K11 on the decode pool that the fused serving run leaves: every slot
-    of decode PE 2 mapped to a full request's table of blocks (which hold
-    that run's K/V), qwen3-4b's 32 query heads over 8 KV heads, bf16.
+def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched, label):
+    """K11 on the decode pool that a fused serving run (``label``) leaves:
+    every slot of decode PE 2 mapped to a full request's table of blocks
+    (which hold that run's K/V), the model's query heads over its first
+    paged K/V leaf (qwen3-4b: 32 over 8 of 128; zamba2: 32 of 80), bf16.
     ``fused_paged_attn`` must launch the paged kernel once and neither K3
     nor K2, and equal ``assemble`` + K2 bitwise at the first and the last
     layer, on that pool and on a copy whose unused blocks are NaN; then it
@@ -1010,7 +1090,7 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched):
         pool.num_blocks, lay.block_words)[unused] = float("nan")
     nan_heap = heap.replace_pool(pool.data.dtype, nan_pools)
     per_call = None
-    for label, h in (("phase 5's pool", heap),
+    for label, h in ((label, heap),
                      (f"its copy with {len(unused)} unused blocks NaN",
                       nan_heap)):
         assembled = view.assemble(h, cache)
@@ -1270,6 +1350,117 @@ def phase_dense(torch, ops, serve, barrier_out):
     return launches
 
 
+def _check_tokens(sched, label):
+    """Every request's tokens bitwise equal to the single-PE baseline at
+    the same shapes."""
+    eng, slots = sched.engine, len(sched.banks[sched.decode_pes[0]].active)
+    for rid, req in sorted(sched.requests.items()):
+        base = eng.generate_in_slot(req.batch, sched.scfg, num_slots=slots,
+                                    slot=req.slot)
+        if base != req.out:
+            fail(f"{label}: request {rid} tokens {req.out} != single-PE "
+                 f"baseline {base}")
+    _, logits, _ = eng.prefill_request(sched.requests[0].batch)
+    if logits.shape != (1, eng.cfg.vocab_size) or \
+            not bool(logits.isfinite().all()):
+        fail(f"{label}: prefill logits not finite of shape (1, vocab)")
+    say(f"8/8 {label} requests bitwise equal to the single-PE baseline")
+
+
+def _first_block(sched):
+    st = sched.stats
+    return sum(st.ttfd_first_block_steps) / len(st.ttfd_first_block_steps)
+
+
+def phase_zamba(torch, ops, serve):
+    """Phase 10: zamba2-2.7b at full widths and depth with phase 3's
+    traffic.  Returns (tokens, mean first-block step, launches)."""
+    sched, launches, wall, peak = _serve_phase(
+        torch, ops, serve, ZAMBA_ARGV, "zamba2 serving path")
+    lay = sched.pool.layout
+    say(f"zamba2 serving path: {wall:.2f} s wall, "
+        f"{sched.stats.decode_steps} decode steps, peak {peak:.1f} GiB; "
+        f"launches K1 {launches['copy_into']}, K2 "
+        f"{launches['flash_attention']}, K3 {launches['paged_gather']}; "
+        f"layout: {len(lay.paged)} paged leaves of "
+        f"{[(x.reps, x.nkv, x.hd) for x in lay.paged]}, {len(lay.tail)} "
+        f"tail leaves, {lay.block_words} words a block, {lay.tail_words} "
+        f"tail words a request")
+    if (len(lay.paged), len(lay.tail), lay.block_words, lay.tail_words) != \
+            (2, 10, ZAMBA_BLOCK_WORDS, ZAMBA_TAIL_WORDS) or \
+            {(x.reps, x.hd) for x in lay.paged} != {(9, 80)}:
+        fail("zamba2's pool layout is not 2 paged leaves of 9 x 80 and 10 "
+             f"tail leaves of {ZAMBA_TAIL_WORDS} words")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"zamba2 serving path never launched {missing}")
+    _balanced(sched, "zamba2 serving path")
+    _check_tokens(sched, "zamba2")
+    return ({rid: list(r.out) for rid, r in sched.requests.items()},
+            _first_block(sched), launches)
+
+
+def phase_zamba_fused(torch, ops, serve, ishmem_device, flash_attn,
+                      zamba_out, zamba_fb):
+    """Phase 11: phase 10 with ``--fused-attn``, then K11 at head dim 80 on
+    its pool.  Returns (launches, K11's row)."""
+    sched, launches, wall, peak = _serve_phase(
+        torch, ops, serve, ZAMBA_FUSED_ARGV, "zamba2 fused serving path")
+    fb = _first_block(sched)
+    say(f"zamba2 fused serving path: {wall:.2f} s wall, "
+        f"{sched.stats.decode_steps} decode steps, peak {peak:.1f} GiB; "
+        f"launches K1 {launches['copy_into']}, K2 "
+        f"{launches['flash_attention']}, K3 {launches['paged_gather']}; mean "
+        f"first-resident-block step {fb:.3f} (phase 10: {zamba_fb:.3f})")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"zamba2 fused serving path never launched {missing}")
+    _balanced(sched, "zamba2 fused serving path")
+    if not fb < zamba_fb:
+        fail(f"zamba2 fused mean first-block step {fb} is not below phase "
+             f"10's {zamba_fb}")
+    _same_tokens(sched, zamba_out, "zamba2 fused serving path (vs phase 10)")
+    say("8/8 zamba2 fused requests bitwise equal to phase 10")
+    row = check_fused_paged_attn(torch, ishmem_device, flash_attn, ops,
+                                 sched, "phase 11's pool")
+    row.update(name="fused_paged_attn_hd80",
+               path="none: the fused serving path reads through assemble, "
+                    "as the reference's does")
+    say(f"fused_paged_attn (K11) hd 80 [{row['shape']}]: {row['ms']:.4f} ms "
+        f"by events, device {row['device_ms']} ms, launches per call "
+        f"{row['launches_per_call']}; bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); plain {row['plain_ms']:.4f} ms; before "
+        f"(device waits + K3 + K2) {row['before_ms']:.4f} ms, device "
+        f"{row['before_device_ms']} ms; max|err| vs plain "
+        f"{row['max_abs_err']:.3e}")
+    return launches, row
+
+
+def phase_xlstm(torch, ops, serve):
+    """Phase 12: xlstm-125m at full widths and depth with phase 3's
+    traffic: a tail-only migration.  Returns its launch counts."""
+    sched, launches, wall, peak = _serve_phase(
+        torch, ops, serve, XLSTM_ARGV, "xlstm serving path")
+    lay = sched.pool.layout
+    say(f"xlstm serving path: {wall:.2f} s wall, "
+        f"{sched.stats.decode_steps} decode steps, peak {peak:.1f} GiB; "
+        f"launches K1 {launches['copy_into']}, K2 "
+        f"{launches['flash_attention']}, K3 {launches['paged_gather']}; "
+        f"layout: {len(lay.paged)} paged leaves, {len(lay.tail)} tail "
+        f"leaves, {lay.tail_words} tail words a request")
+    if lay.paged or lay.kv_dtype != "float32" or \
+            lay.blocks_per_request != 1:
+        fail("xlstm's pool layout is not tail-only")
+    if not launches["copy_into"] or launches["flash_attention"] or \
+            launches["paged_gather"]:
+        fail(f"xlstm serving path launched K1 {launches['copy_into']}, K2 "
+             f"{launches['flash_attention']}, K3 {launches['paged_gather']} "
+             "times (want K1 and no K2 or K3)")
+    _balanced(sched, "xlstm serving path")
+    _check_tokens(sched, "xlstm")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1300,7 +1491,7 @@ def main() -> None:
         if "Compiling entry function" in line:
             entry = line
             continue
-        hd = 128 if "ILi128E" in entry else 64
+        hd = 128 if "ILi128E" in entry else 80 if "ILi80E" in entry else 64
         if "flash_fwd_wgmma" in entry and ("setmaxnreg" in line or "spill"
                                            in line or "Used" in line):
             say(f"ptxas, bf16 K2 hd {hd}: {line.strip()}")
@@ -1334,6 +1525,7 @@ def main() -> None:
     deferred = []                    # device-only timings, taken last
     rows = [check_copy(torch, rma_copy, _build, dev, deferred),
             check_flash(torch, flash_attn, dev, deferred),
+            check_flash80(torch, flash_attn, dev, deferred),
             check_gather(torch, ishmem_device, ops, dev, deferred)]
     torch.cuda.empty_cache()
     rows += check_ring(torch, ring_collectives, rma_copy, _build, dev,
@@ -1461,7 +1653,8 @@ def main() -> None:
                  f"{barrier_out[rid]} or the single-PE baseline {base}")
     say("8/8 fused requests bitwise equal to phase 3 and to the single-PE "
         "baseline")
-    k11 = check_fused_paged_attn(torch, ishmem_device, flash_attn, ops, sched)
+    k11 = check_fused_paged_attn(torch, ishmem_device, flash_attn, ops, sched,
+                                 "phase 5's pool")
     k11["path"] = "none: the fused serving path reads through assemble, " \
         "as the reference's does"
     rows.append(k11)
@@ -1531,6 +1724,16 @@ def main() -> None:
     mode_launches["9"] = phase_dense(torch, ops, serve, barrier_out)
     torch.cuda.empty_cache()
 
+    # ---- 10-12. zamba2 (barrier and fused protocols) and xlstm serving ------
+    zamba_out, zamba_fb, mode_launches["10"] = phase_zamba(torch, ops, serve)
+    torch.cuda.empty_cache()
+    mode_launches["11"], k11_80 = phase_zamba_fused(
+        torch, ops, serve, ishmem_device, flash_attn, zamba_out, zamba_fb)
+    rows.append(k11_80)
+    torch.cuda.empty_cache()
+    mode_launches["12"] = phase_xlstm(torch, ops, serve)
+    torch.cuda.empty_cache()
+
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match, *kw in deferred:
         row[key] = device_ms(torch, fn, match, **(kw[0] if kw else {}))
@@ -1560,7 +1763,7 @@ def main() -> None:
     k2 = rows[1]
     k2["hgmma"] = hgmma["bf16 K2"]
     by_name["flash_partial"]["hgmma"] = hgmma["K10"]
-    k11["hgmma"] = hgmma["K11"]
+    k11["hgmma"] = k11_80["hgmma"] = hgmma["K11"]
     long = k2["long"]
     if long.get("device_ms"):
         long["tflops"] = long["flops"] / long["device_ms"] / 1e9
@@ -1575,6 +1778,10 @@ def main() -> None:
     path_launches.update({k: coll_launches[k] for k in RING_KERNELS})
     path_launches["flash_partial"] = ring_launches["flash_partial"]
     path_launches["fused_paged_attn"] = fused_launches["fused_paged_attn"]
+    path_launches["flash_attention_hd80"] = \
+        mode_launches["10"]["flash_attention"]
+    path_launches["fused_paged_attn_hd80"] = \
+        mode_launches["11"]["fused_paged_attn"]
     by_name["flash_partial"]["split_launches"] = \
         ring_launches["flash_partial_split"]
     path_launches["reduce_tile"] = sum(

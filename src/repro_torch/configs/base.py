@@ -3,7 +3,8 @@
 Every architecture is a frozen :class:`ArchConfig`; ``reduced`` derives the
 small CPU-test variant of the same family.  The dry-run ``ShapeDtypeStruct``
 stand-ins of the reference are not ported (ROADMAP queue 1, item 13), and of
-the ten configurations only qwen3-4b is registered so far.
+the ten configurations qwen3-4b, zamba2-2.7b and xlstm-125m are registered
+so far.
 """
 from __future__ import annotations
 
@@ -38,8 +39,12 @@ class ArchConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     moe_dense_ff: int = 0
-    ssm_state: int = 0
-    hybrid_period: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    ssm_state: int = 0               # Mamba2 state dim per head
+    ssm_expand: int = 2              # d_inner = expand * d_model
+    ssm_conv: int = 4                # local conv width
+    hybrid_period: int = 0           # zamba2: every Nth layer is shared attn
     xlstm_pattern: tuple = ()
     encoder_layers: int = 0
     encoder_seq: int = 1500
@@ -96,7 +101,7 @@ def repeat_unit(cfg: ArchConfig):
     return tuple(kinds), 1
 
 
-ARCH_NAMES = ["qwen3_4b"]
+ARCH_NAMES = ["qwen3_4b", "zamba2_2_7b", "xlstm_125m"]
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 

@@ -24,6 +24,14 @@
 //    (B, S, heads, hd), boxes of 64 columns (128 bytes, the 128-byte
 //    swizzle atom) by 128 rows; hd = 128 takes two boxes per tile.  Rows
 //    past S are TMA's zero fill, never the next batch's rows;
+//  - hd = 80 (zamba2's shared attention) keeps the global width 80 in the
+//    maps and the tile width of hd = 128 in shared memory: the second box
+//    holds columns 64..79 and TMA's zero fill past them (the map's inner
+//    extent is 80, so no byte of the next head is read).  Q.K^T runs
+//    hd / 16 = 5 k16 steps, P.V runs at n128 over the zero-padded V tile
+//    (its columns 80..127 accumulate zeros) and the epilogue writes the 80
+//    real columns.  One 80-column row is 160 bytes, so every stride of
+//    the maps stays on TMA's 16-byte grid;
 //  - q is loaded once; K/V tiles of BK = 128 keys go through a ring of two
 //    stages with mbarrier completion (K and V on separate barriers, so
 //    Q.K^T starts while V lands), so the next tile's copy overlaps this
@@ -201,8 +209,13 @@ constexpr int kHalf = kBK * 128;  // bytes of one 64-column box of a tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD> struct Layout {
-  static constexpr int kQ = kBQ * HD * 2;                  // q tile bytes
-  static constexpr int kKV = kBK * HD * 2;                 // one K or V tile
+  // TMA's global strides (hd, H * hd, S * H * hd elements) must be
+  // multiples of 16 bytes
+  static_assert(HD * 2 % 16 == 0, "a row of hd bf16 values is not 16-byte aligned");
+  static constexpr int kBoxes = (HD + kCols - 1) / kCols;  // 64-column boxes
+  static constexpr int kPad = kBoxes * kCols;              // tile width
+  static constexpr int kQ = kBQ * kPad * 2;                // q tile bytes
+  static constexpr int kKV = kBK * kPad * 2;               // one K or V tile
   static constexpr int kDynamic = kQ + kStages * 2 * kKV + 1024;  // + align
 };
 
@@ -285,12 +298,13 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
 }
 
 
-// O += P.V for one k16 step: m64n128 at hd = 128, m64n64 at hd = 64
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+// O += P.V for one k16 step over a tile of width W: m64n128 at hd = 128
+// and 80, m64n64 at hd = 64
+template <int W>
+__device__ __forceinline__ void wgmma_pv(float (&d)[W / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (HD == 128) wgmma_rs_n128_mn(d, a, db);
+  if constexpr (W == 128) wgmma_rs_n128_mn(d, a, db);
   else wgmma_rs_n64_mn(d, a, db);
 }
 
@@ -333,14 +347,14 @@ __device__ __forceinline__ void wait_signals(const long long* waits, int n) {
   asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
-// Zero rows from..kBK-1 of a K or V tile (every 64-column box) and make the
-// stores visible to this warpgroup's wgmma.  Whole 128-byte rows map onto
+// Zero rows from..kBK-1 of a K or V tile of width W (every 64-column box)
+// and make the stores visible to this warpgroup's wgmma.  Whole 128-byte rows map onto
 // themselves under the swizzle.  Both consumer warpgroups zero the same
 // rows with the same bytes, so neither waits for the other.
-template <int HD>
+template <int W>
 __device__ __forceinline__ void zero_rows(uint32_t tile, int from, int wg) {
   const int per_box = (kBK - from) * 8;           // 16-byte chunks
-  for (int i = threadIdx.x % 128; i < per_box * (HD / kCols); i += 128) {
+  for (int i = threadIdx.x % 128; i < per_box * (W / kCols); i += 128) {
     const uint32_t at = tile + (i / per_box) * kHalf + from * 128 +
                         (i % per_box) * 16;
     asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at),
@@ -364,7 +378,7 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq,
                                        int H, int Hkv, float scale_log2,
                                        const PagedSrc& pg) {
   using L = Layout<HD>;
-  constexpr int kBoxes = HD / kCols;
+  constexpr int kBoxes = L::kBoxes;
   extern __shared__ uint8_t fa_smem[];
   // barriers: q, K full x2, V full x2, stage empty x2
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
@@ -456,9 +470,9 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq,
     const int r = q0 + wg * 64 + (tid / 32) * 16 + (tid % 32) / 4;
     const int c = (tid % 4) * 2;
     const uint32_t qa = sq + wg * 64 * 128;   // this warpgroup's q rows
-    float acc[HD / 2];
+    float acc[L::kPad / 2];   // hd = 80: columns 80..127 stay zero
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < L::kPad / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     mbar_wait(qbar, 0);
 
@@ -475,7 +489,7 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq,
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
       mbar_wait(kfull + 8 * s, parity);
-      if (ragged) zero_rows<HD>(ks, S - k0, wg);
+      if (ragged) zero_rows<L::kPad>(ks, S - k0, wg);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
@@ -531,15 +545,15 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq,
         pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < L::kPad / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
       // O += P.V: V's rows are keys (K), its columns hd (N, MN-major)
       mbar_wait(vfull + 8 * s, parity);
-      if (ragged) zero_rows<HD>(vs, S - k0, wg);
+      if (ragged) zero_rows<L::kPad>(vs, S - k0, wg);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_pv<HD>(acc, pf[kk], mn_desc(vs + kk * 16 * 128, kHalf));
+        wgmma_pv<L::kPad>(acc, pf[kk], mn_desc(vs + kk * 16 * 128, kHalf));
       wg_commit();
       wg_wait_all();
       fence_regs(acc);
@@ -554,7 +568,7 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq,
       li += __shfl_xor_sync(0xffffffffu, li, 2);
       const float denom = fmaxf(li, 1e-30f);
       const int row = r + 8 * i;
-      if (row < S) {
+      if (row < S) {   // the hd real columns: 8-column blocks j < hd / 8
         __nv_bfloat16* dst = o + (static_cast<long long>(b) * S + row) *
                                      row_stride + h * HD + c;
 #pragma unroll
@@ -666,8 +680,8 @@ int launch_paged(int device, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  hd must be 64 or 128; the wrapper has
-// checked shapes, contiguity and that H is a multiple of Hkv.
+// dtype: 0 = float32, 1 = bfloat16.  hd must be 64, 80 or 128; the wrapper
+// has checked shapes, contiguity and that H is a multiple of Hkv.
 extern "C" int ishmem_flash_attention(int device, const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int Hkv, int hd, int dtype,
@@ -678,10 +692,14 @@ extern "C" int ishmem_flash_attention(int device, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 128)
     return launch<float, 128>(q, k, v, o, B, S, H, Hkv, scale, st);
+  if (dtype == 0 && hd == 80)
+    return launch<float, 80>(q, k, v, o, B, S, H, Hkv, scale, st);
   if (dtype == 0 && hd == 64)
     return launch<float, 64>(q, k, v, o, B, S, H, Hkv, scale, st);
   if (dtype == 1 && hd == 128)
     return hop::launch<128>(device, q, k, v, o, B, S, H, Hkv, scale, st);
+  if (dtype == 1 && hd == 80)
+    return hop::launch<80>(device, q, k, v, o, B, S, H, Hkv, scale, st);
   if (dtype == 1 && hd == 64)
     return hop::launch<64>(device, q, k, v, o, B, S, H, Hkv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -708,6 +726,10 @@ extern "C" int ishmem_fused_paged_attn(int device, const void* q,
     return hop::launch_paged<128>(device, q, k, v, o, meta, n_waits, B, S, H,
                                   Hkv, leaf_rows, num_blocks, block_bytes, nb,
                                   block_tokens, layer, scale, st);
+  if (hd == 80)
+    return hop::launch_paged<80>(device, q, k, v, o, meta, n_waits, B, S, H,
+                                 Hkv, leaf_rows, num_blocks, block_bytes, nb,
+                                 block_tokens, layer, scale, st);
   if (hd == 64)
     return hop::launch_paged<64>(device, q, k, v, o, meta, n_waits, B, S, H,
                                  Hkv, leaf_rows, num_blocks, block_bytes, nb,

@@ -7,7 +7,9 @@ reference's: q ``(B, S, H, hd)``, k and v ``(B, S, Hkv, hd)``.  bf16 runs on
 P.V, the softmax in f32); it is bound by bytes at the main path's prefill
 shape and by operations from S of about 750 on, and gives the same bits run
 to run and at every batch position.  f32 keeps the plain-FMA kernel, whose
-arithmetic meets the reference's 2e-5 (see the source).
+arithmetic meets the reference's 2e-5 (see the source).  Head dims 64, 80
+(zamba2's shared attention) and 128 run on the card; at 80 the bf16 kernel
+pads its tiles to 128 columns with TMA's zero fill.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -31,6 +31,9 @@ import torch
 from repro_torch.kernels import flash_attn, ops
 
 MAX_ROWS = 65535            # table entries map to gridDim.y
+# K10's kernels are instantiated for these head dims only (K2's wrapper
+# takes 80 too)
+PARTIAL_HEAD_DIMS = (64, 128)
 
 
 def paged_gather_plain(data: torch.Tensor,
@@ -376,9 +379,9 @@ def _check_partial(q, k, v) -> bool:
                         f"{v.dtype}; takes one of {tuple(codes)}")
     if ops.on_cpu(q, k, v):
         return True
-    if hd not in flash_attn.HEAD_DIMS:
+    if hd not in PARTIAL_HEAD_DIMS:
         raise ValueError(f"flash_partial: head_dim {hd} not in "
-                         f"{flash_attn.HEAD_DIMS}")
+                         f"{PARTIAL_HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_partial: q, k and v must be contiguous")
     return False

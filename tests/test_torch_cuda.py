@@ -71,17 +71,35 @@ def test_cuda_flash_attention(card, dtype, S):
                                rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Hkv", [(1, 32, 32), (37, 32, 8), (512, 32, 32),
+                                     (129, 8, 1), (1000, 8, 2)])
+def test_cuda_flash_hd80(card, dtype, S, H, Hkv):
+    """Head dim 80 (zamba2's shared attention) in both dtypes, at odd S and
+    under GQA, against the plain version; one K2 launch a call."""
+    q, k, v = (torch.from_numpy(x).to(card, getattr(torch, dtype))
+               for x in _qkv(S + H + Hkv, 1, S, H, Hkv, 80))
+    ops.reset_launches()
+    got = flash_attn.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = flash_attn.flash_attention_plain(q, k, v)
+    assert got.shape == q.shape and bool(got.isfinite().all())
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 def _bf16_qkv(card, seed, B, S, H, Hkv, hd):
     return (torch.from_numpy(x).to(card, torch.bfloat16)
             for x in _qkv(seed, B, S, H, Hkv, hd))
 
 
 @pytest.mark.parametrize("S", [1, 37, 63, 64, 65, 129, 512, 528, 1000])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 @pytest.mark.parametrize("H,Hkv", [(32, 8), (8, 8), (8, 1)])
 def test_cuda_flash_bf16_grid(card, S, hd, H, Hkv):
-    """The wgmma kernel over ragged tiles, both head dims and head ratios
-    1:1, 4:1 and 8:1, within bf16's 2e-2 of the plain version."""
+    """The wgmma kernel over ragged tiles, the three head dims (80 pads its
+    tiles to 128 columns) and head ratios 1:1, 4:1 and 8:1, within bf16's
+    2e-2 of the plain version."""
     q, k, v = _bf16_qkv(card, S * 7 + H + Hkv + hd, 1, S, H, Hkv, hd)
     got = flash_attn.flash_attention(q, k, v)
     want = flash_attn.flash_attention_plain(q, k, v)
@@ -104,7 +122,8 @@ def test_cuda_flash_bf16_batched_and_long(card, B, S, H, Hkv, hd):
 
 
 @pytest.mark.parametrize("S,H,Hkv,hd", [(512, 32, 8, 128), (37, 8, 1, 64),
-                                        (1000, 8, 8, 128), (528, 32, 8, 64)])
+                                        (1000, 8, 8, 128), (528, 32, 8, 64),
+                                        (512, 32, 32, 80), (77, 8, 2, 80)])
 def test_cuda_flash_bf16_bitwise_laws(card, S, H, Hkv, hd):
     """Run to run and batch position give the same bits (the serving
     path's bitwise laws rest on both); a NaN neighbour batch stays out of
@@ -209,10 +228,11 @@ def test_cuda_paged_gather_refuses_before_launch(card):
 
 # (hd, q heads, kv heads, width, block tokens, layers): chip_smoke.py's
 # heads and width, GQA 4, 1 and 8, widths off the block and off 128, blocks
-# of 8, 16 and 32 tokens
+# of 8, 16 and 32 tokens; zamba2's 32 heads of 80 (MHA) and an hd-80 GQA
 K11_CASES = [(128, 32, 8, 528, 16, 3), (64, 8, 2, 37, 8, 3),
              (128, 8, 8, 45, 16, 2), (64, 4, 4, 300, 32, 2),
-             (128, 8, 1, 130, 16, 2)]
+             (128, 8, 1, 130, 16, 2), (80, 32, 32, 528, 16, 3),
+             (80, 8, 2, 77, 8, 2)]
 
 
 def _k11_pool(card, case, seed):
@@ -572,6 +592,17 @@ def test_cuda_flash_partial(card, dtype, Sq, Skv, q_off, k_off, H, hd):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_partial_refuses_hd80(card, dtype):
+    """K10's kernels exist at head dims 64 and 128 only: head dim 80, which
+    K2 takes, raises before any launch."""
+    q, k, v = _k10_inputs(card, dtype, 16, 16, 2, 80)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="head_dim 80"):
+        ishmem_device.flash_partial(q, k, v, q_off=0, k_off=0)
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Sq,Skv,H,hd", [(37, 100, 3, 128), (100, 37, 2, 64),
                                          (1, 1, 1, 64), (130, 257, 2, 128)])
 def test_cuda_flash_partial_split_bitwise(card, dtype, Sq, Skv, H, hd):
@@ -639,3 +670,28 @@ def test_cuda_serving_modes_match_single_pe(card, tmp_path, flags, gather):
         assert req.out == sched.engine.generate_in_slot(
             req.batch, sched.scfg, num_slots=2, slot=req.slot)
     assert validate(json.loads(trace.read_text())) == []
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("zamba2-2.7b", []), ("zamba2-2.7b", ["--fused-attn"]),
+    ("xlstm-125m", [])])
+def test_cuda_recurrent_families_match_single_pe(card, arch, flags):
+    """Zamba2 (Mamba2 and the shared attention block, whose K/V is paged)
+    and xLSTM (a tail-only layout) served disaggregated at reduced widths:
+    every request bitwise equal to the single-PE baseline, K1 launched, K2
+    and K3 only where the layout pages K/V."""
+    ops.reset_launches()
+    sched = serve.main(["--disagg", "--device", "cuda", "--arch", arch,
+                        "--requests", "5", "--prompt-len", "20",
+                        "--max-new", "5", "--slots", "2", "--block-tokens",
+                        "8", "--kv-blocks", "48"] + flags)
+    launches = dict(ops.LAUNCHES)
+    paged = bool(sched.pool.layout.paged)
+    assert paged == (arch == "zamba2-2.7b")
+    assert launches["copy_into"]
+    assert bool(launches["flash_attention"]) == paged
+    assert bool(launches["paged_gather"]) == paged
+    assert (sched.stats.admissions, sched.stats.evictions) == (5, 5)
+    for req in sched.requests.values():
+        assert req.out == sched.engine.generate_in_slot(
+            req.batch, sched.scfg, num_slots=2, slot=req.slot)

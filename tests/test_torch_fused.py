@@ -9,32 +9,50 @@ every block's whole payload, ``_extract_leaf`` and K2's plain version), and
 ``tests/test_torch_device.py`` holds it to.  The pools are made from numpy
 seeds: some slots unmapped, widths that are multiples of neither the block
 nor 128, and a poisoned copy whose free blocks and rows past the width
-hold NaN (neither version may read them).  ``tests/test_torch_cuda.py``
-holds the kernel bitwise against K3 + K2 on a card.
+hold NaN (neither version may read them); head dims 64, 80 (zamba2's)
+and 128.  Zamba2's shared-attention leaves are also held to the K11 law on
+a real scheduler's pool (``tests/test_device.py``'s zamba2 case).
+``tests/test_torch_cuda.py`` holds the kernel bitwise against K3 + K2 on a
+card.
 """
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import base as ref_base
 from repro.core import context as ref_context, device as ref_device
 from repro.kernels import ishmem_device as ref_dev
+from repro.models import model as ref_model
+from repro.serve.engine import Engine as RefEngine, \
+    ServeConfig as RefServeConfig
+from repro.serve.kvpool import KVPool as RefKVPool
+from repro.serve.kvxfer import KVMigrator as RefKVMigrator
 from repro.serve.paged_attn import PagedDecodeView as RefView
+from repro.serve.scheduler import DisaggScheduler as RefScheduler
+from repro_torch import _bridge
+from repro_torch.configs import base
 from repro_torch.core import context, device
 from repro_torch.kernels import _build, flash_attn, ishmem_device, ops
-from repro_torch.serve.kvpool import PagedLeaf
+from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.kvpool import KVPool, PagedLeaf
+from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator
 from repro_torch.serve.paged_attn import PagedDecodeView
+from repro_torch.serve.scheduler import DisaggScheduler
 
 TOL = 5e-5                 # tests/test_torch_device.py, fused_paged_attn
 SLOTS = 3
 FREE = 3                   # blocks no table maps
 
 # (hd, q heads, kv heads, width, block tokens, layers): GQA 4 and 1, widths
-# off the block and off 128, one width over two key tiles
+# off the block and off 128, one width over two key tiles; head dim 80
+# (zamba2's shared attention) in MHA and GQA 2
 CASES = [(64, 8, 2, 37, 8, 3), (128, 4, 4, 45, 16, 2),
-         (64, 4, 4, 130, 16, 2), (128, 8, 2, 20, 8, 2)]
+         (64, 4, 4, 130, 16, 2), (128, 8, 2, 20, 8, 2),
+         (80, 4, 4, 37, 8, 3), (80, 8, 4, 130, 16, 2)]
 
 
 @pytest.fixture
@@ -286,3 +304,72 @@ def test_build_table_carries_the_new_entries():
     assert len(sig["ishmem_fused_paged_attn"]) == 20
     assert sig["ishmem_barrier_push"][4] is _build._I
     assert "fused_paged_attn" in ops.LAUNCHES
+
+
+def test_zamba2_fused_paged_attn_bitwise_vs_assemble(counts):
+    """tests/test_device.py's zamba2 case: reduced zamba2 served with the
+    fused protocol on both packages to its first decode step; over the
+    decode pool the scheduler leaves, device-gathered K/V of the shared
+    attention block (one paged K and V leaf among the Mamba2 tail) feeds
+    K2 bitwise as ``assemble`` does, and agrees with the reference's
+    ``fused_paged_attn`` to 5e-5; the tokens then match."""
+    rcfg = ref_base.reduced(ref_base.get_config("zamba2_2_7b"))
+    cfg = base.reduced(base.get_config("zamba2_2_7b"))
+    rp = ref_model.init_params(jax.random.key(0), rcfg)
+    pp = _bridge.to_torch(jax.tree.map(np.asarray, rp), "cpu")
+    rctx, rheap = ref_context.init(npes=4, node_size=4)
+    ctx, heap = context.init(npes=4, node_size=4, device="cpu")
+    rpool = RefKVPool.create(rheap, rcfg, 24, num_blocks=32, max_slots=2,
+                             block_tokens=4)
+    pool = KVPool.create(heap, cfg, 24, num_blocks=32, max_slots=2,
+                         block_tokens=4)
+    rs = RefScheduler(rctx, rheap, RefEngine(rcfg, rp, max_len=24), rpool,
+                      RefKVMigrator(rctx, rpool), prefill_pes=[0, 1],
+                      decode_pes=[2], num_slots=2,
+                      scfg=RefServeConfig(max_new_tokens=5), fused_attn=True)
+    ps = DisaggScheduler(ctx, heap, Engine(cfg, pp, max_len=24,
+                                           device="cpu"), pool,
+                         KVMigrator(ctx, pool), prefill_pes=[0, 1],
+                         decode_pes=[2], num_slots=2,
+                         scfg=ServeConfig(max_new_tokens=5), fused_attn=True)
+    p = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                          size=(1, 10)).astype(np.int32)
+    rs.submit({"tokens": jnp.asarray(p)})
+    ps.submit({"tokens": torch.from_numpy(p).long()})
+    guard = 0
+    while not ps.stats.admissions and guard < 50:
+        rs.step()
+        ps.step()
+        guard += 1
+    rs.step()
+    ps.step()                             # one decode: all blocks consumed
+    assert rs.stats.admissions == ps.stats.admissions == 1
+    lay = ps.pool.layout
+    assert [(x.unit_idx, x.key) for x in lay.paged] == [(5, "k"), (5, "v")]
+    assert len(lay.tail) == 10
+    view, rview = ps.views[2], rs.views[2]
+    assembled = view.assemble(ps.heap, ps.banks[2].cache)
+    wg = device.work_group(ctx, size=128, pe=2)
+    rwg = ref_device.work_group(rctx, size=128, pe=2)
+    leaf = lay.paged[0]
+    qn = np.random.default_rng(11).normal(
+        size=(view.num_slots, leaf.width, cfg.num_heads, leaf.hd)).astype(
+            np.float32)
+    for layer in (0, leaf.reps - 1):
+        _, out = ishmem_device.fused_paged_attn(
+            wg, ps.heap, view, torch.from_numpy(qn), layer=layer,
+            waits=[(pool.sig_ptr(0), EXTRA_SIGNALS)])
+        k = assembled["blocks"][5]["k"][layer].contiguous()
+        v = assembled["blocks"][5]["v"][layer].contiguous()
+        assert torch.equal(out, flash_attn.flash_attention(
+            torch.from_numpy(qn), k, v))
+        _, rout = ref_dev.fused_paged_attn(
+            rwg, rs.heap, rview, jnp.asarray(qn), layer=layer,
+            waits=[(rpool.sig_ptr(0), EXTRA_SIGNALS)])
+        np.testing.assert_allclose(out.numpy(), np.asarray(rout), atol=TOL,
+                                   rtol=TOL)
+    assert _records(ctx) == _records(rctx)
+    rs.run()
+    ps.run()
+    assert [r.out for r in ps.requests.values()] == \
+        [[int(t) for t in r.out] for r in rs.requests.values()]

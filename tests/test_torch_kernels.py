@@ -172,7 +172,8 @@ def _wgmma_flash_emulation(q, k, v, tile=128):
     (1, 128, 2, 2, 64, (64, 64)), (2, 256, 4, 4, 32, (128, 64)),
     (1, 512, 1, 1, 128, (256, 256)),
     (2, 1, 8, 2, 64, None), (2, 37, 8, 2, 64, None), (2, 64, 4, 1, 32, None),
-    (2, 128, 8, 4, 128, None),
+    (2, 128, 8, 4, 128, None), (1, 200, 4, 4, 80, (64, 64)),
+    (2, 37, 8, 2, 80, None),
 ])
 def test_flash_bf16_tile_emulation_matches_pallas(B, S, H, Hkv, hd, ref,
                                                   counts):
@@ -196,6 +197,46 @@ def test_flash_bf16_tile_emulation_matches_pallas(B, S, H, Hkv, hd, ref,
         np.testing.assert_allclose(got.float().numpy(), want,
                                    atol=TOL["bfloat16"],
                                    rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Hkv,bq,bk", [
+    (1, 37, 4, 4, 64, 64), (2, 128, 4, 4, 64, 32), (1, 200, 8, 2, 64, 64),
+    (2, 1, 4, 1, 64, 64)])
+def test_flash_hd80_matches_pallas_kernel(dtype, B, S, H, Hkv, bq, bk,
+                                          counts):
+    """Head dim 80 (zamba2's shared attention): K2's plain version against
+    the reference's Pallas kernel in interpret mode (block specs ``(1, bq,
+    80)``), equal heads and GQA through ``ops.flash_attention``."""
+    q, k, v = _qkv(S * 80 + H + Hkv, B, S, H, Hkv, 80)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    if H == Hkv:
+        want = ref_flash.flash_attention(jq, jk, jv, block_q=bq, block_k=bk)
+    else:
+        want = ref_ops.flash_attention(jq, jk, jv, block_q=bq, block_k=bk)
+    got = flash_attn.flash_attention(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(), _t(want).float().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_head_dims_of_k2_and_k10(counts):
+    """K2 (and K11, which checks the same tuple) takes head dims 64, 80 and
+    128 on the card; K10 keeps its own (64, 128), so widening K2 does not
+    let K10 launch a width its kernel lacks.  On (fake) card tensors each
+    refuses a width it lacks before any launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    assert flash_attn.HEAD_DIMS == (64, 80, 128)
+    assert ishmem_device.PARTIAL_HEAD_DIMS == (64, 128)
+    with FakeTensorMode():
+        q80 = torch.zeros((1, 16, 2, 80), device="cuda")
+        q96 = torch.zeros((1, 16, 2, 96), device="cuda")
+    with pytest.raises(ValueError, match="head_dim 80"):
+        ishmem_device.flash_partial(q80, q80, q80, q_off=0, k_off=0)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        ishmem_device.flash_partial_split(q80, q80, q80)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_attn.flash_attention(q96, q96, q96)
 
 
 def test_flash_rejects_bad_input(counts):

@@ -4,7 +4,8 @@ JAX package's, plus the port's own serving laws.
 The cross-package run uses the config, weights, prompts and flags of
 ``tests/test_disagg.py::_run_disagg`` (reduced qwen3-4b in f32, 4 PEs, 4-5
 requests over 2 decode PEs), whole-prefill, streamed, with shared
-prefixes and dense-rehydrated.  Both schedulers step in lockstep, each
+prefixes and dense-rehydrated, and reduced zamba2 streamed (its Mamba2
+states ride the f32 tail).  Both schedulers step in lockstep, each
 with a span tracer, and after every step the control plane must agree
 exactly: request states, block tables, refcounts, every int32 heap word
 (signals, stream signals, headers), the telemetry record sequence, the
@@ -61,6 +62,14 @@ def params(ref_params):
     return _bridge.to_torch(jax.tree.map(np.asarray, ref_params), "cpu")
 
 
+@pytest.fixture(scope="module")
+def zamba_params():
+    """Reduced zamba2's reference weights and the same on the port's side."""
+    cfg = ref_base.reduced(ref_base.get_config("zamba2_2_7b"))
+    rp = ref_model.init_params(jax.random.key(0), cfg)
+    return rp, _bridge.to_torch(jax.tree.map(np.asarray, rp), "cpu")
+
+
 def _prompts(n, S=10, seed=1):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 512, size=(1, S)).astype(np.int32)
@@ -71,8 +80,9 @@ def _tok(p):
     return {"tokens": torch.from_numpy(p).long()}
 
 
-def _setup(params, *, npes=4, num_blocks=32, max_slots=3, block_tokens=8):
-    cfg = base.reduced(base.get_config("qwen3-4b"))
+def _setup(params, *, npes=4, num_blocks=32, max_slots=3, block_tokens=8,
+           arch="qwen3-4b"):
+    cfg = base.reduced(base.get_config(arch))
     ctx, heap = context.init(npes=npes, node_size=npes, device="cpu")
     eng = Engine(cfg, params, max_len=MAXLEN, device="cpu")
     pool = KVPool.create(heap, cfg, MAXLEN, num_blocks=num_blocks,
@@ -163,11 +173,13 @@ LOCKSTEP = [
                       prefix="whole"), id="stream1-prefix-whole"),
     pytest.param(dict(n_req=5, num_slots=2, admit_delay=1, paged=False),
                  id="dense"),
+    pytest.param(dict(n_req=4, num_slots=2, admit_delay=1, stream_chunks=1,
+                      arch="zamba2_2_7b"), id="zamba2-stream1"),
 ]
 
 
 @pytest.mark.parametrize("case", LOCKSTEP)
-def test_disagg_matches_reference_step_by_step(ref_params, params,
+def test_disagg_matches_reference_step_by_step(ref_params, params, request,
                                                monkeypatch, case):
     """Both schedulers, each with a span tracer, step in lockstep.  After
     every step: request states, block tables, refcounts, the whole int32
@@ -182,8 +194,11 @@ def test_disagg_matches_reference_step_by_step(ref_params, params,
                 stream_chunks=case.get("stream_chunks", 0),
                 shared_prefix="prefix" in case)
     prompts, prefix_len = _lockstep_prompts(n_req, case.get("prefix"))
+    arch = case.get("arch", "qwen3_4b")
+    if arch != "qwen3_4b":
+        ref_params, params = request.getfixturevalue("zamba_params")
     # reference side (test_disagg.py::_setup / _run_disagg)
-    rcfg = ref_base.reduced(ref_base.get_config("qwen3_4b"))
+    rcfg = ref_base.reduced(ref_base.get_config(arch))
     rctx, rheap = ref_context.init(npes=4, node_size=4)
     rctx.tracer = RefSpanTracer()
     reng = RefEngine(rcfg, ref_params, max_len=MAXLEN)
@@ -195,7 +210,7 @@ def test_disagg_matches_reference_step_by_step(ref_params, params,
                           scfg=RefServeConfig(max_new_tokens=NEW),
                           admit_delay_steps=admit_delay, **mode)
     psched = _sched(params, num_slots=num_slots, NEW=NEW,
-                    admit_delay=admit_delay, **mode)
+                    admit_delay=admit_delay, arch=arch, **mode)
     psched.ctx.tracer = SpanTracer()
     rtr, ptr = rctx.tracer, psched.ctx.tracer
     # every decode step's logits, both sides
@@ -655,3 +670,26 @@ def test_launcher_new_modes_on_cpu(ref_params, capsys, tmp_path, mode):
         assert "shared prefix: 7 hits" in out
     if mode == "dense":
         assert "decode-cache=dense-rehydrate" in out
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("zamba2-2.7b", []), ("zamba2-2.7b", ["--fused-attn"]),
+    ("xlstm-125m", [])])
+def test_launcher_serves_recurrent_families_on_cpu(capsys, arch, flags):
+    """``--arch zamba2-2.7b`` (paged K/V of the shared attention block,
+    Mamba2 states in the tail) and ``--arch xlstm-125m`` (a tail-only
+    layout) at reduced widths: the counters balance, the pool drains, and
+    every request equals the single-PE baseline bitwise."""
+    sched = launch_serve.main(["--disagg", "--device", "cpu", "--arch", arch,
+                               "--requests", "5", "--prompt-len", "12",
+                               "--max-new", "4", "--slots", "2"] + flags)
+    st = sched.stats
+    assert (st.prefills, st.migrations, st.admissions, st.evictions) == \
+        (5, 5, 5, 5)
+    assert sched.pool.stats()["blocks_in_use"] == 0
+    assert len(sched.ctx.pending) == 0
+    assert bool(sched.pool.layout.paged) == arch.startswith("zamba2")
+    for req in sched.requests.values():
+        assert sched.engine.generate_in_slot(
+            req.batch, sched.scfg, num_slots=2, slot=req.slot) == req.out
+    assert f"[serve] disagg arch={arch}" in capsys.readouterr().out
