@@ -129,17 +129,45 @@ Phases, each fatal on failure:
 12. the xlstm serving path: the same traffic served by xlstm-125m at its
    published widths and depth (6 mLSTM, 6 sLSTM blocks): a tail-only
    migration (no paged leaf), so K1 launches and K2 and K3 never; tokens
-   equal the single-PE baseline bitwise.
-Phases 3, 5 and 7-12 print their wall time and peak device memory, and
-K1-K3's rows carry their launches in phases 7-12
-(``launches_by_phase``).
+   equal the single-PE baseline bitwise;
+13-20. the seven remaining configurations at their published widths,
+   bf16, each built with ``dataclasses.replace(cfg, num_layers=...)`` where
+   it is cut and served through ``serve._build_disagg`` (``FAMILIES``):
+   13 llama4-scout (MoE, 16 experts top-1 and a shared expert, 40/8 heads;
+   8 of 48 layers), 14 arctic (128 experts top-2 and a dense residual,
+   56/8 heads; 2 of 35 layers; 4 requests, 8 new tokens), 15 starcoder2
+   (gelu MLP, 36/4 heads), 16 minitron (vocab 256,000), 17 h2o-danube
+   (sliding window 4096, hd 120; 4 requests of 4,608 tokens, so the cache
+   is a ring of 256 blocks a request, the pool three requests' tables),
+   18 whisper (24 encoder and 24 decoder layers, 16 heads of 64; 432-token
+   prompts and 1500 audio frames; its cross K/V, 73,728,000 f32 words a
+   request, in the tail), 19 phase 18 with ``--fused-attn``, 20 the vision
+   model (cross-attention every 5th layer over 1601 image tokens; 10 of
+   100 layers).  Each holds its layout's block and tail words, launches K1
+   and K3 (and K2, except 17, whose windowed prefill is plain, as the
+   reference's), balances its counters, and serves every request bitwise
+   equal to the single-PE baseline; 17 shows its ring wrapped (a kpos of
+   4096 or more); 17, 18 and 20 hold every decode slot's tail in the pool
+   bitwise to the packed tail of a fresh prefill of its last request; 19's
+   tokens equal 18's, its mean first-resident-block step is below 18's,
+   and then K11 runs at hd 64 on its pool, q (3, 448, 16, 64), as in
+   phase 5, in a row of its own.  Each phase's weights are freed before
+   the next is built.
+Phases 3, 5 and 7-20 print their wall time and peak device memory, and
+K1-K3's rows carry their launches in phases 7-20
+(``launches_by_phase``).  K2 also runs at the head ratios 5, 7 and 9 and
+whisper's MHA at hd 64 in phase 2 (``check_flash_serving``), with rows of
+its own at starcoder2's q (1, 512, 36, 128), k/v (1, 512, 4, 128)
+(``flash_attention_gqa9``, phase 15's launches) and whisper's
+(1, 432, 16, 64) (``flash_attention_hd64``, phase 18's).
 
 K9 (``reduce_tile``) has no caller on these paths (only the reference's
 benchmark and tests call it): its row sums its counts over the path
 runs, and the check fails if that is not 0.  K11 has none either (the
 fused serving path reads through ``assemble``, as the reference's does):
 its row's ``launches`` is phase 5's count, 0, beside its launches per
-call; the head-dim-80 row of K11 likewise, phase 11's count.  K2's
+call; the head-dim-80 row of K11 likewise, phase 11's count, and the
+head-dim-64 row phase 19's.  K2's
 head-dim-80 row carries phase 10's launches.  K2's row also carries its
 HGMMA count (``hgmma``) and a ``long`` record at q (1, 4096, 32, 128):
 events, device ms, TFLOP/s and share of its operations bound beside
@@ -152,6 +180,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import gc
 import io
 import json
 import math
@@ -192,6 +222,32 @@ RING = dict(npes=8, prompt_len=32768, full=True, arch="qwen3-4b", seed=0)
 RING_PARTIALS = 8 * 9 // 2           # causal (PE, shard) pairs
 RING_TOL = 5e-5                      # tests/test_device.py ring attention
 SERVE_KERNELS = ("copy_into", "flash_attention", "paged_gather")
+# phases 13-20: the seven remaining configurations at their published
+# widths, bf16: (phase, label, arch, depth cut or None, traffic changes
+# from phase 3's, block words, tail words).  llama4-scout keeps 8 of 48
+# layers (about 35 GB of layers beside 4.1 GB of embeddings), arctic 2 of
+# 35 (about 54 GB: 128 experts of 7168 x 4864 a layer), the vision model
+# 10 of 100 (two units of 4 self-attention layers and a cross-attention
+# layer).  h2o-danube serves 4608-token prompts, above its window of 4096,
+# so its cache is a ring of 256 blocks a request (tail: the int32 kpos of
+# 24 layers x 4096 slots) and its pool holds three requests' tables;
+# whisper serves 432-token prompts (its decoder's context is 448) and
+# carries each request's cross K/V, 24 layers x 1500 frames x 16 heads of
+# 64, twice, in its f32 tail (295 MB).
+FAMILIES = [
+    ("13", "llama4-scout", "llama4-scout-17b-a16e", 8, {}, 262_144, 1),
+    ("14", "arctic", "arctic-480b", 2, {"--requests": 4, "--max-new": 8},
+     65_536, 1),
+    ("15", "starcoder2", "starcoder2-7b", None, {}, 524_288, 1),
+    ("16", "minitron", "minitron-8b", None, {}, 1_048_576, 1),
+    ("17", "h2o-danube", "h2o-danube-3-4b", None,
+     {"--requests": 4, "--prompt-len": 4608}, 737_280, 98_304),
+    ("18", "whisper", "whisper-medium", None, {"--prompt-len": 432},
+     786_432, 73_728_000),
+    ("20", "llama-3.2-vision", "llama-3.2-vision-90b", 10, {}, 262_144,
+     6_557_696),
+]
+DANUBE_TABLES = 3                    # requests' tables the ring pool holds
 RING_KERNELS = ("remote_put", "ring_allgather", "ring_reduce_scatter",
                 "push_broadcast", "barrier_push")
 REPEATS = 20                         # each ring check, to catch races
@@ -552,6 +608,61 @@ def check_flash80(torch, flash_attn, dev, deferred):
                      lambda: F.scaled_dot_product_attention(
                          qt, kt, vt, is_causal=True), None))
     return out
+
+
+def check_flash_serving(torch, flash_attn, dev, deferred):
+    """K2 in bf16 at the prefill shapes phases 13-20 give it: head ratios
+    5, 7 and 9 at head dim 128 (llama4-scout 40/8, arctic 56/8, starcoder2
+    36/4) at S = 512, and whisper's MHA of 16 heads of 64 at S = 432, each
+    within 2e-2 of its plain version and bitwise run to run.  Two rows:
+    starcoder2's and whisper's, timed beside the plain version and SDPA."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    for name, (S, H, Hkv, hd) in (
+            ("gqa5", (512, 40, 8, 128)), ("gqa7", (512, 56, 8, 128)),
+            ("flash_attention_gqa9", (512, 36, 4, 128)),
+            ("flash_attention_hd64", (432, 16, 16, 64))):
+        q, k, v = _qkv(torch, gen, dev, torch.bfloat16, 1, S, H, Hkv, hd)
+        got = flash_attn.flash_attention(q, k, v)
+        again = flash_attn.flash_attention(q, k, v)
+        want = flash_attn.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = TOL["bfloat16"]
+        shape = f"q (1,{S},{H},{hd}) k/v (1,{S},{Hkv},{hd}) bf16"
+        if not bool(torch.isclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol).all()) or \
+                not bool(got.isfinite().all()):
+            fail(f"K2 {shape}: max|err| {err:.3e} outside {tol}")
+        if not torch.equal(got, again):
+            fail(f"K2 {shape}: two runs differ")
+        say(f"K2 {shape} (heads {H // Hkv}:1): max|err| {err:.3e} (tol "
+            f"{tol}), bitwise run to run")
+        if not name.startswith("flash"):
+            continue
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound, by, flops = _flash_bound(1, S, H, Hkv, hd)
+
+        def k2(q=q, k=k, v=v):
+            return flash_attn.flash_attention(q, k, v)
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        out = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attn.cu",
+               "replaces": "src/repro/kernels/flash_attn.py:62",
+               "max_abs_err": err, "ms": time_ms(torch, k2, iters=200),
+               "plain_ms": time_ms(torch, lambda: flash_attn.
+                                   flash_attention_plain(q, k, v)),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": time_ms(torch, sdpa, iters=200),
+               "shape": shape, "flops": flops}
+        deferred.append((out, "device_ms", k2, "flash_fwd_wgmma"))
+        deferred.append((out, "library_device_ms", sdpa, None))
+        rows[name] = out
+    return [rows["flash_attention_gqa9"], rows["flash_attention_hd64"]]
 
 
 def _gather_cases(torch, gen, dev, R, data):
@@ -1206,10 +1317,10 @@ def _serve_phase(torch, ops, serve, argv, label):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def _balanced(sched, label):
+def _balanced(sched, label, n=8):
     st = sched.stats
     counts = (st.prefills, st.migrations, st.admissions, st.evictions)
-    if counts != (8, 8, 8, 8) or len(sched.ctx.pending) or \
+    if counts != (n,) * 4 or len(sched.ctx.pending) or \
             sched.pool.stats()["blocks_in_use"]:
         fail(f"{label}: counters {counts} do not balance, "
              f"{len(sched.ctx.pending)} ops stay pending or "
@@ -1364,7 +1475,8 @@ def _check_tokens(sched, label):
     if logits.shape != (1, eng.cfg.vocab_size) or \
             not bool(logits.isfinite().all()):
         fail(f"{label}: prefill logits not finite of shape (1, vocab)")
-    say(f"8/8 {label} requests bitwise equal to the single-PE baseline")
+    n = len(sched.requests)
+    say(f"{n}/{n} {label} requests bitwise equal to the single-PE baseline")
 
 
 def _first_block(sched):
@@ -1461,6 +1573,165 @@ def phase_xlstm(torch, ops, serve):
     return launches
 
 
+def _family_argv(arch, changes):
+    """Phase 3's traffic and flags with ``arch`` and ``changes``."""
+    argv = [{"qwen3-4b": arch}.get(a, a) for a in MAIN_ARGV]
+    for flag, value in changes.items():
+        argv[argv.index(flag) + 1] = str(value)
+    return argv
+
+
+def _check_tails(torch, sched, label):
+    """Every decode slot's tail in the pool, bitwise the packed tail of a
+    fresh prefill of the last request admitted there: the cross K/V, or a
+    ring's kpos, whose -1 is a NaN bit pattern in f32 that K1, the pool
+    clones and the pack and unpack must carry as bits."""
+    from repro_torch.serve import kvpool
+    lay, eng, last = sched.pool.layout, sched.engine, {}
+    for req in sched.requests.values():
+        key = (req.decode_pe, req.slot)
+        if key not in last or req.admit_step > last[key].admit_step:
+            last[key] = req
+    nan = 0
+    for (pe, slot), req in sorted(last.items()):
+        _, _, cache1 = eng.prefill_request(req.batch)
+        want = kvpool.pack_tail(lay, cache1).view(torch.int32)
+        got = sched.migrator.gather_tail(sched.heap, slot, pe).view(
+            torch.int32)
+        if not torch.equal(got, want):
+            fail(f"{label}: the tail at PE {pe} slot {slot} is not request "
+                 f"{req.rid}'s packed tail bit for bit")
+        nan += int(got.view(torch.float32).isnan().sum())
+    say(f"{label}: {len(last)} slots' tails ({lay.tail_words} words each, "
+        f"{nan} NaN patterns among them) bitwise the packed tails of their "
+        "last requests")
+
+
+def phase_family(torch, ops, serve, spec, extra=(), *, dev):
+    """One of phases 13-20: ``spec`` from FAMILIES served through
+    ``serve._build_disagg`` at its published widths, with its depth cut
+    (``dataclasses.replace(cfg, num_layers=...)``).  Weights are made
+    first; launch counts are zeroed after them, just before the scheduler
+    is built, and read when it has run.  Returns (scheduler, launches,
+    wall s, peak GiB); the caller frees the scheduler and its weights."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import model
+    from repro_torch.serve import kvpool
+    phase, label, arch, depth, changes, block_words, tail_words = spec
+    argv = _family_argv(arch, changes) + list(extra)
+    args = serve.build_parser().parse_args(argv)
+    cfg = cfgbase.get_config(arch)
+    cut = f"depth {depth} of {cfg.num_layers} layers" if depth else \
+        f"depth {cfg.num_layers}, no cut"
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    lay = kvpool.build_layout(cfg, args.prompt_len + args.max_new,
+                              block_tokens=args.block_tokens)
+    if lay.ring:                     # the pool holds three requests' tables
+        args.kv_blocks = DANUBE_TABLES * lay.blocks_for_decode(
+            args.prompt_len, args.max_new)
+        argv[argv.index("--kv-blocks") + 1] = str(args.kv_blocks)
+    say(f"phase {phase}, {label}: serve {' '.join(argv)} ({cut})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sched = serve._build_disagg(args, cfg, params)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    del params
+    serve.report_disagg(sched, args)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lay = sched.pool.layout
+    say(f"phase {phase}, {label}: {wall:.2f} s wall ({t_init:.2f} s for the "
+        f"weights before it), {sched.stats.decode_steps} decode steps, peak "
+        f"{peak:.1f} GiB; launches K1 {launches['copy_into']}, K2 "
+        f"{launches['flash_attention']}, K3 {launches['paged_gather']}; "
+        f"layout: {len(lay.paged)} paged leaves, {len(lay.tail)} tail "
+        f"leaves, {lay.block_words} words a block, {lay.tail_words} tail "
+        f"words a request, {lay.blocks_per_request} blocks a request"
+        f"{' (ring)' if lay.ring else ''}; {cut}")
+    if (lay.block_words, lay.tail_words) != (block_words, tail_words):
+        fail(f"{label}: layout of {lay.block_words} block words and "
+             f"{lay.tail_words} tail words, not {block_words} and "
+             f"{tail_words}")
+    want = {"copy_into", "paged_gather"} | (
+        set() if cfg.attention == "swa" else {"flash_attention"})
+    missing = [k for k in sorted(want) if launches[k] == 0]
+    if missing:
+        fail(f"{label} serving path never launched {missing}")
+    _balanced(sched, f"{label} serving path", args.requests)
+    return sched, launches, wall, peak
+
+
+def phase_families(torch, ops, serve, ishmem_device, flash_attn, dev):
+    """Phases 13-20.  Returns ({phase: launches}, K11's hd-64 row)."""
+    mode_launches, k11 = {}, None
+    for spec in FAMILIES:
+        phase, label = spec[0], spec[1]
+        sched, launches, wall, peak = phase_family(torch, ops, serve, spec,
+                                                   dev=dev)
+        mode_launches[phase] = launches
+        lay = sched.pool.layout
+        if lay.ring:
+            # phase 17: windowed prefill (plain, as the reference's), and
+            # the ring wrapped: position 4096 and on in slots 0 and on
+            _, _, cache1 = sched.engine.prefill_request(
+                sched.requests[0].batch)
+            kmax = int(cache1["blocks"][0]["kpos"].max())
+            if launches["flash_attention"] or kmax < lay.cache_width:
+                fail(f"{label}: K2 launched {launches['flash_attention']} "
+                     f"times (want 0) or the ring never wrapped (largest "
+                     f"kpos {kmax}, width {lay.cache_width})")
+            say(f"{label}: no K2 launch (windowed prefill); the ring "
+                f"wrapped: largest kpos {kmax} over {lay.cache_width} slots")
+            del cache1
+        if lay.tail_words > 1:
+            _check_tails(torch, sched, label)
+        _check_tokens(sched, label)
+        if phase == "18":
+            out = {rid: list(r.out) for rid, r in sched.requests.items()}
+            first_block = _first_block(sched)
+            del sched
+            gc.collect()
+            torch.cuda.empty_cache()
+            sched, launches, wall, peak = phase_family(
+                torch, ops, serve, ("19",) + spec[1:], ["--fused-attn"],
+                dev=dev)
+            mode_launches["19"] = launches
+            fb = _first_block(sched)
+            say(f"phase 19, {label} fused: mean first-resident-block step "
+                f"{fb:.3f} (phase 18: {first_block:.3f})")
+            if not fb < first_block:
+                fail(f"whisper fused mean first-block step {fb} is not "
+                     f"below phase 18's {first_block}")
+            _same_tokens(sched, out, "whisper fused serving path (vs phase "
+                         "18)")
+            say("8/8 whisper fused requests bitwise equal to phase 18")
+            k11 = check_fused_paged_attn(torch, ishmem_device, flash_attn,
+                                         ops, sched, "phase 19's pool")
+            k11.update(name="fused_paged_attn_hd64",
+                       path="none: the fused serving path reads through "
+                            "assemble, as the reference's does")
+            say(f"fused_paged_attn (K11) hd 64 [{k11['shape']}]: "
+                f"{k11['ms']:.4f} ms by events, device {k11['device_ms']} "
+                f"ms, launches per call {k11['launches_per_call']}; bound "
+                f"{k11['bound_ms']:.4f} ms ({k11['bound_by']}); plain "
+                f"{k11['plain_ms']:.4f} ms; before (device waits + K3 + K2) "
+                f"{k11['before_ms']:.4f} ms, device "
+                f"{k11['before_device_ms']} ms; max|err| vs plain "
+                f"{k11['max_abs_err']:.3e}")
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    return mode_launches, k11
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1526,6 +1797,7 @@ def main() -> None:
     rows = [check_copy(torch, rma_copy, _build, dev, deferred),
             check_flash(torch, flash_attn, dev, deferred),
             check_flash80(torch, flash_attn, dev, deferred),
+            *check_flash_serving(torch, flash_attn, dev, deferred),
             check_gather(torch, ishmem_device, ops, dev, deferred)]
     torch.cuda.empty_cache()
     rows += check_ring(torch, ring_collectives, rma_copy, _build, dev,
@@ -1734,6 +2006,12 @@ def main() -> None:
     mode_launches["12"] = phase_xlstm(torch, ops, serve)
     torch.cuda.empty_cache()
 
+    # ---- 13-20. the seven remaining configurations ---------------------------
+    family_launches, k11_64 = phase_families(torch, ops, serve, ishmem_device,
+                                             flash_attn, dev)
+    mode_launches.update(family_launches)
+    rows.append(k11_64)
+
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match, *kw in deferred:
         row[key] = device_ms(torch, fn, match, **(kw[0] if kw else {}))
@@ -1763,7 +2041,7 @@ def main() -> None:
     k2 = rows[1]
     k2["hgmma"] = hgmma["bf16 K2"]
     by_name["flash_partial"]["hgmma"] = hgmma["K10"]
-    k11["hgmma"] = k11_80["hgmma"] = hgmma["K11"]
+    k11["hgmma"] = k11_80["hgmma"] = k11_64["hgmma"] = hgmma["K11"]
     long = k2["long"]
     if long.get("device_ms"):
         long["tflops"] = long["flops"] / long["device_ms"] / 1e9
@@ -1782,6 +2060,12 @@ def main() -> None:
         mode_launches["10"]["flash_attention"]
     path_launches["fused_paged_attn_hd80"] = \
         mode_launches["11"]["fused_paged_attn"]
+    path_launches["flash_attention_gqa9"] = \
+        mode_launches["15"]["flash_attention"]
+    path_launches["flash_attention_hd64"] = \
+        mode_launches["18"]["flash_attention"]
+    path_launches["fused_paged_attn_hd64"] = \
+        mode_launches["19"]["fused_paged_attn"]
     by_name["flash_partial"]["split_launches"] = \
         ring_launches["flash_partial_split"]
     path_launches["reduce_tile"] = sum(

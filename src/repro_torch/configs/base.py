@@ -1,10 +1,9 @@
 """Architecture configuration registry (counterpart of ``repro/configs/base.py``).
 
 Every architecture is a frozen :class:`ArchConfig`; ``reduced`` derives the
-small CPU-test variant of the same family.  The dry-run ``ShapeDtypeStruct``
-stand-ins of the reference are not ported (ROADMAP queue 1, item 13), and of
-the ten configurations qwen3-4b, zamba2-2.7b and xlstm-125m are registered
-so far.
+small CPU-test variant of the same family.  All ten configurations are
+registered, in the reference's order; the dry-run ``ShapeDtypeStruct``
+stand-ins of the reference are not ported (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -51,9 +50,10 @@ class ArchConfig:
     cross_attn_every: int = 0
     image_tokens: int = 0
 
-    # --- numerics -----------------------------------------------------------
+    # --- numerics / training ------------------------------------------------
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
+    optimizer: str = "adamw"         # adamw | adafactor (read by training)
     remat: bool = True
 
     @property
@@ -101,7 +101,18 @@ def repeat_unit(cfg: ArchConfig):
     return tuple(kinds), 1
 
 
-ARCH_NAMES = ["qwen3_4b", "zamba2_2_7b", "xlstm_125m"]
+ARCH_NAMES = [
+    "minitron_8b",
+    "h2o_danube_3_4b",
+    "starcoder2_7b",
+    "llama4_scout_17b_a16e",
+    "arctic_480b",
+    "xlstm_125m",
+    "whisper_medium",
+    "zamba2_2_7b",
+    "llama_3_2_vision_90b",
+    "qwen3_4b",
+]
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 
@@ -109,7 +120,7 @@ _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 def get_config(name: str) -> ArchConfig:
     key = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if key not in ARCH_NAMES:
-        raise KeyError(f"unknown arch {name!r}; ported so far: {ARCH_NAMES}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
 
 

@@ -1,9 +1,13 @@
 """Where the disaggregated serving path spends its time on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [serve flags]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [serve flags] \
+        [--layers N]
 
 Takes the flags of ``repro_torch.launch.serve`` (``--disagg`` is implied)
-and serves four times in one process:
+and ``--layers N``, a depth cut of the architecture (``num_layers``, as
+``chip_smoke.py`` cuts llama4-scout to 8 of 48 layers to fit the card).
+It builds the weights once and serves four times in one process, each run
+through ``serve._build_disagg`` (the weights' build is in no time below):
 
 1. a warm-up run (kernel build, first-call setup);
 2. a plain run, timed on the host clock: the wall time of the path;
@@ -66,19 +70,51 @@ class _PhaseClock:
         return fn
 
 
+def _server(argv):
+    """(argv without ``--layers``, a function that serves it once and
+    returns the finished scheduler), the weights built once."""
+    import dataclasses
+
+    from repro_torch import _devices
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    argv = list(argv)
+    layers = None
+    if "--layers" in argv:
+        i = argv.index("--layers")
+        layers = int(argv[i + 1])
+        del argv[i:i + 2]
+    args = serve.build_parser().parse_args(argv)
+    cfg = cfgbase.get_config(args.arch)
+    if not args.full:
+        cfg = cfgbase.reduced(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = model.init_params(cfg, seed=args.seed,
+                               device=_devices.resolve(args.device))
+
+    def run():
+        sched = serve._build_disagg(args, cfg, params)
+        sched.run()
+        return sched
+    return argv + ([] if layers is None else ["--layers", str(layers)]), run
+
+
 def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
     from repro_torch.core.heap import SymmetricHeap
-    from repro_torch.launch import serve
     from repro_torch.serve.scheduler import DisaggScheduler
 
-    argv = ["--disagg"] + list(sys.argv[1:] if argv is None else argv)
+    argv, serve_once = _server(
+        ["--disagg"] + list(sys.argv[1:] if argv is None else argv))
     torch.backends.cuda.matmul.allow_tf32 = False
-    serve.main(argv)                                   # warm-up (and build)
+    serve_once()                                       # warm-up (and build)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serve.main(argv)
+    serve_once()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -91,7 +127,7 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        sched = serve.main(argv)
+        sched = serve_once()
         torch.cuda.synchronize()
     finally:
         for owner, name, fn in originals:
@@ -102,7 +138,7 @@ def main(argv=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve.main(argv)
+        serve_once()
         torch.cuda.synchronize()
     kernels = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():

@@ -20,6 +20,12 @@ instead of the reduced test variant.
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \\
       --prompt-len 512 --kv-blocks 256
 
+  # any of the ten configurations (MoE, gelu, sliding window, whisper's
+  # encoder-decoder with its audio embeddings, vision with image
+  # embeddings), reduced on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg \\
+      --arch whisper-medium --device cpu
+
   # fused protocol: per-block migration signals, first-block admission,
   # per-signal block consumption before each decode step
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --fused-attn
@@ -55,10 +61,20 @@ import torch
 
 def make_batch(cfg, gen: torch.Generator, batch: int, prompt_len: int,
                device) -> dict:
-    """Random request batch drawn from ``gen`` (token models only)."""
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                           generator=gen, device=gen.device)
-    return {"tokens": tokens.to(device)}
+    """Random request batch drawn from ``gen``, with the frontend
+    embeddings the family needs: whisper's ``audio_embeds`` (B,
+    encoder_seq, d) and the vision model's ``image_embeds`` (B,
+    image_tokens, d), standard normal in f32, as the reference's
+    ``_make_batch`` draws them."""
+    b = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                 generator=gen, device=gen.device)}
+    frontend = {"audio": ("audio_embeds", cfg.encoder_seq),
+                "vlm": ("image_embeds", cfg.image_tokens)}.get(cfg.family)
+    if frontend is not None:
+        key, n = frontend
+        b[key] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                             device=gen.device)
+    return {k: v.to(device) for k, v in b.items()}
 
 
 def _overlap_report(args) -> None:

@@ -116,7 +116,7 @@ def tp_mlp_phase(cfg, npes: int, device, gen, args, report: dict):
         rec = sink.trace[-1]
         name = f"tp_mlp {label} ({T},{d}) {op}"
         _close(name + " vs engine", got, engine.psum(part), report)
-        whole = apply_mlp(w, x)
+        whole = apply_mlp(w, x, "swiglu")
         _close(name + " vs unsharded", got, whole.expand_as(got), report)
         print(f"[collectives]   {name}: {rec.nbytes} B/PE, path {rec.path}; "
               f"max|err| vs unsharded "

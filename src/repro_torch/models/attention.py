@@ -1,10 +1,11 @@
 """GQA attention (counterpart of ``repro/models/attention.py``).
 
 Prefill self-attention goes through the K2 flash kernel
-(``kernels/flash_attn.py``, called from ``models/model.py``).  Decode
-attention stays plain torch, as the reference computes it outside any
-Pallas kernel: one query token against the cache, f32 softmax, masked
-scores -1e30.
+(``kernels/flash_attn.py``, called from ``models/model.py``), except a
+sliding window's, which goes through :func:`blockwise_causal_attn`.  That,
+the encoder's and cross-attention's :func:`full_attn` and decode attention
+stay plain torch, as the reference computes them outside any Pallas
+kernel: f32 scores and softmax, masked scores -1e30.
 """
 from __future__ import annotations
 
@@ -48,6 +49,58 @@ def project_kv(p, x, cfg, positions=None):
     if positions is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
+
+
+def _pick_block(s, want):
+    b = min(want, s)
+    while s % b:
+        b -= 1
+    return max(b, 1)
+
+
+def blockwise_causal_attn(q, k, v, *, window=None, block_q=512,
+                          block_k=512):
+    """Online-softmax causal attention over KV blocks, optionally within a
+    sliding ``window`` (a key at distance ``window`` or more is masked, and
+    KV blocks wholly before the window are skipped).  The reference's
+    serving policy: blocks of 512, f32 q*scale, scores and P.
+    q: (B,S,nq,hd); k,v: (B,S,nkv,hd)."""
+    B, S, nq, hd = q.shape
+    nkv = k.shape[2]
+    g = nq // nkv
+    bq, bk = _pick_block(S, block_q), _pick_block(S, block_k)
+    scale = hd ** -0.5
+    qb = q.reshape(B, S // bq, bq, nkv, g, hd)
+    kb = k.reshape(B, S // bk, bk, nkv, hd)
+    vb = v.reshape(B, S // bk, bk, nkv, hd)
+    outs = []
+    for qi in range(S // bq):
+        q_i = qb[:, qi].float() * scale                  # (B,bq,nkv,g,hd)
+        q_start = qi * bq
+        qpos = q_start + torch.arange(bq, device=q.device)
+        k_hi = min(S // bk, (q_start + bq + bk - 1) // bk)   # exclusive
+        k_lo = 0 if window is None else \
+            max(0, q_start - int(window) + 1) // bk
+        m = torch.full((B, nkv, g, bq), NEG_INF, device=q.device)
+        l = torch.zeros((B, nkv, g, bq), device=q.device)
+        acc = torch.zeros((B, nkv, g, bq, hd), device=q.device)
+        for kj in range(k_lo, k_hi):
+            s = torch.einsum("bqkgh,bskh->bkgqs", q_i, kb[:, kj].float())
+            kpos = kj * bk + torch.arange(bk, device=q.device)
+            mask = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask &= kpos[None, :] > qpos[:, None] - int(window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p, vb[:, kj].float())
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]          # (B,nkv,g,bq,hd)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, bq, nq, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def full_attn(q, k, v, mask=None):

@@ -1,12 +1,18 @@
 """Decode caches (counterpart of ``repro/models/kvcache.py``).
 
 One entry per repeat-unit position, every leaf stacked over the unit's
-repeats on axis 0: a self-attention entry (``attn``, ``shared_attn``) is
-``{"k", "v"}`` of shape ``(reps, B, W, nkv, hd)``; the recurrent entries
-hold f32 states (``mamba``: ``state`` and ``conv``; ``mlstm``: ``C``, ``n``,
-``m``; ``slstm``: ``c``, ``n``, ``m``, ``h``).  Ring caches (SWA, and a
-hybrid above 65,536 tokens) and the cross and encoder states come with
-their families (ROADMAP queue 1, item 7).
+repeats on axis 0: a self-attention entry (``attn``, ``shared_attn``,
+``moe``, ``encdec``) is ``{"k", "v"}`` of shape ``(reps, B, W, nkv, hd)``;
+an ``encdec`` entry adds the encoder output's projected ``ck``/``cv`` over
+``encoder_seq`` frames, a ``cross`` entry holds only ``ck``/``cv`` over
+``image_tokens``; the recurrent entries hold f32 states (``mamba``:
+``state`` and ``conv``; ``mlstm``: ``C``, ``n``, ``m``; ``slstm``: ``c``,
+``n``, ``m``, ``h``).
+
+Self-attention caches are dense (``seq_len`` slots, valid while slot <=
+pos) or a ring of ``window`` slots when the architecture is windowed at
+that context length (SWA; a hybrid above 65,536 tokens): a ring adds an
+int32 ``kpos`` of the position each slot holds, -1 when empty.
 """
 from __future__ import annotations
 
@@ -30,10 +36,19 @@ def is_ring(cfg, seq_len: int) -> bool:
 
 def _entry(kind, cfg, batch, seq_len) -> dict:
     """``{key: (per-repeat shape, dtype name)}`` of one unit position."""
-    if kind in ("attn", "shared_attn"):
-        shape = (batch, self_cache_len(cfg, seq_len), cfg.num_kv_heads,
-                 cfg.hd)
-        return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+    nkv, hd, dt = cfg.num_kv_heads, cfg.hd, cfg.dtype
+    W = self_cache_len(cfg, seq_len)
+    if kind in ("attn", "moe", "shared_attn", "encdec"):
+        e = {"k": ((batch, W, nkv, hd), dt), "v": ((batch, W, nkv, hd), dt)}
+        if is_ring(cfg, seq_len):
+            e["kpos"] = ((batch, W), "int32")
+        if kind == "encdec":
+            e["ck"] = ((batch, cfg.encoder_seq, nkv, hd), dt)
+            e["cv"] = ((batch, cfg.encoder_seq, nkv, hd), dt)
+        return e
+    if kind == "cross":
+        return {"ck": ((batch, cfg.image_tokens, nkv, hd), dt),
+                "cv": ((batch, cfg.image_tokens, nkv, hd), dt)}
     if kind == "mamba":
         d_in, p, nh, N = ssm_mod.mamba_dims(cfg)
         return {"state": ((batch, nh, p, N), "float32"),
@@ -46,17 +61,12 @@ def _entry(kind, cfg, batch, seq_len) -> dict:
                 "m": ((batch, nh), "float32")}
     if kind == "slstm":
         return {key: ((batch, cfg.d_model), "float32") for key in "cnmh"}
-    raise NotImplementedError(
-        f"{cfg.name}: no {kind!r} cache is ported (ROADMAP queue 1, item 7)")
+    raise ValueError(kind)
 
 
 def cache_shapes(cfg, batch: int, seq_len: int) -> dict:
     """``{"blocks": [{key: (shape, dtype name)}]}`` of the decode cache."""
     unit, reps = cfgbase.repeat_unit(cfg)
-    if is_ring(cfg, seq_len):
-        raise NotImplementedError(
-            f"{cfg.name}: ring caches at {seq_len} tokens are not ported "
-            "(ROADMAP queue 1, item 7)")
     return {"blocks": [
         {key: ((reps, *shape), dt)
          for key, (shape, dt) in _entry(kind, cfg, batch, seq_len).items()}
@@ -64,8 +74,9 @@ def cache_shapes(cfg, batch: int, seq_len: int) -> dict:
 
 
 def init_cache(cfg, batch: int, seq_len: int, device) -> dict:
+    """Zeros, and -1 (empty) in a ring's ``kpos``."""
     return {"blocks": [
-        {key: torch.zeros(shape, dtype=getattr(torch, dt),
-                          device=device)
+        {key: torch.full(shape, -1 if key == "kpos" else 0,
+                         dtype=getattr(torch, dt), device=device)
          for key, (shape, dt) in entry.items()}
         for entry in cache_shapes(cfg, batch, seq_len)["blocks"]]}

@@ -12,11 +12,18 @@ def dense_init(gen: torch.Generator, shape, scale=None,
                dtype=torch.float32, device=None) -> torch.Tensor:
     """Normal(0, 1) * scale (default fan_in**-0.5, fan_in = shape[-2] for a
     stacked weight), drawn in f32 from ``gen`` — the reference's
-    distribution, not its numbers."""
+    distribution, not its numbers.  A stacked weight is drawn one matrix
+    at a time and scaled in place, so the f32 draw of a full-width expert
+    stack (arctic's 2 x 128 experts of 7168 x 4864) never exists whole."""
     fan_in = shape[0] if len(shape) <= 2 else shape[-2]
     scale = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    mats = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for m in mats:
+        w = torch.randn(m.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        m.copy_(w.mul_(scale))
+    return out
 
 
 def rms_norm(x, weight, eps=1e-6):
@@ -56,23 +63,29 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the exact erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def init_mlp(gen, d_model, d_ff, mlp_type, dtype, *, reps, device=None):
-    """SwiGLU weights stacked over ``reps`` layers."""
-    if mlp_type != "swiglu":
-        raise NotImplementedError(f"mlp_type {mlp_type!r} comes with the "
-                                  "remaining model families (ROADMAP queue "
-                                  "1, item 7)")
-    return {
-        "w_gate": dense_init(gen, (reps, d_model, d_ff), dtype=dtype,
-                             device=device),
-        "w_up": dense_init(gen, (reps, d_model, d_ff), dtype=dtype,
-                           device=device),
-        "w_down": dense_init(gen, (reps, d_ff, d_model), dtype=dtype,
-                             device=device),
-    }
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or gelu (``w_up``,
+    ``w_down``) weights, stacked over ``reps`` layers."""
+    def w(*shape):
+        return dense_init(gen, (reps, *shape), dtype=dtype, device=device)
+
+    if mlp_type == "swiglu":
+        return {"w_gate": w(d_model, d_ff), "w_up": w(d_model, d_ff),
+                "w_down": w(d_ff, d_model)}
+    return {"w_up": w(d_model, d_ff), "w_down": w(d_ff, d_model)}
 
 
-def apply_mlp(params, x):
-    """SwiGLU: silu(x W_gate) * (x W_up), then W_down."""
-    h = silu(x @ params["w_gate"]) * (x @ params["w_up"])
+def apply_mlp(params, x, mlp_type):
+    """SwiGLU: silu(x W_gate) * (x W_up), then W_down; gelu: gelu(x W_up),
+    then W_down."""
+    if mlp_type == "swiglu":
+        h = silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = gelu(x @ params["w_up"])
     return h @ params["w_down"]

@@ -1,21 +1,33 @@
-"""Model assembly for the ``attn``, ``shared_attn``, ``mamba``, ``mlstm``
-and ``slstm`` block kinds (counterpart of ``repro/models/model.py``).
+"""Model assembly for every block kind of the ten configurations
+(counterpart of ``repro/models/model.py``).
 
 ``init_params(cfg)`` builds a nested dict with the reference's key names;
 per-layer weights are stacked over the repeats of the layer unit (axis 0),
-and the forward passes loop over the repeats.  Zamba2's one weight-shared
-attention block lives at ``params["shared_attn"]`` (unstacked), with a
-``{}`` placeholder at its position in ``params["blocks"]``; every repeat
-keeps its own K/V cache.  Two step kinds:
+and the forward passes loop over the repeats.  Block kinds: ``attn``,
+``shared_attn`` (zamba2's one weight-shared attention block lives at
+``params["shared_attn"]``, unstacked, with a ``{}`` placeholder at its
+position in ``params["blocks"]``; every repeat keeps its own K/V cache),
+``moe`` (attention and the routed experts of ``models/moe.py``),
+``encdec`` (whisper's decoder: self-attention, cross-attention over the
+encoder output, MLP; the encoder's stacked ``attn`` blocks live at
+``params["encoder"]``), ``cross`` (the vision model's gated
+cross-attention over image embeddings, scaled by ``tanh(gate)``),
+``mamba``, ``mlstm`` and ``slstm``.  Two step kinds:
 
-- ``prefill``     : full-prompt forward that fills the decode cache;
-- ``decode_step`` : ONE token against the cache.
+- ``prefill``     : full-prompt forward that fills the decode cache (and
+  runs the frontends: the encoder over ``batch["audio_embeds"]``, or
+  ``batch["image_embeds"]`` cast to the activation dtype);
+- ``decode_step`` : ONE token against the cache (cross K/V come from it).
 
-Prefill self-attention always goes through the K2 flash kernel (its plain
-version for CPU tensors): the reference's ``attn_impl`` switch has no
-counterpart.  ``shardctx.constrain`` has none either.  Training, the
-encoder, MoE, cross-attention and windowed attention come with their
-slices (ROADMAP queue 1, item 7).
+Prefill self-attention goes through the K2 flash kernel (its plain
+version for CPU tensors), except under a sliding window, which the
+reference computes in plain JAX (``blockwise_causal_attn``) and so does
+the port; the reference's ``attn_impl`` switch has no counterpart.  A
+ring cache (SWA, or a hybrid above 65,536 tokens) keeps the last
+``window`` positions of the prompt, and decode writes slot ``pos % W`` and
+reads the slots whose ``kpos`` lies in the window.  ``shardctx.constrain``
+has no counterpart, and the MoE's auxiliary loss is dropped: training
+(``train_loss``) waits for ROADMAP queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -24,35 +36,44 @@ import torch
 from repro_torch import _devices
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import flash_attn
-from repro_torch.models import attention as attn_mod, ssm as ssm_mod
+from repro_torch.models import attention as attn_mod, moe as moe_mod, \
+    ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, \
     rms_norm
 
-
-PORTED_KINDS = ("attn", "shared_attn", "mamba", "mlstm", "slstm")
-
-
-def _check_kinds(cfg):
-    unit, reps = cfgbase.repeat_unit(cfg)
-    if any(kind not in PORTED_KINDS for kind in unit) or \
-            cfg.attention != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: only full-attention {PORTED_KINDS} blocks are "
-            "ported (ROADMAP queue 1, item 7)")
-    return unit, reps
+_SELF_ATTN = ("attn", "shared_attn", "moe", "encdec")
 
 
 def _init_block(gen, kind, cfg, dtype, reps, dev):
     d = cfg.d_model
+
+    def ones():
+        return torch.ones((reps, d), dtype=dtype, device=dev)
+
+    def attn():
+        return attn_mod.init_attn(gen, cfg, dtype, reps=reps, device=dev)
+
+    def mlp():
+        return init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dtype, reps=reps,
+                        device=dev)
+
     if kind in ("attn", "shared_attn"):
-        bp = {"norm1": torch.ones((reps, d), dtype=dtype, device=dev),
-              "attn": attn_mod.init_attn(gen, cfg, dtype, reps=reps,
-                                         device=dev)}
+        bp = {"norm1": ones(), "attn": attn()}
         if cfg.d_ff:
-            bp["norm2"] = torch.ones((reps, d), dtype=dtype, device=dev)
-            bp["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dtype,
-                                 reps=reps, device=dev)
+            bp["norm2"] = ones()
+            bp["mlp"] = mlp()
         return bp
+    if kind == "moe":
+        return {"norm1": ones(), "attn": attn(), "norm2": ones(),
+                "moe": moe_mod.init_moe(gen, cfg, dtype, reps=reps,
+                                        device=dev)}
+    if kind == "encdec":
+        return {"norm1": ones(), "attn": attn(), "norm_x": ones(),
+                "cross": attn(), "norm2": ones(), "mlp": mlp()}
+    if kind == "cross":
+        return {"norm1": ones(), "cross": attn(),
+                "gate": torch.zeros((reps,), dtype=torch.float32, device=dev),
+                "norm2": ones(), "mlp": mlp()}
     init = {"mamba": ssm_mod.init_mamba, "mlstm": ssm_mod.init_mlstm,
             "slstm": ssm_mod.init_slstm}[kind]
     return init(gen, cfg, dtype, reps=reps, device=dev)
@@ -63,7 +84,7 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
     (the current CUDA device unless given)."""
     dev = _devices.resolve(device)
-    unit, reps = _check_kinds(cfg)
+    unit, reps = cfgbase.repeat_unit(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
@@ -89,6 +110,11 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
             continue
         blocks.append(_init_block(gen, kind, cfg, dtype, reps, dev))
     params["blocks"] = blocks
+    if cfg.family == "audio":
+        params["encoder"] = {
+            "blocks": _init_block(gen, "attn", cfg, dtype,
+                                  cfg.encoder_layers, dev),
+            "final_norm": ones(d)}
     return params
 
 
@@ -99,47 +125,112 @@ def _layer(tree, r):
     return tree[r]
 
 
+def _flat(o):
+    return o.reshape(o.shape[0], o.shape[1], -1)
+
+
 def _self_attention(p, x, cfg, mode, positions, cache, pos):
     """Returns (attn_out, new cache entries)."""
-    flat = lambda o: o.reshape(o.shape[0], o.shape[1], -1)
     if mode == "prefill":
         q = attn_mod.project_q(p, x, cfg, positions)
         k, v = attn_mod.project_kv(p, x, cfg, positions)
-        o = flash_attn.flash_attention(q, k, v)
+        if cfg.attention == "swa":
+            o = attn_mod.blockwise_causal_attn(q, k, v, window=cfg.window)
+        else:
+            o = flash_attn.flash_attention(q, k, v)
         new = {}
-        if cache is not None:               # dense cache, W >= S
-            S = x.shape[1]
-            new["k"] = torch.zeros_like(cache["k"])
-            new["k"][:, :S] = k.to(cache["k"].dtype)
-            new["v"] = torch.zeros_like(cache["v"])
-            new["v"][:, :S] = v.to(cache["v"].dtype)
-        return flat(o) @ p["wo"], new
+        if cache is not None:
+            S, W = x.shape[1], cache["k"].shape[1]
+            # dense: slots [0, S); ring: the last min(W, S) positions at
+            # slot position % W
+            kpos = torch.arange(S - min(W, S), S, device=x.device)
+            slots = kpos % W
+            for key, val in (("k", k), ("v", v)):
+                new[key] = torch.zeros_like(cache[key])
+                new[key][:, slots] = val[:, kpos].to(cache[key].dtype)
+            if "kpos" in cache:
+                new["kpos"] = torch.full_like(cache["kpos"], -1)
+                new["kpos"][:, slots] = kpos.to(torch.int32)
+        return _flat(o) @ p["wo"], new
     # ---- decode: one token per row at its own position -------------------
     q = attn_mod.project_q(p, x, cfg, pos[:, None])
     k, v = attn_mod.project_kv(p, x, cfg, pos[:, None])
     W = cache["k"].shape[1]
-    # one-hot select, not a scatter: a position past the cache is dropped
-    # (the reference's out-of-bounds rule) and the write needs no sync
-    hot = (torch.arange(W, device=pos.device)[None, :] == pos[:, None])
-    hot = hot[:, :, None, None]
-    k_cache = torch.where(hot, k.to(cache["k"].dtype), cache["k"])
-    v_cache = torch.where(hot, v.to(cache["v"].dtype), cache["v"])
-    valid = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
-    o = attn_mod.decode_attn(q, k_cache, v_cache, valid)
-    return flat(o) @ p["wo"], {"k": k_cache, "v": v_cache}
+    ring = "kpos" in cache
+    slot = pos % W if ring else pos
+    # one-hot select, not a scatter: a dense position past the cache is
+    # dropped (the reference's out-of-bounds rule) and the write needs no
+    # sync
+    hot = torch.arange(W, device=pos.device)[None, :] == slot[:, None]
+    new = {key: torch.where(hot[:, :, None, None], val.to(cache[key].dtype),
+                            cache[key])
+           for key, val in (("k", k), ("v", v))}
+    if ring:
+        kpos = torch.where(hot, pos[:, None].to(torch.int32), cache["kpos"])
+        valid = (kpos >= 0) & (kpos > (pos - W)[:, None]) & \
+            (kpos <= pos[:, None])
+        new["kpos"] = kpos
+    else:
+        valid = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
+    o = attn_mod.decode_attn(q, new["k"], new["v"], valid)
+    return _flat(o) @ p["wo"], new
+
+
+def _cross_attention(bp, x, cfg, mode, kv_source=None, cache=None):
+    """Cross-attention (whisper's decoder, the vision model's image
+    layers).  ``kv_source``: (B, Skv, d) encoder output or image
+    embeddings at prefill; at decode the projected K/V come from the
+    cache.  Returns (out, new cache entries)."""
+    p = bp["cross"]
+    q = attn_mod.project_q(p, x, cfg, None)
+    if mode == "prefill":
+        ck, cv = attn_mod.project_kv(p, kv_source, cfg, None)
+        new = {} if cache is None else {
+            "ck": ck.to(cache["ck"].dtype), "cv": cv.to(cache["cv"].dtype)}
+    else:
+        ck, cv = cache["ck"], cache["cv"]
+        new = {"ck": ck, "cv": cv}
+    o = attn_mod.full_attn(q, ck, cv)
+    return _flat(o) @ p["wo"], new
+
+
+def _check_mode(mode):
+    if mode == "train":
+        raise NotImplementedError("training is not ported (ROADMAP queue 1, "
+                                  "item 8)")
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
 
 
 def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
-                pos=None):
+                enc_out=None, image_embeds=None, pos=None):
     """Returns (x_out, new cache entries).  Prefill starts every recurrent
     state from zero, as the reference does, and returns the end state."""
-    if kind in ("attn", "shared_attn"):
+    _check_mode(mode)
+    if kind in _SELF_ATTN:
         h = rms_norm(x, bp["norm1"])
         o, new_cache = _self_attention(bp["attn"], h, cfg, mode, positions,
                                        cache, pos)
         x = x + o
-        if cfg.d_ff:
-            x = x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]))
+        if kind == "encdec":
+            o, nc = _cross_attention(bp, rms_norm(x, bp["norm_x"]), cfg,
+                                     mode, enc_out, cache)
+            x = x + o
+            new_cache.update(nc)
+        if kind == "moe":
+            h = rms_norm(x, bp["norm2"])
+            B, S, d = h.shape
+            y, _ = moe_mod.moe_ffn(bp["moe"], h.reshape(B * S, d), cfg)
+            x = x + y.reshape(B, S, d)
+        elif cfg.d_ff:
+            x = x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]),
+                              cfg.mlp_type)
+        return x, new_cache
+    if kind == "cross":
+        o, new_cache = _cross_attention(bp, rms_norm(x, bp["norm1"]), cfg,
+                                        mode, image_embeds, cache)
+        x = x + torch.tanh(bp["gate"]).to(x.dtype) * o
+        x = x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]), cfg.mlp_type)
         return x, new_cache
     h = rms_norm(x, bp["norm"])
     if kind == "mamba":
@@ -166,9 +257,11 @@ def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
     raise ValueError(kind)
 
 
-def backbone(params, cfg, x, *, mode, positions=None, cache=None, pos=None):
+def backbone(params, cfg, x, *, mode, positions=None, cache=None,
+             enc_out=None, image_embeds=None, pos=None):
     """x: (B,S,d) embedded inputs.  Returns (x, new_cache)."""
-    unit, reps = _check_kinds(cfg)
+    _check_mode(mode)
+    unit, reps = cfgbase.repeat_unit(cfg)
     shared = params.get("shared_attn")
     new_blocks = [{} for _ in unit]
     for r in range(reps):
@@ -177,13 +270,39 @@ def backbone(params, cfg, x, *, mode, positions=None, cache=None, pos=None):
                 _layer(params["blocks"][i], r)
             c = _layer(cache["blocks"][i], r) if cache is not None else None
             x, nc = apply_block(kind, bp, x, cfg=cfg, mode=mode,
-                                positions=positions, cache=c, pos=pos)
+                                positions=positions, cache=c,
+                                enc_out=enc_out, image_embeds=image_embeds,
+                                pos=pos)
             for key, leaf in nc.items():
                 new_blocks[i].setdefault(key, []).append(leaf)
     if cache is None:
         return x, None
     return x, {"blocks": [{k: torch.stack(v) for k, v in b.items()}
                           for b in new_blocks]}
+
+
+def _encoder_forward(params, cfg, audio_embeds):
+    """Whisper's audio encoder over the stubbed frame embeddings
+    (bidirectional attention, no positions)."""
+    enc = params["encoder"]
+    x = audio_embeds.to(cfg.activation_dtype())
+    for r in range(cfg.encoder_layers):
+        bp = _layer(enc["blocks"], r)
+        h = rms_norm(x, bp["norm1"])
+        q = attn_mod.project_q(bp["attn"], h, cfg, None)
+        k, v = attn_mod.project_kv(bp["attn"], h, cfg, None)
+        x = x + _flat(attn_mod.full_attn(q, k, v)) @ bp["attn"]["wo"]
+        x = x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]), cfg.mlp_type)
+    return rms_norm(x, enc["final_norm"])
+
+
+def _frontends(params, cfg, batch):
+    enc_out = image_embeds = None
+    if cfg.family == "audio":
+        enc_out = _encoder_forward(params, cfg, batch["audio_embeds"])
+    if cfg.family == "vlm":
+        image_embeds = batch["image_embeds"].to(cfg.activation_dtype())
+    return enc_out, image_embeds
 
 
 def _embed(params, cfg, tokens):
@@ -195,13 +314,16 @@ def _lm_matrix(params, cfg):
 
 
 def prefill(params, cfg, batch, cache):
-    """Fill the cache from a full prompt; returns (last_logits f32, cache)."""
+    """Fill the cache from a full prompt (``batch["tokens"]``, plus the
+    family's frontend embeddings); returns (last_logits f32, cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    enc_out, image_embeds = _frontends(params, cfg, batch)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x, new_cache = backbone(params, cfg, x, mode="prefill",
-                            positions=positions, cache=cache)
+                            positions=positions, cache=cache,
+                            enc_out=enc_out, image_embeds=image_embeds)
     x = rms_norm(x[:, -1:], params["final_norm"])
     logits = (x @ _lm_matrix(params, cfg)).float()
     return logits[:, 0], new_cache

@@ -8,10 +8,15 @@ block id a cluster-wide address.
 
 - **paged leaves** — the self-attention K/V tensors, split along the token
   axis into blocks of ``block_tokens``; block *b* holds ``[b*T, (b+1)*T)``
-  of every paged leaf, flattened and concatenated in a fixed order.
-- **tail** — every other cache leaf, packed losslessly into one float32
-  vector per slot (f32 as is, bf16 upcast exactly, int32 bit-cast with
-  ``Tensor.view``).
+  of every paged leaf, flattened and concatenated in a fixed order.  A
+  dense cache migrates ``ceil(S/T)`` blocks for a prompt of S tokens; a
+  ring (SWA window) always moves all ``ceil(W/T)``, since occupied slots
+  wrap, and never grows.
+- **tail** — every other cache leaf (recurrent states, a ring's ``kpos``,
+  cross and encoder K/V), packed losslessly into one float32 vector per
+  slot (f32 as is, bf16 upcast exactly, int32 bit-cast with
+  ``Tensor.view``: a ``kpos`` of -1 rides as a NaN bit pattern, so every
+  hop copies its bits and none computes on them).
 - **header** — 4 int32 words per slot ``(req_id, prompt_len,
   first_token, n_blocks)``.
 - **signal** — one int32 word per slot, the admission target.
@@ -79,6 +84,7 @@ class KVLayout:
     tail_words: int
     kv_dtype: str
     cache_width: int
+    ring: bool
     paged: Tuple[PagedLeaf, ...]
     tail: Tuple[TailLeaf, ...]
 
@@ -88,8 +94,9 @@ class KVLayout:
 
     def blocks_for_prompt(self, prompt_len: int) -> int:
         """Blocks that migrate for a prompt: a dense cache fills slots
-        [0, S).  (Ring caches, where every block is live, come with the
-        SWA families.)"""
+        [0, S); a ring wraps, so every block is live."""
+        if self.ring:
+            return self.blocks_per_request
         need = -(-min(prompt_len, self.cache_width) // self.block_tokens)
         return max(1, need)
 
@@ -97,9 +104,12 @@ class KVLayout:
         """Block-table length through the whole decode: the prompt blocks
         plus the growth blocks generated tokens are written into.  Decode
         consumes out[0..max_new-2], so the last K/V write lands at
-        prompt_len + max_new - 2.  THE table-size formula: staging and the
-        scheduler's headroom check both use it."""
-        last =min(prompt_len + max(max_new - 1, 0), self.cache_width) - 1
+        prompt_len + max_new - 2.  A ring wraps in place and never grows.
+        THE table-size formula: staging and the scheduler's headroom check
+        both use it."""
+        if self.ring:
+            return self.blocks_per_request
+        last = min(prompt_len + max(max_new - 1, 0), self.cache_width) - 1
         return max(self.blocks_for_prompt(prompt_len),
                    last // self.block_tokens + 1)
 
@@ -108,6 +118,7 @@ def build_layout(cfg, max_len: int, *, block_tokens: int = 16) -> KVLayout:
     """Classify every leaf of the model's cache (shapes computed directly)."""
     struct = kvcache.cache_shapes(cfg, 1, max_len)
     W = kvcache.self_cache_len(cfg, max_len)
+    ring = kvcache.is_ring(cfg, max_len)
     block_tokens = min(block_tokens, W)
     paged: List[PagedLeaf] = []
     tail: List[TailLeaf] = []
@@ -134,7 +145,7 @@ def build_layout(cfg, max_len: int, *, block_tokens: int = 16) -> KVLayout:
                                     * block_tokens),
                     tail_words=max(1, sum(t.words for t in tail)),
                     kv_dtype=kv_dtype or "float32", cache_width=W,
-                    paged=tuple(paged), tail=tuple(tail))
+                    ring=ring, paged=tuple(paged), tail=tuple(tail))
 
 
 # ---------------------------------------------------------------------------

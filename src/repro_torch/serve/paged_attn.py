@@ -9,7 +9,8 @@ the decode-side KV cache, indexed per slot through block tables:
   ``(reps, B, W, nkv, hd)`` exactly as a dense cache would hold it, so the
   decode step is bitwise the dense one;
 - **writeback** — stores each active slot's freshly projected K/V token
-  into its owning block (a local store on the decode PE);
+  into its owning block (a local store on the decode PE); a ring wraps at
+  ``pos % W``, and its ``kpos`` stays with the slot bank's tail leaves;
 - **attach** zeroes a request's never-migrated growth blocks at admission;
 - **copy-on-write** — a slot whose table maps blocks shared with another
   request never writes them: the first write into one copies its payload
@@ -138,7 +139,7 @@ class PagedDecodeView:
         for s in range(self.num_slots):
             if not active[s] or s not in self.slots:
                 continue
-            idx = pos[s]
+            idx = pos[s] % W if lay.ring else pos[s]
             if idx >= W:        # dense overrun: the dense write drops it
                 continue
             b, t = divmod(idx, T)

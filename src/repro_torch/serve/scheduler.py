@@ -284,10 +284,13 @@ class DisaggScheduler:
 
     # ------------------------------------------------------ prefix sharing
     def _sharable(self, batch: dict, prefix_len: int) -> bool:
-        """A batch shares only in shared-prefix mode, with a prefix, and
-        with tokens alone: other inputs (frontend embeds) condition K/V
-        beyond the token prefix, which a token-keyed index cannot see."""
+        """A batch shares only in shared-prefix mode, with a prefix, on a
+        layout that is not a ring (its occupied slots wrap through every
+        block, so no block is suffix-independent), and with tokens alone:
+        other inputs (frontend embeds) condition K/V beyond the token
+        prefix, which a token-keyed index cannot see."""
         return (self.shared_prefix and prefix_len > 0
+                and not self.pool.layout.ring
                 and not any(k != "tokens" for k in batch))
 
     def _needs_boundary_cow(self, batch: dict, prefix_len: int,

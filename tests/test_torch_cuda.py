@@ -12,6 +12,7 @@ attention (K2, K10) to the reference's tolerances, 2e-5 in f32 and 2e-2 in
 bf16; K2's bf16 kernel is also held bitwise to itself run to run and across
 batch positions, and K11 bitwise to K3 followed by K2.
 """
+import dataclasses
 import json
 import types
 
@@ -140,6 +141,22 @@ def test_cuda_flash_bf16_bitwise_laws(card, S, H, Hkv, hd):
     assert torch.equal(pair[1].isnan(), again[1].isnan())
 
 
+@pytest.mark.parametrize("S,H,Hkv,hd", [(512, 40, 8, 128), (512, 56, 8, 128),
+                                        (512, 36, 4, 128), (432, 16, 16, 64)])
+def test_cuda_flash_bf16_serving_ratios(card, S, H, Hkv, hd):
+    """The prefill shapes the remaining configurations give K2: head
+    ratios 5, 7 and 9 (llama4-scout, arctic, starcoder2) at hd 128 and
+    whisper's MHA at hd 64 over 432 tokens, within bf16's 2e-2 of the
+    plain version and bitwise run to run."""
+    q, k, v = _bf16_qkv(card, S + H + Hkv, 1, S, H, Hkv, hd)
+    got = flash_attn.flash_attention(q, k, v)
+    want = flash_attn.flash_attention_plain(q, k, v)
+    assert bool(got.isfinite().all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    assert torch.equal(got, flash_attn.flash_attention(q, k, v))
+
+
 def test_cuda_flash_bf16_rejects_unaligned_base(card):
     """TMA reads from 16-byte aligned bases only; an offset view raises."""
     q, k, v = _bf16_qkv(card, 0, 1, 64, 8, 8, 64)
@@ -228,11 +245,12 @@ def test_cuda_paged_gather_refuses_before_launch(card):
 
 # (hd, q heads, kv heads, width, block tokens, layers): chip_smoke.py's
 # heads and width, GQA 4, 1 and 8, widths off the block and off 128, blocks
-# of 8, 16 and 32 tokens; zamba2's 32 heads of 80 (MHA) and an hd-80 GQA
+# of 8, 16 and 32 tokens; zamba2's 32 heads of 80 (MHA) and an hd-80 GQA;
+# whisper's 16 heads of 64 (MHA) over its 448-token context
 K11_CASES = [(128, 32, 8, 528, 16, 3), (64, 8, 2, 37, 8, 3),
              (128, 8, 8, 45, 16, 2), (64, 4, 4, 300, 32, 2),
              (128, 8, 1, 130, 16, 2), (80, 32, 32, 528, 16, 3),
-             (80, 8, 2, 77, 8, 2)]
+             (80, 8, 2, 77, 8, 2), (64, 16, 16, 448, 16, 3)]
 
 
 def _k11_pool(card, case, seed):
@@ -695,3 +713,75 @@ def test_cuda_recurrent_families_match_single_pe(card, arch, flags):
     for req in sched.requests.values():
         assert req.out == sched.engine.generate_in_slot(
             req.batch, sched.scfg, num_slots=2, slot=req.slot)
+
+
+# (arch, layers kept): 2 of each, 1 of arctic (27 GB of experts a layer),
+# 5 of the vision model (one unit: its cross-attention layer is the 5th)
+REMAINING = [("minitron-8b", 2), ("h2o-danube-3-4b", 2), ("starcoder2-7b", 2),
+             ("llama4-scout-17b-a16e", 2), ("arctic-480b", 1),
+             ("whisper-medium", 2), ("llama-3.2-vision-90b", 5)]
+
+
+def _serve_cut(arch, layers, argv):
+    """Serve ``arch`` at its published widths cut to ``layers``, through
+    ``serve._build_disagg``, as ``chip_smoke.py`` does."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import model
+    args = serve.build_parser().parse_args(argv)
+    cfg = dataclasses.replace(cfgbase.get_config(arch), num_layers=layers)
+    params = model.init_params(cfg, seed=0, device="cuda")
+    sched = serve._build_disagg(args, cfg, params)
+    sched.run()
+    return sched
+
+
+@pytest.mark.parametrize("arch,layers", REMAINING)
+def test_cuda_remaining_families_match_single_pe(card, arch, layers):
+    """The seven remaining configurations at their published widths, bf16,
+    depth cut, served disaggregated (danube at 4100-token prompts, so its
+    cache is a ring of 4096; whisper and the vision model with their
+    embeddings): every request bitwise equal to the single-PE baseline, K1
+    and K3 launched, K2 everywhere but under danube's window."""
+    ring = arch.startswith("h2o")
+    S, n, blocks = (4100, 3, 3 * 256) if ring else (20, 5, 48)
+    ops.reset_launches()
+    sched = _serve_cut(arch, layers, [
+        "--disagg", "--full", "--arch", arch, "--requests", str(n),
+        "--prompt-len", str(S), "--max-new", "5", "--slots", "2",
+        "--kv-blocks", str(blocks)])
+    launches = dict(ops.LAUNCHES)
+    assert sched.pool.layout.ring == ring
+    assert launches["copy_into"] and launches["paged_gather"]
+    assert bool(launches["flash_attention"]) == (not ring)
+    assert (sched.stats.admissions, sched.stats.evictions) == (n, n)
+    for req in sched.requests.values():
+        assert req.out == sched.engine.generate_in_slot(
+            req.batch, sched.scfg, num_slots=2, slot=req.slot)
+
+
+def test_cuda_ring_tails_carry_nan_bits(card):
+    """Reduced h2o-danube (window 64) at 40-token prompts and a 70-token
+    cache: the ring's 24 empty slots hold kpos -1, a NaN bit pattern in
+    the f32 tail, through K1, the pool clones and the unpack; decode wraps
+    into slot 0.  Tokens bitwise the single-PE baseline, and every slot's
+    tail bitwise the packed tail of its last request."""
+    from repro_torch.serve import kvpool
+    sched = serve.main(["--disagg", "--device", "cuda", "--arch",
+                        "h2o-danube-3-4b", "--requests", "4", "--prompt-len",
+                        "40", "--max-new", "30", "--slots", "2",
+                        "--block-tokens", "8", "--kv-blocks", "48"])
+    lay = sched.pool.layout
+    assert lay.ring and lay.cache_width == 64
+    last = {}
+    for req in sched.requests.values():
+        assert req.out == sched.engine.generate_in_slot(
+            req.batch, sched.scfg, num_slots=2, slot=req.slot)
+        key = (req.decode_pe, req.slot)
+        if key not in last or req.admit_step > last[key].admit_step:
+            last[key] = req
+    for (pe, slot), req in last.items():
+        _, _, cache1 = sched.engine.prefill_request(req.batch)
+        want = kvpool.pack_tail(lay, cache1)
+        got = sched.migrator.gather_tail(sched.heap, slot, pe)
+        assert int(want.isnan().sum()) == 2 * 24
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

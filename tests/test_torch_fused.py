@@ -10,8 +10,9 @@ every block's whole payload, ``_extract_leaf`` and K2's plain version), and
 seeds: some slots unmapped, widths that are multiples of neither the block
 nor 128, and a poisoned copy whose free blocks and rows past the width
 hold NaN (neither version may read them); head dims 64, 80 (zamba2's)
-and 128.  Zamba2's shared-attention leaves are also held to the K11 law on
-a real scheduler's pool (``tests/test_device.py``'s zamba2 case).
+and 128.  Zamba2's shared-attention leaves and whisper's decoder K/V (hd
+64, cross K/V in the tail) are also held to the K11 law on a real
+scheduler's pool (``tests/test_device.py``'s zamba2 and whisper cases).
 ``tests/test_torch_cuda.py`` holds the kernel bitwise against K3 + K2 on a
 card.
 """
@@ -306,15 +307,14 @@ def test_build_table_carries_the_new_entries():
     assert "fused_paged_attn" in ops.LAUNCHES
 
 
-def test_zamba2_fused_paged_attn_bitwise_vs_assemble(counts):
-    """tests/test_device.py's zamba2 case: reduced zamba2 served with the
-    fused protocol on both packages to its first decode step; over the
-    decode pool the scheduler leaves, device-gathered K/V of the shared
-    attention block (one paged K and V leaf among the Mamba2 tail) feeds
-    K2 bitwise as ``assemble`` does, and agrees with the reference's
-    ``fused_paged_attn`` to 5e-5; the tokens then match."""
-    rcfg = ref_base.reduced(ref_base.get_config("zamba2_2_7b"))
-    cfg = base.reduced(base.get_config("zamba2_2_7b"))
+def _fused_law(arch, batch_fn, unit):
+    """Reduced ``arch`` served with the fused protocol on both packages to
+    its first decode step; over the decode pool the scheduler leaves,
+    device-gathered K/V of the paged leaves at ``unit`` feed K2 bitwise as
+    ``assemble`` does and agree with the reference's ``fused_paged_attn``
+    to 5e-5; the tokens then match.  Returns the port's layout."""
+    rcfg = ref_base.reduced(ref_base.get_config(arch))
+    cfg = base.reduced(base.get_config(arch))
     rp = ref_model.init_params(jax.random.key(0), rcfg)
     pp = _bridge.to_torch(jax.tree.map(np.asarray, rp), "cpu")
     rctx, rheap = ref_context.init(npes=4, node_size=4)
@@ -332,10 +332,9 @@ def test_zamba2_fused_paged_attn_bitwise_vs_assemble(counts):
                          KVMigrator(ctx, pool), prefill_pes=[0, 1],
                          decode_pes=[2], num_slots=2,
                          scfg=ServeConfig(max_new_tokens=5), fused_attn=True)
-    p = np.random.default_rng(3).integers(0, cfg.vocab_size,
-                                          size=(1, 10)).astype(np.int32)
-    rs.submit({"tokens": jnp.asarray(p)})
-    ps.submit({"tokens": torch.from_numpy(p).long()})
+    batch = batch_fn(cfg, np.random.default_rng(3))
+    rs.submit({k: jnp.asarray(v) for k, v in batch.items()})
+    ps.submit({k: torch.from_numpy(v) for k, v in batch.items()})
     guard = 0
     while not ps.stats.admissions and guard < 50:
         rs.step()
@@ -345,8 +344,8 @@ def test_zamba2_fused_paged_attn_bitwise_vs_assemble(counts):
     ps.step()                             # one decode: all blocks consumed
     assert rs.stats.admissions == ps.stats.admissions == 1
     lay = ps.pool.layout
-    assert [(x.unit_idx, x.key) for x in lay.paged] == [(5, "k"), (5, "v")]
-    assert len(lay.tail) == 10
+    assert [(x.unit_idx, x.key) for x in lay.paged] == [(unit, "k"),
+                                                         (unit, "v")]
     view, rview = ps.views[2], rs.views[2]
     assembled = view.assemble(ps.heap, ps.banks[2].cache)
     wg = device.work_group(ctx, size=128, pe=2)
@@ -359,8 +358,8 @@ def test_zamba2_fused_paged_attn_bitwise_vs_assemble(counts):
         _, out = ishmem_device.fused_paged_attn(
             wg, ps.heap, view, torch.from_numpy(qn), layer=layer,
             waits=[(pool.sig_ptr(0), EXTRA_SIGNALS)])
-        k = assembled["blocks"][5]["k"][layer].contiguous()
-        v = assembled["blocks"][5]["v"][layer].contiguous()
+        k = assembled["blocks"][unit]["k"][layer].contiguous()
+        v = assembled["blocks"][unit]["v"][layer].contiguous()
         assert torch.equal(out, flash_attn.flash_attention(
             torch.from_numpy(qn), k, v))
         _, rout = ref_dev.fused_paged_attn(
@@ -373,3 +372,31 @@ def test_zamba2_fused_paged_attn_bitwise_vs_assemble(counts):
     ps.run()
     assert [r.out for r in ps.requests.values()] == \
         [[int(t) for t in r.out] for r in rs.requests.values()]
+    return lay
+
+
+def _tokens(cfg, rng, S=10):
+    return {"tokens": rng.integers(0, cfg.vocab_size,
+                                   size=(1, S)).astype(np.int32)}
+
+
+def test_zamba2_fused_paged_attn_bitwise_vs_assemble(counts):
+    """tests/test_device.py's zamba2 case: the shared attention block's
+    one paged K and V leaf among the Mamba2 tail."""
+    lay = _fused_law("zamba2_2_7b", _tokens, unit=5)
+    assert len(lay.tail) == 10
+
+
+def test_whisper_fused_paged_attn_bitwise_vs_assemble(counts):
+    """tests/test_device.py's whisper case: the decoder's self-attention
+    K/V paged at head dim 64 (MHA), the encoder's cross K/V, projected
+    from the request's audio embeddings, in the tail."""
+    def batch(cfg, rng):
+        b = _tokens(cfg, rng)
+        b["audio_embeds"] = 0.1 * rng.normal(
+            size=(1, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        return b
+    lay = _fused_law("whisper_medium", batch, unit=0)
+    assert [(t.key, t.shape[2]) for t in lay.tail] == [("ck", 32),
+                                                      ("cv", 32)]
+    assert lay.paged[0].hd == 64

@@ -120,11 +120,14 @@ def test_flash_matches_pallas_kernel(dtype, B, S, H, hd, bq, bk, counts):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,Hkv,hd", [(1, 8, 2, 64), (37, 8, 2, 64),
-                                        (64, 4, 1, 32), (128, 8, 4, 128)])
+                                        (64, 4, 1, 32), (128, 8, 4, 128),
+                                        (45, 10, 2, 128), (64, 14, 2, 128),
+                                        (37, 9, 1, 128), (72, 16, 16, 64)])
 def test_flash_gqa_matches_ops_flash_attention(dtype, S, H, Hkv, hd, counts):
     """GQA without materialising the repeat, against the reference's
     repeat-then-flash (``ops.flash_attention``), S not a power of two
-    included."""
+    included; the serving paths' ratios 5, 7 and 9 (llama4-scout, arctic,
+    starcoder2) and whisper's MHA at head dim 64."""
     q, k, v = _qkv(S * 131 + H, 2, S, H, Hkv, hd)
     (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
     want = ref_ops.flash_attention(jq, jk, jv, block_q=64, block_k=64)

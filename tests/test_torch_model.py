@@ -305,15 +305,18 @@ def test_norm_and_rope_match_reference(shape):
             atol=1e-5, rtol=1e-5)
 
 
-def test_unported_families_raise():
-    cfg = dataclasses.replace(base.reduced(base.get_config("qwen3-4b")),
-                              attention="swa")
-    with pytest.raises(NotImplementedError):
-        model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        kvcache.init_cache(cfg, 1, 128, "cpu")
-    with pytest.raises(KeyError):
-        base.get_config("whisper_medium")
-    with pytest.raises(NotImplementedError, match="ring"):
-        kvcache.init_cache(base.reduced(base.get_config("zamba2_2_7b")), 1,
-                           65_537, "meta")
+def test_training_mode_raises():
+    """Training stays unported (ROADMAP queue 1, item 8): ``mode="train"``
+    raises in ``backbone`` and ``apply_block`` instead of falling into the
+    decode branch, and a mode that is neither raises too."""
+    _, pc = _configs("float32")
+    pp = model.init_params(pc, device="cpu")
+    x = torch.zeros((1, 4, pc.d_model))
+    positions = torch.arange(4)[None]
+    with pytest.raises(NotImplementedError, match="item 8"):
+        model.backbone(pp, pc, x, mode="train", positions=positions)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        model.apply_block("attn", model._layer(pp["blocks"][0], 0), x,
+                          cfg=pc, mode="train", positions=positions)
+    with pytest.raises(ValueError):
+        model.backbone(pp, pc, x, mode="score", positions=positions)

@@ -368,6 +368,31 @@ def test_prefix_plan_refuses_multimodal_batches(params):
     assert key is not None and n == 2            # 8 tokens = 2 whole blocks
 
 
+def test_ring_layouts_never_share_a_prefix():
+    """A ring layout (reduced h2o-danube at a cache above its window of
+    64) neither maps nor registers a prefix: its occupied slots wrap
+    through every block.  So a whole-prompt prefix on a ring demands no
+    copy-on-write reserve, and a request needing every pool block stays
+    schedulable (``tests/test_paged.py``'s multimodal rule, for rings)."""
+    cfg = base.reduced(base.get_config("h2o-danube-3-4b"))
+    ctx, heap = context.init(npes=4, node_size=4, device="cpu")
+    eng = Engine(cfg, model.init_params(cfg, seed=0, device="cpu"),
+                 max_len=80, device="cpu")
+    pool = KVPool.create(heap, cfg, 80, num_blocks=16, max_slots=3,
+                         block_tokens=4)
+    assert pool.layout.ring and pool.layout.blocks_for_decode(70, 4) == 16
+    sched = _sched(ctx, heap, eng, pool, NEW=4, shared_prefix=True)
+    p = _prompt(70)
+    req = Request(rid=0, batch={"tokens": p}, max_new=4, prefix_len=70)
+    assert sched._prefix_plan(req) == ([], None, 0)
+    assert not sched._needs_boundary_cow({"tokens": p}, 70, 70)
+    sched.submit({"tokens": p}, prefix_len=70)
+    sched.submit({"tokens": p}, prefix_len=70)
+    outs = _run(sched)
+    assert sched.stats.prefix_hits == 0 and not sched.prefix_index
+    assert list(outs.values()) == [_base(eng, p, 4).tolist()] * 2
+
+
 def test_submit_rejects_unschedulable_cow_request(params):
     """A whole-prompt unaligned prefix needs its table plus one COW
     reserve; a pool of exactly table-many blocks refuses it at submit."""

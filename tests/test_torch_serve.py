@@ -5,7 +5,9 @@ The cross-package run uses the config, weights, prompts and flags of
 ``tests/test_disagg.py::_run_disagg`` (reduced qwen3-4b in f32, 4 PEs, 4-5
 requests over 2 decode PEs), whole-prefill, streamed, with shared
 prefixes and dense-rehydrated, and reduced zamba2 streamed (its Mamba2
-states ride the f32 tail).  Both schedulers step in lockstep, each
+states ride the f32 tail); the runner, ``tests/_torch_lockstep.py``, also
+serves the seven other configurations in ``tests/test_torch_families.py``.
+Both schedulers step in lockstep, each
 with a span tracer, and after every step the control plane must agree
 exactly: request states, block tables, refcounts, every int32 heap word
 (signals, stream signals, headers), the telemetry record sequence, the
@@ -26,29 +28,21 @@ import torch
 from repro.configs import base as ref_base
 from repro.core import context as ref_context, teams as ref_teams
 from repro.models import model as ref_model
-from repro.obs.export import chrome_trace as ref_chrome_trace
-from repro.obs.tracer import SpanTracer as RefSpanTracer
 from repro.serve.engine import Engine as RefEngine, \
     ServeConfig as RefServeConfig
 from repro.serve.kvpool import KVPool as RefKVPool
 from repro.serve.kvxfer import KVMigrator as RefKVMigrator
 from repro.serve.scheduler import DisaggScheduler as RefScheduler
 from repro_torch import _bridge
-from repro_torch.configs import base
-from repro_torch.core import context, signal as signal_mod
+from repro_torch.core import signal as signal_mod
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import model
-from repro_torch.obs.export import chain_gaps, chrome_trace, \
-    request_chains_doc, validate
-from repro_torch.obs.tracer import SpanTracer
-from repro_torch.serve import engine as engine_mod
-from repro_torch.serve.engine import Engine, ServeConfig
-from repro_torch.serve.kvpool import KVPool
+from repro_torch.obs.export import chain_gaps, request_chains_doc, validate
+from repro_torch.serve.engine import ServeConfig
 from repro_torch.serve.kvxfer import KVMigrator, expected_signal
 from repro_torch.serve.scheduler import DisaggScheduler
 
-MAXLEN = 24
-TOL = 5e-5
+from _torch_lockstep import MAXLEN, TOL, family_params, port_sched as _sched, \
+    run_lockstep, setup as _setup, tok as _tok
 
 
 @pytest.fixture(scope="module")
@@ -62,49 +56,10 @@ def params(ref_params):
     return _bridge.to_torch(jax.tree.map(np.asarray, ref_params), "cpu")
 
 
-@pytest.fixture(scope="module")
-def zamba_params():
-    """Reduced zamba2's reference weights and the same on the port's side."""
-    cfg = ref_base.reduced(ref_base.get_config("zamba2_2_7b"))
-    rp = ref_model.init_params(jax.random.key(0), cfg)
-    return rp, _bridge.to_torch(jax.tree.map(np.asarray, rp), "cpu")
-
-
 def _prompts(n, S=10, seed=1):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 512, size=(1, S)).astype(np.int32)
             for _ in range(n)]
-
-
-def _tok(p):
-    return {"tokens": torch.from_numpy(p).long()}
-
-
-def _setup(params, *, npes=4, num_blocks=32, max_slots=3, block_tokens=8,
-           arch="qwen3-4b"):
-    cfg = base.reduced(base.get_config(arch))
-    ctx, heap = context.init(npes=npes, node_size=npes, device="cpu")
-    eng = Engine(cfg, params, max_len=MAXLEN, device="cpu")
-    pool = KVPool.create(heap, cfg, MAXLEN, num_blocks=num_blocks,
-                         max_slots=max_slots, block_tokens=block_tokens)
-    return cfg, ctx, heap, eng, pool
-
-
-def _sched(params, *, decode_pes=(2, 3), num_slots=3, NEW=6, admit_delay=0,
-           eos_id=-1, temperature=0.0, seed=0, paged=True, stream_chunks=0,
-           shared_prefix=False, **kw):
-    cfg, ctx, heap, eng, pool = _setup(params, **kw)
-    sched = DisaggScheduler(ctx, heap, eng, pool, KVMigrator(ctx, pool),
-                            prefill_pes=[0, 1], decode_pes=list(decode_pes),
-                            num_slots=num_slots,
-                            scfg=ServeConfig(max_new_tokens=NEW,
-                                             eos_id=eos_id,
-                                             temperature=temperature,
-                                             seed=seed),
-                            admit_delay_steps=admit_delay, paged=paged,
-                            stream_chunks=stream_chunks,
-                            shared_prefix=shared_prefix)
-    return sched
 
 
 def _run(params, prompts, **kw):
@@ -117,44 +72,6 @@ def _run(params, prompts, **kw):
 # ---------------------------------------------------------------------------
 # the slice against the JAX package
 # ---------------------------------------------------------------------------
-
-
-def _int_pool(heap, ref):
-    pool = heap.pools["int32"]
-    return np.asarray(pool) if ref else pool.numpy()
-
-
-def _lockstep_prompts(n_req, prefix):
-    """test_disagg.py::_prompts, handed to both packages as numpy.  With
-    ``prefix="whole"`` every request is a sample of the first prompt; with
-    ``prefix="divergent"`` the requests share its first 8 tokens (one
-    block) and end in 4 tokens of their own."""
-    prompts = [np.array(jax.random.randint(
-        jax.random.fold_in(jax.random.key(1), i), (1, 10), 0, 512))
-        for i in range(n_req)]
-    if prefix == "whole":
-        return [prompts[0]] * n_req, 10
-    if prefix == "divergent":
-        rng = np.random.default_rng(7)
-        return [np.concatenate([prompts[0][:, :8], rng.integers(
-            0, 512, size=(1, 4)).astype(prompts[0].dtype)], axis=1)
-            for _ in range(n_req)], 8
-    return prompts, 0
-
-
-def _event_tuple(ev):
-    return (ev.ph, ev.name, ev.cat, ev.ts, str(ev.pid), str(ev.tid), ev.id)
-
-
-def _same_args(ra, pa):
-    """Event args equal key for key; floats (modeled seconds) to 5e-5."""
-    ra, pa = ra or {}, pa or {}
-    assert sorted(ra) == sorted(pa)
-    for k, v in ra.items():
-        if isinstance(v, float) or isinstance(pa[k], float):
-            assert pa[k] == pytest.approx(float(v), rel=TOL, abs=TOL), k
-        else:
-            assert pa[k] == v, k
 
 
 LOCKSTEP = [
@@ -179,114 +96,18 @@ LOCKSTEP = [
 
 
 @pytest.mark.parametrize("case", LOCKSTEP)
-def test_disagg_matches_reference_step_by_step(ref_params, params, request,
+def test_disagg_matches_reference_step_by_step(ref_params, params,
                                                monkeypatch, case):
     """Both schedulers, each with a span tracer, step in lockstep.  After
     every step: request states, block tables, refcounts, the whole int32
-    heap (signals, stream signals, headers), the float pools within 5e-5,
-    every SchedStats field, the telemetry sequence, the step's trace events
-    and the tokens.  At the end the exported Chrome traces agree event by
-    event and both validate."""
-    NEW = 6
-    n_req, num_slots, admit_delay = (case["n_req"], case["num_slots"],
-                                     case["admit_delay"])
-    mode = dict(paged=case.get("paged", True),
-                stream_chunks=case.get("stream_chunks", 0),
-                shared_prefix="prefix" in case)
-    prompts, prefix_len = _lockstep_prompts(n_req, case.get("prefix"))
-    arch = case.get("arch", "qwen3_4b")
-    if arch != "qwen3_4b":
-        ref_params, params = request.getfixturevalue("zamba_params")
-    # reference side (test_disagg.py::_setup / _run_disagg)
-    rcfg = ref_base.reduced(ref_base.get_config(arch))
-    rctx, rheap = ref_context.init(npes=4, node_size=4)
-    rctx.tracer = RefSpanTracer()
-    reng = RefEngine(rcfg, ref_params, max_len=MAXLEN)
-    rpool = RefKVPool.create(rheap, rcfg, MAXLEN, num_blocks=32, max_slots=3,
-                             block_tokens=8)
-    rsched = RefScheduler(rctx, rheap, reng, rpool, RefKVMigrator(rctx, rpool),
-                          prefill_pes=[0, 1], decode_pes=[2, 3],
-                          num_slots=num_slots,
-                          scfg=RefServeConfig(max_new_tokens=NEW),
-                          admit_delay_steps=admit_delay, **mode)
-    psched = _sched(params, num_slots=num_slots, NEW=NEW,
-                    admit_delay=admit_delay, arch=arch, **mode)
-    psched.ctx.tracer = SpanTracer()
-    rtr, ptr = rctx.tracer, psched.ctx.tracer
-    # every decode step's logits, both sides
-    rlogits, plogits = [], []
-    rdecode = reng._decode
-    reng._decode = lambda *a: (lambda out: rlogits.append(
-        np.asarray(out[0])) or out)(rdecode(*a))
-    pdecode = model.decode_step
-    monkeypatch.setattr(engine_mod.model, "decode_step", lambda *a: (
-        lambda out: plogits.append(out[0].numpy()) or out)(pdecode(*a)))
-    for p in prompts:
-        rsched.submit({"tokens": jnp.asarray(p)}, prefix_len=prefix_len)
-        psched.submit(_tok(p), prefix_len=prefix_len)
-    steps = 0
-    while not (rsched.done() and psched.done()):
-        n_ev = len(rtr.events)
-        assert len(ptr.events) == n_ev
-        rsched.step()
-        psched.step()
-        steps += 1
-        assert steps < 200
-        assert [(r.rid, r.state, r.slot, r.decode_pe)
-                for r in rsched.requests.values()] == \
-            [(r.rid, r.state, r.slot, r.decode_pe)
-             for r in psched.requests.values()]
-        assert [r.out for r in rsched.requests.values()] == \
-            [r.out for r in psched.requests.values()]
-        assert rpool.block_tables == psched.pool.block_tables
-        assert rpool._refcnt == psched.pool._refcnt
-        np.testing.assert_array_equal(_int_pool(rsched.heap, True),
-                                      _int_pool(psched.heap, False))
-        for dt, pool in psched.heap.pools.items():
-            if dt != "int32":
-                np.testing.assert_allclose(
-                    pool.float().numpy(),
-                    np.asarray(rsched.heap.pools[dt], np.float32),
-                    atol=TOL, rtol=TOL)
-        for f in dataclasses.fields(psched.stats):
-            assert getattr(rsched.stats, f.name) == getattr(
-                psched.stats, f.name), f.name
-        assert [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
-                for r in rctx.telemetry.trace] == \
-            [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
-             for r in psched.ctx.telemetry.trace]
-        assert [_event_tuple(e) for e in rtr.events[n_ev:]] == \
-            [_event_tuple(e) for e in ptr.events[n_ev:]]
-        for re_, pe_ in zip(rtr.events[n_ev:], ptr.events[n_ev:]):
-            _same_args(re_.args, pe_.args)
-    for rid, r in rsched.requests.items():
-        assert r.out == psched.requests[rid].out
-    assert len(rlogits) == len(plogits) > 0
-    for a, b in zip(rlogits, plogits):
-        np.testing.assert_allclose(b, a, atol=TOL, rtol=TOL)
-    assert rctx.pending.stats.coalescing_ratio() == \
-        psched.ctx.pending.stats.coalescing_ratio()
-    rdoc, pdoc = ref_chrome_trace(rtr), chrome_trace(ptr)
-    assert validate(pdoc) == [] and ptr.open_spans() == \
-        {"slices": {}, "async": {}}
-    assert rdoc["otherData"] == pdoc["otherData"]
-    assert len(rdoc["traceEvents"]) == len(pdoc["traceEvents"])
-    for re_, pe_ in zip(rdoc["traceEvents"], pdoc["traceEvents"]):
-        assert {k: v for k, v in re_.items() if k != "args"} == \
-            {k: v for k, v in pe_.items() if k != "args"}
-        _same_args(re_.get("args"), pe_.get("args"))
-    # the cases exercise what they name
-    st = psched.stats
-    if mode["stream_chunks"]:
-        assert st.stream_chunks >= n_req
-        assert psched.pool.stats()["streams_active"] == 0
-    if case.get("prefix") == "whole":
-        assert (st.prefix_hits, st.cow_copies) == (n_req - 1, n_req)
-    if case.get("prefix") == "divergent":
-        assert (st.prefix_hits, st.cow_copies) == (n_req - 1, 0)
-    if "prefix" in case and not mode["stream_chunks"]:
-        assert st.bytes_wire_saved > 0      # resident blocks skipped
-    assert psched.pool.stats()["blocks_in_use"] == 0
+    heap (signals, stream signals, headers), the float pools within 5e-5
+    and their NaN bit patterns exactly, every SchedStats field, the
+    telemetry sequence, the step's trace events and the tokens.  At the end
+    the exported Chrome traces agree event by event and both validate
+    (``tests/_torch_lockstep.py``)."""
+    if case.get("arch", "qwen3_4b") != "qwen3_4b":
+        ref_params, params = family_params(case["arch"])
+    run_lockstep(case, ref_params, params, monkeypatch)
 
 
 def test_migrated_pool_bytes_match_reference(ref_params, params):
