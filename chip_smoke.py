@@ -153,6 +153,28 @@ Phases, each fatal on failure:
    and then K11 runs at hd 64 on its pool, q (3, 448, 16, 64), as in
    phase 5, in a row of its own.  Each phase's weights are freed before
    the next is built.
+21. training: ``repro_torch.train.trainer`` at qwen3-4b's published
+   widths, depth cut to 4 of 36 layers (AdamW's f32 moments and four PEs'
+   bf16 gradients of all 36 do not fit one card beside each other), bf16,
+   AdamW, remat on, data-parallel over 4 simulated PEs (``--comms-backend
+   shmem --comms-npes 4``), seq 512, global batch 8.  First step 1's DP
+   law: the ring-reduced mean against one backward on the whole batch,
+   within 2e-2 by relative L2 per leaf (each PE's gradient and each ring
+   add round to bf16, where one backward rounds once), with one step's
+   launches as the leaves predict (5 norm leaves through K4's
+   pass-around, 3 puts each; 9 matrices through K6 then K5); then the
+   same law in f32 at 1 layer within the reference's rtol 2e-4 / atol
+   2e-6.  Then six steps with a checkpoint at step 3 into a temporary
+   directory, under PyTorch's deterministic algorithms, launch counts
+   zeroed just before: K4 90, K5 54 and K6 54 launches, and none of K1,
+   K2, K3, K10 or K11; every loss and gradient norm finite, the last loss
+   below the first; a run resumed from step 3 ends bitwise on the
+   uninterrupted run's params and optimizer state.  It prints the wall
+   per step, tokens per second, the peak memory, the device ms of K4, K5
+   and K6 in one more step under ``torch.profiler`` beside the modeled
+   reduce schedule, and rows of their own for K6 and K5 at the embedding
+   leaf's gradient, rows (4, 4, 97,239,040) bf16
+   (``ring_reduce_scatter_train``, ``ring_allgather_train``).
 Phases 3, 5 and 7-20 print their wall time and peak device memory, and
 K1-K3's rows carry their launches in phases 7-20
 (``launches_by_phase``).  K2 also runs at the head ratios 5, 7 and 9 and
@@ -160,6 +182,10 @@ whisper's MHA at hd 64 in phase 2 (``check_flash_serving``), with rows of
 its own at starcoder2's q (1, 512, 36, 128), k/v (1, 512, 4, 128)
 (``flash_attention_gqa9``, phase 15's launches) and whisper's
 (1, 432, 16, 64) (``flash_attention_hd64``, phase 18's).
+
+K4-K6's rows carry their launches in phases 4 and 21
+(``launches_by_phase``; ``launches`` is phase 4's), and the two phase-21
+rows phase 21's.
 
 K9 (``reduce_tile``) has no caller on these paths (only the reference's
 benchmark and tests call it): its row sums its counts over the path
@@ -251,6 +277,27 @@ DANUBE_TABLES = 3                    # requests' tables the ring pool holds
 RING_KERNELS = ("remote_put", "ring_allgather", "ring_reduce_scatter",
                 "push_broadcast", "barrier_push")
 REPEATS = 20                         # each ring check, to catch races
+# phase 21: training, qwen3-4b at published widths cut to 4 of 36 layers,
+# 4 simulated PEs, seq 512, global batch 8 (2 sequences a PE), 6 steps, a
+# checkpoint at step 3 and a resumed run to 6.  Each step reduces 14
+# leaves: the 5 norm leaves (final_norm; norm1, norm2, q_norm, k_norm of
+# the 4 stacked layers) are under 2 MiB x 4 PEs and take psum_overlap's
+# pass-around, 3 K4 puts each at 4 PEs; the 9 matrices (embed, lm_head,
+# wq, wk, wv, wo, w_gate, w_up, w_down) take K6 then K5.
+TRAIN = dict(arch="qwen3-4b", npes=4, seq=512, batch=8, steps=6,
+             ckpt_every=3)
+TRAIN_LAYERS = 4
+TRAIN_PER_STEP = {"remote_put": 5 * 3, "ring_reduce_scatter": 9,
+                  "ring_allgather": 9}
+TRAIN_KERNELS = tuple(TRAIN_PER_STEP)
+TRAIN_NOT_LAUNCHED = ("copy_into", "flash_attention", "paged_gather",
+                      "flash_partial", "flash_partial_split",
+                      "fused_paged_attn")
+TRAIN_EMBED_ELEMS = 151936 * 2560            # the embedding leaf
+# bf16: each PE's gradient rounds to bf16 and the ring adds in bf16, where
+# one backward rounds once (a bf16 ulp is 2^-8 of the value)
+TRAIN_BF16_TOL = 2e-2
+TRAIN_F32_RTOL, TRAIN_F32_ATOL = 2e-4, 2e-6  # tests/test_system.py
 
 
 def fail(msg: str) -> None:
@@ -311,22 +358,28 @@ def device_ms(torch, fn, match, *, iters: int = 50, per_call=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and (match is None or
-                                                   match in evt.key):
-            total_us += evt.self_device_time_total
-            count += evt.count
     if match is None and per_call is None:
         per_call = 1
-    if per_call and count:
-        count = iters * per_call
-    return total_us / 1e3 / count if count and total_us else None
+    # late in a long run the profiler at times returns a session without
+    # the device records (seen for the multi-ms kernels of phase 21): try
+    # again before reporting none
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and (match is None or
+                                                       match in evt.key):
+                total_us += evt.self_device_time_total
+                count += evt.count
+        if count and total_us:
+            if per_call:
+                count = iters * per_call
+            return total_us / 1e3 / count
+    return None
 
 
 def host_us(fn, *, iters: int = 20000) -> float:
@@ -1732,6 +1785,262 @@ def phase_families(torch, ops, serve, ishmem_device, flash_attn, dev):
     return mode_launches, k11
 
 
+def _rel_l2(torch, got, want) -> float:
+    den = float(torch.linalg.vector_norm(want.float()))
+    num = float(torch.linalg.vector_norm(got.float() - want.float()))
+    return num / den if den else num
+
+
+def _phase_ms(torch, fn, names):
+    """Device milliseconds of one call of ``fn`` from ``torch.profiler``:
+    {name: (ms summed over the kernels whose name contains it, their
+    count)} for each of ``names``, and ``"all"``, every device operation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: [0.0, 0] for name in (*names, "all")}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        out["all"][0] += evt.self_device_time_total / 1e3
+        out["all"][1] += evt.count
+        for name in names:
+            if name in evt.key:
+                out[name][0] += evt.self_device_time_total / 1e3
+                out[name][1] += evt.count
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def check_train_rows(torch, rc, dev, deferred):
+    """K6 then K5 at the embedding leaf's shape in phase 21: qwen3-4b's
+    (151936, 2560) bf16 gradient on 4 PEs, as ``ShmemOps`` lays it out,
+    rows (4, 4, 97,239,040); bitwise against the plain versions, timed
+    beside them, ``x.sum(0)`` and ``expand`` + ``contiguous`` (device
+    times with the other rows', last)."""
+    P, k = TRAIN["npes"], TRAIN_EMBED_ELEMS // TRAIN["npes"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = torch.randn((P, P, k), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    mine = rc.ring_reduce_scatter(rows)
+    if not torch.equal(mine, rc.ring_reduce_scatter_plain(rows)):
+        fail("K6 differs from its plain version at the embedding leaf")
+    full = rc.ring_allgather(mine)
+    if not torch.equal(full, rc.ring_allgather_plain(mine)):
+        fail("K5 differs from its plain version at the embedding leaf")
+    del full
+    nbytes = (P * P + P) * k * 2             # read x once, write out once
+    out = []
+    for name, k_id, replaces, kernel, plain, library, match, shape in (
+            ("ring_reduce_scatter_train", "K6",
+             "src/repro/kernels/ring_collectives.py:125",
+             lambda: rc.ring_reduce_scatter(rows),
+             lambda: rc.ring_reduce_scatter_plain(rows),
+             lambda: rows.sum(0), "reduce_scatter_pull",
+             "x (4, 4, 97239040) bf16: the embedding leaf's gradient "
+             "reduce-scatter in phase 21"),
+            ("ring_allgather_train", "K5",
+             "src/repro/kernels/ring_collectives.py:67",
+             lambda: rc.ring_allgather(mine),
+             lambda: rc.ring_allgather_plain(mine),
+             lambda: mine.unsqueeze(0).expand(P, *mine.shape).contiguous(),
+             "allgather_pull",
+             "x (4, 97239040) bf16: the embedding leaf's gradient "
+             "all-gather in phase 21")):
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/ring_collectives.cu",
+               "replaces": replaces, "max_abs_err": 0.0,
+               "ms": time_ms(torch, kernel, iters=10),
+               "plain_ms": time_ms(torch, plain, iters=3),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "library_ms": time_ms(torch, library, iters=10),
+               "shape": shape}
+        deferred.append((row, "device_ms", kernel, match, {"iters": 5}))
+        deferred.append((row, "library_device_ms", library, None,
+                         {"iters": 5}))
+        say(f"{name} ({k_id}) [{shape}]: {row['ms']:.4f} ms by events; "
+            f"plain {row['plain_ms']:.4f} ms; library "
+            f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+            f"(bytes); bitwise equal to the plain version")
+        out.append(row)
+    return out
+
+
+def phase_train(torch, ops, rc, dev, deferred):
+    """Phase 21: training at qwen3-4b's published widths, depth cut to
+    TRAIN_LAYERS, data-parallel over 4 simulated PEs whose gradients reduce
+    through ``ShmemOps`` (K4 for small leaves, K6 then K5 for large ones).
+    Returns (the training run's launches, the K5/K6 rows)."""
+    import os
+    import tempfile
+    from repro_torch.comms import api
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import model
+    from repro_torch.train import checkpoint as ckpt_mod, optimizer, \
+        train_step as ts, trainer, tree as tree_mod
+    full = cfgbase.get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    P = TRAIN["npes"]
+    say("phase 21, training: reduced " + json.dumps({
+        "arch": TRAIN["arch"], "num_layers": f"{full.num_layers} -> "
+        f"{TRAIN_LAYERS}", "why": "AdamW's f32 moments and 4 PEs' bf16 "
+        "grads of the whole model do not fit one card beside each other",
+        "widths": "published", "dtype": cfg.param_dtype,
+        "optimizer": cfg.optimizer, "remat": cfg.remat}))
+    shmem = api.get_ops("shmem", npes=P)
+    stream = TokenStream(DataConfig(cfg.vocab_size, TRAIN["seq"],
+                                    TRAIN["batch"], seed=0), device=dev)
+    batch0 = stream.batch(0)
+
+    # ---- 1. step 1's DP law, bf16 at 4 layers, then f32 at 1 -------------
+    params = model.init_params(cfg, seed=0, device=dev)
+    nparams = sum(p.numel() for p in tree_mod.leaves(params))
+    ops.reset_launches()
+    _, mean = ts.dp_grads(params, cfg, batch0, shmem)
+    torch.cuda.synchronize()
+    law_launches = dict(ops.LAUNCHES)
+    _, _, single = ts.value_and_grad(params, cfg, batch0)
+    names = [k for k, _ in tree_mod.flatten(params)]
+    errs = {n: _rel_l2(torch, a, b) for n, a, b in zip(names, mean, single)}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    say(f"phase 21 DP law (bf16, {TRAIN_LAYERS} layers, {nparams:,} "
+        f"params): {len(names)} leaves, relative L2 of the ring-reduced "
+        f"mean against one backward on the whole batch at most "
+        f"{worst[1]:.3e} ({worst[0]}; bound {TRAIN_BF16_TOL}); launches "
+        f"{ {k: law_launches[k] for k in TRAIN_KERNELS} }")
+    if worst[1] > TRAIN_BF16_TOL:
+        fail(f"phase 21 DP law: {worst[0]} is {worst[1]:.3e} from the "
+             f"single-device gradient (bound {TRAIN_BF16_TOL})")
+    if {k: law_launches[k] for k in TRAIN_KERNELS} != TRAIN_PER_STEP:
+        fail(f"phase 21 DP step launched {law_launches}, not "
+             f"{TRAIN_PER_STEP}")
+    del params, mean, single
+    torch.cuda.empty_cache()
+    cfg1 = dataclasses.replace(cfg, num_layers=1, dtype="float32",
+                               param_dtype="float32")
+    params = model.init_params(cfg1, seed=1, device=dev)
+    _, mean = ts.dp_grads(params, cfg1, batch0, shmem)
+    _, _, single = ts.value_and_grad(params, cfg1, batch0)
+    excess, where = -1.0, ""
+    for n, a, b in zip([k for k, _ in tree_mod.flatten(params)], mean,
+                       single):
+        e = float(((a - b).abs() - (TRAIN_F32_ATOL +
+                                    TRAIN_F32_RTOL * b.abs())).max())
+        if e > excess:
+            excess, where = e, n
+    say(f"phase 21 DP law (f32, 1 layer): largest excess over rtol "
+        f"{TRAIN_F32_RTOL} / atol {TRAIN_F32_ATOL} is {excess:.3e} ({where})")
+    if excess > 0:
+        fail(f"phase 21 f32 DP law: {where} exceeds rtol {TRAIN_F32_RTOL} / "
+             f"atol {TRAIN_F32_ATOL} by {excess:.3e}")
+    del params, mean, single
+    torch.cuda.empty_cache()
+
+    # ---- 2-4. six steps, a checkpoint at 3, a resumed run to 6 -----------
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        kw = dict(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+                  log_every=1, comms_backend="shmem", comms_npes=P,
+                  device=str(dev))
+        logs = []
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params_a, state_a, hist = trainer.train(
+            cfg, trainer.TrainConfig(steps=TRAIN["steps"],
+                                     ckpt_every=TRAIN["ckpt_every"],
+                                     ckpt_dir=tmp, **kw),
+            log_fn=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for line in logs:
+            say(f"phase 21: {line}")
+        steps = [h["wall_s"] for h in hist]
+        per_step = [b - a for a, b in zip([0.0] + steps, steps)]
+        later = sorted(per_step[1:])[len(per_step[1:]) // 2]
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        say(f"phase 21 training: {wall:.2f} s for {TRAIN['steps']} steps "
+            f"(checkpoints after steps {TRAIN['ckpt_every']} and "
+            f"{TRAIN['steps']} included); "
+            f"per step {[round(x, 3) for x in per_step]} s (median after "
+            f"the first {later:.3f} s, {tokens / later:,.0f} tokens/s); peak "
+            f"{peak:.1f} GiB; losses {[round(h['loss'], 4) for h in hist]}; "
+            f"grad norms {[round(h['grad_norm'], 3) for h in hist]}; "
+            f"launches {launches}")
+        want = {k: n * TRAIN["steps"] for k, n in TRAIN_PER_STEP.items()}
+        if {k: launches[k] for k in TRAIN_KERNELS} != want:
+            fail(f"phase 21 launched {launches}, not {want}")
+        stray = [k for k in TRAIN_NOT_LAUNCHED if launches[k]]
+        if stray:
+            fail(f"phase 21 launched {stray}, which training never calls")
+        if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                   for h in hist) or not hist[-1]["loss"] < hist[0]["loss"]:
+            fail(f"phase 21 losses {[h['loss'] for h in hist]} are not "
+                 f"finite or do not fall")
+        # resume from the step-3 checkpoint: drop the one the run wrote at
+        # its end (the schedule spans the run's steps, so a 3-step run would
+        # decay the lr differently)
+        shutil.rmtree(os.path.join(tmp, f"step_{TRAIN['steps']:08d}"))
+        t0 = time.perf_counter()
+        params_c, state_c, hist_c = trainer.train(
+            cfg, trainer.TrainConfig(steps=TRAIN["steps"], ckpt_dir=tmp,
+                                     **kw), resume=True,
+            log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        say(f"phase 21 resumed from step {ckpt_mod.latest_step(tmp)} to "
+            f"{TRAIN['steps']} ({time.perf_counter() - t0:.2f} s with the "
+            f"restore); losses {[round(h['loss'], 4) for h in hist_c]}")
+        diff = [k for (k, a), b in zip(tree_mod.flatten((params_a, state_a)),
+                                       tree_mod.leaves((params_c, state_c)))
+                if not torch.equal(a, b)]
+        if diff or hist_c[0]["step"] != TRAIN["ckpt_every"]:
+            fail(f"phase 21: the resumed run differs from the uninterrupted "
+                 f"one at {diff[:5]} ({len(diff)} leaves)")
+        say("phase 21: the resumed run's params and optimizer state at step "
+            f"{TRAIN['steps']} are bitwise the uninterrupted run's "
+            "(deterministic algorithms on)")
+        del params_c, state_c
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 5. the modeled schedule beside the measured reduce --------------
+    t_block, t_nbi, nleaves = ts.grad_reduce_schedule(params_a, shmem)
+    opt_cfg = optimizer.OptConfig(name=cfg.optimizer, lr=3e-4,
+                                  warmup_steps=1, total_steps=TRAIN["steps"])
+    step_fn = ts.make_dp_step(cfg, opt_cfg, shmem)
+    prof = _phase_ms(torch, lambda: step_fn(params_a, state_a,
+                                            stream.batch(TRAIN["steps"])),
+                     ("remote_put_kernel", "reduce_scatter_pull",
+                      "allgather_pull"))
+    reduce_ms = sum(prof[k][0] for k in ("remote_put_kernel",
+                                         "reduce_scatter_pull",
+                                         "allgather_pull"))
+    say(f"phase 21 one more step under torch.profiler: K4 "
+        f"{prof['remote_put_kernel'][0]:.3f} ms ({prof['remote_put_kernel'][1]}"
+        f" launches), K6 {prof['reduce_scatter_pull'][0]:.3f} ms "
+        f"({prof['reduce_scatter_pull'][1]}), K5 "
+        f"{prof['allgather_pull'][0]:.3f} ms ({prof['allgather_pull'][1]}); "
+        f"the reduce {reduce_ms:.3f} ms device; every device operation of "
+        f"the step {prof['all'][0]:.1f} ms; modeled reduce schedule "
+        f"({nleaves} leaves, the reference's cost model at {P} PEs, ZeRO "
+        f"shards): {t_block * 1e3:.3f} ms blocking, {t_nbi * 1e3:.3f} ms "
+        f"pipelined (x{t_block / t_nbi:.2f})")
+    del params_a, state_a, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, check_train_rows(torch, rc, dev, deferred)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2012,6 +2321,11 @@ def main() -> None:
     mode_launches.update(family_launches)
     rows.append(k11_64)
 
+    # ---- 21. training, data-parallel through the ring kernels -------------
+    train_launches, train_rows = phase_train(torch, ops, ring_collectives,
+                                             dev, deferred)
+    rows += train_rows
+
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match, *kw in deferred:
         row[key] = device_ms(torch, fn, match, **(kw[0] if kw else {}))
@@ -2071,10 +2385,18 @@ def main() -> None:
     path_launches["reduce_tile"] = sum(
         run["reduce_tile"] for run in (launches, coll_launches,
                                        fused_launches, ring_launches,
+                                       train_launches,
                                        *mode_launches.values()))
     if path_launches["reduce_tile"]:
         fail(f"K9 launched {path_launches['reduce_tile']} times on the "
              f"paths, which should not call it")
+    for name in TRAIN_KERNELS:               # K4-K6: phases 4 and 21
+        by_name[name]["launches_by_phase"] = {"4": coll_launches[name],
+                                              "21": train_launches[name]}
+    for name in ("ring_reduce_scatter", "ring_allgather"):
+        path_launches[f"{name}_train"] = train_launches[name]
+        by_name[f"{name}_train"]["launches_by_phase"] = {
+            "21": train_launches[name]}
     for r in rows:
         r["launches"] = path_launches[r["name"]]
     for name in SERVE_KERNELS:

@@ -1,11 +1,14 @@
-"""Weights across: a nested dict of numpy arrays -> the port's tensors.
+"""Weights and optimizer state across: a nested dict of numpy arrays -> the
+port's tensors.
 
 The input is typically the JAX package's ``init_params`` output passed
 through ``np.asarray`` leaf by leaf.  Every array is copied (JAX's numpy
 views are read-only); a ``bfloat16`` array (``dtype.name == "bfloat16"``,
 the ``ml_dtypes`` type) goes through a uint16 view, since ``torch.from_numpy``
 does not take that type.  Stacked ``blocks`` keep their leading repeat axis.
-Neither jax nor ml_dtypes is imported here.
+Neither jax nor ml_dtypes is imported here.  The optimizer state
+(AdamW's ``step``, ``m`` and ``v``; Adafactor's ``step`` and its ``v``
+tree of ``vr``/``vc`` or ``v``) crosses with :func:`opt_state_to_torch`.
 """
 from __future__ import annotations
 
@@ -29,3 +32,12 @@ def to_torch(tree, device):
     if isinstance(tree, (list, tuple)):
         return [to_torch(v, device) for v in tree]
     return array_to_torch(tree, device)
+
+
+def opt_state_to_torch(state, device):
+    """The reference's optimizer state as the port keeps it: the moments on
+    ``device``, the step counter a 0-d int32 CPU tensor
+    (``train/optimizer.py``)."""
+    out = {k: to_torch(v, device) for k, v in state.items() if k != "step"}
+    out["step"] = array_to_torch(state["step"], "cpu").to(torch.int32)
+    return out

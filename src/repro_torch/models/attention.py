@@ -2,7 +2,11 @@
 
 Prefill self-attention goes through the K2 flash kernel
 (``kernels/flash_attn.py``, called from ``models/model.py``), except a
-sliding window's, which goes through :func:`blockwise_causal_attn`.  That,
+sliding window's, which goes through :func:`blockwise_causal_attn`.
+Training never calls K2, which has no backward: it takes
+:func:`full_attn` under a causal mask up to 1024 tokens and
+:func:`blockwise_causal_attn` above that or under a window, as the
+reference's default policy does.  That,
 the encoder's and cross-attention's :func:`full_attn` and decode attention
 stay plain torch, as the reference computes them outside any Pallas
 kernel: f32 scores and softmax, masked scores -1e30.
@@ -58,13 +62,20 @@ def _pick_block(s, want):
     return max(b, 1)
 
 
-def blockwise_causal_attn(q, k, v, *, window=None, block_q=512,
-                          block_k=512):
+def blockwise_causal_attn(q, k, v, *, window=None, block_q=None,
+                          block_k=None):
     """Online-softmax causal attention over KV blocks, optionally within a
     sliding ``window`` (a key at distance ``window`` or more is masked, and
-    KV blocks wholly before the window are skipped).  The reference's
-    serving policy: blocks of 512, f32 q*scale, scores and P.
-    q: (B,S,nq,hd); k,v: (B,S,nkv,hd)."""
+    KV blocks wholly before the window are skipped).  Block sizes default
+    to the policy's ``attn_block_q/k``; ``attn_qk_bf16`` keeps q and k in
+    their dtype into the score product (f32 accumulation, scaled after),
+    ``attn_p_bf16`` rounds P and V to bf16 before P.V (f32 accumulation);
+    by default q*scale, scores and P are f32.  Differentiable: every
+    update makes a new tensor.  q: (B,S,nq,hd); k,v: (B,S,nkv,hd)."""
+    from repro_torch.launch import policy as policy_mod
+    pol = policy_mod.get()
+    block_q = block_q or pol.attn_block_q
+    block_k = block_k or pol.attn_block_k
     B, S, nq, hd = q.shape
     nkv = k.shape[2]
     g = nq // nkv
@@ -73,9 +84,16 @@ def blockwise_causal_attn(q, k, v, *, window=None, block_q=512,
     qb = q.reshape(B, S // bq, bq, nkv, g, hd)
     kb = k.reshape(B, S // bk, bk, nkv, hd)
     vb = v.reshape(B, S // bk, bk, nkv, hd)
+    # products of bf16-rounded operands are exact in f32, so an f32 einsum
+    # over them is the reference's preferred_element_type=f32 product
+    p_cast = (lambda t: t.bfloat16().float()) if pol.attn_p_bf16 else \
+        (lambda t: t.float())
     outs = []
     for qi in range(S // bq):
-        q_i = qb[:, qi].float() * scale                  # (B,bq,nkv,g,hd)
+        if pol.attn_qk_bf16:
+            q_i = qb[:, qi].float()                      # q's own values
+        else:
+            q_i = qb[:, qi].float() * scale              # (B,bq,nkv,g,hd)
         q_start = qi * bq
         qpos = q_start + torch.arange(bq, device=q.device)
         k_hi = min(S // bk, (q_start + bq + bk - 1) // bk)   # exclusive
@@ -86,17 +104,19 @@ def blockwise_causal_attn(q, k, v, *, window=None, block_q=512,
         acc = torch.zeros((B, nkv, g, bq, hd), device=q.device)
         for kj in range(k_lo, k_hi):
             s = torch.einsum("bqkgh,bskh->bkgqs", q_i, kb[:, kj].float())
+            if pol.attn_qk_bf16:
+                s = s * scale
             kpos = kj * bk + torch.arange(bk, device=q.device)
             mask = kpos[None, :] <= qpos[:, None]
             if window is not None:
-                mask &= kpos[None, :] > qpos[:, None] - int(window)
+                mask = mask & (kpos[None, :] > qpos[:, None] - int(window))
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
-                "bkgqs,bskh->bkgqh", p, vb[:, kj].float())
+                "bkgqs,bskh->bkgqh", p_cast(p), p_cast(vb[:, kj]))
             m = m_new
         o = acc / l.clamp_min(1e-30)[..., None]          # (B,nkv,g,bq,hd)
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, bq, nq, hd))

@@ -12,8 +12,10 @@ position in ``params["blocks"]``; every repeat keeps its own K/V cache),
 encoder output, MLP; the encoder's stacked ``attn`` blocks live at
 ``params["encoder"]``), ``cross`` (the vision model's gated
 cross-attention over image embeddings, scaled by ``tanh(gate)``),
-``mamba``, ``mlstm`` and ``slstm``.  Two step kinds:
+``mamba``, ``mlstm`` and ``slstm``.  Three step kinds:
 
+- ``train_loss``  : full-sequence teacher-forced LM loss with the
+  reference's chunked CE head, and the MoE's auxiliary loss;
 - ``prefill``     : full-prompt forward that fills the decode cache (and
   runs the frontends: the encoder over ``batch["audio_embeds"]``, or
   ``batch["image_embeds"]`` cast to the activation dtype);
@@ -22,20 +24,28 @@ cross-attention over image embeddings, scaled by ``tanh(gate)``),
 Prefill self-attention goes through the K2 flash kernel (its plain
 version for CPU tensors), except under a sliding window, which the
 reference computes in plain JAX (``blockwise_causal_attn``) and so does
-the port; the reference's ``attn_impl`` switch has no counterpart.  A
+the port; the reference's ``attn_impl`` switch has no counterpart.
+Training never goes through K2, which has no backward in either package:
+it follows the reference's default (blockwise) policy, ``full_attn``
+under a causal mask up to 1024 tokens with no window, else
+``blockwise_causal_attn``.  With ``cfg.remat`` each repeat of the layer
+unit is recomputed in the backward pass
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).  A
 ring cache (SWA, or a hybrid above 65,536 tokens) keeps the last
 ``window`` positions of the prompt, and decode writes slot ``pos % W`` and
 reads the slots whose ``kpos`` lies in the window.  ``shardctx.constrain``
-has no counterpart, and the MoE's auxiliary loss is dropped: training
-(``train_loss``) waits for ROADMAP queue 1, item 8.
+has no counterpart.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import _devices
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import flash_attn
+from repro_torch.launch import policy as policy_mod
 from repro_torch.models import attention as attn_mod, moe as moe_mod, \
     ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, \
@@ -131,16 +141,22 @@ def _flat(o):
 
 def _self_attention(p, x, cfg, mode, positions, cache, pos):
     """Returns (attn_out, new cache entries)."""
-    if mode == "prefill":
+    window = cfg.window if cfg.attention == "swa" else None
+    if mode in ("train", "prefill"):
         q = attn_mod.project_q(p, x, cfg, positions)
         k, v = attn_mod.project_kv(p, x, cfg, positions)
-        if cfg.attention == "swa":
-            o = attn_mod.blockwise_causal_attn(q, k, v, window=cfg.window)
-        else:
+        S = x.shape[1]
+        if mode == "train" and S <= 1024 and window is None:
+            causal = torch.ones((S, S), dtype=torch.bool,
+                                device=x.device).tril()
+            o = attn_mod.full_attn(q, k, v, mask=causal[None, None, None])
+        elif mode == "train" or window is not None:
+            o = attn_mod.blockwise_causal_attn(q, k, v, window=window)
+        else:                      # K2 has no backward: prefill only
             o = flash_attn.flash_attention(q, k, v)
         new = {}
         if cache is not None:
-            S, W = x.shape[1], cache["k"].shape[1]
+            W = cache["k"].shape[1]
             # dense: slots [0, S); ring: the last min(W, S) positions at
             # slot position % W
             kpos = torch.arange(S - min(W, S), S, device=x.device)
@@ -183,7 +199,7 @@ def _cross_attention(bp, x, cfg, mode, kv_source=None, cache=None):
     cache.  Returns (out, new cache entries)."""
     p = bp["cross"]
     q = attn_mod.project_q(p, x, cfg, None)
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         ck, cv = attn_mod.project_kv(p, kv_source, cfg, None)
         new = {} if cache is None else {
             "ck": ck.to(cache["ck"].dtype), "cv": cv.to(cache["cv"].dtype)}
@@ -195,18 +211,18 @@ def _cross_attention(bp, x, cfg, mode, kv_source=None, cache=None):
 
 
 def _check_mode(mode):
-    if mode == "train":
-        raise NotImplementedError("training is not ported (ROADMAP queue 1, "
-                                  "item 8)")
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
 
 
 def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
                 enc_out=None, image_embeds=None, pos=None):
-    """Returns (x_out, new cache entries).  Prefill starts every recurrent
-    state from zero, as the reference does, and returns the end state."""
+    """Returns (x_out, new cache entries, aux): the MoE's load-balance loss
+    (f32 scalar), None for the other kinds (the reference's zero).  Prefill
+    starts every recurrent state from zero, as the reference does, and
+    returns the end state; training keeps no cache."""
     _check_mode(mode)
+    aux = None
     if kind in _SELF_ATTN:
         h = rms_norm(x, bp["norm1"])
         o, new_cache = _self_attention(bp["attn"], h, cfg, mode, positions,
@@ -220,18 +236,18 @@ def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
         if kind == "moe":
             h = rms_norm(x, bp["norm2"])
             B, S, d = h.shape
-            y, _ = moe_mod.moe_ffn(bp["moe"], h.reshape(B * S, d), cfg)
+            y, aux = moe_mod.moe_ffn(bp["moe"], h.reshape(B * S, d), cfg)
             x = x + y.reshape(B, S, d)
         elif cfg.d_ff:
             x = x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]),
                               cfg.mlp_type)
-        return x, new_cache
+        return x, new_cache, aux
     if kind == "cross":
         o, new_cache = _cross_attention(bp, rms_norm(x, bp["norm1"]), cfg,
                                         mode, image_embeds, cache)
         x = x + torch.tanh(bp["gate"]).to(x.dtype) * o
         x = x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]), cfg.mlp_type)
-        return x, new_cache
+        return x, new_cache, aux
     h = rms_norm(x, bp["norm"])
     if kind == "mamba":
         if mode == "decode":
@@ -239,46 +255,64 @@ def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
                                                   cache["conv"])
         else:
             y, state, conv = ssm_mod.mamba_forward(bp, h, cfg)
-        return x + y, {"state": state, "conv": conv}
+        return x + y, {"state": state, "conv": conv}, aux
     if kind == "mlstm":
         if mode == "decode":
             y, st = ssm_mod.mlstm_decode(bp, h, cfg, (cache["C"], cache["n"],
                                                       cache["m"]))
         else:
             y, st = ssm_mod.mlstm_forward(bp, h, cfg)
-        return x + y, dict(zip(("C", "n", "m"), st))
+        return x + y, dict(zip(("C", "n", "m"), st)), aux
     if kind == "slstm":
         if mode == "decode":
             y, st = ssm_mod.slstm_decode(
                 bp, h, cfg, tuple(cache[k] for k in "cnmh"))
         else:
             y, st = ssm_mod.slstm_forward(bp, h, cfg)
-        return x + y, dict(zip("cnmh", st))
+        return x + y, dict(zip("cnmh", st)), aux
     raise ValueError(kind)
 
 
 def backbone(params, cfg, x, *, mode, positions=None, cache=None,
              enc_out=None, image_embeds=None, pos=None):
-    """x: (B,S,d) embedded inputs.  Returns (x, new_cache)."""
+    """x: (B,S,d) embedded inputs.  Returns (x, new_cache, aux), aux the
+    f32 sum of the blocks' auxiliary losses in the reference's order
+    (repeat by repeat, block by block)."""
     _check_mode(mode)
     unit, reps = cfgbase.repeat_unit(cfg)
     shared = params.get("shared_attn")
     new_blocks = [{} for _ in unit]
-    for r in range(reps):
+
+    def unit_body(r, x, aux):
         for i, kind in enumerate(unit):
             bp = shared if kind == "shared_attn" else \
                 _layer(params["blocks"][i], r)
             c = _layer(cache["blocks"][i], r) if cache is not None else None
-            x, nc = apply_block(kind, bp, x, cfg=cfg, mode=mode,
-                                positions=positions, cache=c,
-                                enc_out=enc_out, image_embeds=image_embeds,
-                                pos=pos)
-            for key, leaf in nc.items():
-                new_blocks[i].setdefault(key, []).append(leaf)
+            x, nc, a = apply_block(kind, bp, x, cfg=cfg, mode=mode,
+                                   positions=positions, cache=c,
+                                   enc_out=enc_out, image_embeds=image_embeds,
+                                   pos=pos)
+            if mode != "train":
+                for key, leaf in nc.items():
+                    new_blocks[i].setdefault(key, []).append(leaf)
+            if a is not None:              # 0 + a is a: start from the first
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    remat = cfg.remat and mode == "train"
+    aux = None
+    for r in range(reps):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                unit_body, r, x, aux, use_reentrant=False)
+        else:
+            x, aux = unit_body(r, x, aux)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is None:
-        return x, None
+        return x, None, aux
     return x, {"blocks": [{k: torch.stack(v) for k, v in b.items()}
-                          for b in new_blocks]}
+                          for b in new_blocks]}, aux
 
 
 def _encoder_forward(params, cfg, audio_embeds):
@@ -306,11 +340,47 @@ def _frontends(params, cfg, batch):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(cfg.activation_dtype())
+    # F.embedding gathers the rows as indexing does; its backward on the
+    # card sums each row's contributions in f32 and in a fixed order,
+    # where indexing's adds them with atomics in the table's dtype (a
+    # frequent token's bf16 row then loses most of its small addends)
+    return F.embedding(tokens, params["embed"]).to(cfg.activation_dtype())
 
 
 def _lm_matrix(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def train_loss(params, cfg, batch):
+    """batch: tokens (B,S), labels (B,S) [+ frontend embeds].  Returns
+    (loss, {"ce", "aux"}).  The head runs over sequence chunks of
+    ``policy.ce_chunk`` (or the largest of 512, 256 and 128 that divides
+    S), its logits in bf16 under ``logits_bf16``, the logsumexp in f32."""
+    tokens, labels = batch["tokens"], batch["labels"].long()
+    B, S = tokens.shape
+    enc_out, image_embeds = _frontends(params, cfg, batch)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x, _, aux = backbone(params, cfg, x, mode="train", positions=positions,
+                         enc_out=enc_out, image_embeds=image_embeds)
+    x = rms_norm(x, params["final_norm"])
+
+    pol = policy_mod.get()
+    W = _lm_matrix(params, cfg)
+    want = pol.ce_chunk
+    C = S if S <= want else max(c for c in (want, 512, 256, 128)
+                                if c <= want and S % c == 0)
+    ldt = torch.bfloat16 if pol.logits_bf16 else torch.float32
+    total = None
+    for c0 in range(0, S, C):
+        logits = (x[:, c0:c0 + C] @ W).to(ldt)
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels[:, c0:c0 + C, None])[..., 0].float()
+        term = torch.sum(lse - ll)
+        total = term if total is None else total + term
+    ce = total / (B * S)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg, batch, cache):
@@ -321,9 +391,9 @@ def prefill(params, cfg, batch, cache):
     enc_out, image_embeds = _frontends(params, cfg, batch)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x, new_cache = backbone(params, cfg, x, mode="prefill",
-                            positions=positions, cache=cache,
-                            enc_out=enc_out, image_embeds=image_embeds)
+    x, new_cache, _ = backbone(params, cfg, x, mode="prefill",
+                               positions=positions, cache=cache,
+                               enc_out=enc_out, image_embeds=image_embeds)
     x = rms_norm(x[:, -1:], params["final_norm"])
     logits = (x @ _lm_matrix(params, cfg)).float()
     return logits[:, 0], new_cache
@@ -332,8 +402,8 @@ def prefill(params, cfg, batch, cache):
 def decode_step(params, cfg, token, pos, cache):
     """ONE token (B,1) at positions pos (B,) against the cache."""
     x = _embed(params, cfg, token)
-    x, new_cache = backbone(params, cfg, x, mode="decode", cache=cache,
-                            pos=pos)
+    x, new_cache, _ = backbone(params, cfg, x, mode="decode", cache=cache,
+                               pos=pos)
     x = rms_norm(x, params["final_norm"])
     logits = (x @ _lm_matrix(params, cfg)).float()
     return logits[:, 0], new_cache

@@ -785,3 +785,103 @@ def test_cuda_ring_tails_carry_nan_bits(card):
         got = sched.migrator.gather_tail(sched.heap, slot, pe)
         assert int(want.isnan().sum()) == 2 * 24
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# training: the data-parallel gradient reduce through K4-K6
+# ---------------------------------------------------------------------------
+
+
+def _train_cfg(layers, dtype="bfloat16"):
+    from repro_torch.configs import base as cfgbase
+    return dataclasses.replace(cfgbase.get_config("qwen3-4b"),
+                               num_layers=layers, dtype=dtype,
+                               param_dtype=dtype)
+
+
+def _train_batch(cfg, B, S, device):
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    return TokenStream(DataConfig(cfg.vocab_size, S, B, seed=0),
+                       device=device).batch(0)
+
+
+def _rel_l2(a, b):
+    den = float(torch.linalg.vector_norm(b.float()))
+    return float(torch.linalg.vector_norm(a.float() - b.float())) / den \
+        if den else float(torch.linalg.vector_norm(a.float()))
+
+
+def test_cuda_dp_step_full_width_one_layer(card):
+    """qwen3-4b's published widths, 1 layer, bf16, 4 PEs of 2 sequences of
+    128 tokens: one data-parallel gradient launches K4 for the 5 norm
+    leaves (3 puts each) and K6 + K5 for the 9 matrices, and the reduced
+    mean is within 2e-2 (relative L2 per leaf) of one backward on the
+    whole batch."""
+    from repro_torch.models import model
+    from repro_torch.train import train_step as ts
+    cfg = _train_cfg(1)
+    params = model.init_params(cfg, seed=0, device="cuda")
+    batch = _train_batch(cfg, 8, 128, "cuda")
+    ops.reset_launches()
+    metrics, mean = ts.dp_grads(params, cfg, batch, api.get_ops("shmem",
+                                                                npes=4))
+    launches = dict(ops.LAUNCHES)
+    assert (launches["remote_put"], launches["ring_reduce_scatter"],
+            launches["ring_allgather"]) == (15, 9, 9)
+    assert not any(launches[k] for k in ("copy_into", "flash_attention",
+                                         "paged_gather", "fused_paged_attn",
+                                         "flash_partial"))
+    loss, _, single = ts.value_and_grad(params, cfg, batch)
+    assert abs(float(metrics["loss"]) - float(loss)) < 2e-2 * float(loss)
+    for a, b in zip(mean, single):
+        assert a.dtype == torch.bfloat16 and _rel_l2(a, b) <= 2e-2
+
+
+def test_cuda_train_loss_matches_cpu(card):
+    """``train_loss`` and its gradients on the card against the plain CPU
+    run of the same bf16 weights and batch (reduced qwen3-4b): loss within
+    2e-2 relative, every gradient within 6e-2 relative L2 (the port's bf16
+    model tolerance, ``tests/test_torch_model.py``)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import model
+    from repro_torch.train import train_step as ts, tree as tree_mod
+    cfg = dataclasses.replace(cfgbase.reduced(cfgbase.get_config("qwen3-4b")),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    cpu = model.init_params(cfg, seed=2, device="cpu")
+    gpu = tree_mod.map_leaves(lambda t: t.to("cuda"), cpu)
+    batch = _train_batch(cfg, 4, 64, "cpu")
+    lc, _, gc_ = ts.value_and_grad(cpu, cfg, batch)
+    lg, _, gg = ts.value_and_grad(gpu, cfg, {k: v.cuda()
+                                             for k, v in batch.items()})
+    assert abs(float(lg) - float(lc)) <= 2e-2 * abs(float(lc))
+    for a, b in zip(gg, gc_):
+        assert _rel_l2(a.cpu(), b) <= 6e-2
+
+
+def test_cuda_resume_equals_uninterrupted(card, tmp_path):
+    """Reduced qwen3-4b, bf16, data-parallel over 4 PEs: six steps with a
+    checkpoint at 3 against a run resumed from it, bitwise, with PyTorch's
+    deterministic algorithms on (the embedding's backward otherwise adds
+    with atomics)."""
+    import os
+    import shutil
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.train import trainer, tree as tree_mod
+    cfg = dataclasses.replace(cfgbase.reduced(cfgbase.get_config("qwen3-4b")),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              remat=True)
+    kw = dict(seq_len=64, global_batch=8, log_every=1, comms_backend="shmem",
+              comms_npes=4, device="cuda", ckpt_dir=str(tmp_path))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, sa, hist = trainer.train(cfg, trainer.TrainConfig(
+            steps=6, ckpt_every=3, **kw), log_fn=lambda *_: None)
+        shutil.rmtree(tmp_path / "step_00000006")
+        b, sb, hist_b = trainer.train(cfg, trainer.TrainConfig(steps=6, **kw),
+                                      resume=True, log_fn=lambda *_: None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert hist_b[0]["step"] == 3 and hist[-1]["loss"] < hist[0]["loss"]
+    for x, y in zip(tree_mod.leaves((a, sa)), tree_mod.leaves((b, sb))):
+        assert torch.equal(x, y)

@@ -142,3 +142,32 @@ def test_bridge_copies_exactly(dtype):
     t += 1                                     # a copy, not the JAX buffer
     np.testing.assert_array_equal(tree["blocks"][0]["w"][0].float().numpy(),
                                   a.astype(np.float32))
+
+
+def test_training_entry_points_raise_without_cuda_unless_cpu(no_card, tmp_path):
+    """The launcher, the loop, ``init_state`` and the token stream run on
+    the card unless they get ``device="cpu"``."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import train_step, trainer
+    cfg = base.reduced(base.get_config("qwen3-4b"))
+    dcfg = pipeline.DataConfig(cfg.vocab_size, 8, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--steps", "1", "--comms-backend", "shmem"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.train(cfg, trainer.TrainConfig(steps=1, seq_len=8,
+                                               global_batch=2),
+                      log_fn=lambda *_: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_step.init_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.TokenStream(dcfg)
+    assert pipeline.TokenStream(dcfg, device="cpu").batch(0)[
+        "tokens"].device == torch.device("cpu")
+    params, opt_state = train_step.init_state(cfg, device="cpu")
+    assert params["embed"].device == torch.device("cpu")
+    _, _, hist = launch_train.main(
+        ["--device", "cpu", "--steps", "1", "--seq-len", "8",
+         "--global-batch", "2", "--ckpt-dir", str(tmp_path)],
+        log_fn=lambda *_: None)
+    assert len(hist) == 1

@@ -306,17 +306,25 @@ def test_norm_and_rope_match_reference(shape):
 
 
 def test_training_mode_raises():
-    """Training stays unported (ROADMAP queue 1, item 8): ``mode="train"``
-    raises in ``backbone`` and ``apply_block`` instead of falling into the
-    decode branch, and a mode that is neither raises too."""
+    """Only a mode that is none of train, prefill and decode raises, in
+    ``backbone`` and ``apply_block``, instead of falling into the decode
+    branch.  Training is ported (it raised before): ``mode="train"``
+    returns the hidden states, no cache and the f32 auxiliary loss, 0 for
+    a dense model."""
     _, pc = _configs("float32")
     pp = model.init_params(pc, device="cpu")
     x = torch.zeros((1, 4, pc.d_model))
     positions = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model.backbone(pp, pc, x, mode="train", positions=positions)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model.apply_block("attn", model._layer(pp["blocks"][0], 0), x,
-                          cfg=pc, mode="train", positions=positions)
+    y, cache, aux = model.backbone(pp, pc, x, mode="train",
+                                   positions=positions)
+    assert y.shape == x.shape and cache is None
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
+    y1, nc, a = model.apply_block("attn", model._layer(pp["blocks"][0], 0),
+                                  x, cfg=pc, mode="train",
+                                  positions=positions)
+    assert y1.shape == x.shape and nc == {} and a is None
     with pytest.raises(ValueError):
         model.backbone(pp, pc, x, mode="score", positions=positions)
+    with pytest.raises(ValueError):
+        model.apply_block("attn", model._layer(pp["blocks"][0], 0), x,
+                          cfg=pc, mode="score", positions=positions)

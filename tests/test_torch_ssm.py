@@ -246,7 +246,7 @@ def _logits_all(pc, pp, toks):
     x = model._embed(pp, pc, toks)
     B, S = toks.shape
     positions = torch.arange(S)[None].expand(B, S)
-    x, _ = model.backbone(pp, pc, x, mode="prefill", positions=positions)
+    x, _, _ = model.backbone(pp, pc, x, mode="prefill", positions=positions)
     return rms_norm(x, pp["final_norm"]) @ model._lm_matrix(pp, pc)
 
 
