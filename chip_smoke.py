@@ -175,9 +175,35 @@ Phases, each fatal on failure:
    reduce schedule, and rows of their own for K6 and K5 at the embedding
    leaf's gradient, rows (4, 4, 97,239,040) bf16
    (``ring_reduce_scatter_train``, ``ring_allgather_train``).
-Phases 3, 5 and 7-20 print their wall time and peak device memory, and
-K1-K3's rows carry their launches in phases 7-20
-(``launches_by_phase``).  K2 also runs at the head ratios 5, 7 and 9 and
+22. cross-pod serving: phase 3's run with ``--cross-pod`` (the decode PEs
+   a second pod, so every migration drains through the host-proxy ring),
+   then phase 5's with ``--cross-pod``: tokens bitwise phase 3's,
+   ``bytes_dcn`` (``bytes_cross_pod``) equal to the bytes migrated, the
+   ring's messages as predicted (24, 272), K1 launched as often as in
+   phases 3 and 5 (the same stores by another route); then K11 on the
+   fused run's pool, one launch, bitwise ``assemble`` + K2;
+23. the fleet: ``--fleet --full``, 2 pods of 1 prefill + 2 decode PEs, 2
+   slots each, 256 blocks, 512-token prompts, 16 new tokens, SLO
+   admission, affinity routing, the launcher's three tenants (the api
+   tenant's shared prefixes in 2 groups), ``--rate 1.2 --fleet-steps 16
+   --stream-chunks 0 --seed 1`` (chosen on the CPU at reduced widths so
+   that the run preempts, pulls a prefix across pods and completes at
+   least 16 requests; 1-block installments never fill a slot, so no run
+   with them can preempt).  Completed plus shed equals offered, resumes
+   equal preemptions (at least 1), cross-pod bytes above 0, every
+   completed request's tokens bitwise ``Engine.generate_in_slot`` for its
+   prompt and budget, the pool drained to 0 blocks, and the step-level
+   counts and K1-K3 launches as the CPU run predicts;
+24. chaos: phase 23's traffic under ``--chaos
+   'kill_pe=2@6,partition=3@12,kill_pod=pod1@20'``, phase 23's outputs
+   the no-fault control: all three events fire, every request ends
+   terminal, no completed request's tokens differ from the control's, at
+   least one request recovers, the pool drains, the dead PEs' rows hold
+   the poison bit for bit (NaN bits in the bf16 and f32 pools,
+   ``iinfo.min + 1`` in int32), and no decode step's logits hold a NaN.
+Phases 3, 5, 7-20 and 22-24 print their wall time and peak device memory,
+and K1-K3's rows carry their launches in phases 7-20 and 22-24
+(``launches_by_phase``; K11's in 22-24).  K2 also runs at the head ratios 5, 7 and 9 and
 whisper's MHA at hd 64 in phase 2 (``check_flash_serving``), with rows of
 its own at starcoder2's q (1, 512, 36, 128), k/v (1, 512, 4, 128)
 (``flash_attention_gqa9``, phase 15's launches) and whisper's
@@ -298,6 +324,33 @@ TRAIN_EMBED_ELEMS = 151936 * 2560            # the embedding leaf
 # one backward rounds once (a bf16 ulp is 2^-8 of the value)
 TRAIN_BF16_TOL = 2e-2
 TRAIN_F32_RTOL, TRAIN_F32_ATOL = 2e-4, 2e-6  # tests/test_system.py
+# phase 22: phases 3 and 5 across pods.  Ring messages: a barrier
+# migration puts its 32 contiguous blocks as one coalesced run, then the
+# tail and the header (3 puts a request); a fused one puts each of its 32
+# blocks, the tail and the header alone (34); signals apply directly
+CROSS_ARGV = MAIN_ARGV + ["--cross-pod"]
+CROSS_FUSED_ARGV = FUSED_ARGV + ["--cross-pod"]
+CROSS_MESSAGES = {"barrier": 8 * 3, "fused": 8 * 34}
+# phases 23-24: the fleet.  PREDICTED holds the counts the same argv gives
+# at reduced widths on the CPU (the step clock and the traffic do not
+# depend on the widths; K2 launches 36 times a prefill at full depth)
+FLEET_ARGV = ["--fleet", "--full", "--arch", "qwen3-4b", "--pods", "2",
+              "--pod-prefill", "1", "--pod-decode", "2", "--slots", "2",
+              "--kv-blocks", "256", "--block-tokens", "16", "--prompt-len",
+              "512", "--max-new", "16", "--admission", "slo", "--router",
+              "affinity", "--rate", "1.2", "--fleet-steps", "16",
+              "--stream-chunks", "0", "--seed", "1"]
+CHAOS_PLAN = "kill_pe=2@6,partition=3@12,kill_pod=pod1@20"
+FLEET_PREDICTED = {
+    "23": {"offered": 26, "completed": 26, "shed": 0, "preempts": 1,
+           "elapsed_steps": 66, "prefills": 26, "delivered": 2,
+           "copy_into": 1367, "flash_attention": 26 * 36,
+           "paged_gather": 237},
+    "24": {"offered": 26, "completed": 25, "shed": 1, "preempts": 1,
+           "elapsed_steps": 180, "prefills": 28, "delivered": 0,
+           "copy_into": 1390, "flash_attention": 28 * 36,
+           "paged_gather": 213, "recovered_requests": 15, "remigrated": 2,
+           "replayed_tokens": 6, "cancelled_ops": 74}}
 
 
 def fail(msg: str) -> None:
@@ -1672,7 +1725,7 @@ def phase_family(torch, ops, serve, spec, extra=(), *, dev):
     from repro_torch.serve import kvpool
     phase, label, arch, depth, changes, block_words, tail_words = spec
     argv = _family_argv(arch, changes) + list(extra)
-    args = serve.build_parser().parse_args(argv)
+    args = serve.parse_args(argv)
     cfg = cfgbase.get_config(arch)
     cut = f"depth {depth} of {cfg.num_layers} layers" if depth else \
         f"depth {cfg.num_layers}, no cut"
@@ -2041,6 +2094,244 @@ def phase_train(torch, ops, rc, dev, deferred):
     return launches, check_train_rows(torch, rc, dev, deferred)
 
 
+def _k11_on_pool(torch, dev_kern, flash_attn, ops, sched, label):
+    """K11 once on the decode pool a fused run leaves (every slot of its
+    first decode PE mapped to a full table), at layer 0: one launch, no K3
+    or K2, bitwise ``assemble`` + K2.  Returns its launches."""
+    from repro_torch.core import device as device_mod
+    from repro_torch.core.heap import TORCH_DTYPES
+    from repro_torch.serve.paged_attn import PagedDecodeView
+    pe = sched.decode_pes[0]
+    pool, heap = sched.pool, sched.heap
+    lay = pool.layout
+    view = PagedDecodeView(pool, pe, len(sched.banks[pe].active))
+    for s in range(view.num_slots):
+        if pool.alloc(1_000_000 + s, lay.blocks_per_request) is None:
+            fail("K11 check: the pool has no free table for a slot")
+        heap = view.attach(heap, s, 1_000_000 + s, fresh_ids=[])
+    leaf = next(x for x in lay.paged if x.key == "k")
+    gen = torch.Generator(device=heap.device).manual_seed(7)
+    q = torch.randn(view.num_slots, leaf.width, sched.engine.cfg.num_heads,
+                    leaf.hd, generator=gen, device=heap.device).to(
+                        TORCH_DTYPES[lay.kv_dtype])
+    wg = device_mod.work_group(sched.ctx, pe=pe)
+    ops.reset_launches()
+    _, got = dev_kern.fused_paged_attn(
+        wg, heap, view, q, waits=[(pool.sig_ptr(s), 0)
+                                  for s in range(view.num_slots)])
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    assembled = view.assemble(heap, sched.banks[pe].cache)
+    blk = assembled["blocks"][leaf.unit_idx]
+    want = flash_attn.flash_attention(q, blk["k"][0].contiguous(),
+                                      blk["v"][0].contiguous())
+    torch.cuda.synchronize()
+    if launches != {"fused_paged_attn": 1} or not torch.equal(got, want):
+        fail(f"K11 on {label}: launches {launches}, or not bitwise "
+             f"assemble + K2")
+    say(f"K11 on {label}: one launch, bitwise assemble + K2 at layer 0")
+    for s in range(view.num_slots):
+        pool.release(1_000_000 + s)
+    return launches["fused_paged_attn"]
+
+
+def phase_cross_pod(torch, ops, serve, dev_kern, flash_attn, barrier_out,
+                    want_k1):
+    """Phase 22: phases 3 and 5 with the decode PEs in a second pod, every
+    migration through the host-proxy ring.  ``want_k1`` holds phases 3's
+    and 5's K1 launches.  Returns ({"22": ..., "22-fused": ...} launch
+    counts, K11's launches on the fused run's pool)."""
+    out, k11 = {}, 0
+    for mode, argv in (("barrier", CROSS_ARGV), ("fused", CROSS_FUSED_ARGV)):
+        label = f"cross-pod {mode} serving path"
+        sched, launches, wall, peak = _serve_phase(torch, ops, serve, argv,
+                                                   label)
+        st, px = sched.stats, sched.migrator.proxy
+        msgs = len(px.ring.delivered)
+        say(f"{label}: {wall:.2f} s wall, {st.decode_steps} decode steps, "
+            f"peak {peak:.1f} GiB; launches {launches}; {msgs} proxy "
+            f"messages, {px.backpressure} backpressure drains; "
+            f"{st.bytes_cross_pod} of {st.bytes_migrated} B cross-pod")
+        missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+        if missing:
+            fail(f"{label} never launched {missing}")
+        _balanced(sched, label)
+        if st.bytes_cross_pod != st.bytes_migrated or not msgs or \
+                msgs != CROSS_MESSAGES[mode] or px.ring.overwrite_errors:
+            fail(f"{label}: {st.bytes_cross_pod} B cross-pod of "
+                 f"{st.bytes_migrated}, {msgs} ring messages (want "
+                 f"{CROSS_MESSAGES[mode]}), {px.ring.overwrite_errors} "
+                 f"overwrites")
+        if launches["copy_into"] != want_k1[mode]:
+            fail(f"{label}: K1 launched {launches['copy_into']} times, not "
+                 f"{want_k1[mode]} as across one pod")
+        _same_tokens(sched, barrier_out, f"{label} (vs phase 3)")
+        say(f"8/8 {label} requests bitwise equal to phase 3; K1 "
+            f"{launches['copy_into']} as in one pod")
+        out["22" if mode == "barrier" else "22-fused"] = launches
+        if mode == "fused":
+            k11 = _k11_on_pool(torch, dev_kern, flash_attn, ops, sched,
+                               "phase 22's cross-pod fused pool")
+        del sched
+        torch.cuda.empty_cache()
+    return out, k11
+
+
+def _fleet_counts(fleet, rep, launches):
+    pods = fleet.pods + fleet.dead_pods
+    got = {"offered": rep["offered"], "completed": rep["completed"],
+           "shed": rep["shed"], "preempts": rep["preempts"],
+           "elapsed_steps": fleet.elapsed_steps,
+           "prefills": sum(p.sched.stats.prefills for p in pods),
+           "delivered": rep["proxy"]["delivered"],
+           **{k: launches[k] for k in SERVE_KERNELS}}
+    if "fault" in rep:
+        got.update({k: rep["recovered"][k] for k in (
+            "recovered_requests", "remigrated", "replayed_tokens")},
+                   cancelled_ops=rep["fault"]["cancelled_ops"])
+    return got
+
+
+def _run_fleet_phase(torch, ops, serve, engine_mod, argv, label):
+    """Build the fleet for ``argv``, zero the launch counts, run its
+    schedule, and read the counts; every decode step's logits are checked
+    for a NaN on the card (one flag a step, read at the end).  Returns
+    (fleet, specs, report, launches, wall s, peak GiB)."""
+    say(f"{label}: serve " + " ".join(argv))
+    fleet, specs, args = serve.build_fleet(argv)
+    nan_flags = []
+    decode = engine_mod.model.decode_step
+
+    def watched(*a, **k):
+        logits, cache = decode(*a, **k)
+        nan_flags.append(torch.isnan(logits).any())
+        return logits, cache
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    engine_mod.model.decode_step = watched
+    t0 = time.perf_counter()
+    try:
+        rep = fleet.run(specs)
+        torch.cuda.synchronize()
+    finally:
+        engine_mod.model.decode_step = decode
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if not nan_flags or bool(torch.stack(nan_flags).any()):
+        fail(f"{label}: a decode step's logits hold a NaN "
+             f"({len(nan_flags)} steps)")
+    return (fleet, specs, rep, launches, wall,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _poisoned(torch, heap, pes):
+    """True when every row of every pool at ``pes`` holds the poison bits:
+    NaN (0x7FC0 bf16, 0x7FC00000 f32) or ``iinfo.min + 1``."""
+    for pool in heap.pools.values():
+        rows = pool[list(pes)]
+        if rows.dtype == torch.bfloat16:
+            ok = bool((rows.view(torch.int16) == 0x7FC0).all())
+        elif rows.dtype == torch.float32:
+            ok = bool((rows.view(torch.int32) == 0x7FC00000).all())
+        else:
+            ok = bool((rows == torch.iinfo(rows.dtype).min + 1).all())
+        if not ok:
+            return False
+    return True
+
+
+def phase_fleet(torch, ops, serve, engine_mod):
+    """Phase 23: the fleet (module docstring).  Returns (its outputs by
+    spec index, its launches)."""
+    from repro_torch.serve.scheduler import FINISHED
+    fleet, specs, rep, launches, wall, peak = _run_fleet_phase(
+        torch, ops, serve, engine_mod, FLEET_ARGV, "fleet path")
+    got = _fleet_counts(fleet, rep, launches)
+    say(f"fleet path: {wall:.2f} s wall, peak {peak:.1f} GiB; launches "
+        f"{launches}; counts {got}; wire {rep['wire']}; router "
+        f"{rep['router']}; ring {rep['proxy']}")
+    if rep["completed"] + rep["shed"] != rep["offered"] or \
+            rep["completed"] < 16 or not \
+            rep["resumes"] == rep["preempts"] >= 1 or \
+            not rep["wire"]["bytes_cross_pod"] > 0:
+        fail(f"fleet path: {rep['completed']} completed + {rep['shed']} "
+             f"shed of {rep['offered']}, {rep['preempts']} preempts / "
+             f"{rep['resumes']} resumes, {rep['wire']['bytes_cross_pod']} "
+             f"B cross-pod")
+    if fleet.pool.stats()["blocks_in_use"]:
+        fail("fleet path: the pool did not drain")
+    if got != FLEET_PREDICTED["23"]:
+        fail(f"fleet path counts {got} differ from the CPU run's "
+             f"{FLEET_PREDICTED['23']}")
+    t0 = time.perf_counter()
+    n = 0
+    for pod in fleet.pods:
+        sched = pod.sched
+        slots = len(sched.banks[sched.decode_pes[0]].active)
+        for rid, req in sorted(sched.requests.items()):
+            if req.state != FINISHED:
+                continue
+            base = sched.engine.generate_in_slot(
+                req.batch, dataclasses.replace(sched.scfg,
+                                              max_new_tokens=req.max_new),
+                num_slots=slots, slot=req.slot)
+            if base != req.out:
+                fail(f"fleet path: {pod.name} request {rid} tokens "
+                     f"{req.out} != single-PE baseline {base}")
+            n += 1
+    torch.cuda.synchronize()
+    say(f"{n}/{rep['completed']} completed fleet requests bitwise equal to "
+        f"the single-PE baseline ({time.perf_counter() - t0:.2f} s for the "
+        f"baseline); counts as the CPU run predicts")
+    outs = fleet.outputs()
+    del fleet
+    torch.cuda.empty_cache()
+    return outs, launches
+
+
+def phase_chaos(torch, ops, serve, engine_mod, control):
+    """Phase 24: phase 23's traffic under CHAOS_PLAN, phase 23's outputs
+    the control.  Returns its launches."""
+    fleet, specs, rep, launches, wall, peak = _run_fleet_phase(
+        torch, ops, serve, engine_mod, FLEET_ARGV + ["--chaos", CHAOS_PLAN],
+        "chaos path")
+    got = _fleet_counts(fleet, rep, launches)
+    flt = rep["fault"]
+    say(f"chaos path: {wall:.2f} s wall, peak {peak:.1f} GiB; launches "
+        f"{launches}; counts {got}; events {flt['events']}; dead PEs "
+        f"{flt['dead_pes']}, dead pods {flt['dead_pods']}")
+    fired = [e["kind"] for e in flt["events"] if e["kind"] != "heal"]
+    if fired != ["kill_pe", "partition", "kill_pod"]:
+        fail(f"chaos path: events {flt['events']}")
+    from repro_torch.serve.scheduler import TERMINAL
+    open_ = [(p.name, r.rid, r.state) for p in fleet.pods + fleet.dead_pods
+             for r in p.sched.requests.values() if r.state not in TERMINAL]
+    if open_:
+        fail(f"chaos path: requests not terminal: {open_}")
+    outs = fleet.outputs()
+    wrong = [i for i, out in outs.items() if out and out != control[i]]
+    if wrong:
+        fail(f"chaos path: wrong tokens on surviving requests {wrong}")
+    if not rep["recovered"]["recovered_requests"] >= 1:
+        fail("chaos path: no request recovered")
+    if fleet.pool.stats()["blocks_in_use"]:
+        fail("chaos path: the pool did not drain")
+    if not _poisoned(torch, fleet.heap, flt["dead_pes"]):
+        fail(f"chaos path: a dead PE's rows of {flt['dead_pes']} lost the "
+             f"poison bits")
+    if got != FLEET_PREDICTED["24"]:
+        fail(f"chaos path counts {got} differ from the CPU run's "
+             f"{FLEET_PREDICTED['24']}")
+    say(f"chaos path: {sum(1 for o in outs.values() if o)} completed "
+        f"requests' tokens equal the control's, 0 wrong; dead rows "
+        f"poisoned bit for bit; no NaN logits; counts as the CPU run "
+        f"predicts")
+    del fleet
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2052,6 +2343,7 @@ def main() -> None:
         reduce_tile, ring_collectives, rma_copy
     from repro_torch.launch import serve, shmem_collectives
     from repro_torch.obs import export
+    from repro_torch.serve import engine as engine_mod
 
     # ---- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2321,6 +2613,17 @@ def main() -> None:
     mode_launches.update(family_launches)
     rows.append(k11_64)
 
+    # ---- 22-24. cross-pod serving, the fleet, chaos --------------------------
+    cross, k11_22 = phase_cross_pod(
+        torch, ops, serve, ishmem_device, flash_attn, barrier_out,
+        {"barrier": launches["copy_into"],
+         "fused": fused_launches["copy_into"]})
+    mode_launches.update(cross)
+    fleet_out, mode_launches["23"] = phase_fleet(torch, ops, serve,
+                                                 engine_mod)
+    mode_launches["24"] = phase_chaos(torch, ops, serve, engine_mod,
+                                      fleet_out)
+
     # ---- 21. training, data-parallel through the ring kernels -------------
     train_launches, train_rows = phase_train(torch, ops, ring_collectives,
                                              dev, deferred)
@@ -2402,6 +2705,10 @@ def main() -> None:
     for name in SERVE_KERNELS:
         by_name[name]["launches_by_phase"] = {
             phase: run[name] for phase, run in mode_launches.items()}
+    k11["launches_by_phase"] = {
+        phase: mode_launches[phase]["fused_paged_attn"]
+        for phase in ("22", "22-fused", "23", "24")}
+    k11["launches_on_phase_22_pool"] = k11_22
     by_name["reduce_tile"]["path"] = "none: only the reference's " \
         "benchmark and tests call K9"
     print(json.dumps({"kernels": rows}), flush=True)

@@ -11,8 +11,9 @@ like the paper's listings:
     sh.ishmem_barrier_all()
 
 The heap lives on ``device`` (the current CUDA device unless the caller
-asks for another, as ``_devices.resolve`` has it).  The host proxy is not
-ported yet, so ``ishmem_quiet(proxy=...)`` raises.
+asks for another, as ``_devices.resolve`` has it).
+``ishmem_quiet(proxy=...)`` drains dcn-tier puts through a
+:class:`~repro_torch.core.proxy.HostProxy`.
 """
 from __future__ import annotations
 

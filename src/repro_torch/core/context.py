@@ -2,15 +2,17 @@
 
 Counterpart of ``repro/core/context.py``: the symmetric heap, the PE
 topology (which PEs share a fabric tier), the transport tuning, the
-telemetry sink, the completion queue and the tracer.  ``init`` uses
-``cutover.Tuning()`` defaults unless given a tuning: it reads no
-``ISHMEM_*`` environment variable yet, and ``fit_tuning_table`` is not
-ported (both come with the tuning knobs, ROADMAP queue 1, item 5c).
+telemetry sink, the completion queue, the tracer and the
+failure-domain view (:class:`FaultState`: dead PEs, a partitioned dcn
+fabric).  ``init`` uses ``cutover.Tuning()`` defaults unless given a
+tuning: it reads no ``ISHMEM_*`` environment variable yet, and
+``fit_tuning_table`` is not ported (both come with the tuning knobs,
+ROADMAP queue 1, item 5c).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Set
 
 from repro_torch.core import cutover, heap as heap_mod, \
     pending as pending_mod, teams
@@ -18,6 +20,23 @@ from repro_torch.obs import tracer as tracer_mod
 from repro_torch.tune import telemetry as telemetry_mod
 
 OpRecord = telemetry_mod.OpRecord
+
+
+@dataclasses.dataclass
+class FaultState:
+    """Host-side failure-domain view.  ``dead_pes`` holds PEs whose device
+    is gone: their heap rows are garbage, pending traffic touching them (as
+    source or destination) cancels with an error instead of completing.
+    ``dcn_down`` is a partitioned proxy ring: cross-pod (dcn-tier) ops stay
+    queued, neither lost nor delivered, until the partition heals."""
+    dead_pes: Set[int] = dataclasses.field(default_factory=set)
+    dcn_down: bool = False
+
+    def alive(self, pe: int) -> bool:
+        return int(pe) not in self.dead_pes
+
+    def kill(self, pe: int) -> None:
+        self.dead_pes.add(int(pe))
 
 
 @dataclasses.dataclass
@@ -31,6 +50,9 @@ class ShmemContext:
     pending: pending_mod.CompletionQueue = dataclasses.field(
         default_factory=pending_mod.CompletionQueue)
     tracer: tracer_mod.Tracer = tracer_mod.NULL_TRACER
+    # which PEs are dead and whether the proxy ring is partitioned: the
+    # completion queue consults it at flush time
+    fault: FaultState = dataclasses.field(default_factory=FaultState)
 
     # ------------------------------------------------------------ topology
     def node_of(self, pe: int) -> int:

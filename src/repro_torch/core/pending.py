@@ -20,9 +20,14 @@ deferred adds to one element merge into one atomic.  Every transfer lands
 through ``SymmetricHeap.write``, i.e. through the K1 copy kernel on a CUDA
 heap.
 
-Not ported yet: fault cancellation and the host-proxy route (dcn-tier ops
-complete on the modeled proxy path, and ``flush(proxy=...)`` raises) — they
-come with the fleet slice (ROADMAP queue 1, item 10).
+dcn-tier puts are the same records: a flush given a
+:class:`~repro_torch.core.proxy.HostProxy` submits them as ring messages
+and drains the ring (so each lands through the same ``heap.write``), else
+they complete on the modeled proxy path.  Fault laws: an op touching a dead
+PE, as source or destination, cancels with a structured record on
+``errors`` instead of completing (``cancel_pe`` at the kill, and at every
+later flush), and while the dcn fabric is partitioned only the queue prefix
+before the first cross-pod op completes.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ class PendingOp:
     tier: str
     epoch: int
     seq: int
+    src_pe: int = -1               # initiating PE (-1: unknown or the host)
     work_items: int = 1
     value: Optional[torch.Tensor] = None    # PUT: flat payload, owned
     apply: Optional[Callable] = None        # AMO/SIGNAL: old -> new
@@ -68,6 +74,7 @@ class FlushStats:
     flushed_bytes: int = 0
     transfer_bytes: int = 0
     flushes: int = 0
+    cancelled: int = 0             # ops cancelled with an error (dead peer)
 
     def coalescing_ratio(self) -> float:
         return self.flushed_ops / self.transfers if self.transfers else 1.0
@@ -81,12 +88,16 @@ class CompletionQueue:
         self.epoch: int = 0
         self._seq: int = 0
         self.stats = FlushStats()
+        # one record per pending op that could not complete because its
+        # peer died: quiet() completes instead of wedging, and the caller
+        # reads the errors
+        self.errors: List[dict] = []
 
     def submit(self, kind: str, op: str, ptr: SymPtr, pe: int, tier: str, *,
-               work_items: int = 1, value=None, apply=None, delta=None,
-               marker=None) -> PendingOp:
+               src_pe: int = -1, work_items: int = 1, value=None, apply=None,
+               delta=None, marker=None) -> PendingOp:
         rec = PendingOp(kind=kind, op=op, ptr=ptr, pe=int(pe), tier=tier,
-                        epoch=self.epoch, seq=self._seq,
+                        epoch=self.epoch, seq=self._seq, src_pe=int(src_pe),
                         work_items=work_items, value=value, apply=apply,
                         delta=delta, marker=marker)
         self._seq += 1
@@ -161,41 +172,114 @@ class CompletionQueue:
                 return i
         return None
 
+    # ------------------------------------------------------ fault handling
+    @staticmethod
+    def _dead_pes(ctx):
+        return ctx.fault.dead_pes
+
+    @staticmethod
+    def _touches(op: PendingOp, pes) -> bool:
+        return op.pe in pes or op.src_pe in pes
+
+    def cancel_pe(self, ctx, pe: int) -> int:
+        """Cancel with an error every queued op touching ``pe`` as source
+        or destination (the peer died: nothing may land on or be read from
+        its row).  Each leaves a record on ``errors``; later flushes then
+        complete instead of wedging.  Returns the number cancelled."""
+        pes = {int(pe)}
+        keep, dead = [], []
+        for o in self.ops:
+            (dead if self._touches(o, pes) else keep).append(o)
+        self.ops = keep
+        for o in dead:
+            self._cancel(ctx, o, f"pe {int(pe)} died")
+        return len(dead)
+
+    def _cancel(self, ctx, op: PendingOp, reason: str) -> None:
+        self.errors.append({
+            "op": op.op, "kind": op.kind, "pe": op.pe, "src_pe": op.src_pe,
+            "tier": op.tier, "dtype": op.ptr.dtype, "offset": op.ptr.offset,
+            "nbytes": op.ptr.nbytes, "reason": reason,
+        })
+        self.stats.cancelled += 1
+        _retag_marker(op, "cancelled")
+        if ctx.tracer.enabled:
+            ctx.tracer.instant("op_cancelled", "cq", "core", "cq",
+                               op=op.op, pe=op.pe, reason=reason)
+
+    def _partition_limit(self, ctx, ops) -> Optional[int]:
+        """Index of the first dcn-tier op of ``ops`` while the proxy ring
+        is partitioned: nothing at or past it may complete.  None when the
+        ring is healthy."""
+        if not ctx.fault.dcn_down:
+            return None
+        for i, o in enumerate(ops):
+            if o.tier == "dcn":
+                return i
+        return None
+
     # -------------------------------------------------------------- flush
     def flush(self, ctx, heap, *, proxy=None):
-        """Complete every pending op, in order.  Returns the new heap.  The
-        host-proxy route is not ported: a ``proxy`` raises."""
-        if proxy is not None:
-            raise NotImplementedError(
-                "flush through a HostProxy comes with the fleet slice "
-                "(ROADMAP queue 1, item 10)")
-        return self._flush_ops(ctx, heap, self.ops, keep_from=len(self.ops))
+        """Complete every pending op, in order.  Returns the new heap.
+        While the proxy ring is partitioned only the prefix before the
+        first cross-pod op completes; the rest waits for the heal."""
+        limit = self._partition_limit(ctx, self.ops)
+        if limit is None:
+            limit = len(self.ops)
+        return self._flush_ops(ctx, heap, self.ops[:limit], proxy=proxy,
+                               keep_from=limit)
 
-    def flush_prefix(self, ctx, heap, upto: int):
-        """Complete ops[0..upto] (inclusive), keep the rest pending."""
-        return self._flush_ops(ctx, heap, self.ops[:upto + 1],
+    def flush_prefix(self, ctx, heap, upto: int, *, proxy=None):
+        """Complete ops[0..upto] (inclusive), keep the rest pending
+        (clamped below a partition)."""
+        limit = self._partition_limit(ctx, self.ops[:upto + 1])
+        if limit is not None:
+            upto = limit - 1
+        return self._flush_ops(ctx, heap, self.ops[:upto + 1], proxy=proxy,
                                keep_from=upto + 1)
 
-    def flush_dependency(self, ctx, heap, ptr: SymPtr, pe: int):
+    def flush_dependency(self, ctx, heap, ptr: SymPtr, pe: int, *,
+                         proxy=None):
         """Complete the queue prefix the word at (ptr, pe) depends on; a
         no-op when nothing pending targets it."""
         dep = self.pending_for(ptr, pe)
         if dep is not None:
-            heap = self.flush_prefix(ctx, heap, dep)
+            heap = self.flush_prefix(ctx, heap, dep, proxy=proxy)
         return heap
 
-    def _flush_ops(self, ctx, heap, ops, *, keep_from):
+    def _flush_ops(self, ctx, heap, ops, *, proxy, keep_from):
         if not ops:
             return heap
         remainder = self.ops[keep_from:]
+        dead = self._dead_pes(ctx)
+        if dead:
+            live = []
+            for o in ops:
+                if self._touches(o, dead):
+                    self._cancel(ctx, o, "peer died with op in flight")
+                else:
+                    live.append(o)
+            ops = live
+            if not ops:
+                self.ops = remainder
+                return heap
         transfers = (_combine(ops) if ctx.tuning.nbi_coalesce
                      else [[o] for o in ops])
         tracer = ctx.tracer
         if tracer.enabled:
             tracer.begin("flush", "cq", "core", "cq",
                          ops=len(ops), transfers=len(transfers))
+        undrained = False
         for group in transfers:
-            heap = self._issue(ctx, heap, group)
+            if undrained and not self._routes_to_proxy(group, proxy):
+                # a directly applied op must observe every ring message
+                # submitted before it: drain before leaving the proxy run
+                heap = proxy.drain(heap)
+                undrained = False
+            heap, used_proxy = self._issue(ctx, heap, group, proxy)
+            undrained = undrained or used_proxy
+        if undrained:
+            heap = proxy.drain(heap)
         self.stats.flushed_ops += len(ops)
         self.stats.flushed_bytes += sum(o.ptr.nbytes for o in ops)
         self.stats.transfers += len(transfers)
@@ -211,16 +295,21 @@ class CompletionQueue:
         return heap
 
     @staticmethod
-    def _issue(ctx, heap, group):
+    def _routes_to_proxy(group, proxy) -> bool:
+        return (proxy is not None and group[0].kind == PUT
+                and group[0].tier == "dcn")
+
+    @staticmethod
+    def _issue(ctx, heap, group, proxy):
         """One coalesced transfer, one (merged) atomic, one signal update or
-        one fetch."""
+        one fetch.  Returns ``(heap, went_through_the_ring)``."""
         head = group[0]
         if head.kind == GET:
             # the fetch completed at submission; its cost accrues here
             path = "proxy" if head.tier == "dcn" else "engine"
             ctx.record(head.op, head.ptr.nbytes, path, head.tier,
                        head.work_items)
-            return heap
+            return heap, False
         if head.kind in (AMO, SIGNAL):
             new = heap.read(head.ptr, head.pe).reshape(())
             for o in group:                   # merged adds compose in order
@@ -228,8 +317,25 @@ class CompletionQueue:
             path = "proxy" if head.tier == "dcn" else "direct"
             ctx.record(head.op, TORCH_DTYPES[head.ptr.dtype].itemsize, path,
                        head.tier, head.work_items)
-            return heap.write(head.ptr, head.pe, new)
+            return heap.write(head.ptr, head.pe, new), False
         ptr, value = _merge_puts(group)
+        tracer = ctx.tracer
+        if head.tier == "dcn" and proxy is not None:
+            if proxy.ring_full():
+                # a migration storm filled the ring: the producer must wait
+                # for the consumer, and we hold the heap, so the proxy
+                # thread catches up here (backpressure, not message loss)
+                heap = proxy.drain(heap)
+                proxy.backpressure += 1
+                if tracer.enabled:
+                    tracer.instant("ring_backpressure", "cq", "core", "cq",
+                                   pe=head.pe)
+            proxy.put(ptr, value, head.pe)    # ring message; drained once
+            if tracer.enabled:
+                tracer.instant("xfer", "cq", "core", "cq", path="proxy",
+                               tier="dcn", nbytes=ptr.nbytes, pe=head.pe,
+                               coalesced=len(group))
+            return heap, True
         wi = max(o.work_items for o in group)
         if head.tier == "dcn":
             path = "proxy"
@@ -238,11 +344,11 @@ class CompletionQueue:
                                        tier=head.tier, hw=ctx.hw,
                                        tuning=ctx.tuning)
         ctx.record(head.op, ptr.nbytes, path, head.tier, wi)
-        if ctx.tracer.enabled:
-            ctx.tracer.instant("xfer", "cq", "core", "cq", path=path,
-                               tier=head.tier, nbytes=ptr.nbytes, pe=head.pe,
-                               work_items=wi, coalesced=len(group))
-        return heap.write(ptr, head.pe, value)
+        if tracer.enabled:
+            tracer.instant("xfer", "cq", "core", "cq", path=path,
+                           tier=head.tier, nbytes=ptr.nbytes, pe=head.pe,
+                           work_items=wi, coalesced=len(group))
+        return heap.write(ptr, head.pe, value), False
 
 
 # ---------------------------------------------------------------------------

@@ -107,7 +107,7 @@ def put_nbi(ctx, heap, dest, value, dst_pe, *, src_pe: int = 0,
     ctx.record("put_nbi(pending)", dest.nbytes, path, tier, work_items,
                t_sec=0.0)
     ctx.pending.submit(pending_mod.PUT, "put_nbi", dest, dst_pe, tier,
-                       work_items=work_items, value=value,
+                       src_pe=src_pe, work_items=work_items, value=value,
                        marker=ctx.ledger[-1] if ctx.ledger else None)
     return heap
 
@@ -122,14 +122,14 @@ def get_nbi(ctx, heap, src, src_pe_remote, *, src_pe: int = 0,
     ctx.record("get_nbi(pending)", src.nbytes, path, tier, work_items,
                t_sec=0.0)
     ctx.pending.submit(pending_mod.GET, "get_nbi", src, src_pe_remote, tier,
-                       work_items=work_items,
+                       src_pe=src_pe, work_items=work_items,
                        marker=ctx.ledger[-1] if ctx.ledger else None)
     return heap.read(src, src_pe_remote)
 
 
 def quiet(ctx, heap, *, proxy=None):
-    """ishmem_quiet: completes every pending nbi op (a ``proxy`` raises:
-    the host-proxy route is not ported)."""
+    """ishmem_quiet: completes every pending nbi op; with a ``proxy``,
+    dcn-tier puts travel its ring and drain."""
     heap = ctx.pending.flush(ctx, heap, proxy=proxy)
     ctx.record("quiet", 0, "direct", "local", 1)
     return heap

@@ -60,7 +60,7 @@ def put_signal_nbi(ctx, heap, dest, value, sig_ptr, signal, sig_op, dst_pe, *,
     ctx.record("signal(pending)", TORCH_DTYPES[sig_ptr.dtype].itemsize,
                "direct", tier, 1, t_sec=0.0)
     ctx.pending.submit(pending_mod.SIGNAL, "signal", sig_ptr, dst_pe, tier,
-                       apply=_sig_apply(signal, sig_op),
+                       src_pe=src_pe, apply=_sig_apply(signal, sig_op),
                        marker=ctx.ledger[-1] if ctx.ledger else None)
     return heap
 

@@ -86,7 +86,7 @@ def _server(argv):
         i = argv.index("--layers")
         layers = int(argv[i + 1])
         del argv[i:i + 2]
-    args = serve.build_parser().parse_args(argv)
+    args = serve.parse_args(argv)
     cfg = cfgbase.get_config(args.arch)
     if not args.full:
         cfg = cfgbase.reduced(cfg)

@@ -1,12 +1,16 @@
-"""Serving launcher: lockstep batched generation, and disaggregated
-prefill/decode with SHMEM paged-KV migration and paged decode attention.
+"""Serving launcher: lockstep batched generation, disaggregated
+prefill/decode with SHMEM paged-KV migration and paged decode attention,
+and the cluster fleet.
 
 Counterpart of ``repro/launch/serve.py`` (its lockstep mode,
 ``_run_disagg`` with ``--fused-attn``, ``--stream-chunks``,
-``--shared-prefix``, ``--dense-rehydrate`` and ``--trace``,
-``--overlap-report`` and ``--seq-parallel``).  Runs on the current CUDA device unless ``--device``
+``--shared-prefix``, ``--dense-rehydrate``, ``--cross-pod`` and
+``--trace``, ``_run_fleet`` with ``--chaos``, ``--overlap-report`` and
+``--seq-parallel``).  Runs on the current CUDA device unless ``--device``
 says otherwise; ``--full`` serves the architecture at its published widths
-instead of the reduced test variant.
+instead of the reduced test variant.  The observability flags
+(``--metrics``, ``--profile``, ``--audit``) come with ROADMAP queue 1,
+item 11, and raise.
 
   # lockstep batch
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 4
@@ -47,6 +51,19 @@ instead of the reduced test variant.
   # widths (32 heads of 128) and a 32768-token context
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \\
       --seq-parallel 8 --prompt-len 32768
+
+  # decode PEs in a second pod: every migration crosses pods (dcn tier)
+  # and drains through the host-proxy ring
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg --cross-pod
+
+  # the fleet: open-loop traffic from three tenants over 2 pods, routed by
+  # prefix affinity, admitted by deadline class (with preemption)
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet --pods 2 \
+      --rate 1.2 --fleet-steps 16 --admission slo --router affinity
+
+  # the same under a fault plan (or set ISHMEM_FAULT_PLAN and pass --chaos)
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet \
+      --chaos 'kill_pe=2@4,partition=3@6,kill_pod=pod1@9'
 
   # modeled nbi-vs-blocking pricing of the decode allreduces at the
   # architecture's published widths (the cost model, not a measurement)
@@ -228,8 +245,10 @@ def seq_parallel_report(npes: int, *, prompt_len: int, full: bool = False,
 def _build_disagg(args, cfg, params):
     """The disaggregated scheduler for ``args`` with its requests submitted
     and nothing run.  ``--trace`` puts a recording span tracer on the
-    context."""
+    context; ``--cross-pod`` makes the prefill PEs one pod and the decode
+    PEs another, so every migration drains through a host proxy."""
     from repro_torch.core import context, teams
+    from repro_torch.core.proxy import HostProxy
     from repro_torch.obs.tracer import SpanTracer
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.kvpool import KVPool
@@ -238,7 +257,8 @@ def _build_disagg(args, cfg, params):
 
     device = params["embed"].device
     npes = args.prefill_pes + args.decode_pes
-    ctx, heap = context.init(npes=npes, node_size=npes, device=device)
+    node_size = args.prefill_pes if args.cross_pod else npes
+    ctx, heap = context.init(npes=npes, node_size=node_size, device=device)
     if args.trace:
         ctx.tracer = SpanTracer()
     pre, dec = teams.disagg_partition(teams.world(npes), args.prefill_pes)
@@ -246,8 +266,9 @@ def _build_disagg(args, cfg, params):
     eng = Engine(cfg, params, max_len=max_len, device=device)
     pool = KVPool.create(heap, cfg, max_len, num_blocks=args.kv_blocks,
                          max_slots=args.slots, block_tokens=args.block_tokens)
+    proxy = HostProxy(ctx) if args.cross_pod else None
     sched = DisaggScheduler(
-        ctx, heap, eng, pool, KVMigrator(ctx, pool),
+        ctx, heap, eng, pool, KVMigrator(ctx, pool, proxy=proxy),
         prefill_pes=pre.pes(), decode_pes=dec.pes(), num_slots=args.slots,
         scfg=ServeConfig(max_new_tokens=args.max_new,
                          temperature=args.temperature, seed=args.seed),
@@ -270,7 +291,7 @@ def build_disagg(argv=None):
     """Parse ``argv`` (with ``--disagg``), build the model and return
     ``(sched, args)``: the scheduler with its requests submitted, for a
     caller that steps it itself and then calls :func:`report_disagg`."""
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     if not args.disagg:
         raise ValueError("build_disagg needs --disagg")
     cfg, params = _model(args)
@@ -283,9 +304,10 @@ def report_disagg(sched, args) -> None:
     st, ctx, pool = sched.stats, sched.ctx, sched.pool
     outs = {rid: r.out for rid, r in sched.requests.items()}
     mode = "dense-rehydrate" if args.dense_rehydrate else "paged"
+    tier = "dcn (host proxy)" if sched.migrator.proxy is not None else "ici"
     print(f"[serve] disagg arch={sched.engine.cfg.name} "
-          f"prefill={sched.prefill_pes} decode={sched.decode_pes} tier=ici "
-          f"decode-cache={mode}")
+          f"prefill={sched.prefill_pes} decode={sched.decode_pes} "
+          f"tier={tier} decode-cache={mode}")
     print(f"[serve]   {st.prefills} prefills, {st.migrations} migrations "
           f"({st.bytes_migrated} B), {st.admissions} admissions, "
           f"{st.evictions} evictions over {st.decode_steps} decode steps")
@@ -315,6 +337,11 @@ def report_disagg(sched, args) -> None:
     print(f"[serve]   pool: {ps['blocks_in_use']}/{ps['blocks_total']} "
           f"blocks in use; heap: {ps['heap']['bytes_in_use']} B in use, "
           f"{ps['heap']['bytes_free']} B free")
+    proxy = sched.migrator.proxy
+    if proxy is not None:
+        print(f"[serve]   cross-pod: {st.bytes_cross_pod} B over the proxy "
+              f"ring, {len(proxy.ring.delivered)} messages, "
+              f"{proxy.backpressure} backpressure drains")
     for rid in sorted(outs)[:4]:
         print(f"[serve]   req {rid}: {outs[rid]}")
     if args.trace:
@@ -337,15 +364,153 @@ def _run_disagg(args, cfg, params):
     return sched
 
 
+FLEET_OBS_FLAGS = ("metrics", "profile", "audit")
+
+
+def _build_fleet(args, cfg, params):
+    """``(fleet, specs)``: the fleet for ``args`` and its open-loop arrival
+    schedule, nothing run.  Three tenants, as the reference's launcher has
+    them: chat (interactive, weight 2), api (standard, half its requests
+    samples of one of 2 shared prompts) and scan (batch, 3x the decode
+    budget where the cache allows).  ``--chaos`` takes its plan from the
+    flag or from ``ISHMEM_FAULT_PLAN``."""
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.fault import FaultPlan, load_fault_env
+    from repro_torch.serve.frontend import Fleet, FleetConfig, TenantSpec, \
+        TrafficEngine
+
+    fault_plan = None
+    if args.chaos is not None:
+        fenv = load_fault_env()
+        spec = args.chaos or fenv.plan          # the flag's plan wins
+        if not spec:
+            raise SystemExit(
+                "--chaos needs a fault plan: pass one inline "
+                "(--chaos 'kill_pod=pod1@10') or set ISHMEM_FAULT_PLAN")
+        fault_plan = FaultPlan.parse(spec, seed=fenv.seed)
+    fcfg = FleetConfig(
+        arch=args.arch, n_pods=args.pods,
+        prefill_per_pod=args.pod_prefill, decode_per_pod=args.pod_decode,
+        num_slots=args.slots, kv_blocks=args.kv_blocks,
+        block_tokens=args.block_tokens,
+        max_len=args.prompt_len + args.max_new, max_new=args.max_new,
+        temperature=args.temperature, stream_chunks=args.stream_chunks,
+        fused_attn=args.fused_attn, shared_prefix=True,
+        admit_delay=args.admit_delay, admission=args.admission,
+        queue_bound=args.queue_bound, router=args.router, seed=args.seed)
+    engine = Engine(cfg, params, max_len=fcfg.max_len,
+                    device=params["embed"].device)
+    fleet = Fleet(fcfg, engine=engine, fault_plan=fault_plan)
+    tenants = [
+        TenantSpec("chat", weight=2.0, prompt_lens=(args.prompt_len,),
+                   max_new=(args.max_new,), slo="interactive"),
+        TenantSpec("api", weight=1.0, prompt_lens=(args.prompt_len,),
+                   max_new=(args.max_new,), slo="standard",
+                   shared_prefix_prob=0.5, prefix_groups=2),
+        TenantSpec("scan", weight=1.0, prompt_lens=(args.prompt_len,),
+                   max_new=(min(3 * args.max_new, fcfg.max_len
+                                - args.prompt_len),), slo="batch"),
+    ]
+    traffic = TrafficEngine(tenants, rate=args.rate, vocab=cfg.vocab_size,
+                            seed=args.seed, process=args.traffic)
+    return fleet, traffic.schedule(args.fleet_steps)
+
+
+def build_fleet(argv=None):
+    """Parse ``argv`` (with ``--fleet``), build the model and return
+    ``(fleet, specs, args)``: the fleet unrun and its arrival schedule, for
+    a caller that drives ``fleet.run(specs)`` (or steps it) itself and then
+    calls :func:`report_fleet`."""
+    args = parse_args(argv)
+    if not args.fleet:
+        raise ValueError("build_fleet needs --fleet")
+    cfg, params = _model(args)
+    fleet, specs = _build_fleet(args, cfg, params)
+    return fleet, specs, args
+
+
+def report_fleet(fleet, specs, rep, args) -> None:
+    """Print the reference's report lines for a finished fleet run (the
+    ``*_model_s`` latencies are the modeled comm clock, not measured)."""
+    from collections import Counter
+    fcfg = fleet.fcfg
+    by_slo = dict(Counter(s.slo for s in specs))
+    print(f"[serve] fleet arch={fleet.cfg.name} pods={fcfg.n_pods} "
+          f"({fcfg.prefill_per_pod}P+{fcfg.decode_per_pod}D x "
+          f"{fcfg.num_slots} slots) router={fcfg.router} "
+          f"admission={fcfg.admission}")
+    print(f"[serve]   offered: {len(specs)} requests over "
+          f"{args.fleet_steps} steps ({args.traffic}, rate {args.rate}) "
+          f"by class {by_slo}")
+    lat = rep["latency"]
+    print(f"[serve]   {rep['completed']}/{rep['offered']} completed, "
+          f"{rep['shed']} shed, {rep['preempts']} preempted "
+          f"({rep['resumes']} resumed) in {fleet.elapsed_steps} steps")
+    print(f"[serve]   TTFD p50/p99 {lat['ttfd_p50_steps']:.1f}/"
+          f"{lat['ttfd_p99_steps']:.1f} steps "
+          f"({lat['ttfd_p50_model_s'] * 1e6:.1f}/"
+          f"{lat['ttfd_p99_model_s'] * 1e6:.1f} us modeled); e2e p99 "
+          f"{lat['e2e_p99_steps']:.1f} steps; goodput "
+          f"{rep['goodput']:.2f} ({rep.get('goodput_per_step', 0.0):.3f}"
+          f"/step)")
+    for name, b in sorted(rep["by_class"].items()):
+        print(f"[serve]     {name:12s} {b['completed']}/{b['offered']} "
+              f"done, p99 TTFD {b['ttfd_p99_steps']:.1f} steps, "
+              f"goodput {b['goodput']:.2f}")
+    wire = rep["wire"]
+    print(f"[serve]   wire: {wire['bytes_migrated']} B migrated, "
+          f"{wire['bytes_cross_pod']} B cross-pod, "
+          f"{wire['bytes_wire_saved']} B saved by residency; router "
+          f"{rep['router']}")
+    if "proxy" in rep:
+        print(f"[serve]   proxy ring: {rep['proxy']['delivered']} messages, "
+              f"{rep['proxy']['backpressure']} backpressure drains")
+    if fleet.injector is not None:
+        flt = rep.get("fault", {})
+        rec = rep["recovered"]
+        fired = ", ".join(f"{e['kind']}={e['arg']}@{e['step']}"
+                          for e in flt.get("events", ())) or "none fired"
+        print(f"[serve]   chaos: plan [{fleet.injector.plan.spec()}] -> "
+              f"{fired}")
+        print(f"[serve]   chaos: dead PEs {flt.get('dead_pes', [])}, dead "
+              f"pods {flt.get('dead_pods', [])}, "
+              f"{flt.get('cancelled_ops', 0)} in-flight ops cancelled")
+        print(f"[serve]   recovery: {rec['recovered_requests']} requests "
+              f"re-admitted ({rec['remigrated']} re-migrated, "
+              f"{rec['recomputed']} recomputed from prompt, "
+              f"{rec['replayed_tokens']} tokens replayed)")
+
+
+def _run_fleet(args, cfg, params):
+    """Play the fleet's arrival schedule, drain, print the report; returns
+    the finished fleet (its report under ``fleet.last_report``)."""
+    fleet, specs = _build_fleet(args, cfg, params)
+    rep = fleet.run(specs)
+    fleet.last_report = rep
+    report_fleet(fleet, specs, rep, args)
+    return fleet
+
+
 def build_parser() -> argparse.ArgumentParser:
+    """The launcher's flags; the fleet's defaults come from the
+    ``ISHMEM_FLEET_*`` variables.  A malformed one fails only a ``--fleet``
+    run (:func:`parse_args`)."""
+    from repro_torch.serve.frontend.env import FleetEnv, load_fleet_env
+    try:
+        fenv, fenv_err = load_fleet_env(), None
+    except ValueError as e:
+        fenv, fenv_err = FleetEnv(), e
     ap = argparse.ArgumentParser()
+    ap.set_defaults(fleet_env_error=fenv_err, fleet_env=fenv)
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--full", action="store_true",
                     help="serve the architecture at its published widths "
                          "(default: the reduced test variant)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="weights, prompts and the fleet's traffic and "
+                         "router (default 0; ISHMEM_FLEET_SEED for --fleet)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -370,11 +535,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="modeled wire latency in scheduler steps before a "
                          "migration's signal is polled (streamed closes "
                          "scale it by the final installment's share)")
-    ap.add_argument("--stream-chunks", type=int, default=0,
+    ap.add_argument("--stream-chunks", type=int, default=None,
                     metavar="BLOCKS",
                     help="chunked prefill streaming: put BLOCKS filled "
                          "blocks on the wire per scheduler step mid-prefill "
-                         "(0 = whole-prefill migration)")
+                         "(0 = whole-prefill migration; --fleet defaults to "
+                         "ISHMEM_FLEET_STREAM_CHUNKS)")
     ap.add_argument("--shared-prefix", action="store_true",
                     help="serve every request as a sample of one shared "
                          "prompt: prefix blocks are mapped (incref), not "
@@ -396,7 +562,66 @@ def build_parser() -> argparse.ArgumentParser:
                          "against single-PE flash, plus the modeled "
                          "blocking-vs-overlap step pricing (with --full at "
                          "the architecture's attention widths)")
+    ap.add_argument("--cross-pod", action="store_true",
+                    help="decode PEs in a second pod: dcn tier, migrations "
+                         "drain through the host proxy ring")
+    ap.add_argument("--fleet", action="store_true",
+                    help="cluster frontend: open-loop traffic over N pods "
+                         "with SLO admission and routing; defaults come "
+                         "from the ISHMEM_FLEET_* variables")
+    ap.add_argument("--pods", type=int, default=fenv.pods)
+    ap.add_argument("--pod-prefill", type=int, default=1,
+                    help="prefill PEs per pod")
+    ap.add_argument("--pod-decode", type=int, default=2,
+                    help="decode PEs per pod")
+    ap.add_argument("--fleet-steps", type=int, default=24,
+                    help="open-loop arrival window in scheduler steps "
+                         "(the run drains past it)")
+    ap.add_argument("--rate", type=float, default=0.8,
+                    help="offered load, requests per step fleet-wide")
+    ap.add_argument("--traffic", choices=("poisson", "bursty"),
+                    default="poisson", help="arrival process")
+    ap.add_argument("--router", choices=("random", "round_robin",
+                                         "least_loaded", "affinity"),
+                    default=fenv.router)
+    ap.add_argument("--admission", choices=("slo", "fcfs"),
+                    default=fenv.admission,
+                    help="SLO deadline-class policy vs the FCFS baseline")
+    ap.add_argument("--queue-bound", type=int, default=fenv.queue_bound,
+                    help="per-pod queue bound before the SLO policy sheds")
+    ap.add_argument("--chaos", nargs="?", const="", default=None,
+                    metavar="PLAN",
+                    help="fault injection against the fleet: a "
+                         "deterministic kind=arg@step plan (kill_pe, "
+                         "kill_pod, partition, drain, join), e.g. "
+                         "'kill_pod=pod1@10,partition=3@14'; with no "
+                         "inline plan, ISHMEM_FAULT_PLAN is used")
+    for flag in FLEET_OBS_FLAGS:
+        ap.add_argument(f"--{flag}", default=None, metavar="ARG",
+                        help="observability (ROADMAP queue 1, item 11): "
+                             "not ported, raises")
     return ap
+
+
+def parse_args(argv=None):
+    """Parse ``argv`` as the reference's launcher does: ``--seed`` defaults
+    to ``ISHMEM_FLEET_SEED`` for a fleet, and ``--stream-chunks`` to
+    ``ISHMEM_FLEET_STREAM_CHUNKS`` for a fleet without ``--fused-attn``
+    (the two exclude each other), else 0."""
+    args = build_parser().parse_args(argv)
+    for flag in FLEET_OBS_FLAGS:
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag} needs the observability bundle, which comes with "
+                f"ROADMAP queue 1, item 11")
+    if args.fleet and args.fleet_env_error is not None:
+        raise args.fleet_env_error
+    if args.seed is None:
+        args.seed = args.fleet_env.seed if args.fleet else 0
+    if args.stream_chunks is None:
+        args.stream_chunks = (args.fleet_env.stream_chunks
+                              if args.fleet and not args.fused_attn else 0)
+    return args
 
 
 def _model(args):
@@ -414,14 +639,16 @@ def _model(args):
 
 
 def main(argv=None):
-    """Run the launcher; returns the finished scheduler (``--disagg``) or
-    the generated ids (lockstep)."""
-    args = build_parser().parse_args(argv)
+    """Run the launcher; returns the finished fleet (``--fleet``), the
+    finished scheduler (``--disagg``) or the generated ids (lockstep)."""
+    args = parse_args(argv)
     from repro_torch.serve.engine import Engine, ServeConfig
 
     cfg, params = _model(args)
     device = params["embed"].device
-    if args.disagg:
+    if args.fleet:
+        out = _run_fleet(args, cfg, params)
+    elif args.disagg:
         out = _run_disagg(args, cfg, params)
     else:
         eng = Engine(cfg, params, max_len=args.prompt_len + args.max_new,

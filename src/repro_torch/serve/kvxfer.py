@@ -31,8 +31,14 @@ The fused protocol (``migrate_fused``, ``try_admit_fused``,
 ``consume_blocks``) inverts the wire order: tail and header first, then
 one work-group ``put_signal_nbi`` per block, so the decode PE admits on the
 first block's signal and consumes the rest through device waits that each
-force only the minimal queue prefix.  The host-proxy route comes with
-ROADMAP queue 1, item 10.
+force only the minimal queue prefix.
+
+Cross-pod migrations (the ``dcn`` tier) route through a
+:class:`~repro_torch.core.proxy.HostProxy` at flush when the migrator has
+one: every completion point (``flush``, ``stream_flush``, ``try_admit``,
+``try_admit_fused``) drains exactly the queue prefix it needs through the
+ring, and each drained put lands through ``heap.write`` (K1 on the card).
+``MigrationReport.bytes_dcn`` counts the wire bytes that crossed pods.
 """
 from __future__ import annotations
 
@@ -127,12 +133,9 @@ class KVMigrator:
 
     def __init__(self, ctx, pool: KVPool, *, proxy=None,
                  work_items: Optional[int] = None):
-        if proxy is not None:
-            raise NotImplementedError(
-                "cross-pod migration through a HostProxy is not ported yet "
-                "(ROADMAP queue 1, item 10)")
         self.ctx = ctx
         self.pool = pool
+        self.proxy = proxy          # HostProxy for dcn-tier flushes (optional)
         self.work_items = (ctx.tuning.work_group_size
                            if work_items is None else work_items)
         self._staged_tails = {}     # req_id -> packed tail vector
@@ -349,8 +352,8 @@ class KVMigrator:
         """Complete exactly the queue prefix this stream's signal depends
         on (its installments so far); other requests' traffic stays
         deferred."""
-        return self.ctx.pending.flush_dependency(self.ctx, heap, st.sig,
-                                                 st.dst_pe)
+        return self.ctx.pending.flush_dependency(
+            self.ctx, heap, st.sig, st.dst_pe, proxy=self.proxy)
 
     def stream_close(self, heap, st: StreamState) -> tuple:
         """Final installment: any remaining blocks, then tail + header,
@@ -403,8 +406,9 @@ class KVMigrator:
 
     # ---------------------------------------------------------- completion
     def flush(self, heap):
-        """Explicit completion point (quiet)."""
-        return rma.quiet(self.ctx, heap)
+        """Explicit completion point (quiet); dcn-tier traffic drains
+        through the host-proxy ring when one is attached."""
+        return rma.quiet(self.ctx, heap, proxy=self.proxy)
 
     def pending_ops(self) -> int:
         return len(self.ctx.pending)
@@ -419,6 +423,11 @@ class KVMigrator:
         for a parked stream."""
         if sig_ptr is None:
             sig_ptr = self.pool.sig_ptr(slot)
+        if self.proxy is not None:
+            # cross-pod: complete ONLY the queue prefix this signal depends
+            # on, through the ring; other requests' traffic stays deferred
+            heap = self.ctx.pending.flush_dependency(
+                self.ctx, heap, sig_ptr, dst_pe, proxy=self.proxy)
         heap, _, ok = signal_mod.signal_wait_until(
             self.ctx, heap, sig_ptr, dst_pe, "ge", expected)
         if not ok:
@@ -439,10 +448,15 @@ class KVMigrator:
         through the minimal-prefix device wait, so the modeled comm clock
         charges one block of wire time instead of the whole request.
         Returns ``(heap, header|None, blocks_resident)``."""
+        sig_ptr = self.pool.sig_ptr(slot)
+        if self.proxy is not None:
+            # cross-pod wire traffic drains through the ring, which drains
+            # whole: fused admission degrades to the dependency flush there
+            heap = self.ctx.pending.flush_dependency(
+                self.ctx, heap, sig_ptr, dst_pe, proxy=self.proxy)
         wg = device_mod.work_group(self.ctx, size=self.work_items, pe=dst_pe)
         heap, cur, ok = device_mod.signal_wait_until(
-            wg, heap, self.pool.sig_ptr(slot), dst_pe, "ge",
-            fused_admit_signal(n_wire))
+            wg, heap, sig_ptr, dst_pe, "ge", fused_admit_signal(n_wire))
         resident = max(0, int(cur) - EXTRA_SIGNALS)
         if not ok:
             return heap, None, resident

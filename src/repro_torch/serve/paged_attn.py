@@ -16,10 +16,9 @@ the decode-side KV cache, indexed per slot through block tables:
   request never writes them: the first write into one copies its payload
   into the slot's reserved private block (``rma.put``, so K1 on the card),
   remaps the table entry and drops the shared reference, so shared rows
-  stay pristine at every PE.
-
-``detach_keep`` (preemption keeps the un-fired reserves) waits for ROADMAP
-queue 1, item 10.
+  stay pristine at every PE;
+- **detach_keep** disarms a preempted slot but keeps its un-fired
+  reserves, which travel with the request and re-arm at resume.
 """
 from __future__ import annotations
 
@@ -76,6 +75,14 @@ class PagedDecodeView:
         if sm is None:
             return 0
         return self.pool.release_ids(list(sm.cow.values()))
+
+    def detach_keep(self, slot: int) -> Dict[int, int]:
+        """Disarm a preempted slot WITHOUT releasing its un-fired COW
+        reserves: the request decodes again later, so the reserves (and
+        their references) travel with it and re-arm at resume through
+        ``attach(cow=...)``.  Returns that cow map."""
+        sm = self.slots.pop(slot, None)
+        return {} if sm is None else dict(sm.cow)
 
     def table_of(self, slot: int) -> List[int]:
         return self.pool.blocks_of(self.slots[slot].req_id)

@@ -1,25 +1,42 @@
 """Disaggregated continuous-batching scheduler.
 
-Counterpart of ``repro/serve/scheduler.py``: a FCFS request queue feeding a
+Counterpart of ``repro/serve/scheduler.py``: a request queue feeding a
 fleet of prefill PEs, paged-KV migration to decode PEs
 (``serve/kvxfer.py``), whole-prefill or chunked-streaming, signal-threshold
 gated admission into decode slots, paged decode straight out of the block
 pool (``serve/paged_attn.py``), shared-prefix block reuse with
-copy-on-write, slot rotation and refcount-correct eviction.
+copy-on-write, slot rotation, preemption and refcount-correct eviction.
 
 Request states::
 
     QUEUED --prefill+stage--> STAGED --migrate(nbi)-----------> MIGRATING
-                                \\--open_stream--> STREAMING --> PARKED
-                                          (chunks drain slot-less;   |
-                                           slot binds at close ------/
-                                           tail+header -> MIGRATING)
+        |                       \\--open_stream--> STREAMING --> PARKED
+        |                                 (chunks drain slot-less;   |
+        |                                  slot binds at close ------/
+        |                                  tail+header -> MIGRATING)
+        |--policy shed--> SHED
     MIGRATING --signal >= threshold--> DECODING --max_new/eos--> FINISHED
+                 |   ^
+        policy   v   | slot frees
+             PREEMPTED (KV parked in the pool, slot surrendered)
 
-One ``step()`` advances every stage once, in the order stream, prefill,
-admit, decode: a migration issued this step stays pending (deferred nbi
-traffic) while decode keeps stepping resident requests, and a streaming
-request's previous installment drains while its next one "computes".
+Fault victims pass through RECOVERING (``serve/recovery.py``); a request
+adopted by another pod after its pod died ends here as RECOVERED.
+
+Admission is pluggable: shed-at-submit, which queued request prefills,
+the order slot waiters bind and whether a decoding request is preempted
+to free a slot all ask an :class:`AdmissionPolicy` (FCFS by default, with
+no shedding and no preemption; ``serve/frontend/slo.py`` is the deadline
+policy).  Preemption parks a DECODING request back into the pool: its
+paged KV is already there, so only the non-paged tail is snapshotted, and
+it resumes on the same decode PE at its exact cursor, so its tokens stay
+bitwise an uninterrupted run's.
+
+One ``step()`` advances every stage once, in the order recover, stream,
+prefill, admit, resume, decode: a migration issued this step stays pending
+(deferred nbi traffic) while decode keeps stepping resident requests, and a
+streaming request's previous installment drains while its next one
+"computes".
 Streams are slot-less while draining (their blocks park in the pool against
 a stream-signal word), so the admission flush pays only for the close's
 tail + header: the ``ttfd_model_s`` win.
@@ -39,11 +56,6 @@ the blocks still on the wire through per-block device waits
 (``consume_blocks``).  Decode reads the same bytes, so its tokens equal the
 barrier protocol's; the first block is observed resident earlier
 (``SchedStats.ttfd_first_block_steps``).
-
-Admission policies, preemption (the reference's ``_preempt_for`` finds no
-victim under its FCFS baseline, and so does this port: a slot-starved
-request stalls) and fault recovery wait for ROADMAP queue 1, item 10:
-``policy=`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,15 +71,20 @@ from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, StreamState, \
     fused_admit_signal
 from repro_torch.serve.paged_attn import PagedDecodeView
 
-(QUEUED, STAGED, STREAMING, PARKED, MIGRATING, DECODING, FINISHED) = (
-    "queued", "staged", "streaming", "parked", "migrating", "decoding",
-    "finished")
+(QUEUED, STAGED, STREAMING, PARKED, MIGRATING, DECODING, PREEMPTED,
+ FINISHED, SHED, RECOVERING, RECOVERED) = (
+    "queued", "staged", "streaming", "parked", "migrating",
+    "decoding", "preempted", "finished", "shed", "recovering", "recovered")
+
+#: terminal states (``done()`` waits for every request to reach one);
+#: RECOVERED is a record adopted by another pod, live there under a new rid
+TERMINAL = (FINISHED, SHED, RECOVERED)
 
 
 @dataclasses.dataclass
 class Request:
     rid: int
-    batch: dict                     # {"tokens": (1,S)}
+    batch: dict                     # {"tokens": (1,S)} + frontend embeds
     max_new: int
     state: str = QUEUED
     prefill_pe: int = -1
@@ -83,6 +100,7 @@ class Request:
     admit_step: int = -1
     finish_step: int = -1
     admit_ready_step: int = 0       # modeled wire latency gate
+    slo: Optional[object] = None    # frontend deadline class (policy-owned)
     # prefill result parked here while the request waits for pool blocks
     prefill_cache: Optional[dict] = None
     # shared-prefix state: the declared prefix, its index key, the blocks
@@ -94,6 +112,18 @@ class Request:
     cow_plan: Dict[int, int] = dataclasses.field(default_factory=dict)
     stream: Optional[StreamState] = None
     park_sig: int = -1              # pool stream-signal id while slot-less
+    # preemption snapshot: decode cursor and the non-paged tail (the paged
+    # KV stays in the pool)
+    resume_pos: int = -1
+    resume_tok: int = -1
+    park_tail: Optional[object] = None
+    preemptions: int = 0
+    # recovery: tokens decoded before a fault are replayed (held equal, not
+    # appended) until ``replayed`` reaches ``replay_target``
+    replay_target: int = 0
+    replayed: int = 0
+    recoveries: int = 0
+    recover_step: int = -1          # fleet step of the fault
     # fused protocol: wire blocks sent, blocks the decode side has still to
     # consume per signal, and the first step the first block was observed
     # resident (-1 = not yet)
@@ -126,6 +156,32 @@ class PrefixEntry:
     refs: int = 0                   # live requests mapping these blocks
 
 
+class AdmissionPolicy:
+    """Pluggable admission policy: the strict FCFS baseline, which never
+    sheds, never reorders and never preempts.  The scheduler calls these
+    hooks at every choice point (``serve/frontend/slo.py`` overrides
+    them)."""
+
+    def admit(self, req: Request, queue_len: int) -> bool:
+        """Gate at submit time; False sheds the request (state SHED)."""
+        return True
+
+    def select(self, queue) -> int:
+        """Index into the queue of the next request to prefill."""
+        return 0
+
+    def waiting_order(self, reqs: List[Request]) -> List[Request]:
+        """Order in which slot waiters (parked streams, preempted
+        requests) try to bind freed slots."""
+        return list(reqs)
+
+    def preempt_victim(self, req: Request,
+                       decoding: List[Request]) -> Optional[Request]:
+        """A slot-starved ``req`` may evict one of ``decoding``; return the
+        victim or None.  Only paged decode can preempt."""
+        return None
+
+
 @dataclasses.dataclass
 class SchedStats:
     prefills: int = 0
@@ -144,6 +200,13 @@ class SchedStats:
     blocks_prefix_shared: int = 0   # physical blocks reused via incref
     bytes_wire_saved: int = 0       # resident-at-dst blocks never re-sent
     cow_copies: int = 0             # divergent writes that copied a block
+    sheds: int = 0                  # requests rejected by the policy
+    preempts: int = 0               # decoding requests parked back to pool
+    resumes: int = 0                # preempted requests re-bound to a slot
+    remigrated: int = 0             # recoveries served by re-sending staged KV
+    recomputed: int = 0             # recoveries that re-ran prefill
+    replayed_tokens: int = 0        # pre-fault tokens re-derived bitwise
+    recovery_steps: List[int] = dataclasses.field(default_factory=list)
     ttfd_steps: List[int] = dataclasses.field(default_factory=list)
     ttfd_model_s: List[float] = dataclasses.field(default_factory=list)
     ttfd_first_block_steps: List[int] = dataclasses.field(
@@ -164,7 +227,10 @@ class DisaggScheduler:
                  prefills_per_step: Optional[int] = None,
                  admit_delay_steps: int = 0, paged: bool = True,
                  stream_chunks: int = 0, fused_attn: bool = False,
-                 shared_prefix: bool = False, policy=None):
+                 shared_prefix: bool = False,
+                 policy: Optional[AdmissionPolicy] = None,
+                 prefix_index: Optional[Dict[tuple, PrefixEntry]] = None,
+                 rid_base: int = 0):
         if fused_attn and not paged:
             raise ValueError("fused_attn requires paged decode (the fused "
                              "kernel gathers K/V straight from the pool)")
@@ -172,10 +238,6 @@ class DisaggScheduler:
             raise ValueError(
                 "fused_attn and chunked streaming are mutually exclusive — "
                 "per-block signals already stream at block granularity")
-        if policy is not None:
-            raise NotImplementedError(
-                "admission policies and preemption are not ported yet "
-                "(ROADMAP queue 1, item 10)")
         if num_slots > pool.max_slots:
             raise ValueError(
                 f"num_slots ({num_slots}) exceeds the pool's per-PE slot "
@@ -199,6 +261,7 @@ class DisaggScheduler:
         self.stream_chunks = stream_chunks      # blocks per installment; 0=off
         self.fused_attn = fused_attn
         self.shared_prefix = shared_prefix
+        self.policy = policy if policy is not None else AdmissionPolicy()
         self.views: Dict[int, PagedDecodeView] = (
             {pe: PagedDecodeView(pool, pe, num_slots) for pe in decode_pes}
             if paged else {})
@@ -207,8 +270,13 @@ class DisaggScheduler:
         self.staged: deque = deque()            # blocks held, awaiting a slot
         self.streaming: List[Request] = []      # chunked migrations in flight
         self.parked: List[Request] = []         # streams drained, no slot yet
+        self.preempted: List[Request] = []      # evicted mid-decode, resumable
         self.migrating: List[Request] = []
-        self.prefix_index: Dict[tuple, PrefixEntry] = {}
+        self.recovering: List[Request] = []     # fault victims awaiting redo
+        # a fleet shares ONE prefix index across its pods' schedulers, so a
+        # request routed anywhere can map blocks any pod staged
+        self.prefix_index: Dict[tuple, PrefixEntry] = (
+            {} if prefix_index is None else prefix_index)
         self.banks = {pe: engine.init_slots(num_slots) for pe in decode_pes}
         self.slot_req: Dict[int, List[Optional[int]]] = {
             pe: [None] * num_slots for pe in decode_pes}
@@ -216,7 +284,7 @@ class DisaggScheduler:
         self._rr_prefill = 0
         self._rr_decode = 0
         self._step = 0
-        self._next_rid = 0
+        self._next_rid = rid_base
         self._trace_pid = f"pod{ctx.node_of(self.prefill_pes[0])}"
 
     # ------------------------------------------------------------- tracing
@@ -240,10 +308,15 @@ class DisaggScheduler:
 
     # ------------------------------------------------------------- intake
     def submit(self, batch: dict, *, max_new: Optional[int] = None,
-               prefix_len: int = 0) -> int:
-        """Enqueue one request ({"tokens": (1,S)}).  ``prefix_len`` declares
-        its first N prompt tokens shareable with other requests declaring
-        the same tokens (``shared_prefix`` mode)."""
+               prefix_len: int = 0, arrival_step: Optional[int] = None,
+               t_arrival: Optional[float] = None,
+               slo: Optional[object] = None) -> int:
+        """Enqueue one request ({"tokens": (1,S)} [+ frontend embeds]).
+        ``prefix_len`` declares its first N prompt tokens shareable with
+        other requests declaring the same tokens (``shared_prefix`` mode).
+        ``arrival_step`` / ``t_arrival`` carry the frontend's arrival time,
+        so latencies include queue delay (default: now); ``slo`` is an
+        opaque deadline class the admission policy reads."""
         if max_new is None:
             max_new = self.scfg.max_new_tokens
         S = int(batch["tokens"].shape[1])
@@ -265,10 +338,22 @@ class DisaggScheduler:
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, batch=batch, max_new=max_new,
-                      prefix_len=prefix_len if self.shared_prefix else 0)
-        req.submit_step = req.arrival_step = self._step
-        req.t_arrival = self._comm_clock()
+                      prefix_len=prefix_len if self.shared_prefix else 0,
+                      slo=slo)
+        req.submit_step = self._step
+        req.arrival_step = (self._step if arrival_step is None
+                            else arrival_step)
+        req.t_arrival = (self._comm_clock() if t_arrival is None
+                         else t_arrival)
         self.requests[rid] = req
+        if not self.policy.admit(req, len(self.queue)):
+            req.state = SHED
+            req.finish_step = self._step
+            self.stats.sheds += 1
+            self._trace_phase(req, "shed", prompt_len=S,
+                              queue_depth=len(self.queue))
+            self._trace_phase(req, None, end_args={"outcome": "shed"})
+            return rid
         self.queue.append(req)
         self._trace_phase(req, "queued", prompt_len=S, max_new=max_new,
                           arrival_step=req.arrival_step)
@@ -363,26 +448,28 @@ class DisaggScheduler:
                 self._trace_phase(req, "parked",
                                   end_args={"chunks": st.chunks,
                                             "blocks_sent": st.sent})
-        for req in list(self.parked):
+        for req in self.policy.waiting_order(list(self.parked)):
             self.heap = self.migrator.stream_flush(self.heap, req.stream)
             self._try_bind(req)
 
     def _phase_prefill(self) -> None:
         """Advance streams, retry slot assignment for staged requests, then
-        prefill queued requests (FCFS) on free prefill PEs round-robin,
-        staging and migrating each."""
+        prefill queued requests on free prefill PEs round-robin, staging
+        and migrating each.  The policy picks which queued request runs
+        next (FCFS: the head)."""
         self._phase_stream()
         for _ in range(len(self.staged)):
             self._try_migrate(self.staged.popleft())
         for _ in range(self.prefills_per_step):
             if not self.queue:
                 return
-            req = self.queue[0]
+            idx = self.policy.select(self.queue)
+            req = self.queue[idx]
             if req.prefill_cache is None:            # not prefilled yet
                 pe = self._next_prefill_pe()
                 if pe is None:                       # every PE mid-stream
                     return
-                self.queue.popleft()
+                del self.queue[idx]
                 req.prefill_pe = pe
                 req.prefill_step = self._step
                 self.stats.queue_delay_steps.append(
@@ -404,7 +491,7 @@ class DisaggScheduler:
                 if tr is not None:
                     tr.end("prefill", "sched", self._trace_pid, f"pe{pe}")
             else:
-                self.queue.popleft()
+                del self.queue[idx]
             if not self._stage(req):                 # pool exhausted: park
                 self.stats.stalled_on_pool += 1      # the prefilled request
                 self.queue.appendleft(req)
@@ -465,12 +552,14 @@ class DisaggScheduler:
 
     def _try_migrate(self, req: Request) -> None:
         """Put a staged request on the wire: as a slot-less stream
-        (streaming mode) or whole-prefill into a free (decode PE, slot).
-        With no free slot the request waits (no preemption, item 10)."""
+        (streaming mode) or whole-prefill into a free (decode PE, slot),
+        preempting a victim the policy offers when none is free."""
         if self.stream_chunks > 0:
             self._open_stream(req)
             return
         pe, slot = self._pick_slot()
+        if slot is None:
+            pe, slot = self._preempt_for(req)
         if slot is None:
             self.stats.stalled_on_slots += 1
             self.staged.append(req)
@@ -541,10 +630,13 @@ class DisaggScheduler:
 
     def _try_bind(self, req: Request) -> None:
         """Bind a parked stream to a free slot on its decode PE and close
-        the stream (tail + header, the only wire left)."""
+        the stream (tail + header, the only wire left), preempting a
+        policy-chosen victim on that PE when it is full."""
         pe = req.decode_pe
         slot = next((s for s, o in enumerate(self.slot_req[pe])
                      if o is None), None)
+        if slot is None:
+            _, slot = self._preempt_for(req, pe=pe)
         if slot is None:
             self.stats.stalled_on_slots += 1
             return
@@ -594,6 +686,135 @@ class DisaggScheduler:
         self.stats.bytes_wire_saved += report.bytes_skipped
         if self.stream_chunks > 0:
             self.stats.stream_chunks += report.chunks
+
+    # ---------------------------------------------------------- preemption
+    def _preempt_for(self, req: Request, pe: Optional[int] = None):
+        """Ask the policy for a victim among the decoding slot owners
+        (optionally of one decode PE) and park it; returns the freed (pe,
+        slot) or (None, None).  Dense-rehydrate mode cannot preempt: its KV
+        lives in the slot bank, not the pool."""
+        if not self.paged:
+            return None, None
+        decoding = [self.requests[rid]
+                    for p in ([pe] if pe is not None else self.decode_pes)
+                    for rid in self.slot_req[p] if rid is not None]
+        decoding = [r for r in decoding if r.state == DECODING]
+        victim = self.policy.preempt_victim(req, decoding)
+        if victim is None:
+            return None, None
+        if victim.state != DECODING:
+            raise RuntimeError(f"policy picked request {victim.rid} in "
+                               f"state {victim.state}, not decoding")
+        vpe, vslot = victim.decode_pe, victim.slot
+        self._preempt(victim)
+        return vpe, vslot
+
+    def _preempt(self, req: Request) -> None:
+        """Park a DECODING request back into the pool: snapshot its decode
+        cursor and non-paged tail (the paged KV is written back to its
+        blocks every step), surrender the slot and keep every block
+        reference, un-fired COW reserves included, until resume."""
+        pe, slot = req.decode_pe, req.slot
+        if self.fused_attn and req.fused_pending > 0:
+            # admitted but not yet decoded: its fused blocks are still on
+            # the wire; consume them before the slot signal is re-armed, or
+            # they would land against the NEXT request
+            have = req.wire_blocks - req.fused_pending
+            self.heap, resident = self.migrator.consume_blocks(
+                self.heap, slot, pe, have, req.wire_blocks, rid=req.rid)
+            req.fused_pending = req.wire_blocks - resident
+        bank = self.banks[pe]
+        req.resume_pos = int(bank.pos[slot])
+        req.resume_tok = int(bank.tok[slot])
+        req.park_tail = kvpool_mod.pack_tail(self.pool.layout, bank.cache,
+                                             batch_idx=slot,
+                                             device=self.heap.device)
+        req.cow_plan = self.views[pe].detach_keep(slot)
+        self.banks[pe] = self.engine.evict_slot(bank, slot)
+        self.heap = self.migrator.reset_slot(self.heap, slot, pe)
+        self.slot_req[pe][slot] = None
+        req.slot = -1
+        req.state = PREEMPTED
+        req.preemptions += 1
+        self._trace_phase(req, "preempted",
+                          end_args={"decode_pos": req.resume_pos,
+                                    "tokens_out": len(req.out)},
+                          pe=pe)
+        self.preempted.append(req)
+        self.stats.preempts += 1
+
+    def _phase_resume(self) -> None:
+        """Re-bind preempted requests onto freed slots of their decode PE
+        (their blocks never moved).  Runs after admissions, so waiting
+        higher-priority requests take slots first."""
+        for req in self.policy.waiting_order(list(self.preempted)):
+            slot = next((s for s, o in enumerate(self.slot_req[req.decode_pe])
+                         if o is None), None)
+            if slot is None:
+                continue
+            self.preempted.remove(req)
+            self._resume(req, slot)
+
+    def _resume(self, req: Request, slot: int) -> None:
+        """Inverse of :meth:`_preempt`: restore the tail into the new slot,
+        re-arm the view (no block is zeroed: all carry live KV) and decode
+        on from the saved cursor."""
+        pe = req.decode_pe
+        bank = self.banks[pe]
+        bank = dataclasses.replace(bank, cache=kvpool_mod.insert_tail(
+            self.pool.layout, bank.cache, slot, req.park_tail))
+        self.heap = self.views[pe].attach(self.heap, slot, req.rid,
+                                          fresh_ids=[], cow=req.cow_plan)
+        req.cow_plan = {}
+        req.park_tail = None
+        self.banks[pe] = self.engine.activate_slot(
+            bank, slot, pos=req.resume_pos, token=req.resume_tok)
+        self.slot_req[pe][slot] = req.rid
+        req.slot = slot
+        req.state = DECODING
+        self._trace_phase(req, "decoding", pe=pe, slot=slot, resumed=True)
+        self.stats.resumes += 1
+
+    # ------------------------------------------------------------ recovery
+    def _emit_token(self, req: Request, tok: int) -> None:
+        """Append a decoded token, unless the request is replaying after a
+        fault: then the token must equal the pre-fault one (greedy decode
+        over the same KV) and is not appended again, so ``len(req.out)``
+        holds at ``replay_target`` and ``_maybe_finish`` cannot fire
+        early."""
+        if req.replayed < req.replay_target:
+            if req.out[req.replayed] != tok:
+                raise RuntimeError(
+                    f"rid {req.rid}: replay diverged at token {req.replayed}"
+                    f" ({req.out[req.replayed]} != {tok}): recovery is not "
+                    f"bitwise")
+            req.replayed += 1
+            self.stats.replayed_tokens += 1
+            return
+        req.out.append(tok)
+
+    def _phase_recover(self) -> None:
+        """Dispatch fault victims parked by ``serve/recovery.py``: one
+        whose blocks survived on live home rows re-enters STAGED and
+        re-migrates; one whose KV died with its PE goes to the queue head
+        and recomputes from the prompt.  Decoded-so-far tokens replay
+        through :meth:`_emit_token` either way."""
+        if not self.recovering:
+            return
+        for req in self.recovering:
+            if self.pool.block_tables.get(req.rid):
+                req.state = STAGED
+                self.staged.append(req)
+                self.stats.remigrated += 1
+                self._trace_phase(req, "staged", recovered=True,
+                                  replay=req.replay_target)
+            else:
+                req.state = QUEUED
+                self.queue.appendleft(req)
+                self.stats.recomputed += 1
+                self._trace_phase(req, "queued", recovered=True,
+                                  replay=req.replay_target)
+        self.recovering = []
 
     # ----------------------------------------------------------- admission
     def _poll_first_block(self, req: Request) -> None:
@@ -681,7 +902,12 @@ class DisaggScheduler:
                 entry.resident.setdefault(req.decode_pe, set()).update(
                     set(entry.block_ids) & set(self.pool.blocks_of(req.rid)))
             req.state = DECODING
-            req.out.append(hdr["first_token"])
+            self._emit_token(req, hdr["first_token"])
+            if req.recoveries > 0 and req.recover_step >= 0:
+                # recovery TTFD: fault step -> first (re-)decoded token
+                self.stats.recovery_steps.append(
+                    self._step - req.recover_step)
+                req.recover_step = -1
             req.admit_step = self._step
             req.t_admit = self._comm_clock()
             if req.first_block_step < 0:
@@ -758,7 +984,7 @@ class DisaggScheduler:
                 if rid is None or self.requests[rid].state != DECODING:
                     continue
                 req = self.requests[rid]
-                req.out.append(toks[s])
+                self._emit_token(req, toks[s])
                 self.stats.decode_tokens += 1
                 self._maybe_finish(req)
         if stepped:
@@ -781,7 +1007,7 @@ class DisaggScheduler:
                           "decode_steps": req.finish_step - req.admit_step,
                           "e2e_steps": req.finish_step - req.arrival_step,
                           "tokens": len(req.out),
-                          "preemptions": 0})    # no preemption (item 10)
+                          "preemptions": req.preemptions})
             self._evict(req)
 
     def _evict(self, req: Request) -> None:
@@ -817,20 +1043,24 @@ class DisaggScheduler:
         prefill phase)."""
         tr = self._tracer()
         if tr is not None:
+            # monotonic: a fleet already advanced the shared clock
             tr.clock.set_step(self._step)
+        self._phase_recover()
         self._phase_prefill()
         self._phase_admit()
+        self._phase_resume()
         self._phase_decode()
         self._step += 1
 
     def done(self) -> bool:
         return (not self.queue and not self.staged and not self.streaming
-                and not self.parked and not self.migrating
-                and all(r.state == FINISHED for r in self.requests.values()))
+                and not self.parked and not self.preempted
+                and not self.migrating and not self.recovering
+                and all(r.state in TERMINAL for r in self.requests.values()))
 
     def run(self, *, max_steps: int = 10_000) -> Dict[int, np.ndarray]:
-        """Drive until every submitted request finishes; returns
-        {rid: generated token ids}."""
+        """Drive until every submitted request finishes (or was shed);
+        returns {rid: generated token ids} (shed requests: empty)."""
         while not self.done():
             if self._step >= max_steps:
                 raise RuntimeError(f"scheduler wedged after {max_steps} steps")

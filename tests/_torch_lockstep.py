@@ -1,7 +1,10 @@
 """The port's disaggregated scheduler held to the JAX package's in
 lockstep, shared by ``tests/test_torch_serve.py`` (qwen3-4b's modes and
 zamba2) and ``tests/test_torch_families.py`` (the seven other
-configurations), and the reduced-width scheduler those files build.
+configurations), and the reduced-width scheduler those files build; and
+the port's fleet held to the JAX package's fleet in lockstep
+(:func:`run_fleet_lockstep`), shared by ``tests/test_torch_fleet.py`` and
+``tests/test_torch_fault.py``.
 
 Both schedulers step in lockstep, each with a span tracer, and after every
 step the control plane must agree exactly: request states, block tables,
@@ -283,3 +286,174 @@ def run_lockstep(case, ref_params, params, monkeypatch):
     assert psched.pool.stats()["blocks_in_use"] == 0
 
 
+
+
+# ---------------------------------------------------------------------------
+# the fleet in lockstep
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def fleet_engines(max_len=MAXLEN):
+    """(reference Engine, port Engine) over the same reduced qwen3-4b
+    weights (f32), built once per process so the reference's jitted
+    closures are shared by every fleet."""
+    rp, pp = family_params("qwen3_4b")
+    cfg = ref_base.reduced(ref_base.get_config("qwen3_4b"))
+    return (RefEngine(cfg, rp, max_len=max_len),
+            Engine(base.reduced(base.get_config("qwen3-4b")), pp,
+                   max_len=max_len, device="cpu"))
+
+
+def fleet_specs(tenants, *, rate, seed, steps, process="poisson", **kw):
+    """One arrival schedule from both packages' traffic engines (the same
+    tenant mix, given as dicts): they must agree field for field and
+    token for token.  Returns (reference specs, port specs)."""
+    from repro.serve.frontend import TenantSpec as RefTenant, \
+        TrafficEngine as RefTraffic
+    from repro_torch.serve.frontend import TenantSpec, TrafficEngine
+    vocab = base.reduced(base.get_config("qwen3-4b")).vocab_size
+    rs = RefTraffic([RefTenant(**t) for t in tenants], rate=rate,
+                    vocab=vocab, seed=seed, process=process,
+                    **kw).schedule(steps)
+    ps = TrafficEngine([TenantSpec(**t) for t in tenants], rate=rate,
+                       vocab=vocab, seed=seed, process=process,
+                       **kw).schedule(steps)
+    assert [(a.idx, a.step, a.tenant, a.slo, a.max_new, a.prefix_len)
+            for a in rs] == [(b.idx, b.step, b.tenant, b.slo, b.max_new,
+                              b.prefix_len) for b in ps]
+    for a, b in zip(rs, ps):
+        assert a.tokens.dtype == b.tokens.dtype
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    return rs, ps
+
+
+def _ring_counters(proxy):
+    if proxy is None:
+        return None
+    r = proxy.ring
+    return (r.write_reserve, r.consumed_published, r.read_index,
+            list(r.slot_tag), len(r.delivered),
+            [(i, m.payload) for i, m in r.delivered], sorted(r.completions),
+            r.spin_count, r.store_ops, r.publish_ops, r.overwrite_errors,
+            proxy.backpressure, sorted(proxy._staging))
+
+
+def same_report(a, b, path="report"):
+    """Two fleet reports equal key for key; floats (modeled seconds,
+    percentiles, goodput) to 5e-5."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b), path
+        for k in a:
+            same_report(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_report(x, y, f"{path}[{i}]")
+    elif isinstance(a, float) or isinstance(b, float):
+        assert b == pytest.approx(float(a), rel=TOL, abs=TOL), path
+    else:
+        assert a == b, path
+
+
+def _fleet_state(fleet):
+    pods = fleet.pods + fleet.dead_pods
+    return ([p.name for p in fleet.pods], [p.name for p in fleet.dead_pods],
+            [[(r.rid, r.state, r.slot, r.decode_pe, r.prefill_pe,
+               r.preemptions, r.replay_target, r.replayed, list(r.out))
+              for r in p.sched.requests.values()] for p in pods],
+            [(p.sched.prefill_pes, p.sched.decode_pes,
+              {pe: list(v) for pe, v in p.sched.slot_req.items()},
+              [r.rid for r in p.sched.queue], [r.rid for r in p.sched.staged],
+              [r.rid for r in p.sched.streaming],
+              [r.rid for r in p.sched.parked],
+              [r.rid for r in p.sched.preempted],
+              [r.rid for r in p.sched.migrating]) for p in pods],
+            dict(fleet.placements), sorted(fleet.ctx.fault.dead_pes),
+            fleet.ctx.fault.dcn_down, [p.name for p in fleet.router.pods],
+            dict(fleet.router.stats),
+            {k: (e.block_ids, e.whole_prompt, e.home_pe,
+                 {pe: sorted(v) for pe, v in e.resident.items()}, e.refs)
+             for k, e in fleet.prefix_index.items()})
+
+
+def run_fleet_lockstep(fleet_kw, tenants, *, rate, seed, steps,
+                       fault_plan=None, max_steps=1500, check_every=1,
+                       **traffic_kw):
+    """Build the JAX fleet and the port's from ``fleet_kw`` (FleetConfig
+    fields), play one arrival schedule into both and step them together.
+    After every ``check_every``-th step (and the last) they must agree
+    exactly on states, queues, slot owners, placements, the prefix index,
+    block tables, refcounts, homes, every int32 heap word, the proxy ring's
+    counters, the completion queue's errors and stats and every token;
+    float pools to 5e-5 with NaN words (poisoned rows) bit for bit; and
+    ``report()`` (floats to 5e-5).  Returns (reference fleet, port fleet,
+    port specs, port report)."""
+    from repro.serve.frontend import Fleet as RefFleet, \
+        FleetConfig as RefFleetConfig
+    from repro_torch.serve.frontend import Fleet, FleetConfig
+    reng, peng = fleet_engines(fleet_kw.get("max_len", MAXLEN))
+    rspecs, pspecs = fleet_specs(tenants, rate=rate, seed=seed, steps=steps,
+                                 **traffic_kw)
+    rf = RefFleet(RefFleetConfig(**fleet_kw), engine=reng,
+                  fault_plan=fault_plan)
+    pf = Fleet(FleetConfig(**fleet_kw), engine=peng, fault_plan=fault_plan)
+
+    def check():
+        assert _fleet_state(rf) == _fleet_state(pf)
+        assert rf.pool.block_tables == pf.pool.block_tables
+        assert rf.pool._refcnt == pf.pool._refcnt
+        assert rf.pool._home == pf.pool._home
+        assert sorted(rf.pool._free) == sorted(pf.pool._free)
+        assert _ring_counters(rf.proxy) == _ring_counters(pf.proxy)
+        assert rf.ctx.pending.errors == pf.ctx.pending.errors
+        assert dataclasses.asdict(rf.ctx.pending.stats) == \
+            dataclasses.asdict(pf.ctx.pending.stats)
+        assert len(rf.ctx.pending) == len(pf.ctx.pending)
+        # the allocated words only (past the cursor both rows are zero or,
+        # once a PE died, poison, which the chaos tests read whole); plain
+        # numpy tests first, numpy.testing's asserts only to report
+        assert pf.heap._cursor == rf.heap._cursor
+        used = pf.heap._cursor.get("int32", 0)
+        ri = np.asarray(rf.heap.pools["int32"][:, :used])
+        pi = pf.heap.pools["int32"][:, :used].numpy()
+        if not np.array_equal(ri, pi):
+            np.testing.assert_array_equal(ri, pi)
+        for dt, pool in pf.heap.pools.items():
+            if dt == "int32":
+                continue
+            used = pf.heap._cursor.get(dt, 0)
+            want = np.asarray(rf.heap.pools[dt][:, :used], np.float32)
+            got = pool[:, :used].float().numpy()
+            nan = np.isnan(want)
+            if not (np.array_equal(np.isnan(got), nan)
+                    and np.all(np.abs(got[~nan] - want[~nan])
+                               <= TOL + TOL * np.abs(want[~nan]))
+                    and np.array_equal(got.view(np.int32)[nan],
+                                       want.view(np.int32)[nan])):
+                np.testing.assert_array_equal(np.isnan(got), nan)
+                np.testing.assert_allclose(got[~nan], want[~nan], atol=TOL,
+                                           rtol=TOL)
+                np.testing.assert_array_equal(got.view(np.int32)[nan],
+                                              want.view(np.int32)[nan])
+        same_report(rf.report(), pf.report())
+
+    order = sorted(range(len(pspecs)),
+                   key=lambda i: (pspecs[i].step, pspecs[i].idx))
+    i = 0
+    while i < len(order) or not (rf.done() and pf.done()):
+        assert pf.elapsed_steps < max_steps, "fleet wedged"
+        batch = []
+        while i < len(order) and pspecs[order[i]].step <= pf.elapsed_steps:
+            batch.append(order[i])
+            i += 1
+        rf.step([rspecs[j] for j in batch])
+        pf.step([pspecs[j] for j in batch])
+        if pf.elapsed_steps % check_every == 0:
+            check()
+    check()
+    assert rf.done() and pf.done()
+    ro, po = rf.outputs(), pf.outputs()
+    assert {k: [int(t) for t in np.asarray(v).ravel()]
+            for k, v in ro.items()} == po
+    return rf, pf, pspecs, pf.report()

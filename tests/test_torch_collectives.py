@@ -378,12 +378,26 @@ def test_iput_refuses_an_overrun():
 
 
 def test_quiet_with_a_proxy_raises():
-    ctx, heap = context.init(npes=2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    """``quiet(proxy=...)`` is ported: a dcn-tier put travels the proxy's
+    ring and drains (``rma.quiet`` and the facade alike).  What still
+    raises is a proxy that is not one, once a dcn put needs its ring."""
+    from repro_torch.core.proxy import HostProxy
+    ctx, heap = context.init(npes=2, node_size=1, device="cpu")
+    buf = heap.malloc((4,), "float32")
+    heap = rma.put_nbi(ctx, heap, buf, torch.ones(4), 1)
+    with pytest.raises(AttributeError):
         rma.quiet(ctx, heap, proxy=object())
-    sh = Ishmem(npes=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sh.ishmem_quiet(proxy=object())
+    px = HostProxy(ctx)
+    heap = rma.quiet(ctx, heap, proxy=px)
+    assert heap.read(buf, 1).tolist() == [1.0] * 4
+    assert len(px.ring.delivered) == 1
+    sh = Ishmem(npes=2, node_size=1, device="cpu")
+    buf = sh.ishmem_malloc((4,), "float32")
+    sh.heap = rma.put_nbi(sh.ctx, sh.heap, buf, torch.full((4,), 2.0), 1)
+    px = HostProxy(sh.ctx)
+    sh.ishmem_quiet(proxy=px)
+    assert sh.heap.read(buf, 1).tolist() == [2.0] * 4
+    assert len(px.ring.delivered) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -727,7 +727,7 @@ def _serve_cut(arch, layers, argv):
     ``serve._build_disagg``, as ``chip_smoke.py`` does."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import model
-    args = serve.build_parser().parse_args(argv)
+    args = serve.parse_args(argv)
     cfg = dataclasses.replace(cfgbase.get_config(arch), num_layers=layers)
     params = model.init_params(cfg, seed=0, device="cuda")
     sched = serve._build_disagg(args, cfg, params)
@@ -785,6 +785,116 @@ def test_cuda_ring_tails_carry_nan_bits(card):
         got = sched.migrator.gather_tail(sched.heap, slot, pe)
         assert int(want.isnan().sum()) == 2 * 24
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the fleet: cross-pod migration, preemption, chaos (ROADMAP item 10)
+# ---------------------------------------------------------------------------
+
+
+def _cut_qwen(layers):
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import model
+    cfg = dataclasses.replace(cfgbase.get_config("qwen3-4b"),
+                              num_layers=layers)
+    return cfg, model.init_params(cfg, seed=0, device="cuda")
+
+
+def test_cuda_fleet_full_width_two_layers_match_single_pe(card):
+    """The fleet at qwen3-4b's published widths, 2 of 36 layers, bf16: 2
+    pods, SLO admission with preemption, affinity routing, 64-token
+    prompts; every completed request bitwise equal to
+    ``Engine.generate_in_slot`` for its prompt and budget, K1-K3
+    launched, the pool drained."""
+    cfg, params = _cut_qwen(2)
+    args = serve.parse_args([
+        "--fleet", "--full", "--pods", "2", "--slots", "2", "--kv-blocks",
+        "64", "--block-tokens", "16", "--prompt-len", "64", "--max-new",
+        "8", "--rate", "1.2", "--fleet-steps", "12", "--stream-chunks", "0",
+        "--seed", "1"])
+    fleet, specs = serve._build_fleet(args, cfg, params)
+    ops.reset_launches()
+    rep = fleet.run(specs)
+    launches = dict(ops.LAUNCHES)
+    assert all(launches[k] for k in ("copy_into", "flash_attention",
+                                     "paged_gather"))
+    assert rep["completed"] + rep["shed"] == rep["offered"] > 0
+    n = 0
+    for pod in fleet.pods:
+        for req in pod.sched.requests.values():
+            if req.state == "finished":
+                assert req.out == pod.sched.engine.generate_in_slot(
+                    req.batch, dataclasses.replace(
+                        pod.sched.scfg, max_new_tokens=req.max_new),
+                    num_slots=2, slot=req.slot)
+                n += 1
+    assert n == rep["completed"]
+    assert fleet.pool.stats()["blocks_in_use"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_cuda_scramble_rows_bitwise(card, dtype):
+    """``scramble_rows`` poisons a CUDA pool's dead rows on the card with
+    the CPU pool's bits (NaN 0x7FC00000 / 0x7FC0, ``iinfo.min + 1``) and
+    leaves the live rows' bits alone."""
+    from repro_torch.core import heap as heap_mod
+    from repro_torch.serve.fault import scramble_rows
+    vals = (torch.randn(4, 300) * 50).to(getattr(torch, dtype))
+    heaps = []
+    for dev in ("cpu", "cuda"):
+        heap = heap_mod.create(4, device=dev)
+        ptr = heap.malloc((300,), dtype)
+        for pe in range(4):
+            heap = heap.write(ptr, pe, vals[pe])
+        heaps.append(scramble_rows(heap, [1, 3]).pools[dtype])
+    bits = {2: torch.int16, 4: torch.int32}[heaps[0].element_size()]
+    assert heaps[1].is_cuda
+    assert torch.equal(heaps[0].view(bits), heaps[1].cpu().view(bits))
+    assert torch.equal(heaps[1][[0, 2], :300].cpu().view(bits),
+                       vals[[0, 2]].view(bits))
+
+
+def test_cuda_cross_pod_try_admit_fused_through_k11(card):
+    """A fused migration across pods (published widths, 2 layers, bf16):
+    ``try_admit_fused`` drains the request's queue prefix through the
+    host-proxy ring, then K11 waits on the slot's signal for every wire
+    block and attends in one launch, bitwise ``assemble`` + K2."""
+    from repro_torch.core import device as device_mod
+    from repro_torch.serve.kvxfer import expected_signal
+    from repro_torch.serve.paged_attn import PagedDecodeView
+    cfg, params = _cut_qwen(2)
+    args = serve.parse_args([
+        "--disagg", "--full", "--fused-attn", "--cross-pod", "--requests",
+        "1", "--prompt-len", "64", "--max-new", "4", "--kv-blocks", "32",
+        "--slots", "3", "--block-tokens", "16", "--admit-delay", "8"])
+    sched = serve._build_disagg(args, cfg, params)
+    sched.step()                # prefill, stage, migrate: admission waits
+    req = sched.migrating[0]
+    px = sched.migrator.proxy
+    assert len(sched.ctx.pending) and not px.ring.delivered
+    heap, hdr, resident = sched.migrator.try_admit_fused(
+        sched.heap, req.slot, req.decode_pe, req.wire_blocks)
+    assert hdr["req_id"] == req.rid and resident == req.wire_blocks > 0
+    assert len(px.ring.delivered) == req.wire_blocks + 2
+    pool = sched.pool
+    view = PagedDecodeView(pool, req.decode_pe, 3)
+    heap = view.attach(heap, req.slot, req.rid, fresh_ids=[])
+    leaf = next(x for x in pool.layout.paged if x.key == "k")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(3, leaf.width, cfg.num_heads, leaf.hd, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    wg = device_mod.work_group(sched.ctx, pe=req.decode_pe)
+    ops.reset_launches()
+    heap, got = ishmem_device.fused_paged_attn(
+        wg, heap, view, q, waits=[(pool.sig_ptr(req.slot),
+                                   expected_signal(req.wire_blocks))])
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == \
+        {"fused_paged_attn": 1}
+    blk = view.assemble(heap, sched.banks[req.decode_pe].cache)["blocks"][
+        leaf.unit_idx]
+    want = flash_attn.flash_attention(q, blk["k"][0].contiguous(),
+                                      blk["v"][0].contiguous())
+    assert torch.equal(got, want) and bool(got.isfinite().all())
 
 
 # ---------------------------------------------------------------------------

@@ -171,3 +171,37 @@ def test_training_entry_points_raise_without_cuda_unless_cpu(no_card, tmp_path):
          "--global-batch", "2", "--ckpt-dir", str(tmp_path)],
         log_fn=lambda *_: None)
     assert len(hist) == 1
+
+
+def test_fleet_entry_points_raise_without_cuda_unless_cpu(no_card):
+    """The fleet, the host proxy's context, ``--fleet`` (with and without
+    ``--chaos``) and ``--cross-pod`` run on the card unless told
+    ``--device cpu``; the new modules import neither JAX nor the JAX
+    package (the module walk above covers them)."""
+    from repro_torch.core.proxy import HostProxy
+    from repro_torch.serve.frontend import Fleet, FleetConfig
+    assert {"repro_torch.core.proxy", "repro_torch.core.ring",
+            "repro_torch.serve.fault", "repro_torch.serve.recovery",
+            "repro_torch.serve.frontend.fleet"} <= set(MODULES)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Fleet(FleetConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HostProxy(context.init(npes=2, node_size=1)[0])
+    small = ["--prompt-len", "8", "--max-new", "2", "--block-tokens", "4",
+             "--fleet-steps", "4", "--rate", "2"]
+    for argv in (["--fleet"], ["--fleet", "--chaos", "kill_pe=2@1"],
+                 ["--disagg", "--cross-pod", "--requests", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch_serve.main(argv + small)
+    fleet = Fleet(FleetConfig(), device="cpu")
+    assert fleet.heap.device == torch.device("cpu")
+    px = HostProxy(context.init(npes=2, node_size=1, device="cpu")[0])
+    assert not px.ring_full()
+    out = launch_serve.main(["--fleet", "--device", "cpu", "--chaos",
+                             "kill_pe=2@1"] + small)
+    assert out.heap.device == torch.device("cpu")
+    assert out.last_report["fault"]["dead_pes"] == [2]
+    sched = launch_serve.main(["--disagg", "--cross-pod", "--device", "cpu",
+                               "--requests", "2"] + small[:6])
+    assert sched.migrator.proxy is not None and \
+        sched.stats.bytes_cross_pod == sched.stats.bytes_migrated > 0

@@ -393,13 +393,23 @@ def test_growth_blocks_receive_decode_writes(params):
         max_new_tokens=7))[0].tolist() == sched.requests[0].out
 
 
-@pytest.mark.parametrize("kw", [{"policy": object()}])
+@pytest.mark.parametrize("kw", [{"obs": object()}])
 def test_unported_modes_raise(params, kw):
+    """Admission policies are ported (a scheduler takes ``policy=``); the
+    serving stack's one unported mode is the fleet's observability bundle
+    (ROADMAP queue 1, item 11), and its launcher flags."""
+    from repro_torch.serve.frontend import Fleet, FleetConfig
+    from repro_torch.serve.scheduler import AdmissionPolicy
     cfg, ctx, heap, eng, pool = _setup(params)
+    sched = DisaggScheduler(ctx, heap, eng, pool, KVMigrator(ctx, pool),
+                            prefill_pes=[0, 1], decode_pes=[2, 3],
+                            num_slots=3, policy=AdmissionPolicy())
+    assert isinstance(sched.policy, AdmissionPolicy)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DisaggScheduler(ctx, heap, eng, pool, KVMigrator(ctx, pool),
-                        prefill_pes=[0, 1], decode_pes=[2, 3], num_slots=3,
-                        **kw)
+        Fleet(FleetConfig(max_len=MAXLEN), engine=eng, **kw)
+    for flag in ("--metrics", "--profile", "--audit"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            launch_serve.main(["--fleet", "--device", "cpu", flag, "x"])
 
 
 def test_launcher_refuses_streaming_with_fused_attn():
