@@ -90,7 +90,11 @@ Phases, each fatal on failure:
    pass), merged and held
    against K2 over the whole sequence within 5e-5; then once more at
    unit-scale inputs, where a mask error at a shard border would exceed
-   that limit;
+   that limit; then at the reference launcher's own demo widths (4 PEs,
+   32 tokens, 4 heads of 32: K10 at hd 32, held to the plain causal
+   attention since K2 takes no hd 32) and at zamba2-2.7b's (4 PEs, S =
+   16384, 32 heads of 80: K10 at hd 80, held to K2 in f32), 10 partials
+   each, within 5e-5;
 7. the streamed serving path: phase 3's run with ``--stream-chunks 4``
    and ``--trace``: each request's 32 prompt blocks leave in 8
    installments against a pool stream-signal word, slot-less until the
@@ -200,14 +204,42 @@ Phases, each fatal on failure:
    terminal, no completed request's tokens differ from the control's, at
    least one request recovers, the pool drains, the dead PEs' rows hold
    the poison bit for bit (NaN bits in the bf16 and f32 pools,
-   ``iinfo.min + 1`` in int32), and no decode step's logits hold a NaN.
-Phases 3, 5, 7-20 and 22-24 print their wall time and peak device memory,
-and K1-K3's rows carry their launches in phases 7-20 and 22-24
-(``launches_by_phase``; K11's in 22-24).  K2 also runs at the head ratios 5, 7 and 9 and
+   ``iinfo.min + 1`` in int32), and no decode step's logits hold a NaN;
+   the run carries ``--audit 1 --recorder 16`` (the postmortem dumps go to
+   a temporary directory through ``ISHMEM_OBS_RECORDER_PATH``): no audit
+   pass finds a violation, and each of the three faults writes one dump,
+   validated as it is written;
+25. the observability bundle on phase 23's fleet: ``--trace --metrics
+   --audit 1 --recorder 16 --alerts``.  Tokens, ``report()`` and the
+   step-level counts bitwise phase 23's (the off/on law on the card), 66
+   metrics rows, no violation, the trace valid with one chain per
+   request; prints the audit's wall a pass and a recorded tracer event's
+   host cost from a timed loop of ``SpanTracer`` instants;
+26. measured: phase 7's run (phase 3 streamed in 4-block installments)
+   with ``--profile --calibration --trace``: tokens bitwise phase 3's,
+   samples per scope (``serve_prefill``, ``serve_decode``,
+   ``paged_attn``), the worst measured/modeled buckets, the measured
+   track valid; then ``fit_tuning_table(sample_source="wallclock")``
+   written to the temporary directory;
+27. tuning: phase 3 under ``ISHMEM_TUNING_FILE`` (that table armed,
+   ``source == "wallclock"``, tokens bitwise), under
+   ``ISHMEM_FORCE_PATH=engine`` (tokens bitwise, no op whose path the
+   chooser picks left on the direct path), and a 6-step fleet with
+   ``--refit 4 --profile``: at least one re-fit from the card's samples,
+   every finished request bitwise its single-PE baseline, the counts
+   printed and not held (the wall-clock table steers the modeled clock
+   SLO admission reads).
+Every ``ISHMEM_*`` variable is cleared at the start: the phases set the
+knobs they test.  Phases 3, 5, 7-20 and 22-27 print their wall time and
+peak device memory, and K1-K3's rows carry their launches in phases 7-20
+and 22-27 (``launches_by_phase``; K11's in 22-27).  K2 also runs at the head ratios 5, 7 and 9 and
 whisper's MHA at hd 64 in phase 2 (``check_flash_serving``), with rows of
 its own at starcoder2's q (1, 512, 36, 128), k/v (1, 512, 4, 128)
 (``flash_attention_gqa9``, phase 15's launches) and whisper's
-(1, 432, 16, 64) (``flash_attention_hd64``, phase 18's).
+(1, 432, 16, 64) (``flash_attention_hd64``, phase 18's).  K10 has rows
+at hd 32 (``flash_partial_hd32``, q/k/v (1, 8, 4, 32)) and hd 80
+(``flash_partial_hd80``, (1, 4096, 32, 80)) at phase 6's demo and zamba2
+ring shapes, with their launches there.
 
 K4-K6's rows carry their launches in phases 4 and 21
 (``launches_by_phase``; ``launches`` is phase 4's), and the two phase-21
@@ -237,10 +269,12 @@ import gc
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -273,6 +307,14 @@ PREFIX_HITS, COW_COPIES = 7, 8       # the registrar reserves a COW block too
 RING = dict(npes=8, prompt_len=32768, full=True, arch="qwen3-4b", seed=0)
 RING_PARTIALS = 8 * 9 // 2           # causal (PE, shard) pairs
 RING_TOL = 5e-5                      # tests/test_device.py ring attention
+# phase 6 also runs the ring at the reference launcher's own demo widths
+# (4 PEs, 32 tokens, 4 heads of 32: K2 takes no hd 32, so the check is the
+# plain causal attention) and at zamba2-2.7b's (32 heads of 80, against K2
+# in f32), 10 causal partials each
+RING_DEMO = dict(npes=4, prompt_len=32, seed=0)
+RING_ZAMBA = dict(npes=4, prompt_len=16384, full=True, arch="zamba2-2.7b",
+                  seed=0)
+RING4_PARTIALS = 4 * 5 // 2
 SERVE_KERNELS = ("copy_into", "flash_attention", "paged_gather")
 # phases 13-20: the seven remaining configurations at their published
 # widths, bf16: (phase, label, arch, depth cut or None, traffic changes
@@ -1116,12 +1158,112 @@ K10_EDGES = ((64, 64, 0, 0, 4, 128), (100, 37, 50, 10, 2, 64),
              (96, 160, 64, 0, 2, 64), (1, 1, 0, 0, 1, 128),
              (65, 33, 33, 0, 2, 128), (63, 31, 31, 0, 2, 64),
              (70, 45, 200, 100, 3, 128), (130, 257, 300, 0, 2, 64),
-             (200, 200, 0, 0, 2, 128))
+             (200, 200, 0, 0, 2, 128), (64, 64, 0, 0, 4, 32),
+             (37, 100, 0, 20, 3, 32), (100, 37, 50, 10, 2, 80),
+             (130, 257, 300, 0, 2, 80), (65, 33, 33, 0, 2, 80))
+
+
+def _k10_timed(torch, dev_kern, dev, q, k, v, q_off, k_off, tag):
+    """K10 on (1, Sh, H, hd) f32 shards at absolute offsets: held to its
+    plain version on every row (all see a key), timed beside it and beside
+    one call of the memory-efficient SDPA kernel with the offset mask as
+    its bias and the log-sum-exp; the bound counts the unmasked products,
+    three TF32 products each.  Returns (row, errs)."""
+    _, Sh, H, hd = q.shape
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def kernel():
+        return dev_kern.flash_partial(q, k, v, q_off=q_off, k_off=k_off)
+
+    def plain():
+        return dev_kern.flash_partial_plain(q, k, v, q_off=q_off,
+                                            k_off=k_off)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    seen = torch.ones(Sh, dtype=torch.bool, device=dev)
+    errs, ok = _partial_errs(torch, got, want, seen)
+    say(f"K10 {tag} (1,{Sh},{H},{hd}) f32 q_off={q_off} k_off={k_off}: "
+        f"max|err| acc {errs[0]:.3e} acc/l {errs[1]:.3e} m "
+        f"{errs[2]:.3e} l {errs[3]:.3e} (l up to "
+        f"{float(want[2].max()):.1f})")
+    if not ok:
+        fail(f"K10 flash_partial differs from its plain version at the "
+             f"ring path's {tag} shape")
+    qpos = q_off + torch.arange(Sh, device=dev)
+    kpos = k_off + torch.arange(Sh, device=dev)
+    visible = kpos[None, :] <= qpos[:, None]
+    pairs = int(visible.sum()) * H
+    bias = torch.zeros(Sh, Sh, device=dev).masked_fill(
+        ~visible, float("-inf"))[None, None].expand(1, H, Sh, Sh)
+    library_ms, why = None, ""
+    try:
+        out = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True)[0]
+        lib_err = float((out.transpose(1, 2) -
+                         got[0] / got[2][..., None]).abs().max())
+        say(f"K10 {tag} library yardstick agrees to {lib_err:.3e} "
+            f"(out vs acc/l)")
+        library_ms = time_ms(torch, lambda: torch.ops.aten.
+                             _scaled_dot_product_efficient_attention(
+                                 qt, kt, vt, bias, True), iters=5)
+    except RuntimeError as exc:          # the yardstick only
+        why = str(exc).splitlines()[0]
+        say(f"K10 {tag} library yardstick refused: {why}")
+    del got, want
+    flops = 4 * hd * pairs
+    nbytes = (4 * Sh * H * hd + 2 * Sh * H) * 4   # q, k, v, acc; m, l
+    t_ops = 3 * flops / PEAK_FLOPS["tf32"]        # three TF32 products
+    t_fma = flops / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    row = {
+        "ms": time_ms(torch, kernel, iters=5),
+        "plain_ms": time_ms(torch, plain, iters=5),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "fma_bound_ms": max(t_fma, t_bytes) * 1e3,
+        "library_ms": library_ms, "library_refused": why or None,
+        "flops": flops, "shape": f"K10 {tag}, q_off {q_off}, k_off "
+                                 f"{k_off}"}
+    torch.cuda.empty_cache()
+    return row, errs
+
+
+def check_flash_partial_width(torch, dev_kern, dev, deferred, *, name, Sh,
+                              H, hd, me, path):
+    """K10 at another head dim, at the shapes of the phase-6 ring that runs
+    it (``path``): PE ``me`` against shard 0, every key visible, f32.  A
+    row of its own, with its device time taken last."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(1, Sh, H, hd, generator=gen, device=dev)
+               for _ in range(3))
+    row, errs = _k10_timed(torch, dev_kern, dev, q, k, v, me * Sh, 0, name)
+    out = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_partial.cu",
+           "replaces": "src/repro/kernels/ishmem_device.py:213",
+           "max_abs_err": max(errs[1], errs[2]), "raw_acc_err": errs[0],
+           **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "fma_bound_ms", "flops")},
+           "shape": f"q/k/v (1,{Sh},{H},{hd}) f32, PE {me} against shard "
+                    f"0 (all keys visible), the shapes of {path}; "
+                    "max_abs_err over acc/l and m",
+           "split_ms": time_ms(torch, lambda: dev_kern.flash_partial_split(
+               q, k, v), iters=10)}
+    if row["library_refused"]:
+        out["library_refused"] = row["library_refused"]
+    deferred.append((out, "device_ms", lambda: dev_kern.flash_partial(
+        q, k, v, q_off=me * Sh, k_off=0), "flash_partial_tf32"))
+    say(f"{name} [{out['shape']}]: {out['ms']:.4f} ms by events, plain "
+        f"{out['plain_ms']:.4f} ms, efficient SDPA {out['library_ms']} ms, "
+        f"bound (3 x TF32) {out['bound_ms']:.5f} ms ({out['bound_by']}), "
+        f"split pass {out['split_ms']:.4f} ms")
+    return out
 
 
 def check_flash_partial(torch, dev_kern, dev, deferred):
     """K10 at edge shapes (Sq != Skv, Sq and Skv off the 64-row and 32-key
-    tiles and off 8, bf16, head dims 64 and 128, tiles whose rows see no
+    tiles and off 8, bf16, head dims 32, 64, 80 and 128, tiles whose rows
+    see no
     key) against its plain version, and its split pass bitwise against the
     split's plain version; then at the ring path's shapes, 8 PEs over S =
     32768: one diagonal partial (PE 7's own shard) and one off-diagonal
@@ -1173,68 +1315,12 @@ def check_flash_partial(torch, dev_kern, dev, deferred):
     Sh, H, hd, me = 4096, 32, 128, 7
     q, k, v = (torch.randn(1, Sh, H, hd, generator=gen, device=dev)
                for _ in range(3))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     rows, worst, raw_acc = {}, 0.0, 0.0
     for tag, k_off in (("diag", me * Sh), ("offdiag", 0)):
-        q_off = me * Sh
-
-        def kernel():
-            return dev_kern.flash_partial(q, k, v, q_off=q_off, k_off=k_off)
-
-        def plain():
-            return dev_kern.flash_partial_plain(q, k, v, q_off=q_off,
-                                                k_off=k_off)
-
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        seen = torch.ones(Sh, dtype=torch.bool, device=dev)
-        errs, ok = _partial_errs(torch, got, want, seen)
-        say(f"K10 {tag} (1,{Sh},{H},{hd}) f32 q_off={q_off} k_off={k_off}: "
-            f"max|err| acc {errs[0]:.3e} acc/l {errs[1]:.3e} m "
-            f"{errs[2]:.3e} l {errs[3]:.3e} (l up to "
-            f"{float(want[2].max()):.1f})")
-        if not ok:
-            fail(f"K10 flash_partial differs from its plain version at the "
-                 f"ring path's {tag} shape")
+        rows[tag], errs = _k10_timed(torch, dev_kern, dev, q, k, v,
+                                     me * Sh, k_off, tag)
         worst = max(worst, errs[1], errs[2])
         raw_acc = max(raw_acc, errs[0])
-        qpos = q_off + torch.arange(Sh, device=dev)
-        kpos = k_off + torch.arange(Sh, device=dev)
-        visible = kpos[None, :] <= qpos[:, None]
-        pairs = int(visible.sum()) * H
-        bias = torch.zeros(Sh, Sh, device=dev).masked_fill(
-            ~visible, float("-inf"))[None, None].expand(1, H, Sh, Sh)
-        library_ms, why = None, ""
-        try:
-            out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
-                qt, kt, vt, bias, True)[:2]
-            lse = lse[..., :Sh]
-            lib_err = float((out.transpose(1, 2) -
-                             got[0] / got[2][..., None]).abs().max())
-            say(f"K10 {tag} library yardstick agrees to {lib_err:.3e} "
-                f"(out vs acc/l)")
-            library_ms = time_ms(torch, lambda: torch.ops.aten.
-                                 _scaled_dot_product_efficient_attention(
-                                     qt, kt, vt, bias, True), iters=5)
-        except RuntimeError as exc:          # the yardstick only
-            why = str(exc).splitlines()[0]
-            say(f"K10 {tag} library yardstick refused: {why}")
-        del got, want
-        flops = 4 * hd * pairs
-        nbytes = (4 * Sh * H * hd + 2 * Sh * H) * 4   # q, k, v, acc; m, l
-        t_ops = 3 * flops / PEAK_FLOPS["tf32"]        # three TF32 products
-        t_fma = flops / PEAK_FLOPS["float32"]
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        rows[tag] = {
-            "ms": time_ms(torch, kernel, iters=5),
-            "plain_ms": time_ms(torch, plain, iters=5),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "fma_bound_ms": max(t_fma, t_bytes) * 1e3,
-            "library_ms": library_ms, "library_refused": why or None,
-            "flops": flops, "shape": f"K10 {tag}, q_off {q_off}, k_off "
-                                     f"{k_off}"}
-        torch.cuda.empty_cache()
     split_ms = time_ms(torch, lambda: dev_kern.flash_partial_split(q, k, v),
                        iters=10)
     off = rows["offdiag"]
@@ -2176,6 +2262,26 @@ def phase_cross_pod(torch, ops, serve, dev_kern, flash_attn, barrier_out,
     return out, k11
 
 
+# phases 24-27: the observability bundle and the tuning knobs.  Signals,
+# quiets, fences and scalar puts are recorded on the direct path whatever
+# the tuning (as the reference records them); every other op's path is
+# the chooser's, so ISHMEM_FORCE_PATH=engine leaves none of them direct
+FIXED_PATH_OPS = {"p", "signal", "signal(pending)", "signal_wait", "quiet",
+                  "fence", "device_signal_wait"}
+OBS_ARGV = ["--metrics", "{tmp}/metrics.json", "--audit", "1",
+            "--recorder", "16", "--alerts", "--trace", "{tmp}/trace.json"]
+CHAOS_OBS_ARGV = ["--audit", "1", "--recorder", "16"]
+# phase 26 streams as phase 7 does: phase 3's decode-side stores are nbi,
+# priced when a later phase flushes them, so only the stream flushes give a
+# profiled scope the model's pricing to hold its wall time against
+MEASURED_ARGV = STREAM_ARGV + ["--profile", "{tmp}/prof.json",
+                             "--calibration", "{tmp}/calibration.json",
+                             "--trace", "{tmp}/trace.json"]
+REFIT_FLEET_ARGV = FLEET_ARGV + ["--fleet-steps", "6", "--refit", "4",
+                                 "--refit-min-samples", "16", "--profile"]
+PROF_SCOPES = ("serve_prefill", "serve_decode", "paged_attn")
+
+
 def _fleet_counts(fleet, rep, launches):
     pods = fleet.pods + fleet.dead_pods
     got = {"offered": rep["offered"], "completed": rep["completed"],
@@ -2191,13 +2297,17 @@ def _fleet_counts(fleet, rep, launches):
     return got
 
 
-def _run_fleet_phase(torch, ops, serve, engine_mod, argv, label):
-    """Build the fleet for ``argv``, zero the launch counts, run its
-    schedule, and read the counts; every decode step's logits are checked
-    for a NaN on the card (one flag a step, read at the end).  Returns
-    (fleet, specs, report, launches, wall s, peak GiB)."""
+def _run_fleet_phase(torch, ops, serve, engine_mod, argv, label,
+                     on_build=None):
+    """Build the fleet for ``argv`` (``on_build(fleet)`` may instrument
+    it), zero the launch counts, run its schedule, and read the counts;
+    every decode step's logits are checked for a NaN on the card (one flag
+    a step, read at the end).  Returns (fleet, specs, report, launches,
+    wall s, peak GiB, parsed args)."""
     say(f"{label}: serve " + " ".join(argv))
     fleet, specs, args = serve.build_fleet(argv)
+    if on_build is not None:
+        on_build(fleet)
     nan_flags = []
     decode = engine_mod.model.decode_step
 
@@ -2222,7 +2332,7 @@ def _run_fleet_phase(torch, ops, serve, engine_mod, argv, label):
         fail(f"{label}: a decode step's logits hold a NaN "
              f"({len(nan_flags)} steps)")
     return (fleet, specs, rep, launches, wall,
-            torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.max_memory_allocated() / 2**30, args)
 
 
 def _poisoned(torch, heap, pes):
@@ -2243,9 +2353,8 @@ def _poisoned(torch, heap, pes):
 
 def phase_fleet(torch, ops, serve, engine_mod):
     """Phase 23: the fleet (module docstring).  Returns (its outputs by
-    spec index, its launches)."""
-    from repro_torch.serve.scheduler import FINISHED
-    fleet, specs, rep, launches, wall, peak = _run_fleet_phase(
+    spec index, its report, its launches)."""
+    fleet, specs, rep, launches, wall, peak, _ = _run_fleet_phase(
         torch, ops, serve, engine_mod, FLEET_ARGV, "fleet path")
     got = _fleet_counts(fleet, rep, launches)
     say(f"fleet path: {wall:.2f} s wall, peak {peak:.1f} GiB; launches "
@@ -2264,6 +2373,20 @@ def phase_fleet(torch, ops, serve, engine_mod):
     if got != FLEET_PREDICTED["23"]:
         fail(f"fleet path counts {got} differ from the CPU run's "
              f"{FLEET_PREDICTED['23']}")
+    n, secs = _fleet_baseline(torch, fleet, "fleet path")
+    say(f"{n}/{rep['completed']} completed fleet requests bitwise equal to "
+        f"the single-PE baseline ({secs:.2f} s for the baseline); counts as "
+        f"the CPU run predicts")
+    outs = fleet.outputs()
+    del fleet
+    torch.cuda.empty_cache()
+    return outs, rep, launches
+
+
+def _fleet_baseline(torch, fleet, label):
+    """Hold every finished request's tokens to ``Engine.generate_in_slot``
+    for its prompt and budget; returns (requests held, seconds)."""
+    from repro_torch.serve.scheduler import FINISHED
     t0 = time.perf_counter()
     n = 0
     for pod in fleet.pods:
@@ -2277,25 +2400,60 @@ def phase_fleet(torch, ops, serve, engine_mod):
                                               max_new_tokens=req.max_new),
                 num_slots=slots, slot=req.slot)
             if base != req.out:
-                fail(f"fleet path: {pod.name} request {rid} tokens "
+                fail(f"{label}: {pod.name} request {rid} tokens "
                      f"{req.out} != single-PE baseline {base}")
             n += 1
     torch.cuda.synchronize()
-    say(f"{n}/{rep['completed']} completed fleet requests bitwise equal to "
-        f"the single-PE baseline ({time.perf_counter() - t0:.2f} s for the "
-        f"baseline); counts as the CPU run predicts")
-    outs = fleet.outputs()
-    del fleet
-    torch.cuda.empty_cache()
-    return outs, launches
+    return n, time.perf_counter() - t0
 
 
-def phase_chaos(torch, ops, serve, engine_mod, control):
+def _checked_dumps(fleet, export, reasons):
+    """Validate every postmortem dump of the fleet's recorder as it is
+    written (each overwrites the last); ``reasons`` collects them."""
+    rec = fleet.obs.recorder
+    write = rec.dump
+
+    def dump(*a, **k):
+        path = write(*a, **k)
+        with open(path) as f:
+            doc = json.load(f)
+        errors = export.validate(doc)
+        pm = doc["otherData"]["postmortem"]
+        say(f"postmortem dump at step {pm['step']}: {pm['reason']}, "
+            f"{len(doc['traceEvents'])} events, validation errors {errors}")
+        if errors:
+            fail(f"postmortem dump {pm['reason']} does not validate: "
+                 f"{errors[:5]}")
+        reasons.append(pm["reason"])
+        return path
+    rec.dump = dump
+
+
+def phase_chaos(torch, ops, serve, engine_mod, export, control, tmp):
     """Phase 24: phase 23's traffic under CHAOS_PLAN, phase 23's outputs
-    the control.  Returns its launches."""
-    fleet, specs, rep, launches, wall, peak = _run_fleet_phase(
-        torch, ops, serve, engine_mod, FLEET_ARGV + ["--chaos", CHAOS_PLAN],
-        "chaos path")
+    the control, with the auditors every step and a 16-step flight
+    recorder whose dumps go to ``tmp``.  Returns its launches."""
+    reasons = []
+    os.environ["ISHMEM_OBS_RECORDER_PATH"] = str(tmp / "postmortem.json")
+    try:
+        fleet, specs, rep, launches, wall, peak, _ = _run_fleet_phase(
+            torch, ops, serve, engine_mod,
+            FLEET_ARGV + ["--chaos", CHAOS_PLAN] + CHAOS_OBS_ARGV,
+            "chaos path",
+            on_build=lambda f: _checked_dumps(f, export, reasons))
+    finally:
+        del os.environ["ISHMEM_OBS_RECORDER_PATH"]
+    audit = fleet.obs.auditor.summary()
+    say(f"chaos path audits: {audit['checks']} passes, "
+        f"{audit['violations']} violations, "
+        f"{audit['audit_seconds'] / max(1, audit['checks']) * 1e3:.3f} ms "
+        f"of wall a pass; postmortem dumps {reasons}")
+    if audit["violations"] or audit["checks"] != fleet.elapsed_steps:
+        fail(f"chaos path audits: {audit}")
+    want = ["fault:kill_pe:2", "fault:partition", "fault:kill_pod:pod1"]
+    if reasons != want:
+        fail(f"chaos path postmortem dumps {reasons}, not one per fault "
+             f"{want}")
     got = _fleet_counts(fleet, rep, launches)
     flt = rep["fault"]
     say(f"chaos path: {wall:.2f} s wall, peak {peak:.1f} GiB; launches "
@@ -2326,10 +2484,210 @@ def phase_chaos(torch, ops, serve, engine_mod, control):
     say(f"chaos path: {sum(1 for o in outs.values() if o)} completed "
         f"requests' tokens equal the control's, 0 wrong; dead rows "
         f"poisoned bit for bit; no NaN logits; counts as the CPU run "
-        f"predicts")
+        f"predicts; audits clean, one valid dump per fault")
     del fleet
     torch.cuda.empty_cache()
     return launches
+
+
+def _tracer_event_cost(SpanTracer, n=200_000):
+    """Host microseconds a recorded event costs: ``n`` instants with two
+    arguments into a span tracer, as the serving hot paths emit them."""
+    tr = SpanTracer(max_events=n + 1)
+    t0 = time.perf_counter()
+    for i in range(n):
+        tr.instant("xfer", "cq", "core", "cq", bytes=i, path="direct")
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_obs(torch, ops, serve, engine_mod, export, control, tmp):
+    """Phase 25: phase 23's fleet with the bundle's deterministic parts on
+    (trace, metrics, auditors every step, a 16-step recorder, burn-rate
+    alerts).  Tokens, ``report()`` and the step-level counts must be phase
+    23's bit for bit (the off/on law on the card); 66 metrics rows, no
+    violation, a trace that validates with one chain per request.  Returns
+    its launches."""
+    outs23, rep23 = control
+    argv = FLEET_ARGV + [a.format(tmp=tmp) for a in OBS_ARGV]
+    reasons = []
+    os.environ["ISHMEM_OBS_RECORDER_PATH"] = str(tmp / "postmortem.json")
+    try:
+        fleet, specs, rep, launches, wall, peak, args = _run_fleet_phase(
+            torch, ops, serve, engine_mod, argv, "observed fleet path",
+            on_build=lambda f: _checked_dumps(f, export, reasons))
+    finally:
+        del os.environ["ISHMEM_OBS_RECORDER_PATH"]
+    obs = fleet.obs
+    summary = rep.pop("obs")
+    got = _fleet_counts(fleet, rep, launches)
+    say(f"observed fleet path: {wall:.2f} s wall, peak {peak:.1f} GiB; "
+        f"launches {launches}; counts {got}")
+    if rep != rep23:
+        diff = sorted(k for k in set(rep) | set(rep23)
+                      if rep.get(k) != rep23.get(k))
+        fail(f"observed fleet path: report() differs from phase 23's in "
+             f"{diff}")
+    if fleet.outputs() != outs23:
+        fail("observed fleet path: tokens differ from phase 23's")
+    if got != FLEET_PREDICTED["23"]:
+        fail(f"observed fleet path counts {got} differ from phase 23's "
+             f"{FLEET_PREDICTED['23']}")
+    audit = summary["audit"]
+    rows = len(obs.metrics.series)
+    if rows != fleet.elapsed_steps or rows != FLEET_PREDICTED["23"][
+            "elapsed_steps"] or audit["violations"] or \
+            audit["checks"] != rows:
+        fail(f"observed fleet path: {rows} metrics rows, audits {audit}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve.emit_obs(*args.obs_run)      # writes; an invalid trace raises
+    emit_s = time.perf_counter() - t0
+    with open(args.obs_run[1]) as f:
+        doc = json.load(f)
+    chains = export.request_chains_doc(doc)
+    rids = {rid for _, rid in fleet.placements.values()}
+    if set(chains) != rids or export.validate(doc):
+        fail(f"observed fleet path: {len(chains)} chains for {len(rids)} "
+             f"requests, validation {export.validate(doc)[:3]}")
+    per_event = _tracer_event_cost(type(obs.tracer))
+    say(f"observed fleet path: bitwise phase 23 (tokens, report, counts); "
+        f"{rows} metrics rows; audits {audit['checks']} passes, 0 "
+        f"violations, {audit['audit_seconds'] * 1e3:.1f} ms in all, "
+        f"{audit['audit_seconds'] / audit['checks'] * 1e3:.3f} ms a pass; "
+        f"trace {len(doc['traceEvents'])} events ({len(obs.tracer.events)} "
+        f"recorded, {obs.tracer.dropped} dropped), {len(chains)} chains, "
+        f"valid; alerts {len(summary['alerts']['alerts'])}; dumps "
+        f"{reasons}; writing the outputs {emit_s:.2f} s; the tracer costs "
+        f"{per_event:.3f} us of host time an event "
+        f"({per_event * len(obs.tracer.events) / 1e6:.4f} s for this "
+        f"run's events)")
+    del fleet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_measured(torch, ops, serve, export, barrier_out, tmp):
+    """Phase 26: phase 3's run with the profiler, the calibration report
+    and the trace: tokens bitwise phase 3's; samples per scope; the worst
+    measured/modeled buckets; the measured track valid.  Then fits a
+    wall-clock tuning table from the samples and writes it to ``tmp``.
+    Returns (its launches, the table's path)."""
+    argv = [a.format(tmp=tmp) for a in MEASURED_ARGV]
+    say("measured serving path: serve " + " ".join(argv))
+    sched, args = serve.build_disagg(argv)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        serve.report_disagg(sched, args)   # an invalid trace raises
+    obs = args.obs_run[0]
+    samples = obs.prof.samples
+    say(f"measured serving path: {wall:.2f} s wall, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
+        f"{launches}")
+    _balanced(sched, "measured serving path")
+    _same_tokens(sched, barrier_out, "measured serving path (vs phase 3)")
+    for op in PROF_SCOPES:
+        mine = [s for s in samples if s.op == op]
+        if not mine:
+            fail(f"measured serving path: no {op} sample")
+        walls = sorted(s.wall_s for s in mine)
+        say(f"  scope {op}: {len(mine)} samples, wall {sum(walls) * 1e3:.2f}"
+            f" ms in all, median {walls[len(walls) // 2] * 1e3:.3f} ms, "
+            f"modeled {sum(s.model_s for s in mine) * 1e3:.4f} ms in all")
+    report = obs.calibration_report()
+    for w in report["worst"][:4]:
+        say(f"  calibration {w['op']} tier={w['tier']} "
+            f"2^{w['size_bucket']}B wi={w['work_items']}: measured/modeled p50 "
+            f"{w['ratio_p50']:.1f} (n={w['n']})")
+    cov = report["coverage"]
+    say(f"  calibration coverage: {cov}")
+    with open(args.obs_run[1]) as f:
+        doc = json.load(f)
+    track = [e for e in doc["traceEvents"] if e.get("pid") == "measured"
+             and e.get("ph") == "i"]
+    if len(track) != len(samples) or export.validate(doc):
+        fail(f"measured serving path: {len(track)} measured events for "
+             f"{len(samples)} samples, validation {export.validate(doc)[:3]}")
+    table = sched.ctx.fit_tuning_table(sample_source="wallclock")
+    path = tmp / "tuning_wallclock.json"
+    table.save(str(path))
+    say(f"measured serving path: tokens bitwise phase 3's; {len(track)} "
+        f"measured events valid; wall-clock table (source {table.source}): "
+        f"{len(table.profiles)} profiles "
+        f"{sorted('/'.join(map(str, k)) for k in table.profiles)}, "
+        f"{len(table.cutovers)} cutovers -> {path.name}")
+    if table.source != "wallclock" or not table.profiles:
+        fail("measured serving path: no wall-clock profile fitted")
+    del sched
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def phase_tuning(torch, ops, serve, engine_mod, barrier_out, table_path):
+    """Phase 27: phase 3 under ISHMEM_TUNING_FILE (phase 26's wall-clock
+    table armed, tokens bitwise), under ISHMEM_FORCE_PATH=engine (tokens
+    bitwise, no op whose path the chooser picks on the direct path), then
+    a short fleet with ``--refit 4 --profile``: at least one re-fit from
+    the card's measured samples, every finished request bitwise its
+    single-PE baseline (the counts are printed, not held: the table steers
+    the modeled clock that SLO admission reads).  Returns its launches by
+    run."""
+    runs = {}
+    for var, val, label in (
+            ("ISHMEM_TUNING_FILE", str(table_path), "tuning-file path"),
+            ("ISHMEM_FORCE_PATH", "engine", "forced-engine path")):
+        os.environ[var] = val
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                sched, launches, wall, peak = _serve_phase(
+                    torch, ops, serve, MAIN_ARGV, label)
+        finally:
+            del os.environ[var]
+        _balanced(sched, label)
+        _same_tokens(sched, barrier_out, f"{label} (vs phase 3)")
+        tuning = sched.ctx.tuning
+        paths = sorted({(op, p) for op, p, _, _ in
+                        sched.ctx.telemetry.buckets})
+        say(f"{label}: {wall:.2f} s wall; launches {launches}; table "
+            f"{getattr(tuning.table, 'source', None)}; force "
+            f"{tuning.force_path}; (op, path) {paths}")
+        if var == "ISHMEM_TUNING_FILE" and (
+                tuning.table is None or tuning.table.source != "wallclock"):
+            fail(f"{label}: the armed table is {tuning.table}")
+        direct = {op for op, p in paths if p == "direct"}
+        if var == "ISHMEM_FORCE_PATH" and not (
+                direct <= FIXED_PATH_OPS
+                and ("kvxfer_block", "engine") in paths):
+            fail(f"{label}: ops left on the direct path: "
+                 f"{sorted(direct - FIXED_PATH_OPS)}")
+        runs[label] = launches
+        del sched
+        torch.cuda.empty_cache()
+    fleet, specs, rep, launches, wall, peak, _ = _run_fleet_phase(
+        torch, ops, serve, engine_mod, REFIT_FLEET_ARGV, "re-fit fleet path")
+    obs = fleet.obs
+    events = [(ev.step, ev.nsamples, ev.ncutovers, len(ev.changed))
+              for ev in obs.refitter.history]
+    got = _fleet_counts(fleet, rep, launches)
+    say(f"re-fit fleet path: {wall:.2f} s wall, peak {peak:.1f} GiB; "
+        f"counts {got} (not held); {len(obs.prof.samples)} measured "
+        f"samples; re-fits (step, samples, cutovers, flips) {events}; "
+        f"table source {getattr(fleet.ctx.tuning.table, 'source', None)}")
+    if not events:
+        fail("re-fit fleet path: no re-fit ran")
+    n, secs = _fleet_baseline(torch, fleet, "re-fit fleet path")
+    say(f"re-fit fleet path: {n}/{rep['completed']} finished requests "
+        f"bitwise equal to the single-PE baseline ({secs:.2f} s)")
+    runs["re-fit fleet path"] = launches
+    del fleet
+    torch.cuda.empty_cache()
+    return runs
 
 
 def main() -> None:
@@ -2338,6 +2696,20 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this check needs a card")
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    # the phases set the knobs they test themselves: a stray ISHMEM_* or
+    # ISHMEM_OBS_* variable must not change what they check
+    for name in [n for n in os.environ if n.startswith("ISHMEM_")]:
+        del os.environ[name]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        run(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run(torch, tmp: Path) -> None:
+    """The phases (module docstring); ``tmp`` takes every file they
+    write."""
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build, flash_attn, ishmem_device, ops, \
         reduce_tile, ring_collectives, rma_copy
@@ -2363,7 +2735,7 @@ def main() -> None:
         if "Compiling entry function" in line:
             entry = line
             continue
-        hd = 128 if "ILi128E" in entry else 80 if "ILi80E" in entry else 64
+        hd = next((d for d in (128, 80, 32) if f"ILi{d}E" in entry), 64)
         if "flash_fwd_wgmma" in entry and ("setmaxnreg" in line or "spill"
                                            in line or "Used" in line):
             say(f"ptxas, bf16 K2 hd {hd}: {line.strip()}")
@@ -2405,7 +2777,15 @@ def main() -> None:
                        deferred)
     torch.cuda.empty_cache()
     rows += [check_reduce_tile(torch, reduce_tile, dev, deferred),
-             check_flash_partial(torch, ishmem_device, dev, deferred)]
+             check_flash_partial(torch, ishmem_device, dev, deferred),
+             check_flash_partial_width(
+                 torch, ishmem_device, dev, deferred,
+                 name="flash_partial_hd32", Sh=8, H=4, hd=32, me=3,
+                 path="phase 6's demo ring (4 PEs, 32 tokens)"),
+             check_flash_partial_width(
+                 torch, ishmem_device, dev, deferred,
+                 name="flash_partial_hd80", Sh=4096, H=32, hd=80, me=3,
+                 path="phase 6's zamba2 ring (4 PEs, 16384 tokens)")]
     for r in rows:
         lib_ms = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -2587,6 +2967,37 @@ def main() -> None:
              f"{RING_TOL})")
     del unit
     torch.cuda.empty_cache()
+    # the reference launcher's demo widths (hd 32), then zamba2's (hd 80)
+    ring_widths = {}
+    for label, kw, shape, against in (
+            ("demo", RING_DEMO, (1, 32, 4, 32), "plain causal attention"),
+            ("zamba2", RING_ZAMBA, (1, 16384, 32, 80), "single-PE flash")):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = serve.seq_parallel_report(**kw, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ring_widths[label] = dict(ops.LAUNCHES)
+        say(f"ring attention path, {label} widths {kw}: {wall:.2f} s wall; "
+            f"launches {ring_widths[label]}; max|err| vs {rep['against']} "
+            f"{rep['max_abs_err']:.3e}")
+        if ring_widths[label]["flash_partial"] != RING4_PARTIALS or \
+                ring_widths[label]["flash_partial_split"] != RING4_PARTIALS:
+            fail(f"ring attention at {label} widths: "
+                 f"{ring_widths[label]['flash_partial']} partials, not "
+                 f"{RING4_PARTIALS}")
+        if not (rep["finite"] and rep["shape"] == shape
+                and rep["against"] == against
+                and rep["max_abs_err"] <= RING_TOL):
+            fail(f"ring attention at {label} widths: {rep['shape']} "
+                 f"(finite {rep['finite']}) is {rep['max_abs_err']:.3e} "
+                 f"from the {rep['against']}, above {RING_TOL}")
+        if (label == "zamba2") != bool(ring_widths[label]["flash_attention"]):
+            fail(f"ring attention at {label} widths: K2 launched "
+                 f"{ring_widths[label]['flash_attention']} times")
+        del rep
+        torch.cuda.empty_cache()
 
     # ---- 7-9. streamed, shared-prefix and dense-rehydrate serving ----------
     mode_launches = {"7": phase_stream(torch, ops, serve, export, barrier_out,
@@ -2619,10 +3030,21 @@ def main() -> None:
         {"barrier": launches["copy_into"],
          "fused": fused_launches["copy_into"]})
     mode_launches.update(cross)
-    fleet_out, mode_launches["23"] = phase_fleet(torch, ops, serve,
-                                                 engine_mod)
-    mode_launches["24"] = phase_chaos(torch, ops, serve, engine_mod,
-                                      fleet_out)
+    fleet_out, fleet_rep, mode_launches["23"] = phase_fleet(
+        torch, ops, serve, engine_mod)
+    mode_launches["24"] = phase_chaos(torch, ops, serve, engine_mod, export,
+                                      fleet_out, tmp)
+
+    # ---- 25-27. the observability bundle, measured, the tuning knobs ------
+    mode_launches["25"] = phase_obs(torch, ops, serve, engine_mod, export,
+                                    (fleet_out, fleet_rep), tmp)
+    mode_launches["26"], table_path = phase_measured(
+        torch, ops, serve, export, barrier_out, tmp)
+    tuning_runs = phase_tuning(torch, ops, serve, engine_mod, barrier_out,
+                               table_path)
+    for label, run_launches in zip(("27", "27-force", "27-refit"),
+                                   tuning_runs.values()):
+        mode_launches[label] = run_launches
 
     # ---- 21. training, data-parallel through the ring kernels -------------
     train_launches, train_rows = phase_train(torch, ops, ring_collectives,
@@ -2657,7 +3079,8 @@ def main() -> None:
         f"{by_name['paged_gather']['card_table_ms']:.4f} ms by events")
     k2 = rows[1]
     k2["hgmma"] = hgmma["bf16 K2"]
-    by_name["flash_partial"]["hgmma"] = hgmma["K10"]
+    for name in ("flash_partial", "flash_partial_hd32", "flash_partial_hd80"):
+        by_name[name]["hgmma"] = hgmma["K10"]
     k11["hgmma"] = k11_80["hgmma"] = k11_64["hgmma"] = hgmma["K11"]
     long = k2["long"]
     if long.get("device_ms"):
@@ -2672,6 +3095,9 @@ def main() -> None:
     path_launches = {k: launches[k] for k in SERVE_KERNELS}
     path_launches.update({k: coll_launches[k] for k in RING_KERNELS})
     path_launches["flash_partial"] = ring_launches["flash_partial"]
+    path_launches["flash_partial_hd32"] = ring_widths["demo"]["flash_partial"]
+    path_launches["flash_partial_hd80"] = \
+        ring_widths["zamba2"]["flash_partial"]
     path_launches["fused_paged_attn"] = fused_launches["fused_paged_attn"]
     path_launches["flash_attention_hd80"] = \
         mode_launches["10"]["flash_attention"]
@@ -2689,6 +3115,7 @@ def main() -> None:
         run["reduce_tile"] for run in (launches, coll_launches,
                                        fused_launches, ring_launches,
                                        train_launches,
+                                       *ring_widths.values(),
                                        *mode_launches.values()))
     if path_launches["reduce_tile"]:
         fail(f"K9 launched {path_launches['reduce_tile']} times on the "
@@ -2707,7 +3134,8 @@ def main() -> None:
             phase: run[name] for phase, run in mode_launches.items()}
     k11["launches_by_phase"] = {
         phase: mode_launches[phase]["fused_paged_attn"]
-        for phase in ("22", "22-fused", "23", "24")}
+        for phase in ("22", "22-fused", "23", "24", "25", "26", "27",
+                      "27-force", "27-refit")}
     k11["launches_on_phase_22_pool"] = k11_22
     by_name["reduce_tile"]["path"] = "none: only the reference's " \
         "benchmark and tests call K9"

@@ -2,12 +2,12 @@
 
 Counterpart of ``repro/core/context.py``: the symmetric heap, the PE
 topology (which PEs share a fabric tier), the transport tuning, the
-telemetry sink, the completion queue, the tracer and the
-failure-domain view (:class:`FaultState`: dead PEs, a partitioned dcn
-fabric).  ``init`` uses ``cutover.Tuning()`` defaults unless given a
-tuning: it reads no ``ISHMEM_*`` environment variable yet, and
-``fit_tuning_table`` is not ported (both come with the tuning knobs,
-ROADMAP queue 1, item 5c).
+telemetry sink, the completion queue, the tracer, the wall-clock profiler
+and the failure-domain view (:class:`FaultState`: dead PEs, a partitioned
+dcn fabric).  ``init`` reads the ``ISHMEM_*`` environment variables
+(``repro_torch.tune.env``) when no tuning is given, which may arm a
+learned cutover table from ``ISHMEM_TUNING_FILE``;
+:meth:`ShmemContext.fit_tuning_table` fits one from the telemetry.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Optional, Set
 from repro_torch.core import cutover, heap as heap_mod, \
     pending as pending_mod, teams
 from repro_torch.obs import tracer as tracer_mod
-from repro_torch.tune import telemetry as telemetry_mod
+from repro_torch.tune import env as env_mod, telemetry as telemetry_mod
 
 OpRecord = telemetry_mod.OpRecord
 
@@ -50,6 +50,11 @@ class ShmemContext:
     pending: pending_mod.CompletionQueue = dataclasses.field(
         default_factory=pending_mod.CompletionQueue)
     tracer: tracer_mod.Tracer = tracer_mod.NULL_TRACER
+    # wall-clock profiler (obs.prof): None unless a driver attaches one, so
+    # hot paths guard on ``prof is not None and prof.enabled``.  Its
+    # perf_counter values land only in wallclock telemetry buckets and its
+    # own samples, never in a trace timestamp or the modeled comm clock
+    prof: Optional[object] = None
     # which PEs are dead and whether the proxy ring is partitioned: the
     # completion queue consults it at flush time
     fault: FaultState = dataclasses.field(default_factory=FaultState)
@@ -79,18 +84,42 @@ class ShmemContext:
         return self.telemetry.trace
 
     def record(self, op: str, nbytes: int, path: str, tier: str,
-               work_items: int = 1, t_sec: Optional[float] = None) -> None:
+               work_items: int = 1, t_sec: Optional[float] = None,
+               source: str = telemetry_mod.MODEL_SOURCE) -> None:
         """Record one op; without ``t_sec`` the analytic cost model prices
-        it (the modeled comm clock, not a measurement)."""
+        it (the modeled comm clock, not a measurement).  ``source`` tags
+        provenance: ``"model"`` (the comm clock) or ``"wallclock"``
+        (measured; aggregated in buckets of its own)."""
         if t_sec is None:
             t_sec = cutover.op_time(nbytes, path, work_items=work_items,
                                     tier=tier if path != "proxy" else "dcn",
                                     hw=self.hw)
         self.telemetry.record(OpRecord(op, nbytes, path, tier, t_sec,
-                                       work_items))
+                                       work_items, source))
 
     def total_time(self) -> float:
         return self.telemetry.total_time()
+
+    def reset_ledger(self) -> None:
+        self.telemetry.clear()
+
+    def fit_tuning_table(self, *, arm: bool = True,
+                         sample_source: Optional[str] = None):
+        """Fit a measured cutover table from everything recorded so far
+        (``repro_torch.tune.estimator``); with ``arm`` the table goes on
+        ``self.tuning``, so later ``choose_path`` calls use it.
+        ``sample_source`` restricts the fit to one provenance stream
+        (``"wallclock"``: the profiler's measured samples) and labels the
+        table with it."""
+        from repro_torch.tune import estimator, table as table_mod
+        if not isinstance(self.telemetry, telemetry_mod.TelemetrySink):
+            return table_mod.TuningTable(source="empty")   # e.g. NullSink
+        tbl = estimator.build_table(self.telemetry,
+                                    source=sample_source or "measured",
+                                    sample_source=sample_source)
+        if arm and (tbl.cutovers or tbl.profiles):
+            self.tuning = dataclasses.replace(self.tuning, table=tbl)
+        return tbl
 
 
 def init(npes: int, node_size: Optional[int] = None,
@@ -101,12 +130,14 @@ def init(npes: int, node_size: Optional[int] = None,
          device=None):
     """ishmem_init: returns ``(ctx, heap)``.  The heap lives on ``device``:
     the current CUDA device unless the caller passes another (``"cpu"``
-    runs every kernel's plain version)."""
+    runs every kernel's plain version).  Without ``tuning`` the
+    ``ISHMEM_*`` environment variables configure it, as the library's
+    init parses its knobs."""
     ctx = ShmemContext(
         npes=npes,
         node_size=node_size or npes,
         hw=hw or cutover.HwParams(),
-        tuning=tuning if tuning is not None else cutover.Tuning(),
+        tuning=tuning if tuning is not None else env_mod.tuning_from_env(),
         telemetry=telemetry or telemetry_mod.TelemetrySink(),
     )
     return ctx, heap_mod.create(npes, heap_words, device=device)

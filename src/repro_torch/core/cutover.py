@@ -36,12 +36,15 @@ class HwParams:
 
 @dataclasses.dataclass(frozen=True)
 class Tuning:
-    """User-tunable cutover policy.  The port's ``context.init`` uses the
-    defaults; the ``ISHMEM_*`` environment knobs and the learned tuning
-    table come later (ROADMAP queue 1, item 5c)."""
+    """User-tunable cutover policy (the ``ISHMEM_*`` knobs, parsed by
+    ``repro_torch.tune.env``)."""
     cutover_bytes: int | None = None   # None -> model-derived
     force_path: str | None = None      # "direct" | "engine" | "proxy"
     work_group_size: int = 128
+    # a learned ``repro_torch.tune.table.TuningTable`` (duck-typed through
+    # ``lookup``, so core does not import the tuner): where it covers a
+    # tier, its measured cutovers override the analytic model
+    table: object | None = None
     # write-combine queued nbi puts at flush (see core/pending.py)
     nbi_coalesce: bool = True
 
@@ -81,7 +84,7 @@ def choose_path(nbytes: int, *, work_items: int | None = None,
                 tier: str = "ici", hw: HwParams = HwParams(),
                 tuning: Tuning = Tuning()) -> str:
     """Pick the transport for one RMA op: FORCE_PATH > CUTOVER_BYTES >
-    analytic model."""
+    learned table > analytic model."""
     work_items = resolve_work_items(work_items, tuning)
     if tuning.force_path:
         return tuning.force_path
@@ -89,6 +92,10 @@ def choose_path(nbytes: int, *, work_items: int | None = None,
         return "proxy"
     if tuning.cutover_bytes is not None:
         return "direct" if nbytes <= tuning.cutover_bytes else "engine"
+    if tuning.table is not None:
+        learned = tuning.table.lookup(tier, work_items)
+        if learned is not None:
+            return "direct" if nbytes <= learned else "engine"
     td = t_direct(hw, nbytes, work_items, tier)
     te = t_engine(hw, nbytes, tier)
     return "direct" if td <= te else "engine"
@@ -110,12 +117,16 @@ def choose_collective_path(kind: str, nbytes: int, npes: int, *,
                            work_items: int | None = None, tier: str = "ici",
                            hw: HwParams = HwParams(),
                            tuning: Tuning = Tuning()) -> str:
-    """The chooser for collectives: FORCE_PATH > CUTOVER_BYTES (through
-    :func:`choose_path`) > the collective cost models (Fig. 6 crossovers)."""
+    """The chooser for collectives: FORCE_PATH > CUTOVER_BYTES or a learned
+    table covering the tier (through :func:`choose_path`) > the collective
+    cost models (Fig. 6 crossovers).  A table without coverage for the tier
+    leaves the collective model alone."""
     work_items = resolve_work_items(work_items, tuning)
     if tuning.force_path:
         return tuning.force_path
-    if tuning.cutover_bytes is not None:
+    if tuning.cutover_bytes is not None or (
+            tuning.table is not None
+            and tuning.table.lookup(tier, work_items) is not None):
         return choose_path(nbytes, work_items=work_items, tier=tier, hw=hw,
                            tuning=tuning)
     td = t_collective(kind, nbytes, npes, work_items=work_items,

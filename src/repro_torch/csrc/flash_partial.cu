@@ -51,7 +51,16 @@
 //    k8 step is 32 bytes along a row, as a k16 step of bf16 in K2.
 //    Shared memory at hd = 128: q hi + lo 2 x 32 KB, each stage K hi + lo
 //    2 x 16 KB and V^T hi + lo 2 x 16 KB, two stages: 192 KB of the 227 KB
-//    a CTA may hold (96 KB at hd = 64, two CTAs an SM);
+//    a CTA may hold (96 KB at hd = 64, two CTAs an SM; 49 KB at hd = 32,
+//    one box a row);
+//  - hd = 80 (zamba2's attention width) keeps the global width 80 in the
+//    q and K maps and pads their tiles to three 32-column boxes: the third
+//    holds columns 64..79 and TMA's zero fill past them (the maps' inner
+//    extent is 80, so no byte of the next head is read; a row of 320 bytes
+//    keeps every stride on TMA's 16-byte grid).  Q.K^T runs the 10 k8
+//    steps of the real columns, P.V is m64n80k8 over V^T's 80 rows, which
+//    the split pass writes unpadded.  Shared memory: q 2 x 24 KB, a stage
+//    2 x 12 KB + 2 x 10 KB, 137 KB in all;
 //  - S = Qhi.Khi + Qlo.Khi + Qhi.Klo is wgmma m64n32k8 .tf32 with both
 //    operands K-major in shared memory; masking and the online softmax run
 //    in f32 registers.  s - m is its own subtraction before 2^x (one MUFU
@@ -91,10 +100,17 @@ constexpr int kCols = 32;      // f32 columns of one 128-byte swizzle row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// q and K tiles are whole 32-column boxes: hd = 80 pads to 96 columns,
+// which TMA fills with zeros past the maps' extent of 80; V^T's tile has
+// one 128-byte row per real head dim
 template <int HD> struct Tiles {
-  static constexpr int kQ = kBQ * HD * 4;   // q hi (or lo)
-  static constexpr int kK = kBK * HD * 4;   // one K hi (or lo) tile
-  static constexpr int kV = HD * kBK * 4;   // one V^T hi (or lo) tile
+  static_assert(HD % 8 == 0 && HD <= 256, "wgmma takes N a multiple of 8");
+  static constexpr int kBoxes = (HD + kCols - 1) / kCols;
+  static constexpr int kPad = kBoxes * kCols;
+  static constexpr int kQ = kBQ * kPad * 4;   // q hi (or lo)
+  static constexpr int kK = kBK * kPad * 4;   // one K hi (or lo) tile
+  static constexpr int kV = HD * kBK * 4;     // one V^T hi (or lo) tile
+  static_assert(kV % 1024 == 0, "V^T tiles must keep the swizzle atom");
   static constexpr int kStage = 2 * kK + 2 * kV;
   static constexpr int kDynamic = 2 * kQ + kStages * kStage + 1024;  // + align
 };
@@ -131,7 +147,9 @@ __device__ __forceinline__ int kperm(int i) { return i < 4 ? 2 * i : 2 * i - 7; 
 
 // v (B, Skv, H, HD) -> vt (2, B, H, HD, Skv8), hi plane then lo plane; one
 // CTA per 32 keys x 32 head dims of one (batch, head), through a padded
-// shared tile so that both the reads and the writes are coalesced
+// shared tile so that both the reads and the writes are coalesced.  The
+// last block of head dims is partial when HD is not a multiple of 32
+// (hd = 80: dims 64..79).
 template <typename T>
 __global__ void __launch_bounds__(256)
 split_vt(const T* __restrict__ v, float* __restrict__ vt, int B, int Skv,
@@ -142,7 +160,7 @@ split_vt(const T* __restrict__ v, float* __restrict__ vt, int B, int Skv,
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   for (int r = ty; r < 32; r += 8) {
     const int key = k0 + r;
-    tile[r][tx] = key < Skv
+    tile[r][tx] = key < Skv && d0 + tx < HD
         ? to_f(v[((static_cast<long long>(b) * Skv + key) * H + h) * HD + d0 + tx])
         : 0.f;
   }
@@ -151,7 +169,7 @@ split_vt(const T* __restrict__ v, float* __restrict__ vt, int B, int Skv,
   if (pos >= Skv8) return;
   const int src = (tx & ~7) | kperm(tx & 7);
   const long long plane = static_cast<long long>(B) * H * HD * Skv8;
-  for (int r = ty; r < 32; r += 8) {
+  for (int r = ty; r < 32 && d0 + r < HD; r += 8) {
     const float y = tile[src][r];
     const float hi = tf32(y);
     const long long o = (static_cast<long long>(bh) * HD + d0 + r) * Skv8 + pos;
@@ -218,12 +236,49 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// O += P.V for one k8 step: m64n128 at hd = 128, m64n64 at hd = 64
+// d[0:40] += A(registers, TF32) . B(desc, K-major), m64n80k8
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0:16] += A(registers, TF32) . B(desc, K-major), m64n32k8
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P.V for one k8 step: m64n{hd}k8 over V^T's real head dims
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (HD == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n64(d, a, db);
+  else if constexpr (HD == 80) wgmma_rs_n80(d, a, db);
+  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n32(d, a, db);
 }
 
 // kLo: K and V carry a low part (f32 inputs); bf16 inputs have none
@@ -236,7 +291,7 @@ flash_partial_tf32(const __grid_constant__ CUtensorMap tq,
                    float* __restrict__ l_out, int B, int Sq, int Skv, int H,
                    int q_off, int k_off) {
   using L = Tiles<HD>;
-  constexpr int kBoxes = HD / kCols;
+  constexpr int kBoxes = L::kBoxes;
   extern __shared__ uint8_t fp_smem[];
   // barriers: q, K full x2, V full x2, stage empty x2
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
@@ -313,7 +368,8 @@ flash_partial_tf32(const __grid_constant__ CUtensorMap tq,
     const uint32_t khi = skv + s * L::kStage, klo = khi + L::kK,
                    vhi = klo + L::kK, vlo = vhi + L::kV;
 
-    // S = Qhi.Khi + Qlo.Khi (+ Qhi.Klo): hd / 8 steps of k8 each
+    // S = Qhi.Khi + Qlo.Khi (+ Qhi.Klo): hd / 8 steps of k8 each, over the
+    // real columns only (hd = 80: 10 steps, the zero fill past them unread)
     float sc[kBK / 2];
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
@@ -436,7 +492,7 @@ int split(const void* q, const void* k, const void* v, float* qs, float* ks,
   split_rows<T><<<blocks(nq), 256, 0, st>>>(static_cast<const T*>(q), qs, qs + nq, nq, scale);
   split_rows<T><<<blocks(nk), 256, 0, st>>>(static_cast<const T*>(k), ks, ks + nk, nk, 1.f);
   const int Skv8 = (Skv + 7) / 8 * 8;
-  const dim3 grid((Skv8 + 31) / 32, hd / 32, B * H);
+  const dim3 grid((Skv8 + 31) / 32, (hd + 31) / 32, B * H);
   split_vt<T><<<grid, 256, 0, st>>>(static_cast<const T*>(v), vt, B, Skv, Skv8, H, hd);
   return static_cast<int>(cudaGetLastError());
 }
@@ -473,7 +529,7 @@ int launch(int device, const void* qs, const void* ks, const void* vt,
 
 }  // namespace
 
-// The split pass.  dtype: 0 = float32, 1 = bfloat16; hd a multiple of 32.
+// The split pass.  dtype: 0 = float32, 1 = bfloat16; hd a multiple of 16.
 // qs: (2, B, Sq, H, hd), ks: (2, B, Skv, H, hd), vt: (2, B, H, hd, Skv8),
 // all f32, Skv8 = Skv rounded up to 8; the wrapper has checked shapes and
 // contiguity.
@@ -483,7 +539,7 @@ extern "C" int ishmem_flash_partial_split(int device, const void* q, const void*
                                           int dtype, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hd % 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd % 16) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Skv == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float *fq = static_cast<float*>(qs), *fk = static_cast<float*>(ks), *fv = static_cast<float*>(vt);
@@ -492,7 +548,8 @@ extern "C" int ishmem_flash_partial_split(int device, const void* q, const void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The partial over the split pass's planes.  hd must be 64 or 128; kv_lo
+// The partial over the split pass's planes.  hd must be 32, 64, 80 or 128;
+// kv_lo
 // is 1 when K and V have low parts (f32 inputs), 0 for bf16 inputs.
 extern "C" int ishmem_flash_partial(int device, const void* qs, const void* ks,
                                     const void* vt, void* acc, void* m, void* l,
@@ -511,5 +568,13 @@ extern "C" int ishmem_flash_partial(int device, const void* qs, const void* ks,
     return launch<64, true>(device, qs, ks, vt, a, fm, fl, B, Sq, Skv, H, q_off, k_off, st);
   if (hd == 64)
     return launch<64, false>(device, qs, ks, vt, a, fm, fl, B, Sq, Skv, H, q_off, k_off, st);
+  if (hd == 80 && kv_lo)
+    return launch<80, true>(device, qs, ks, vt, a, fm, fl, B, Sq, Skv, H, q_off, k_off, st);
+  if (hd == 80)
+    return launch<80, false>(device, qs, ks, vt, a, fm, fl, B, Sq, Skv, H, q_off, k_off, st);
+  if (hd == 32 && kv_lo)
+    return launch<32, true>(device, qs, ks, vt, a, fm, fl, B, Sq, Skv, H, q_off, k_off, st);
+  if (hd == 32)
+    return launch<32, false>(device, qs, ks, vt, a, fm, fl, B, Sq, Skv, H, q_off, k_off, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

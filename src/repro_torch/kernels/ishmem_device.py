@@ -31,9 +31,9 @@ import torch
 from repro_torch.kernels import flash_attn, ops
 
 MAX_ROWS = 65535            # table entries map to gridDim.y
-# K10's kernels are instantiated for these head dims only (K2's wrapper
-# takes 80 too)
-PARTIAL_HEAD_DIMS = (64, 128)
+# K10's kernels are instantiated for these head dims only (32: the
+# launcher's ring demo; 80: zamba2's attention width, tiles padded to 96)
+PARTIAL_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def paged_gather_plain(data: torch.Tensor,

@@ -6,11 +6,13 @@ Counterpart of ``repro/launch/serve.py`` (its lockstep mode,
 ``_run_disagg`` with ``--fused-attn``, ``--stream-chunks``,
 ``--shared-prefix``, ``--dense-rehydrate``, ``--cross-pod`` and
 ``--trace``, ``_run_fleet`` with ``--chaos``, ``--overlap-report`` and
-``--seq-parallel``).  Runs on the current CUDA device unless ``--device``
-says otherwise; ``--full`` serves the architecture at its published widths
-instead of the reduced test variant.  The observability flags
-(``--metrics``, ``--profile``, ``--audit``) come with ROADMAP queue 1,
-item 11, and raise.
+``--seq-parallel``, and the observability flags ``--trace``,
+``--metrics``, ``--refit``, ``--audit``, ``--recorder``, ``--alerts``,
+``--profile`` and ``--calibration``, which build one
+:class:`repro_torch.obs.Obs` bundle with the ``ISHMEM_OBS_*`` variables).
+Runs on the current CUDA device unless ``--device`` says otherwise;
+``--full`` serves the architecture at its published widths instead of the
+reduced test variant.
 
   # lockstep batch
   PYTHONPATH=src python -m repro_torch.launch.serve --batch 4
@@ -43,6 +45,11 @@ item 11, and raise.
   # not staged again, and copied on the first divergent write
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg --shared-prefix
 
+  # measured: wall-clock scopes on prefill, decode, paged attention and
+  # stream flushes, and the measured-vs-modeled calibration report
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg --profile \
+      --calibration /tmp/calibration.json
+
   # the A/B control: admission rehydrates a dense slot cache
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
       --dense-rehydrate
@@ -65,6 +72,13 @@ item 11, and raise.
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet \
       --chaos 'kill_pe=2@4,partition=3@6,kill_pod=pod1@9'
 
+  # the observability bundle on the fleet: metrics rows, auditors every
+  # step, a flight recorder of 8 steps, burn-rate alerts, an online re-fit
+  # of the cutover table every 4 steps from profiled samples
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet --metrics \
+      /tmp/m.json --audit 1 --recorder 8 --alerts --refit 4 --profile \
+      /tmp/p.json --calibration /tmp/c.json --trace /tmp/t.json
+
   # modeled nbi-vs-blocking pricing of the decode allreduces at the
   # architecture's published widths (the cost model, not a measurement)
   PYTHONPATH=src python -m repro_torch.launch.serve --overlap-report
@@ -72,6 +86,7 @@ item 11, and raise.
 from __future__ import annotations
 
 import argparse
+import json
 
 import torch
 
@@ -139,12 +154,14 @@ def seq_parallel_report(npes: int, *, prompt_len: int, full: bool = False,
     work-group ``put_signal_nbi`` to the right neighbour, then a device
     ``signal_wait_until`` before the next K10 partial reads the landed
     shard), the partials merge per PE, and the result is checked against
-    single-PE flash attention (K2).  Ends with the modeled blocking-vs-
-    overlapped step pricing (``cutover.t_ring_attention``; the cost model,
-    not a measurement).
+    single-PE flash attention (K2; the plain causal attention at a head dim
+    K2 does not take, such as the demo's 32).  Ends with the modeled
+    blocking-vs-overlapped step pricing (``cutover.t_ring_attention``; the
+    cost model, not a measurement).
 
     Widths: the reference's ``B=1, H=4, hd=32``, or with ``full`` the
-    architecture's attention widths (qwen3-4b: 32 heads of 128); B=1, f32,
+    architecture's attention widths (qwen3-4b: 32 heads of 128; zamba2-2.7b:
+    32 of 80); B=1, f32,
     S from ``prompt_len`` rounded up to a multiple of ``npes``.  q, k and v
     are standard normal times ``scale``: the reference's 0.1 makes the
     softmax nearly flat, so far along the sequence one key more or less
@@ -213,10 +230,16 @@ def seq_parallel_report(npes: int, *, prompt_len: int, full: bool = False,
                 raise RuntimeError("ring neighbour's shard never landed")
     out = torch.cat([ishmem_device.merge_partials(parts[i])
                      for i in range(npes)], dim=1)
-    ref = flash_attn.flash_attention(q, k, v)
+    # the single-PE check: K2 where it takes the head dim, else (hd 32, the
+    # reference's demo width) the plain causal attention
+    if q.device.type == "cpu" or hd in flash_attn.HEAD_DIMS:
+        ref, against = flash_attn.flash_attention(q, k, v), "single-PE flash"
+    else:
+        ref = flash_attn.flash_attention_plain(q, k, v)
+        against = "plain causal attention"
     err = float((out - ref.to(out.dtype)).abs().max())
     print(f"[serve] seq-parallel ring attention: npes={npes} S={S} "
-          f"(shard {Sh}) max|err| vs single-PE flash = {err:.2e}")
+          f"(shard {Sh}) max|err| vs {against} = {err:.2e}")
     dev_ops = sorted({key[0] for key in ctx.telemetry.buckets
                       if key[0].startswith("device_")})
     print(f"[serve]   device ops on the wire: {', '.join(dev_ops)}")
@@ -237,6 +260,7 @@ def seq_parallel_report(npes: int, *, prompt_len: int, full: bool = False,
           f"({'overlap wins' if ratio > 1 else 'alpha-bound'})")
     return {"npes": npes, "S": S, "shard": Sh, "heads": H, "head_dim": hd,
             "partials": sum(len(p) for p in parts), "max_abs_err": err,
+            "against": against,
             "device_ops": dev_ops, "shape": tuple(out.shape),
             "finite": bool(torch.isfinite(out).all()),
             "t_blocking": tb, "t_overlap": to, "overlap_ratio": ratio}
@@ -244,12 +268,12 @@ def seq_parallel_report(npes: int, *, prompt_len: int, full: bool = False,
 
 def _build_disagg(args, cfg, params):
     """The disaggregated scheduler for ``args`` with its requests submitted
-    and nothing run.  ``--trace`` puts a recording span tracer on the
-    context; ``--cross-pod`` makes the prefill PEs one pod and the decode
-    PEs another, so every migration drains through a host proxy."""
+    and nothing run.  The observability flags attach one ``Obs`` bundle to
+    the context (``args.obs_run`` keeps it and its output paths);
+    ``--cross-pod`` makes the prefill PEs one pod and the decode PEs
+    another, so every migration drains through a host proxy."""
     from repro_torch.core import context, teams
     from repro_torch.core.proxy import HostProxy
-    from repro_torch.obs.tracer import SpanTracer
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.kvpool import KVPool
     from repro_torch.serve.kvxfer import KVMigrator
@@ -259,8 +283,9 @@ def _build_disagg(args, cfg, params):
     npes = args.prefill_pes + args.decode_pes
     node_size = args.prefill_pes if args.cross_pod else npes
     ctx, heap = context.init(npes=npes, node_size=node_size, device=device)
-    if args.trace:
-        ctx.tracer = SpanTracer()
+    args.obs_run = make_obs(args)
+    if args.obs_run[0] is not None:
+        args.obs_run[0].attach(ctx)
     pre, dec = teams.disagg_partition(teams.world(npes), args.prefill_pes)
     max_len = args.prompt_len + args.max_new
     eng = Engine(cfg, params, max_len=max_len, device=device)
@@ -299,8 +324,9 @@ def build_disagg(argv=None):
 
 
 def report_disagg(sched, args) -> None:
-    """Print the reference's report lines for a finished run; with
-    ``--trace``, write the Chrome trace and fail if it does not validate."""
+    """Print the reference's report lines for a finished run, then the
+    observability bundle's (:func:`emit_obs`): with ``--trace`` the Chrome
+    trace is written, and a trace that does not validate fails."""
     st, ctx, pool = sched.stats, sched.ctx, sched.pool
     outs = {rid: r.out for rid, r in sched.requests.items()}
     mode = "dense-rehydrate" if args.dense_rehydrate else "paged"
@@ -344,15 +370,7 @@ def report_disagg(sched, args) -> None:
               f"{proxy.backpressure} backpressure drains")
     for rid in sorted(outs)[:4]:
         print(f"[serve]   req {rid}: {outs[rid]}")
-    if args.trace:
-        from repro_torch.obs.export import validate, write_chrome_trace
-        doc = write_chrome_trace(ctx.tracer, args.trace)
-        errors = validate(doc)
-        if errors:
-            raise RuntimeError(f"trace {args.trace} does not validate: "
-                               f"{errors[:5]}")
-        print(f"[serve]   trace: {len(doc['traceEvents'])} events -> "
-              f"{args.trace} (load in ui.perfetto.dev)")
+    emit_obs(*args.obs_run)
 
 
 def _run_disagg(args, cfg, params):
@@ -364,15 +382,131 @@ def _run_disagg(args, cfg, params):
     return sched
 
 
-FLEET_OBS_FLAGS = ("metrics", "profile", "audit")
+def make_obs(args):
+    """The observability bundle from the ``ISHMEM_OBS_*`` variables merged
+    with the flags (a flag wins).  Returns ``(obs or None, trace path,
+    metrics path, profile path, calibration path)``."""
+    from repro_torch import obs as obs_mod
+
+    cfg = obs_mod.load_obs_env()
+    trace = bool(args.trace) or cfg.trace
+    metrics = bool(args.metrics) or cfg.metrics
+    refit = args.refit if args.refit is not None else cfg.refit_period
+    audit = args.audit if args.audit is not None else cfg.audit_period
+    recorder = (args.recorder if args.recorder is not None
+                else cfg.recorder_window)
+    alerts = bool(args.alerts) or cfg.alerts
+    # --profile and --calibration take "1" as the bare flag (the variables'
+    # convention); anything else is an output path
+    prof_cli_path = args.profile if args.profile not in (None, "1") else None
+    cal_cli_path = (args.calibration
+                    if args.calibration not in (None, "1") else None)
+    calibration = bool(args.calibration) or cfg.calibration
+    prof = bool(args.profile) or cfg.prof or calibration
+    if not (trace or metrics or refit > 0 or audit > 0 or recorder > 0
+            or alerts or prof):
+        return None, None, None, None, None
+    obs = obs_mod.Obs(
+        trace=trace, metrics=metrics, refit_period=refit,
+        refit_min_samples=(args.refit_min_samples
+                           if args.refit_min_samples is not None
+                           else cfg.refit_min_samples),
+        trace_limit=cfg.trace_limit, audit_period=audit,
+        recorder_window=recorder, recorder_path=cfg.recorder_path,
+        alerts=alerts, alert_target=cfg.alert_target,
+        alert_windows=cfg.alert_windows, prof=prof, calibration=calibration)
+    return obs, (args.trace or cfg.trace_path), \
+        (args.metrics or cfg.metrics_path), \
+        (prof_cli_path or cfg.prof_path), \
+        (cal_cli_path or cfg.calibration_path)
+
+
+def emit_obs(obs, trace_path, metrics_path, prof_path=None,
+             calibration_path=None) -> None:
+    """Write the bundle's outputs and print the reference's summary lines.
+    A written trace (with the profiler's measured track when it sampled)
+    that does not validate raises."""
+    if obs is None:
+        return
+    if trace_path:
+        from repro_torch.obs.export import validate
+        doc = obs.write_trace(trace_path,
+                              measured=obs.prof is not None
+                              and bool(obs.prof.samples))
+        errors = validate(doc)
+        if errors:
+            raise RuntimeError(f"trace {trace_path} does not validate: "
+                               f"{errors[:5]}")
+        print(f"[serve]   trace: {len(doc['traceEvents'])} events -> "
+              f"{trace_path} (load in ui.perfetto.dev)")
+    if metrics_path:
+        obs.write_metrics(metrics_path)
+        print(f"[serve]   metrics: {len(obs.metrics.series)} step rows -> "
+              f"{metrics_path}")
+    if obs.refitter is not None and obs.refitter.history:
+        n = obs.refitter.decisions_changed()
+        print(f"[serve]   online re-fit: {len(obs.refitter.history)} "
+              f"re-fit(s), {n} cutover decision(s) changed")
+    if obs.auditor is not None:
+        a = obs.auditor.summary()
+        print(f"[serve]   audit: {a['checks']} sweep(s), "
+              f"{a['violations']} violation(s), "
+              f"{a['audit_seconds'] * 1e3:.1f} ms auditing")
+    if obs.monitor is not None:
+        m = obs.monitor.summary()
+        print(f"[serve]   slo burn-rate: {m['observations']} checks, "
+              f"{len(m['alerts'])} alert(s) "
+              f"(target {m['target']}, windows {m['windows']})")
+        for al in m["alerts"]:
+            worst = al["offenders"][0] if al["offenders"] else None
+            tail = (f"; worst rid {worst['rid']} ({worst['outcome']}, "
+                    f"+{worst['overshoot_steps']} steps past deadline)"
+                    if worst else "")
+            print(f"[serve]     ALERT class={al['cls']} step={al['step']} "
+                  f"burn={al['burn']}{tail}")
+    if obs.recorder is not None:
+        r = obs.recorder.summary()
+        if r["dumps"]:
+            print(f"[serve]   flight recorder: postmortem dump(s) -> "
+                  f"{', '.join(r['dumps'])}")
+        else:
+            print(f"[serve]   flight recorder: armed, "
+                  f"{r['buffered_events']} span(s) in the "
+                  f"{r['window_steps']}-step window, no incident")
+    if obs.prof is not None:
+        ps = obs.prof.summary()
+        print(f"[serve]   profiler: {ps['samples']} measured sample(s) "
+              f"({ps['wall_s'] * 1e3:.1f} ms wall, "
+              f"{ps['model_s'] * 1e3:.3f} ms modeled) over "
+              f"ops {', '.join(ps['ops']) or 'none'}")
+        if prof_path:
+            obs.write_prof(prof_path)
+            print(f"[serve]   profiler samples -> {prof_path} "
+                  f"(analyze with --calibration)")
+        if obs.calibration:
+            from repro_torch.obs import calibrate as calibrate_mod
+            report = obs.calibration_report()
+            sink_rows = None
+            if obs.prof.ctx is not None:
+                sink_rows = calibrate_mod.sink_join(obs.prof.ctx.telemetry)
+            for line in calibrate_mod.render(
+                    report, sink_rows=sink_rows).splitlines():
+                print(f"[serve]   {line}")
+            if calibration_path:
+                with open(calibration_path, "w") as f:
+                    json.dump(report, f, indent=2, sort_keys=True)
+                    f.write("\n")
+                print(f"[serve]   calibration report -> {calibration_path}")
 
 
 def _build_fleet(args, cfg, params):
     """``(fleet, specs)``: the fleet for ``args`` and its open-loop arrival
-    schedule, nothing run.  Three tenants, as the reference's launcher has
-    them: chat (interactive, weight 2), api (standard, half its requests
-    samples of one of 2 shared prompts) and scan (batch, 3x the decode
-    budget where the cache allows).  ``--chaos`` takes its plan from the
+    schedule, nothing run; the observability flags give it an ``Obs``
+    bundle (``args.obs_run`` keeps it and its output paths).  Three
+    tenants, as the reference's launcher has them: chat (interactive,
+    weight 2), api (standard, half its requests samples of one of 2
+    shared prompts) and scan (batch, 3x the decode budget where the cache
+    allows).  ``--chaos`` takes its plan from the
     flag or from ``ISHMEM_FAULT_PLAN``."""
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.fault import FaultPlan, load_fault_env
@@ -400,7 +534,9 @@ def _build_fleet(args, cfg, params):
         queue_bound=args.queue_bound, router=args.router, seed=args.seed)
     engine = Engine(cfg, params, max_len=fcfg.max_len,
                     device=params["embed"].device)
-    fleet = Fleet(fcfg, engine=engine, fault_plan=fault_plan)
+    args.obs_run = make_obs(args)
+    fleet = Fleet(fcfg, engine=engine, obs=args.obs_run[0],
+                  fault_plan=fault_plan)
     tenants = [
         TenantSpec("chat", weight=2.0, prompt_lens=(args.prompt_len,),
                    max_new=(args.max_new,), slo="interactive"),
@@ -431,7 +567,8 @@ def build_fleet(argv=None):
 
 def report_fleet(fleet, specs, rep, args) -> None:
     """Print the reference's report lines for a finished fleet run (the
-    ``*_model_s`` latencies are the modeled comm clock, not measured)."""
+    ``*_model_s`` latencies are the modeled comm clock, not measured),
+    then the observability bundle's (:func:`emit_obs`)."""
     from collections import Counter
     fcfg = fleet.fcfg
     by_slo = dict(Counter(s.slo for s in specs))
@@ -479,6 +616,7 @@ def report_fleet(fleet, specs, rep, args) -> None:
               f"re-admitted ({rec['remigrated']} re-migrated, "
               f"{rec['recomputed']} recomputed from prompt, "
               f"{rec['replayed_tokens']} tokens replayed)")
+    emit_obs(*args.obs_run)
 
 
 def _run_fleet(args, cfg, params):
@@ -548,9 +686,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dense-rehydrate", action="store_true",
                     help="dense-cache admission (gather + insert) instead "
                          "of paged decode attention: the A/B control")
-    ap.add_argument("--trace", metavar="OUT.json", default=None,
-                    help="record causal spans and write a Chrome trace "
-                         "(fails if it does not validate)")
     ap.add_argument("--fused-attn", action="store_true",
                     help="device-initiated fused decode protocol: per-block "
                          "migration signals, first-block admission, and "
@@ -596,10 +731,50 @@ def build_parser() -> argparse.ArgumentParser:
                          "kill_pod, partition, drain, join), e.g. "
                          "'kill_pod=pod1@10,partition=3@14'; with no "
                          "inline plan, ISHMEM_FAULT_PLAN is used")
-    for flag in FLEET_OBS_FLAGS:
-        ap.add_argument(f"--{flag}", default=None, metavar="ARG",
-                        help="observability (ROADMAP queue 1, item 11): "
-                             "not ported, raises")
+    # observability (repro_torch.obs; defaults from ISHMEM_OBS_*)
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="record causal spans and write a Chrome trace "
+                         "(fails if it does not validate)")
+    ap.add_argument("--metrics", metavar="OUT.json", default=None,
+                    help="per-fleet-step metrics time series (heap "
+                         "fragmentation, ring occupancy, pool residency, "
+                         "per-class goodput)")
+    ap.add_argument("--refit", type=int, default=None, metavar="STEPS",
+                    help="online tuner re-fit period in fleet steps: re-run "
+                         "the estimator over live telemetry and hot-swap "
+                         "the cutover table mid-run (0 = off)")
+    ap.add_argument("--refit-min-samples", type=int, default=None,
+                    help="minimum retained telemetry samples before a due "
+                         "re-fit runs")
+    ap.add_argument("--audit", type=int, default=None, metavar="STEPS",
+                    help="run the invariant auditors (heap extents, block "
+                         "refcounts, signal ledger, prefix residency, slot "
+                         "banks) every STEPS fleet steps; a violation "
+                         "aborts the run with an AuditError (0 = off)")
+    ap.add_argument("--recorder", type=int, default=None, metavar="STEPS",
+                    help="arm the flight recorder: keep the last STEPS "
+                         "steps of spans and dump a postmortem Chrome trace "
+                         "on a crash, an audit violation, a fault or an "
+                         "SLO alert (0 = off)")
+    ap.add_argument("--alerts", action="store_true",
+                    help="SLO burn-rate monitor: multi-window error-budget "
+                         "burn per deadline class over the metrics series "
+                         "(implies metrics sampling)")
+    ap.add_argument("--profile", nargs="?", const="1", default=None,
+                    metavar="OUT.json",
+                    help="wall-clock profiler on the serving hot paths "
+                         "(decode steps, paged attention, prefill, stream "
+                         "flushes); an argument also writes the measured "
+                         "samples for 'python -m repro_torch.obs.analyze "
+                         "--calibration'.  Deterministic outputs stay "
+                         "bitwise")
+    ap.add_argument("--calibration", nargs="?", const="1", default=None,
+                    metavar="OUT.json",
+                    help="measured-vs-modeled report at shutdown (ratio "
+                         "percentiles per (op, tier, size, work-items) "
+                         "bucket, worst buckets, unmodeled coverage); "
+                         "implies --profile; an argument also writes the "
+                         "report")
     return ap
 
 
@@ -609,11 +784,6 @@ def parse_args(argv=None):
     ``ISHMEM_FLEET_STREAM_CHUNKS`` for a fleet without ``--fused-attn``
     (the two exclude each other), else 0."""
     args = build_parser().parse_args(argv)
-    for flag in FLEET_OBS_FLAGS:
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag} needs the observability bundle, which comes with "
-                f"ROADMAP queue 1, item 11")
     if args.fleet and args.fleet_env_error is not None:
         raise args.fleet_env_error
     if args.seed is None:

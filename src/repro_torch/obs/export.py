@@ -1,16 +1,19 @@
-"""Chrome-trace / Perfetto export, trace validation and request chains.
+"""Chrome-trace / Perfetto export, trace validation, and chain reconstruction.
 
-Counterpart of ``repro/obs/export.py``.  ``chrome_trace`` serialises a
+Counterpart of ``repro/obs/export.py``.  ``chrome_trace`` serializes a
 :class:`~repro_torch.obs.tracer.SpanTracer` into the Trace Event Format
-that ``chrome://tracing`` and https://ui.perfetto.dev load: one process
-track per pod (plus ``core``), one thread track per PE or subsystem, each
-request's lifeline as async spans (``cat="req"``, id = request id), each
-migration as a flow arrow from its issue to its admission.  ``validate``
-checks the structural invariants every export must satisfy;
-``request_chains`` rebuilds each request's phase sequence from the events.
+dict that ``chrome://tracing`` and https://ui.perfetto.dev load directly:
+one process track per pod (plus ``core`` and ``fleet``), one thread track
+per PE / subsystem, per-request causal lifelines as async spans
+(``b``/``e`` correlated by ``cat="req"`` + request id), migrations as flow
+arrows (``s``/``f``) from the source PE's issue slice to the destination
+PE's admit, and, when the profiler ran, its step-clocked ``measured``
+track.
 
-The ``measured`` track (the profiler's wall-clock samples) belongs to the
-``Obs`` bundle of ROADMAP queue 1, item 11: passing one raises.
+``validate`` checks the structural invariants every export must satisfy
+(ids/timestamps present, slice stacks balanced, async spans and flows
+paired, step-clocked ``ts``).  ``request_chains`` rebuilds one request's
+arrival→…→finish phase sequence from the raw events.
 """
 from __future__ import annotations
 
@@ -50,18 +53,23 @@ def _event_json(ev: TraceEvent) -> dict:
 def chrome_trace_events(span_events, *, dropped: int = 0,
                         other: Optional[dict] = None,
                         measured: Optional[List[dict]] = None) -> dict:
-    """Trace-Event-Format document from an explicit event sequence, the
-    serializer behind :func:`chrome_trace`.  ``other`` merges extra keys
-    into ``otherData``.  ``measured`` (the profiler's track) is not ported
-    yet and raises."""
-    if measured is not None:
-        raise NotImplementedError(
-            "the measured profiler track comes with the Obs bundle "
-            "(ROADMAP queue 1, item 11)")
+    """Trace-Event-Format document from an explicit event sequence — the
+    serializer behind :func:`chrome_trace`, reused by the flight recorder
+    for windowed postmortem dumps.  ``other`` merges extra keys into
+    ``otherData`` (e.g. the dump reason).
+
+    ``measured`` appends a pre-serialized ``measured`` track
+    (:func:`repro_torch.obs.calibrate.measured_track_events`): wall-clock profiler
+    instants on step-clocked timestamps.  The track is additive — omitting
+    it yields a byte-identical document, which is what keeps profiling-off
+    exports bitwise."""
     events: List[dict] = []
     span_events = list(span_events)
+    measured = list(measured or [])
     # metadata naming: one process_name per pid, sorted for stable diffs
     pids = sorted({ev.pid for ev in span_events}, key=_sort_key)
+    if measured:
+        pids.append("measured")
     for pid in pids:
         events.append({"name": "process_name", "ph": "M", "pid": str(pid),
                        "args": {"name": str(pid)}})
@@ -74,11 +82,21 @@ def chrome_trace_events(span_events, *, dropped: int = 0,
                            "pid": str(ev.pid), "tid": str(ev.tid),
                            "args": {"name": str(ev.tid)}})
         events.append(_event_json(ev))
+    for ev in measured:
+        key = (ev["pid"], ev["tid"])
+        if key not in seen_tids:
+            seen_tids.add(key)
+            events.append({"name": "thread_name", "ph": "M",
+                           "pid": str(ev["pid"]), "tid": str(ev["tid"]),
+                           "args": {"name": str(ev["tid"])}})
+        events.append(ev)
     other_data = {
         "schema_version": TRACE_SCHEMA_VERSION,
         "clock": "step",                # ts = step * 1000 + sub-tick
         "dropped_events": dropped,
     }
+    if measured:
+        other_data["measured_samples"] = len(measured)
     if other:
         other_data.update(other)
     return {
@@ -119,6 +137,7 @@ def validate(doc: dict, *, warnings: Optional[list] = None) -> List[str]:
       deterministic step clock only produces ``step*1000 + sub-tick``, so a
       fractional timestamp means a wall-clock (``ProfClock``) value leaked
       into a deterministic field — measured seconds belong in ``args``
+      (the ``measured`` track keeps wall time there for exactly this rule)
     - ``B``/``E`` slice stacks balance per (pid, tid) and never go negative
     - ``b``/``e`` async spans balance per (cat, id, name), end-after-begin
     - every flow start (``s``) has a matching finish (``f``) with the same
@@ -271,7 +290,7 @@ def request_chains(tracer: SpanTracer) -> Dict[int, List[dict]]:
 def events_from_doc(doc: dict) -> List[TraceEvent]:
     """Rehydrate :class:`TraceEvent` records from an exported (or loaded)
     Chrome-trace document — the offline entry into :func:`request_chains`
-    (and, with ROADMAP item 11, the critical-path analyzer).
+    and the critical-path analyzer (``python -m repro_torch.obs.analyze``).
     Metadata (``ph="M"``) records are skipped; async/flow ids round-trip
     back to ints (request ids are serialized as strings)."""
     out: List[TraceEvent] = []

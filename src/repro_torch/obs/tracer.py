@@ -7,9 +7,8 @@ is bitwise the untraced one.  ``SpanTracer`` records Trace-Event-Format
 events (``B/E`` slices, ``b/e`` async spans keyed by request id, ``i``
 instants, ``C`` counters, ``s/f`` flows) stamped by a ``StepClock``: one
 scheduler step is one quantum, events within a step take sub-ticks, so a
-trace is reproducible for a fixed seed.  ``obs/export.py`` serialises it.
-The ``Obs`` bundle and the profiler's measured track wait for ROADMAP
-queue 1, item 11.
+trace is reproducible for a fixed seed.  ``obs/export.py`` serialises it;
+the ``Obs`` bundle (``obs/__init__.py``) installs a tracer on a run.
 """
 from __future__ import annotations
 

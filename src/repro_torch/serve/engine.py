@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import _devices
 from repro_torch.models import kvcache, model
+from repro_torch.train import tree
 
 
 @dataclasses.dataclass
@@ -134,11 +135,25 @@ class Engine:
         block pool: the view assembles every paged leaf through the slot
         block tables (K3), the same decode runs, and each active slot's new
         K/V token is written back into its pool block.  The returned bank
-        keeps only non-paged state.  Returns ``(new_slots, tokens, heap)``."""
+        keeps only non-paged state.  Returns ``(new_slots, tokens, heap)``.
+        With a profiler on ``ctx``, the decode proper runs in a
+        ``paged_attn`` scope labelled with the assembled cache's bytes."""
         cache = view.assemble(heap, slots.cache)
-        logits, new_cache = model.decode_step(self.params, self.cfg,
-                                              slots.tok[:, None], slots.pos,
-                                              cache)
+        pf = getattr(ctx, "prof", None)
+        if pf is not None and pf.enabled:
+            kv_bytes = sum(leaf.numel() * leaf.element_size()
+                           for leaf in tree.leaves(cache))
+            with pf.scope("paged_attn", nbytes=kv_bytes, path="engine",
+                          tier="local",
+                          work_items=int(slots.active.sum())) as ps:
+                logits, new_cache = model.decode_step(
+                    self.params, self.cfg, slots.tok[:, None], slots.pos,
+                    cache)
+                logits = ps(logits)
+        else:
+            logits, new_cache = model.decode_step(self.params, self.cfg,
+                                                  slots.tok[:, None],
+                                                  slots.pos, cache)
         tok = self._sample(logits, gen, temperature)
         heap = view.writeback(ctx, heap, new_cache, slots.pos, slots.active)
         return self._advance(slots, view.strip(new_cache), tok), tok, heap

@@ -24,8 +24,10 @@ every request is terminal and rolls the report up through
 ``frontend/metrics.py``.  The fleet runs on the current CUDA device unless
 the engine or ``device`` says otherwise.
 
-The observability bundle (``obs=``: postmortem dumps, auditors, online
-re-fit) comes with ROADMAP queue 1, item 11; passing one raises.
+``obs=`` takes a :class:`repro_torch.obs.Obs` bundle: it is attached to
+the shared context, driven around every step (metrics, re-fit, auditors,
+burn-rate alerts), dumps a postmortem at every fault site and on a crash
+when its flight recorder is armed, and adds ``doc["obs"]`` to the report.
 """
 from __future__ import annotations
 
@@ -92,10 +94,6 @@ class Fleet:
                  engine: Optional[Engine] = None,
                  classes: Optional[Dict[str, slo_mod.SLOClass]] = None,
                  obs=None, fault_plan=None, device=None):
-        if obs is not None:
-            raise NotImplementedError(
-                "the observability bundle (postmortem dumps, auditors, "
-                "online re-fit) comes with ROADMAP queue 1, item 11")
         self.fcfg = fcfg
         self.classes = slo_mod.CLASSES if classes is None else classes
         if engine is not None:
@@ -114,6 +112,11 @@ class Fleet:
         self.ctx, self.heap = context.init(npes=fcfg.npes,
                                            node_size=fcfg.pod_size,
                                            device=self.engine.device)
+        # observability bundle (repro_torch.obs.Obs): installs the span
+        # tracer (and profiler) on the shared context, arms the re-fit loop
+        self.obs = obs
+        if obs is not None:
+            obs.attach(self.ctx)
         self.pool = KVPool.create(
             self.heap, self.cfg, fcfg.max_len, num_blocks=fcfg.kv_blocks,
             max_slots=fcfg.num_slots, block_tokens=fcfg.block_tokens,
@@ -193,6 +196,8 @@ class Fleet:
         a flush driven by pod B may complete ops pod A submitted.  Handing
         each pod the canonical heap and taking its result back lands those
         flushes in the memory every other pod reads."""
+        if self.obs is not None:
+            self.obs.begin_step(self.elapsed_steps)
         if self.injector is not None:
             # faults fire before this step's arrivals, deterministically
             self.injector.apply(self, self.elapsed_steps)
@@ -206,22 +211,33 @@ class Fleet:
             # drop the older snapshots: on the card each holds a pool
             pod.sched.heap = self.heap
         self.elapsed_steps += 1
+        if self.obs is not None:
+            self.obs.end_step(self)
 
     def run(self, specs: List[RequestSpec], *,
             max_steps: int = 10_000) -> dict:
         """Open-loop drive: play the arrival schedule, drain, report."""
         specs = sorted(specs, key=lambda s: (s.step, s.idx))
         i = 0
-        while i < len(specs) or not self.done():
-            if self.elapsed_steps >= max_steps:
-                raise RuntimeError(
-                    f"fleet wedged after {max_steps} steps "
-                    f"({len(specs) - i} arrivals unplayed)")
-            batch = []
-            while i < len(specs) and specs[i].step <= self.elapsed_steps:
-                batch.append(specs[i])
-                i += 1
-            self.step(batch)
+        try:
+            while i < len(specs) or not self.done():
+                if self.elapsed_steps >= max_steps:
+                    raise RuntimeError(
+                        f"fleet wedged after {max_steps} steps "
+                        f"({len(specs) - i} arrivals unplayed)")
+                batch = []
+                while i < len(specs) and specs[i].step <= self.elapsed_steps:
+                    batch.append(specs[i])
+                    i += 1
+                self.step(batch)
+        except Exception as exc:
+            # the flight recorder's last window becomes a postmortem trace
+            # before the exception propagates; an AuditError already dumped
+            # where it was found (Obs.end_step)
+            from repro_torch.obs.audit import AuditError
+            if self.obs is not None and not isinstance(exc, AuditError):
+                self.obs.crash_dump(type(exc).__name__)
+            raise
         return self.report()
 
     # ------------------------------------------------------ fault surface
@@ -231,6 +247,13 @@ class Fleet:
             raise ValueError(f"no live pod named {name!r} "
                              f"(live: {[p.name for p in self.pods]})")
         return pod
+
+    def _fault_dump(self, reason: str) -> None:
+        """Postmortem at the fault site: with a flight recorder armed the
+        dump names the fault in ``otherData.postmortem.reason``."""
+        rec = getattr(self.obs, "recorder", None) if self.obs else None
+        if rec is not None:
+            rec.dump(reason=reason, step=self.elapsed_steps)
 
     def kill_pe(self, pe: int) -> None:
         """Fail-stop one PE.  Pending ops touching it cancel with an error,
@@ -262,6 +285,7 @@ class Fleet:
             recovery_mod.recover_decode_pe(self, pod, pe,
                                            step=self.elapsed_steps)
         self.heap = fault_mod.scramble_rows(self.heap, [pe])
+        self._fault_dump(f"fault:kill_pe:{pe}")
 
     def kill_pod(self, name: str) -> None:
         """Fail-stop a whole pod; its live requests are adopted by the
@@ -277,11 +301,13 @@ class Fleet:
                 self.ctx.pending.cancel_pe(self.ctx, pe)
         recovery_mod.adopt_pod(self, pod, step=self.elapsed_steps)
         self.heap = fault_mod.scramble_rows(self.heap, dead_pes)
+        self._fault_dump(f"fault:kill_pod:{name}")
 
     def partition(self) -> None:
         """Partition the inter-pod (dcn) fabric: cross-pod ops stay queued,
         neither lost nor delivered, until :meth:`heal`."""
         self.ctx.fault.dcn_down = True
+        self._fault_dump("fault:partition")
 
     def heal(self) -> None:
         """Heal a dcn partition; queued cross-pod traffic drains at the
@@ -313,6 +339,7 @@ class Fleet:
             idx = back.get((pod.name, req.rid))
             if idx is not None:
                 self.placements[idx] = (target.name, new_rid)
+        self._fault_dump(f"fault:drain:{name}")
 
     def join(self, name: str) -> None:
         """Re-admit a drained pod to the router rotation (a dead pod cannot
@@ -334,6 +361,8 @@ class Fleet:
                 "backpressure": self.proxy.backpressure,
                 "delivered": len(self.proxy.ring.delivered),
             }
+        if self.obs is not None:
+            doc["obs"] = self.obs.summary()
         if (self.injector is not None or self.dead_pods
                 or self.ctx.fault.dead_pes or self.ctx.pending.errors):
             doc["fault"] = {

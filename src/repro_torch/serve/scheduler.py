@@ -286,11 +286,34 @@ class DisaggScheduler:
         self._step = 0
         self._next_rid = rid_base
         self._trace_pid = f"pod{ctx.node_of(self.prefill_pes[0])}"
+        # KV sizes for the profiler's scope labels (bytes a block, a token)
+        lay = pool.layout
+        self._block_bytes = lay.block_bytes
+        self._token_bytes = lay.block_bytes // max(1, lay.block_tokens)
 
     # ------------------------------------------------------------- tracing
     def _tracer(self):
         tr = self.ctx.tracer
         return tr if tr.enabled else None
+
+    def _prof(self):
+        """The wall-clock profiler when measuring, else None (hot paths
+        guard on it).  Its perf_counter values stay in its samples and the
+        wallclock telemetry buckets, never in step-clocked state."""
+        pf = getattr(self.ctx, "prof", None)
+        return pf if pf is not None and pf.enabled else None
+
+    def _stream_flush(self, pf, st) -> None:
+        """Drain a stream's queue prefix, inside a ``stream_flush`` scope
+        when profiling."""
+        if pf is None:
+            self.heap = self.migrator.stream_flush(self.heap, st)
+            return
+        tier = self.ctx.tier(st.src_pe, st.dst_pe)
+        with pf.scope("stream_flush", nbytes=st.sent * self._block_bytes,
+                      path="proxy" if tier == "dcn" else "direct", tier=tier,
+                      work_items=self.migrator.work_items) as ps:
+            self.heap = ps(self.migrator.stream_flush(self.heap, st))
 
     def _trace_phase(self, req: Request, phase: Optional[str],
                      end_args: Optional[dict] = None, **begin_args) -> None:
@@ -435,9 +458,10 @@ class DisaggScheduler:
         previous installment's queue prefix, then issue the next or park
         the stream (all blocks issued, waiting slot-less).  Parked streams
         keep draining and bind a slot the moment one frees."""
+        pf = self._prof()
         for req in list(self.streaming):
             st = req.stream
-            self.heap = self.migrator.stream_flush(self.heap, st)
+            self._stream_flush(pf, st)
             if st.pending:
                 self.heap = self.migrator.stream_chunk(self.heap, st,
                                                        self.stream_chunks)
@@ -449,7 +473,7 @@ class DisaggScheduler:
                                   end_args={"chunks": st.chunks,
                                             "blocks_sent": st.sent})
         for req in self.policy.waiting_order(list(self.parked)):
-            self.heap = self.migrator.stream_flush(self.heap, req.stream)
+            self._stream_flush(pf, req.stream)
             self._try_bind(req)
 
     def _phase_prefill(self) -> None:
@@ -484,9 +508,18 @@ class DisaggScheduler:
                              rid=req.rid, prompt_len=req.prompt_len)
                 gen = (seeded(self.engine.device, self.scfg.seed, req.rid)
                        if self.scfg.temperature > 0 else None)
-                req.first_token, _, req.prefill_cache = \
-                    self.engine.prefill_request(req.batch, gen,
-                                                self.scfg.temperature)
+                pf = self._prof()
+                if pf is not None:
+                    with pf.scope("serve_prefill",
+                                  nbytes=req.prompt_len * self._token_bytes,
+                                  path="engine", tier="local") as ps:
+                        req.first_token, _, req.prefill_cache = ps(
+                            self.engine.prefill_request(
+                                req.batch, gen, self.scfg.temperature))
+                else:
+                    req.first_token, _, req.prefill_cache = \
+                        self.engine.prefill_request(req.batch, gen,
+                                                    self.scfg.temperature)
                 self.stats.prefills += 1
                 if tr is not None:
                     tr.end("prefill", "sched", self._trace_pid, f"pe{pe}")
@@ -968,13 +1001,19 @@ class DisaggScheduler:
             gen = (seeded(self.engine.device, self.scfg.seed,
                           10_000 + self._step, pe)
                    if self.scfg.temperature > 0 else None)
-            if self.paged:
-                bank, toks, self.heap = self.engine.decode_slots_paged(
-                    bank, gen, self.ctx, self.heap, self.views[pe],
-                    self.scfg.temperature)
+            pf = self._prof()
+            if pf is not None:
+                # KV bytes the step reads: the context tokens of the PE's
+                # active slots at the per-token KV size
+                ctx_tokens = int(bank.pos.cpu().numpy()[bank.active].sum())
+                with pf.scope("serve_decode",
+                              nbytes=ctx_tokens * self._token_bytes,
+                              path="engine", tier="local",
+                              work_items=int(bank.active.sum())) as ps:
+                    bank, toks = self._decode(pe, bank, gen)
+                    toks = ps(toks)
             else:
-                bank, toks = self.engine.decode_slots(bank, gen,
-                                                      self.scfg.temperature)
+                bank, toks = self._decode(pe, bank, gen)
             self.banks[pe] = bank
             stepped = True
             if tr is not None:
@@ -989,6 +1028,15 @@ class DisaggScheduler:
                 self._maybe_finish(req)
         if stepped:
             self.stats.decode_steps += 1
+
+    def _decode(self, pe: int, bank, gen):
+        """One decode step of ``pe``'s bank: ``(bank, tokens)``."""
+        if self.paged:
+            bank, toks, self.heap = self.engine.decode_slots_paged(
+                bank, gen, self.ctx, self.heap, self.views[pe],
+                self.scfg.temperature)
+            return bank, toks
+        return self.engine.decode_slots(bank, gen, self.scfg.temperature)
 
     def _maybe_finish(self, req: Request) -> None:
         eos_hit = (self.scfg.eos_id >= 0
@@ -1045,6 +1093,9 @@ class DisaggScheduler:
         if tr is not None:
             # monotonic: a fleet already advanced the shared clock
             tr.clock.set_step(self._step)
+        pf = self._prof()
+        if pf is not None:
+            pf.set_step(self._step)
         self._phase_recover()
         self._phase_prefill()
         self._phase_admit()

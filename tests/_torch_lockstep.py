@@ -3,8 +3,9 @@ lockstep, shared by ``tests/test_torch_serve.py`` (qwen3-4b's modes and
 zamba2) and ``tests/test_torch_families.py`` (the seven other
 configurations), and the reduced-width scheduler those files build; and
 the port's fleet held to the JAX package's fleet in lockstep
-(:func:`run_fleet_lockstep`), shared by ``tests/test_torch_fleet.py`` and
-``tests/test_torch_fault.py``.
+(:func:`run_fleet_lockstep`), shared by ``tests/test_torch_fleet.py``,
+``tests/test_torch_fault.py`` and ``tests/test_torch_obs_analysis.py``
+(with an observability bundle on both fleets, :func:`obs_state`).
 
 Both schedulers step in lockstep, each with a span tracer, and after every
 step the control plane must agree exactly: request states, block tables,
@@ -105,6 +106,54 @@ def port_sched(params, *, decode_pes=(2, 3), num_slots=3, NEW=6, admit_delay=0,
                             stream_chunks=stream_chunks,
                             shared_prefix=shared_prefix)
     return sched
+
+
+def telemetry_state(sink):
+    """A sink's aggregates per provenance stream: counts, bytes, modeled
+    seconds, extremes, log2 size histograms and the sample reservoirs with
+    their decimation state."""
+    return {src: {k: (b.count, b.bytes_total, b.time_total, b.t_min,
+                      b.t_max, dict(b.size_hist), list(b.samples),
+                      b._stride, b._seen)
+                  for k, b in buckets.items()}
+            for src, buckets in sink.sources.items()}
+
+
+class CountingClock:
+    """A stand-in for ``perf_counter``, one per package: every reading is
+    1 ms after the last, so two runs that open and close the same scopes in
+    the same order measure the same "wall" seconds."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def now(self):
+        self.t += 1e-3
+        return self.t
+
+
+def obs_state(obs):
+    """What an ``Obs`` bundle holds that a lockstep run must reproduce:
+    metrics rows, audit summaries without their wall fields, recorder
+    dumps (by count) and window, burn-rate alerts, re-fit history, the
+    profiler's samples (under :class:`CountingClock`)."""
+    out = {}
+    if obs.metrics is not None:
+        out["metrics"] = obs.metrics.snapshot()
+    if obs.auditor is not None:
+        out["audit"] = {k: v for k, v in obs.auditor.summary().items()
+                        if k != "audit_seconds"}
+    if obs.recorder is not None:
+        r = obs.recorder.summary()
+        out["recorder"] = (len(r["dumps"]), r["buffered_events"],
+                           r["evicted"], r["window_steps"])
+    if obs.monitor is not None:
+        out["alerts"] = obs.monitor.summary()
+    if obs.refitter is not None:
+        out["refit"] = [ev.to_json() for ev in obs.refitter.history]
+    if obs.prof is not None:
+        out["prof"] = [dataclasses.astuple(x) for x in obs.prof.samples]
+    return out
 
 
 def int_pool(heap, ref):
@@ -223,10 +272,12 @@ def run_lockstep(case, ref_params, params, monkeypatch):
         for f in dataclasses.fields(psched.stats):
             assert getattr(rsched.stats, f.name) == getattr(
                 psched.stats, f.name), f.name
-        assert [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
-                for r in rctx.telemetry.trace] == \
-            [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec)
-             for r in psched.ctx.telemetry.trace]
+        assert [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec,
+                 r.source) for r in rctx.telemetry.trace] == \
+            [(r.op, r.nbytes, r.path, r.tier, r.work_items, r.t_sec,
+              r.source) for r in psched.ctx.telemetry.trace]
+        assert telemetry_state(rctx.telemetry) == \
+            telemetry_state(psched.ctx.telemetry)
         assert [event_tuple(e) for e in rtr.events[n_ev:]] == \
             [event_tuple(e) for e in ptr.events[n_ev:]]
         for re_, pe_ in zip(rtr.events[n_ev:], ptr.events[n_ev:]):
@@ -379,7 +430,7 @@ def _fleet_state(fleet):
 
 def run_fleet_lockstep(fleet_kw, tenants, *, rate, seed, steps,
                        fault_plan=None, max_steps=1500, check_every=1,
-                       **traffic_kw):
+                       obs=None, obs_dir=None, **traffic_kw):
     """Build the JAX fleet and the port's from ``fleet_kw`` (FleetConfig
     fields), play one arrival schedule into both and step them together.
     After every ``check_every``-th step (and the last) they must agree
@@ -387,17 +438,48 @@ def run_fleet_lockstep(fleet_kw, tenants, *, rate, seed, steps,
     block tables, refcounts, homes, every int32 heap word, the proxy ring's
     counters, the completion queue's errors and stats and every token;
     float pools to 5e-5 with NaN words (poisoned rows) bit for bit; and
-    ``report()`` (floats to 5e-5).  Returns (reference fleet, port fleet,
-    port specs, port report)."""
+    ``report()`` (floats to 5e-5).  ``obs`` (``Obs`` keyword arguments)
+    gives each fleet its package's bundle, with a :class:`CountingClock`
+    for a profiler and the recorders' dumps under ``obs_dir``; then
+    :func:`obs_state` must agree too (floats to 5e-5), each new dump must
+    validate and equal the reference's, and the telemetry's streams agree
+    exactly.  Returns (reference fleet, port fleet, port specs, port
+    report)."""
     from repro.serve.frontend import Fleet as RefFleet, \
         FleetConfig as RefFleetConfig
     from repro_torch.serve.frontend import Fleet, FleetConfig
     reng, peng = fleet_engines(fleet_kw.get("max_len", MAXLEN))
     rspecs, pspecs = fleet_specs(tenants, rate=rate, seed=seed, steps=steps,
                                  **traffic_kw)
+    robs = pobs = None
+    if obs is not None:
+        from repro.obs import Obs as RefObs
+        from repro_torch.obs import Obs
+        robs = RefObs(recorder_path=str(obs_dir / "ref_dump.json"), **obs)
+        pobs = Obs(recorder_path=str(obs_dir / "port_dump.json"), **obs)
+        for o in (robs, pobs):
+            if o.prof is not None:
+                o.prof.clock = CountingClock()
     rf = RefFleet(RefFleetConfig(**fleet_kw), engine=reng,
-                  fault_plan=fault_plan)
-    pf = Fleet(FleetConfig(**fleet_kw), engine=peng, fault_plan=fault_plan)
+                  fault_plan=fault_plan, obs=robs)
+    pf = Fleet(FleetConfig(**fleet_kw), engine=peng, fault_plan=fault_plan,
+               obs=pobs)
+    dumps_seen = [0]
+
+    def check_obs():
+        same_report(obs_state(robs), obs_state(pobs), "obs")
+        assert telemetry_state(rf.ctx.telemetry) == \
+            telemetry_state(pf.ctx.telemetry)
+        if pobs.recorder is not None and \
+                len(pobs.recorder.dumps) > dumps_seen[0]:
+            import json
+            dumps_seen[0] = len(pobs.recorder.dumps)
+            with open(pobs.recorder.dumps[-1]) as f:
+                pdoc = json.load(f)
+            with open(robs.recorder.dumps[-1]) as f:
+                rdoc = json.load(f)
+            assert validate(pdoc) == []
+            same_report(rdoc, pdoc, "dump")
 
     def check():
         assert _fleet_state(rf) == _fleet_state(pf)
@@ -436,7 +518,13 @@ def run_fleet_lockstep(fleet_kw, tenants, *, rate, seed, steps,
                                            rtol=TOL)
                 np.testing.assert_array_equal(got.view(np.int32)[nan],
                                               want.view(np.int32)[nan])
-        same_report(rf.report(), pf.report())
+        rrep, prep = rf.report(), pf.report()
+        assert ("obs" in prep) == (pobs is not None)
+        rrep.pop("obs", None)
+        prep.pop("obs", None)
+        same_report(rrep, prep)
+        if pobs is not None:
+            check_obs()
 
     order = sorted(range(len(pspecs)),
                    key=lambda i: (pspecs[i].step, pspecs[i].idx))

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 _DECL = re.compile(r'extern\s+"C"\s+([\w\s*]+?)\s*\b(ishmem_\w+)\s*\(([^)]*)\)')
 _SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,

@@ -29,6 +29,7 @@ from repro_torch.core import amo, collectives as coll, context, rma, signal, \
     teams
 from repro_torch.core.api import Ishmem
 from repro_torch.kernels import ops
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 class _Side:

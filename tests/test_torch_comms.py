@@ -29,6 +29,7 @@ from repro_torch.core import cutover
 from repro_torch.kernels import ops, ring_collectives as rc, rma_copy
 from repro_torch.launch import serve as launch_serve, shmem_collectives
 from repro_torch.tune import telemetry
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 NPES = 8
 

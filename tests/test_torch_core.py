@@ -21,6 +21,7 @@ from repro.core import context as ref_context, cutover as ref_cutover, \
 from repro_torch import _bridge
 from repro_torch.core import context, cutover, heap as heap_mod, rma, \
     signal, teams
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _heap(npes=2, words=1 << 20):

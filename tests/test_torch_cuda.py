@@ -580,6 +580,13 @@ K10_SHAPES = [
     (70, 45, 200, 100, 3, 128),      # Skv not a multiple of 8, past shard
     (130, 257, 300, 0, 2, 64),       # Skv = 8 * 32 + 1
     (200, 200, 0, 0, 2, 128),        # diagonal, ragged q and key tiles
+    (64, 64, 0, 0, 4, 32),           # hd 32: the launcher's ring demo
+    (100, 37, 50, 10, 2, 32),
+    (37, 100, 0, 20, 3, 32),
+    (64, 64, 0, 0, 4, 80),           # hd 80: tiles padded to 96 columns
+    (100, 37, 50, 10, 2, 80),
+    (37, 100, 0, 20, 3, 80),
+    (130, 257, 300, 0, 2, 80),
 ]
 
 
@@ -610,19 +617,21 @@ def test_cuda_flash_partial(card, dtype, Sq, Skv, q_off, k_off, H, hd):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_partial_refuses_hd80(card, dtype):
-    """K10's kernels exist at head dims 64 and 128 only: head dim 80, which
-    K2 takes, raises before any launch."""
-    q, k, v = _k10_inputs(card, dtype, 16, 16, 2, 80)
+def test_cuda_flash_partial_refuses_hd96(card, dtype):
+    """K10's kernels exist at head dims 32, 64, 80 and 128 only: head dim
+    96 raises before any launch."""
+    q, k, v = _k10_inputs(card, dtype, 16, 16, 2, 96)
     ops.reset_launches()
-    with pytest.raises(ValueError, match="head_dim 80"):
+    with pytest.raises(ValueError, match="head_dim 96"):
         ishmem_device.flash_partial(q, k, v, q_off=0, k_off=0)
     assert not any(ops.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Sq,Skv,H,hd", [(37, 100, 3, 128), (100, 37, 2, 64),
-                                         (1, 1, 1, 64), (130, 257, 2, 128)])
+                                         (1, 1, 1, 64), (130, 257, 2, 128),
+                                         (37, 100, 3, 32), (130, 257, 2, 80),
+                                         (1, 1, 1, 80)])
 def test_cuda_flash_partial_split_bitwise(card, dtype, Sq, Skv, H, hd):
     """The split pass against its plain version: the TF32 hi/lo planes of
     q * hd**-0.5 and k, and V^T in KEY_ORDER with zero keys to Skv8."""
@@ -638,7 +647,7 @@ def test_cuda_flash_partial_split_bitwise(card, dtype, Sq, Skv, H, hd):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Sq,Skv,q_off,k_off,H,hd", [
     (200, 200, 0, 0, 2, 128), (37, 100, 0, 20, 3, 64),
-    (96, 70, 0, 64, 2, 128)])
+    (96, 70, 0, 64, 2, 128), (200, 200, 0, 0, 2, 32), (96, 70, 0, 64, 2, 80)])
 def test_cuda_flash_partial_run_to_run(card, dtype, Sq, Skv, q_off, k_off,
                                        H, hd):
     """Bitwise run to run; rows that see no key exactly m = -1e30, l = Skv;
@@ -995,3 +1004,98 @@ def test_cuda_resume_equals_uninterrupted(card, tmp_path):
     assert hist_b[0]["step"] == 3 and hist[-1]["loss"] < hist[0]["loss"]
     for x, y in zip(tree_mod.leaves((a, sa)), tree_mod.leaves((b, sb))):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the observability bundle on the card
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_prof_scope_waits_for_the_card(card):
+    """A profiler scope's call synchronizes the device of a CUDA tensor:
+    the work queued before it has finished when it returns, and the scope
+    records one wall-clock sample beside the model's pricing."""
+    from repro_torch.core import context
+    from repro_torch.obs.prof import Profiler
+    ctx, _ = context.init(npes=2, device=card)
+    prof = Profiler().attach(ctx)
+    a = torch.randn(4096, 4096, device=card)
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    with prof.scope("matmul", nbytes=a.numel() * 4) as ps:
+        for _ in range(8):
+            b = a @ a
+        done.record()
+        out = ps({"b": [b]})
+        assert done.query()
+    assert out["b"][0] is b
+    (sample,) = prof.samples
+    assert sample.op == "matmul" and sample.wall_s > 0
+    assert ctx.telemetry.nsamples("wallclock") == 1
+
+
+def test_cuda_audit_reads_words_not_pools(card, monkeypatch):
+    """A fleet on the card at reduced widths with the auditors every step:
+    no violation, and no pass moves more than the signal words it reads to
+    the host (every CUDA -> host transfer inside an audit is counted)."""
+    from repro_torch.configs import base
+    from repro_torch.models import model
+    from repro_torch.obs import Obs
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.frontend import Fleet, FleetConfig, TenantSpec, \
+        TrafficEngine
+    cfg = base.reduced(base.get_config("qwen3-4b"))
+    params = model.init_params(cfg, seed=0, device=card)
+    eng = Engine(cfg, params, max_len=24, device=params["embed"].device)
+    obs = Obs(audit_period=1)
+    fleet = Fleet(FleetConfig(max_len=24, max_new=4, stream_chunks=2,
+                              num_slots=1, queue_bound=6, kv_blocks=128,
+                              router="least_loaded"), engine=eng, obs=obs)
+    specs = TrafficEngine(
+        [TenantSpec("chat", weight=2.0, prompt_lens=(8,), max_new=(4,),
+                    slo="interactive"),
+         TenantSpec("scan", weight=1.0, prompt_lens=(12,), max_new=(12,),
+                    slo="batch", shared_prefix_prob=1.0, prefix_groups=1)],
+        rate=2.0, vocab=cfg.vocab_size, seed=23).schedule(10)
+    moved, auditing = [], [False]
+    for name in ("cpu", "tolist", "item", "numpy", "to"):
+        orig = getattr(torch.Tensor, name)
+
+        def wrap(self, *a, _orig=orig, **k):
+            if auditing[0] and self.is_cuda:
+                moved.append(self.numel())
+            return _orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, wrap)
+    audit = obs.auditor.audit
+
+    def counted(f):
+        auditing[0] = True
+        try:
+            return audit(f)
+        finally:
+            auditing[0] = False
+    obs.auditor.audit = counted
+    rep = fleet.run(specs, max_steps=2500)
+    assert obs.auditor.checks == fleet.elapsed_steps > 0
+    assert obs.auditor.violation_count == 0
+    assert rep["completed"] + rep["shed"] == rep["offered"]
+    words = 2 * (1 + fleet.fcfg.num_slots + fleet.fcfg.max_streams)
+    smallest = min(p.numel() for p in fleet.heap.pools.values())
+    assert moved and max(moved) <= words * len(fleet.pods) < smallest
+
+
+@pytest.mark.parametrize("kw", [dict(prompt_len=32),
+                                dict(prompt_len=512, full=True,
+                                     arch="zamba2-2.7b")])
+def test_cuda_seq_parallel_at_hd32_and_hd80(card, kw):
+    """``--seq-parallel 4`` at the reference launcher's widths (4 heads of
+    32, checked against the plain causal attention, K2 taking no hd 32)
+    and at zamba2-2.7b's (32 heads of 80, against K2 in f32): within
+    5e-5, through K10."""
+    ops.reset_launches()
+    rep = serve.seq_parallel_report(4, device=card, **kw)
+    assert ops.LAUNCHES["flash_partial"] == rep["partials"] == 10
+    assert rep["head_dim"] == (80 if kw.get("full") else 32)
+    assert rep["against"] == ("single-PE flash" if kw.get("full")
+                              else "plain causal attention")
+    assert rep["finite"] and rep["max_abs_err"] <= 5e-5

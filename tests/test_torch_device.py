@@ -44,6 +44,7 @@ from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, \
     fused_admit_signal
 from repro_torch.serve.paged_attn import PagedDecodeView
 from repro_torch.serve.scheduler import DisaggScheduler
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 MAXLEN = 24
 TOL = 5e-5                 # payloads and logits from an f32 prefill

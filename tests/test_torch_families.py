@@ -31,6 +31,7 @@ from repro_torch import _bridge
 from repro_torch.configs import base
 from repro_torch.models import attention, kvcache, layers, model, moe
 from repro_torch.serve import kvpool
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 NEW_ARCHS = ("minitron_8b", "h2o_danube_3_4b", "starcoder2_7b",
              "llama4_scout_17b_a16e", "arctic_480b", "whisper_medium",

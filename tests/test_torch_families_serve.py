@@ -15,6 +15,7 @@ import pytest
 from repro_torch.launch import serve as launch_serve
 
 from _torch_lockstep import family_params, run_lockstep
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 LOCKSTEP = [

@@ -38,6 +38,7 @@ from repro_torch.serve.scheduler import DECODING, FINISHED, SHED, \
 
 from _torch_lockstep import MAXLEN, fleet_engines, fleet_specs, int_pool, \
     run_fleet_lockstep
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 NEW = 4
 MIX = (dict(name="chat", weight=2.0, prompt_lens=(8,), max_new=(NEW,),

@@ -43,6 +43,7 @@ from repro_torch.serve.kvpool import KVPool, PagedLeaf
 from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator
 from repro_torch.serve.paged_attn import PagedDecodeView
 from repro_torch.serve.scheduler import DisaggScheduler
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 5e-5                 # tests/test_torch_device.py, fused_paged_attn
 SLOTS = 3

@@ -18,15 +18,27 @@ from repro_torch.kernels import ops as kernel_ops, ring_collectives
 from repro_torch.launch import serve as launch_serve, shmem_collectives
 from repro_torch.models import model
 from repro_torch.serve.engine import Engine
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch."))
+
+
+# the tuning knobs and the observability bundle: the reference's
+# jax-free tune/ and obs/ modules, each kept as the port's own copy
+SLICE_9 = ("tune.table", "tune.telemetry", "tune.env", "tune.estimator",
+           "tune", "obs.env", "obs.prof", "obs.metrics", "obs.critical",
+           "obs.calibrate", "obs.refit", "obs.recorder", "obs.alerts",
+           "obs.audit", "obs", "obs.analyze")
 
 
 def test_every_module_imports_without_jax_or_the_reference():
     assert len(MODULES) > 20
     assert {"repro_torch.obs.tracer", "repro_torch.obs.export"} <= \
         set(MODULES)
+    assert len(SLICE_9) == 16
+    assert {f"repro_torch.{m}" for m in SLICE_9} <= set(MODULES) | \
+        {"repro_torch.tune", "repro_torch.obs"}
     code = (
         "import importlib, sys\n"
         f"for name in {MODULES!r}:\n"
@@ -205,3 +217,21 @@ def test_fleet_entry_points_raise_without_cuda_unless_cpu(no_card):
                                "--requests", "2"] + small[:6])
     assert sched.migrator.proxy is not None and \
         sched.stats.bytes_cross_pod == sched.stats.bytes_migrated > 0
+
+
+@pytest.mark.parametrize("name", SLICE_9)
+def test_slice_9_module_is_the_ports_own(name):
+    """Each tune/obs module imports alone, without JAX or the reference,
+    and is not the reference's module under another name."""
+    code = (
+        "import importlib, sys\n"
+        f"mod = importlib.import_module('repro_torch.{name}')\n"
+        "assert mod.__name__.startswith('repro_torch'), mod.__name__\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": src}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""

@@ -19,6 +19,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch import _bridge
 from repro_torch.kernels import _build, flash_attn, ishmem_device, ops, \
     rma_copy
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # tests/test_kernels.py
 
@@ -225,19 +226,19 @@ def test_flash_hd80_matches_pallas_kernel(dtype, B, S, H, Hkv, bq, bk,
 
 def test_head_dims_of_k2_and_k10(counts):
     """K2 (and K11, which checks the same tuple) takes head dims 64, 80 and
-    128 on the card; K10 keeps its own (64, 128), so widening K2 does not
-    let K10 launch a width its kernel lacks.  On (fake) card tensors each
-    refuses a width it lacks before any launch."""
+    128 on the card; K10 keeps its own (32, 64, 80, 128): 32 is the
+    launcher's ring demo, which K2 does not take.  On (fake) card tensors
+    each refuses a width it lacks before any launch."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     assert flash_attn.HEAD_DIMS == (64, 80, 128)
-    assert ishmem_device.PARTIAL_HEAD_DIMS == (64, 128)
+    assert ishmem_device.PARTIAL_HEAD_DIMS == (32, 64, 80, 128)
     with FakeTensorMode():
-        q80 = torch.zeros((1, 16, 2, 80), device="cuda")
         q96 = torch.zeros((1, 16, 2, 96), device="cuda")
-    with pytest.raises(ValueError, match="head_dim 80"):
-        ishmem_device.flash_partial(q80, q80, q80, q_off=0, k_off=0)
-    with pytest.raises(ValueError, match="head_dim 80"):
-        ishmem_device.flash_partial_split(q80, q80, q80)
+        q48 = torch.zeros((1, 16, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ishmem_device.flash_partial(q96, q96, q96, q_off=0, k_off=0)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        ishmem_device.flash_partial_split(q48, q48, q48)
     with pytest.raises(ValueError, match="head_dim 96"):
         flash_attn.flash_attention(q96, q96, q96)
 

@@ -37,6 +37,7 @@ from repro.models import kvcache as ref_kvcache, layers as ref_layers, \
 from repro_torch import _bridge
 from repro_torch.configs import base
 from repro_torch.models import kvcache, layers, model
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = {"float32": 5e-5, "bfloat16": 6e-2}
 TOL_RECURRENT = {"float32": 2e-5, "bfloat16": 6e-2}

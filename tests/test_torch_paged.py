@@ -34,6 +34,7 @@ from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator
 from repro_torch.serve.scheduler import DisaggScheduler, Request
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 MAXLEN = 24
 

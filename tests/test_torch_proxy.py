@@ -30,6 +30,7 @@ from repro_torch import _bridge
 from repro_torch.core import amo, context, proxy, ring, rma, signal
 from repro_torch.core.heap import SymPtr
 from repro_torch.kernels import ops
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

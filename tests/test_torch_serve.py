@@ -18,6 +18,7 @@ order, as in ``test_torch_model.py``).  The JAX side keeps its defaults
 """
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,7 @@ from repro_torch.serve.scheduler import DisaggScheduler
 
 from _torch_lockstep import MAXLEN, TOL, family_params, port_sched as _sched, \
     run_lockstep, setup as _setup, tok as _tok
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -393,11 +395,37 @@ def test_growth_blocks_receive_decode_writes(params):
         max_new_tokens=7))[0].tolist() == sched.requests[0].out
 
 
-@pytest.mark.parametrize("kw", [{"obs": object()}])
-def test_unported_modes_raise(params, kw):
-    """Admission policies are ported (a scheduler takes ``policy=``); the
-    serving stack's one unported mode is the fleet's observability bundle
-    (ROADMAP queue 1, item 11), and its launcher flags."""
+OBS_FLAGS = ("--trace", "--metrics", "--refit", "--refit-min-samples",
+             "--audit", "--recorder", "--alerts", "--profile",
+             "--calibration")
+
+
+def _ref_parser(monkeypatch):
+    """The reference launcher's parser, caught as its ``main`` parses."""
+    import argparse
+    from repro.launch import serve as ref_serve
+
+    class Caught(Exception):
+        pass
+
+    def catch(self, *a, **k):
+        raise Caught(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    with pytest.raises(Caught) as got:
+        ref_serve.main()
+    monkeypatch.undo()
+    return got.value.args[0]
+
+
+@pytest.mark.parametrize("kw", [{"obs": dict(metrics=True,
+                                             audit_period=1)}])
+def test_unported_modes_raise(params, kw, monkeypatch, tmp_path):
+    """Nothing of the serving stack is left unported: a scheduler takes
+    ``policy=``, the observability flags parse as the reference's (type,
+    default, nargs, const) and reach an ``Obs`` bundle, and a fleet runs
+    with one attached (a metrics row and an audit pass a step)."""
+    from repro_torch.obs import Obs
     from repro_torch.serve.frontend import Fleet, FleetConfig
     from repro_torch.serve.scheduler import AdmissionPolicy
     cfg, ctx, heap, eng, pool = _setup(params)
@@ -405,11 +433,36 @@ def test_unported_modes_raise(params, kw):
                             prefill_pes=[0, 1], decode_pes=[2, 3],
                             num_slots=3, policy=AdmissionPolicy())
     assert isinstance(sched.policy, AdmissionPolicy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Fleet(FleetConfig(max_len=MAXLEN), engine=eng, **kw)
-    for flag in ("--metrics", "--profile", "--audit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch_serve.main(["--fleet", "--device", "cpu", flag, "x"])
+    ref = {a.option_strings[0]: a for a in _ref_parser(monkeypatch)._actions
+           if a.option_strings}
+    port = {a.option_strings[0]: a
+            for a in launch_serve.build_parser()._actions if a.option_strings}
+    for flag in OBS_FLAGS:
+        r, p = ref[flag], port[flag]
+        assert (type(r), r.dest, r.type, r.default, r.nargs, r.const) == \
+            (type(p), p.dest, p.type, p.default, p.nargs, p.const), flag
+    for name in list(os.environ):
+        if name.startswith("ISHMEM_OBS_"):
+            monkeypatch.delenv(name)
+    args = launch_serve.parse_args(
+        ["--fleet", "--metrics", "m.json", "--refit", "4", "--audit", "2",
+         "--recorder", "8", "--alerts", "--profile", "--calibration",
+         str(tmp_path / "c.json"), "--refit-min-samples", "3"])
+    obs, trace, metrics, prof, cal = launch_serve.make_obs(args)
+    assert (trace, metrics, prof, cal) == (None, "m.json", None,
+                                          str(tmp_path / "c.json"))
+    assert obs.audit_period == 2 and obs.recorder.window_steps == 8
+    assert obs.refit_period == 4 and obs.refit_min_samples == 3
+    assert obs.monitor is not None and obs.prof is not None
+    assert launch_serve.make_obs(launch_serve.parse_args(["--fleet"]))[0] \
+        is None
+    fleet = Fleet(FleetConfig(max_len=MAXLEN, max_new=2), engine=eng,
+                  obs=Obs(**kw["obs"]))
+    fleet.step([])
+    fleet.step([])
+    assert len(fleet.obs.metrics.series) == 2
+    assert fleet.obs.auditor.checks == 2
+    assert fleet.report()["obs"]["audit"]["violations"] == 0
 
 
 def test_launcher_refuses_streaming_with_fused_attn():

@@ -19,10 +19,12 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import flash_attn, ishmem_device, ops
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = 2e-5                 # tests/test_kernels.py, f32
 LOG2E = 1.4426950408889634
 BQ, BK = 64, 32            # the kernel's q and key tiles
+COLS = 32                  # f32 columns of one 128-byte TMA box
 
 
 @pytest.fixture
@@ -117,7 +119,17 @@ def test_split_wrapper_takes_the_plain_version_on_cpu(counts):
 # ---------------------------------------------------------------------------
 
 
-def emulate_kernel(q, k, v, *, q_off, k_off):
+def _qk(qt, kt, n_steps):
+    """Q.K^T as the kernel's k8 steps over the first ``8 * n_steps``
+    columns of the tiles, accumulated in f32 in step order."""
+    s = 0
+    for kk in range(n_steps):
+        c = slice(8 * kk, 8 * kk + 8)
+        s = s + qt[..., c] @ kt[..., c].transpose(-1, -2)
+    return s
+
+
+def emulate_kernel(q, k, v, *, q_off, k_off, steps="real"):
     """K10's arithmetic on the split pass's planes, tile by tile as the
     kernel runs it: per q tile of 64 rows the causal key limit, per key tile
     of 32 S = Qhi.Khi + Qlo.Khi + Qhi.Klo, the mask, m, corr = 2^((m -
@@ -128,6 +140,12 @@ def emulate_kernel(q, k, v, *, q_off, k_off):
     Skv = k.shape[1]
     qs, ks, vt = ishmem_device.flash_partial_split_plain(q, k, v)
     Skv8 = vt.shape[-1]
+    # q and K tiles are whole 32-column boxes, zero-filled past hd (hd 80
+    # pads to 96); Q.K^T runs k8 steps over the real columns, or over the
+    # whole tile with ``steps="padded"``
+    pad = -(-hd // COLS) * COLS
+    qs, ks = (torch.nn.functional.pad(x, (0, pad - hd)) for x in (qs, ks))
+    n_steps = (pad if steps == "padded" else hd) // 8
     order = torch.tensor(ishmem_device.KEY_ORDER)
     pos_key = (torch.arange(0, Skv8, 8)[:, None] + order).reshape(-1)
     acc = torch.zeros(B, H, Sq, hd)
@@ -146,9 +164,9 @@ def emulate_kernel(q, k, v, *, q_off, k_off):
         oi = torch.zeros(B, H, rows.stop - q0, hd)
         for k0 in range(0, kv_end, BK):
             keys = slice(k0, min(Skv, k0 + BK))
-            s = (qh[:, :, rows] @ kh[:, :, keys].transpose(-1, -2)
-                 + ql[:, :, rows] @ kh[:, :, keys].transpose(-1, -2)
-                 + qh[:, :, rows] @ kl[:, :, keys].transpose(-1, -2))
+            s = (_qk(qh[:, :, rows], kh[:, :, keys], n_steps)
+                 + _qk(ql[:, :, rows], kh[:, :, keys], n_steps)
+                 + _qk(qh[:, :, rows], kl[:, :, keys], n_steps))
             kpos = k_off + torch.arange(keys.start, keys.stop)
             s = torch.where(kpos[None, :] <= qpos[:, None], s,
                             torch.tensor(flash_attn.NEG_INF))
@@ -202,8 +220,16 @@ SHAPES = [
 ]
 
 
+SHAPES_PADDED = [
+    (64, 64, 0, 0, 2, 32),           # hd 32: one box a row
+    (64, 32, 0, 32, 2, 32),          # half the rows see no key
+    (100, 37, 50, 10, 2, 80),        # hd 80: three boxes, 16 zero columns
+    (37, 100, 0, 20, 1, 80),
+]
+
+
 @pytest.mark.parametrize("scale", [1.0, 0.1])
-@pytest.mark.parametrize("Sq,Skv,q_off,k_off,H,hd", SHAPES)
+@pytest.mark.parametrize("Sq,Skv,q_off,k_off,H,hd", SHAPES + SHAPES_PADDED)
 def test_emulated_3xtf32_within_tolerance(Sq, Skv, q_off, k_off, H, hd,
                                           scale, counts):
     q, k, v = _inputs(Sq * 7 + Skv + k_off, Sq, Skv, H, hd, scale)
@@ -236,3 +262,60 @@ def test_single_tf32_products_miss_the_tolerance(counts):
     want = ishmem_device.flash_partial_plain(q, k, v, q_off=0, k_off=0)
     with pytest.raises(AssertionError):
         _hold(one, want, torch.ones(64, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("hd", [32, 80])
+def test_padded_tile_columns_add_exactly_zero(hd, counts):
+    """The zero fill past hd in the q and K tiles: running Q.K^T over the
+    whole padded tile gives the bits of the real columns' k8 steps, so the
+    kernel may stop at hd / 8 steps (10 at hd 80)."""
+    q, k, v = _inputs(hd, 70, 45, 2, hd, 1.0)
+    real = emulate_kernel(q, k, v, q_off=0, k_off=0)
+    padded = emulate_kernel(q, k, v, q_off=0, k_off=0, steps="padded")
+    for a, b in zip(real, padded):
+        assert torch.equal(a, b)
+
+
+def _kperm(i):
+    return 2 * i if i < 4 else 2 * i - 7
+
+
+def emulate_split_vt(v):
+    """``split_vt`` CTA by CTA: one block per 32 keys x 32 head dims of a
+    (batch, head), ``ceil(hd / 32)`` blocks of dims (the last partial at hd
+    80), loads of dims past hd as zeros and no writes past hd.  Cells no
+    block writes stay NaN."""
+    B, Skv, H, hd = v.shape
+    Skv8 = -(-Skv // 8) * 8
+    vf = v.float()
+    vt = torch.full((2, B, H, hd, Skv8), float("nan"))
+    src = torch.tensor([(tx & ~7) | _kperm(tx & 7) for tx in range(32)])
+    for b in range(B):
+        for h in range(H):
+            for k0 in range(0, Skv8, 32):
+                for d0 in range(0, -(-hd // 32) * 32, 32):
+                    tile = torch.zeros(32, 32)
+                    keys = min(Skv, k0 + 32) - k0
+                    dims = min(hd, d0 + 32) - d0
+                    tile[:keys, :dims] = vf[b, k0:k0 + keys, h, d0:d0 + dims]
+                    n_pos = min(Skv8, k0 + 32) - k0
+                    y = tile[src[:n_pos]].T[:dims]        # (dims, n_pos)
+                    hi = ishmem_device.tf32_round(y)
+                    vt[0, b, h, d0:d0 + dims, k0:k0 + n_pos] = hi
+                    vt[1, b, h, d0:d0 + dims, k0:k0 + n_pos] = \
+                        ishmem_device.tf32_round(y - hi)
+    return vt
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+@pytest.mark.parametrize("Skv", [5, 37, 64])
+def test_split_vt_blocks_write_the_plain_layout(hd, Skv, counts):
+    """The split pass's V^T at every head dim K10 takes: the CTA tiling
+    (partial last block of dims at hd 80) writes every cell, bitwise the
+    plain version's."""
+    _, _, v = _inputs(hd + Skv, 1, Skv, 2, hd, 1.0)
+    v = torch.cat([v, v * 3])                              # B = 2
+    got = emulate_split_vt(v)
+    want = ishmem_device.flash_partial_split_plain(v, v, v)[2]
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(got, want)

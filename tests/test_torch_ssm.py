@@ -37,6 +37,7 @@ from repro_torch.serve import kvpool
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.kvxfer import KVMigrator
 from repro_torch.serve.scheduler import DisaggScheduler
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MAXLEN = 24

@@ -31,6 +31,7 @@ from repro_torch.launch import policy
 from repro_torch.models import model
 from repro_torch.train import checkpoint as ck, optimizer as opt, \
     train_step as ts, tree as tree_mod
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 RTOL = 2e-5
 

@@ -43,6 +43,7 @@ from repro_torch.models import model
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.train import checkpoint as ck, train_step as ts, \
     trainer, tree as tree_mod
+from _torch_threads import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-6
 B, S = 2, 32
