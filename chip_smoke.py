@@ -228,7 +228,32 @@ Phases, each fatal on failure:
    ``--refit 4 --profile``: at least one re-fit from the card's samples,
    every finished request bitwise its single-PE baseline, the counts
    printed and not held (the wall-clock table steers the modeled clock
-   SLO admission reads).
+   SLO admission reads);
+28. the dry-run held by the card (after phase 21): ``launch.dryrun.
+   run_one`` on meta for qwen3-4b at its published widths and depth, the
+   reference's prefill kind cut to batch 1 and 4096 tokens, then the same
+   ``model.prefill`` on the card with real bf16 weights under
+   ``roofline.counter.count()``: FLOPs, bytes, transcendentals, the
+   collectives and every kernel's charge equal the meta record's exactly,
+   K2 launches 36 times and nothing else, each of those 36 calls within
+   2e-2 of K2's plain version on the path's own q, k and v, the last
+   logits no farther (relative L2) from the same prefill with K2's plain
+   version than 1.25 times the same prefill through SDPA is (at 36 bf16
+   layers both part from it by about 2e-2), and the
+   rise of ``memory_allocated`` while the arguments are built within 1% of
+   the predicted argument bytes; then one dense ``decode_step`` against
+   that cache (counts equal, no launch, the bytes resident above the
+   prefill's baseline within 1% of its predicted arguments) and phase
+   21's data-parallel train step (4 of 36 layers, 4 PEs; counts equal,
+   arguments within 1%, K4-K6 launched as phase 21 predicts,
+   ``collective_by_kind`` the ring formulas summed over the launches
+   issued).  Each prints the median wall of 3 runs after a warm-up, the
+   peak ``max_memory_allocated`` above the baseline its arguments were
+   built on beside the predicted argument + temp, the roofline bound (its
+   memory term each argument read and each output written once), its
+   share of the wall, the MFU, and the eager implementation's counted
+   traffic at HBM rate, beside the card's name and power limit (none of
+   these gates the run).
 Every ``ISHMEM_*`` variable is cleared at the start: the phases set the
 knobs they test.  Phases 3, 5, 7-20 and 22-27 print their wall time and
 peak device memory, and K1-K3's rows carry their launches in phases 7-20
@@ -241,13 +266,14 @@ at hd 32 (``flash_partial_hd32``, q/k/v (1, 8, 4, 32)) and hd 80
 (``flash_partial_hd80``, (1, 4096, 32, 80)) at phase 6's demo and zamba2
 ring shapes, with their launches there.
 
-K4-K6's rows carry their launches in phases 4 and 21
-(``launches_by_phase``; ``launches`` is phase 4's), and the two phase-21
-rows phase 21's.
+K4-K6's rows carry their launches in phases 4, 21 and 28c
+(``launches_by_phase``, 28c as ``28-train``; ``launches`` is phase 4's),
+and the two phase-21 rows those of phases 21 and 28c.
 
 K9 (``reduce_tile``) has no caller on these paths (only the reference's
 benchmark and tests call it): its row sums its counts over the path
-runs, and the check fails if that is not 0.  K11 has none either (the
+runs (phase 28c's train step included), and the check fails if that is
+not 0.  K11 has none either (the
 fused serving path reads through ``assemble``, as the reference's does):
 its row's ``launches`` is phase 5's count, 0, beside its launches per
 call; the head-dim-80 row of K11 likewise, phase 11's count, and the
@@ -255,7 +281,8 @@ head-dim-64 row phase 19's.  K2's
 head-dim-80 row carries phase 10's launches.  K2's row also carries its
 HGMMA count (``hgmma``) and a ``long`` record at q (1, 4096, 32, 128):
 events, device ms, TFLOP/s and share of its operations bound beside
-SDPA's events and device ms.  The line before
+SDPA's events and device ms, and its launches in phase 28 (the row's
+``phase_28`` holds that phase's measurements).  The line before
 the last is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
 beside this file, it exits nonzero before printing any result.
@@ -393,6 +420,24 @@ FLEET_PREDICTED = {
            "copy_into": 1390, "flash_attention": 28 * 36,
            "paged_gather": 213, "recovered_requests": 15, "remigrated": 2,
            "replayed_tokens": 6, "cancelled_ops": 74}}
+
+# phase 28: the dry-run held by the card.  qwen3-4b at its published widths
+# and depth, the reference's prefill kind with batch 32 -> 1 and sequence
+# 32768 -> 4096 (one card's phase: prefill_32k's batch would need 152 GB of
+# arguments); one dense decode step against that cache; phase 21's
+# data-parallel train step (4 of 36 layers, 4 PEs, seq 512, batch 8)
+DRY_ARCH = "qwen3-4b"
+DRY_PREFILL = dict(name="prefill_4k_b1", kind="prefill", seq_len=4096,
+                   global_batch=1)
+DRY_DECODE = dict(DRY_PREFILL, name="decode_4k_b1", kind="decode")
+DRY_TRAIN = dict(name="train_512_b8", kind="train", seq_len=TRAIN["seq"],
+                 global_batch=TRAIN["batch"])
+DRY_K2 = 36                          # K2 launches: one a layer
+DRY_LIB_RATIO = 1.25                 # K2's logits spread against SDPA's
+DRY_RUNS = 3                         # timed runs after a warm-up
+ALLOC_TOL = 0.01                     # allocator rounding of the arguments
+COUNT_KEYS = ("flops", "bytes", "transcendental", "collective_bytes",
+              "collective_by_kind", "n_collective_sites", "by_kernel")
 
 
 def fail(msg: str) -> None:
@@ -579,10 +624,12 @@ def _qkv(torch, gen, dev, dt, B, S, H, Hkv, hd):
 
 def _flash_bound(B, S, H, Hkv, hd):
     """(bound ms, what bounds it, causal FLOPs) of K2 in bf16: q, k, v read
-    once and o written once, against the causal QK^T and PV products."""
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
-    flops = 4 * hd * H * B * S * (S + 1) // 2
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    once and o written once, against the causal QK^T and PV products --
+    the work ``roofline/counter.py`` charges each K2 call."""
+    from repro_torch.roofline import counter
+    work = counter.flash_work(B, S, H, Hkv, hd, 2)
+    flops = work["flops"]
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS["bfloat16"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops)
@@ -2180,6 +2227,283 @@ def phase_train(torch, ops, rc, dev, deferred):
     return launches, check_train_rows(torch, rc, dev, deferred)
 
 
+def _counts_equal(card, rec, label):
+    """Fail unless the card run's counts are the meta record's, naming the
+    aten ops whose counts differ."""
+    want = rec["counted"]
+    got = {k: card.summary()[k] for k in COUNT_KEYS}
+    if got == want:
+        return
+    diff = [k for k in COUNT_KEYS if got[k] != want[k]]
+    say(f"{label}: card {[(k, got[k]) for k in diff]} against the dry-run's "
+        f"{[(k, want[k]) for k in diff]}")
+    fail(f"{label}: the card's counts differ from the dry-run's in {diff}")
+
+
+def _timed(torch, fn, runs=DRY_RUNS):
+    """Median wall s of ``runs`` calls after a warm-up; no output is kept."""
+    fn()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[len(walls) // 2]
+
+
+def _report(torch, analysis, label, rec, wall, peak, smi):
+    mem = rec["memory"]
+    pred = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    m = analysis.measured(rec, wall)
+    t = analysis.terms(rec)
+    say(f"phase 28 {label} ({smi}): median wall {wall * 1e3:.3f} ms of "
+        f"{DRY_RUNS} after a warm-up; peak max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB beside the predicted argument + temp "
+        f"{pred / 2**30:.3f} GiB; roofline bound {t['step_s'] * 1e3:.3f} ms "
+        f"({t['dominant']}: compute {t['compute_s'] * 1e3:.3f}, memory "
+        f"{t['memory_s'] * 1e3:.3f} (arguments read and outputs written "
+        f"once), collective {t['collective_s'] * 1e3:.3f} ms), bound share "
+        f"{m['bound_share']:.4f}, MFU {m['mfu']:.4f} (MODEL_FLOPS "
+        f"{rec['model_flops']:.4e}; counted {rec['counted']['flops']:.4e} "
+        f"FLOPs); the eager implementation's traffic "
+        f"{rec['counted']['bytes']:.4e} bytes, "
+        f"{t['eager_memory_s'] * 1e3:.3f} ms at HBM rate")
+    return {"wall_ms": wall * 1e3, "peak_bytes": peak,
+            "predicted_bytes": pred, "bound_ms": t["step_s"] * 1e3,
+            "bound_by": t["dominant"], "bound_share": m["bound_share"],
+            "mfu": m["mfu"], "eager_traffic_ms": t["eager_memory_s"] * 1e3}
+
+
+def phase_dryrun(torch, ops, dev, smi):
+    """Phase 28: the dry-run held by the card (module docstring).  Returns
+    the launches of the prefill ("28") and of the train step ("28-train"),
+    and the measurements."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels import flash_attn, ring_collectives, rma_copy
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis, counter
+    cfg = cfgbase.get_config(DRY_ARCH)
+    prefill = cfgbase.ShapeSpec(**DRY_PREFILL)
+    decode = cfgbase.ShapeSpec(**DRY_DECODE)
+    say("phase 28, the dry-run on the card: reduced " + json.dumps({
+        "arch": DRY_ARCH, "shape": "prefill_32k's kind: global batch 32 -> "
+        "1, sequence 32768 -> 4096", "why": "one card's phase (prefill_32k "
+        "needs 152 GiB of arguments)", "widths": "published",
+        "num_layers": cfg.num_layers, "train": "phase 21's DP step, 4 of "
+        "36 layers, 4 PEs, seq 512, batch 8"}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (a) prefill ------------------------------------------------------
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(DRY_ARCH, prefill, "card", cfg=cfg)
+    if rec["status"] != "ok":
+        fail(f"phase 28 dry-run of the prefill: {rec['status']}")
+    say(f"phase 28 prefill dry-run on meta in {time.perf_counter() - t0:.2f}"
+        f" s: {rec['counted']['flops']:.6e} FLOPs, "
+        f"{rec['counted']['bytes']:.6e} bytes, "
+        f"{rec['counted']['transcendental']:.6e} transcendentals; "
+        f"arguments {rec['memory']['argument_size_in_bytes']:,} B, temp "
+        f"{rec['memory']['temp_size_in_bytes']:,} B, fits {rec['fits']}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fn, args = dryrun.build_step(cfg, prefill, device=dev, seed=0)
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    want = rec["memory"]["argument_size_in_bytes"]
+    say(f"phase 28 prefill arguments: memory_allocated rose {rise:,} B "
+        f"while they were built; predicted {want:,} B "
+        f"({rise / want - 1:+.5f})")
+    if abs(rise - want) > ALLOC_TOL * want:
+        fail(f"phase 28: the arguments took {rise} B, not the predicted "
+             f"{want} B within {ALLOC_TOL}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with torch.no_grad(), counter.count() as card:
+        logits, cache = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - before
+    say(f"phase 28 prefill on the card under the counter: launches "
+        f"{launches}; {card.n_ops} aten ops counted")
+    _counts_equal(card, rec, "phase 28 prefill")
+    if launches["flash_attention"] != DRY_K2 or \
+            sum(launches.values()) != DRY_K2:
+        fail(f"phase 28 prefill launched {launches}, not K2 {DRY_K2} times")
+    # the same prefill with K2's plain version in its place
+    kernel = flash_attn.flash_attention
+    F = torch.nn.functional
+    per_call = []
+
+    def both(q, k, v):
+        got, want = kernel(q, k, v), flash_attn.flash_attention_plain(q, k, v)
+        tol = TOL["bfloat16"]
+        per_call.append((float((got.float() - want.float()).abs().max()),
+                         int((~torch.isclose(got.float(), want.float(),
+                                             rtol=tol, atol=tol)).sum())))
+        return got
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2).contiguous()
+    outs = {}
+    for name, impl in (("plain", flash_attn.flash_attention_plain),
+                       ("sdpa", sdpa), ("both", both)):
+        flash_attn.flash_attention = impl
+        try:
+            with torch.no_grad():
+                outs[name] = fn(*args)[0]
+        finally:
+            flash_attn.flash_attention = kernel
+    torch.cuda.synchronize()
+    plain = outs["plain"]
+    tol = TOL["bfloat16"]
+    for name, other in (("K2", logits), ("SDPA", outs["sdpa"]),
+                        ("K2 checked per call", outs["both"])):
+        far = ~torch.isclose(other, plain, rtol=tol, atol=tol)
+        say(f"phase 28 prefill logits {tuple(logits.shape)}, {name} route "
+            f"against K2's plain version: relative L2 "
+            f"{_rel_l2(torch, other, plain):.4e}, max|err| "
+            f"{float((other - plain).abs().max()):.4e}, outside rtol=atol="
+            f"{tol}: {int(far.sum())} of {plain.numel()}; |logit| max "
+            f"{float(plain.abs().max()):.3f}, rms "
+            f"{float(plain.pow(2).mean().sqrt()):.3f}")
+    outside = sum(n for _, n in per_call)
+    say(f"phase 28 prefill, K2 against its plain version at each of its "
+        f"{len(per_call)} calls on the path's own q, k, v: max|err| "
+        f"{max(e for e, _ in per_call):.4e}, elements outside {tol}: "
+        f"{outside}")
+    if len(per_call) != DRY_K2 or outside:
+        fail(f"phase 28 prefill: K2 left {outside} elements outside {tol} "
+             f"of its plain version over {len(per_call)} calls")
+    # at 36 bf16 layers the logits of any two attention roundings part by
+    # about 2e-2 (SDPA's route as much as K2's): K2's route may be no
+    # farther from the plain route than DRY_LIB_RATIO x SDPA's
+    rel, lib = (_rel_l2(torch, x, plain) for x in (logits, outs["sdpa"]))
+    if logits.shape != (1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()) or rel > DRY_LIB_RATIO * lib:
+        fail(f"phase 28 prefill logits {tuple(logits.shape)} are {rel:.4e} "
+             f"from the plain route's, more than {DRY_LIB_RATIO} x SDPA's "
+             f"{lib:.4e}, or not finite")
+    del plain, outs
+    with torch.no_grad():
+        wall = _timed(torch, lambda: fn(*args))
+    out = {"prefill": _report(torch, analysis, "prefill", rec, wall, peak,
+                              smi)}
+    out["prefill"]["launches"] = launches
+
+    # ---- (b) one dense decode step against that cache ---------------------
+    rec_d = dryrun.run_one(DRY_ARCH, decode, "card", cfg=cfg)
+    if rec_d["status"] != "ok":
+        fail(f"phase 28 dry-run of the decode: {rec_d['status']}")
+    params = args[0]
+    token = logits.argmax(-1, keepdim=True).to(torch.int32)
+    pos = torch.full((1,), prefill.seq_len - 1, dtype=torch.int32,
+                     device=dev)
+    del logits, args, fn
+    from repro_torch.models import model
+
+    def step():
+        return model.decode_step(params, cfg, token, pos, cache)
+    # measured against the baseline the prefill's arguments were built on:
+    # what is resident now is the decode's arguments (the prefill's
+    # weights and cache, the token and its position)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() - before
+    want = rec_d["memory"]["argument_size_in_bytes"]
+    say(f"phase 28 decode arguments: {resident:,} B resident above the "
+        f"prefill's baseline; predicted {want:,} B "
+        f"({resident / want - 1:+.5f})")
+    if abs(resident - want) > ALLOC_TOL * want:
+        fail(f"phase 28: the decode's arguments take {resident} B, not the "
+             f"predicted {want} B within {ALLOC_TOL}")
+    ops.reset_launches()
+    with torch.no_grad(), counter.count() as card:
+        dlogits, _ = step()
+    torch.cuda.synchronize()
+    dpeak = torch.cuda.max_memory_allocated() - before
+    _counts_equal(card, rec_d, "phase 28 decode")
+    if any(ops.LAUNCHES.values()) or not bool(torch.isfinite(dlogits).all()):
+        fail(f"phase 28 decode launched {ops.LAUNCHES} or gave non-finite "
+             f"logits")
+    with torch.no_grad():
+        wall = _timed(torch, step)
+    out["decode"] = _report(torch, analysis, "decode", rec_d, wall, dpeak,
+                            smi)
+    del params, token, pos, cache, dlogits, _, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) phase 21's data-parallel train step ---------------------------
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    train = cfgbase.ShapeSpec(**DRY_TRAIN)
+    rec_t = dryrun.run_one(DRY_ARCH, train, "card", cfg=cut,
+                           comms_npes=TRAIN["npes"])
+    if rec_t["status"] != "ok":
+        fail(f"phase 28 dry-run of the train step: {rec_t['status']}")
+    before = torch.cuda.memory_allocated()
+    fn, args = dryrun.build_step(cut, train, device=dev, seed=0,
+                                 comms_npes=TRAIN["npes"])
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    want = rec_t["memory"]["argument_size_in_bytes"]
+    say(f"phase 28 train arguments: memory_allocated rose {rise:,} B; "
+        f"predicted {want:,} B ({rise / want - 1:+.5f})")
+    if abs(rise - want) > ALLOC_TOL * want:
+        fail(f"phase 28: the train arguments took {rise} B, not {want} B")
+    # every K4-K6 launch of the step, to sum the ring formulas over
+    issued = []
+    wrapped = {}
+    for mod, name, kind in ((rma_copy, "remote_put", "collective-permute"),
+                            (ring_collectives, "ring_allgather",
+                             "all-gather"),
+                            (ring_collectives, "ring_reduce_scatter",
+                             "reduce-scatter")):
+        real = getattr(mod, name)
+        wrapped[(mod, name)] = real
+
+        def logged(x, *a, _real=real, _kind=kind, **kw):
+            issued.append((_kind, tuple(x.shape), x.element_size()))
+            return _real(x, *a, **kw)
+        setattr(mod, name, logged)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        with torch.no_grad(), counter.count() as card:
+            fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), real in wrapped.items():
+            setattr(mod, name, real)
+    tpeak = torch.cuda.max_memory_allocated() - before
+    launches_t = dict(ops.LAUNCHES)
+    _counts_equal(card, rec_t, "phase 28 train")
+    sums = {}
+    for kind, shape, itemsize in issued:
+        P, nbytes = shape[0], math.prod(shape) * itemsize
+        size = nbytes if kind == "all-gather" else nbytes // P
+        sums[kind] = sums.get(kind, 0.0) + \
+            P * counter._wire_bytes(kind, size, P)
+    got = card.summary()["collective_by_kind"]
+    say(f"phase 28 train: launches {launches_t}; collective_by_kind {got}; "
+        f"the ring formulas over the {len(issued)} K4-K6 launches issued "
+        f"{sums}")
+    if got != sums or {k: n for k, n in launches_t.items() if n} != \
+            {k: n for k, n in TRAIN_PER_STEP.items()}:
+        fail(f"phase 28 train: collective_by_kind {got} is not the launches' "
+             f"{sums}, or launches {launches_t} are not {TRAIN_PER_STEP}")
+    wall = _timed(torch, lambda: fn(*args))
+    out["train"] = _report(torch, analysis, "train", rec_t, wall, tpeak, smi)
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"28": launches, "28-train": launches_t}, out
+
+
 def _k11_on_pool(torch, dev_kern, flash_attn, ops, sched, label):
     """K11 once on the decode pool a fused run leaves (every slot of its
     first decode PE mapped to a full table), at layer 0: one launch, no K3
@@ -3051,6 +3375,10 @@ def run(torch, tmp: Path) -> None:
                                              dev, deferred)
     rows += train_rows
 
+    # ---- 28. the dry-run held by the card ---------------------------------
+    dry_launches, dry = phase_dryrun(torch, ops, dev, smi)
+    mode_launches.update(dry_launches)
+
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match, *kw in deferred:
         row[key] = device_ms(torch, fn, match, **(kw[0] if kw else {}))
@@ -3086,6 +3414,9 @@ def run(torch, tmp: Path) -> None:
     if long.get("device_ms"):
         long["tflops"] = long["flops"] / long["device_ms"] / 1e9
         long["bound_share"] = long["bound_ms"] / long["device_ms"]
+    long["launches"] = mode_launches["28"]["flash_attention"]
+    long["launches_in"] = "phase 28's full-depth qwen3-4b prefill"
+    k2["phase_28"] = dry
     say(f"K2 bf16 {long['shape']}: {long['ms']:.4f} ms by events, device "
         f"{long.get('device_ms')} ms, {long.get('tflops')} TFLOP/s, "
         f"{long.get('bound_share')} of its {long['bound_ms']:.4f} ms bound "
@@ -3120,13 +3451,15 @@ def run(torch, tmp: Path) -> None:
     if path_launches["reduce_tile"]:
         fail(f"K9 launched {path_launches['reduce_tile']} times on the "
              f"paths, which should not call it")
-    for name in TRAIN_KERNELS:               # K4-K6: phases 4 and 21
-        by_name[name]["launches_by_phase"] = {"4": coll_launches[name],
-                                              "21": train_launches[name]}
+    for name in TRAIN_KERNELS:               # K4-K6: phases 4, 21 and 28c
+        by_name[name]["launches_by_phase"] = {
+            "4": coll_launches[name], "21": train_launches[name],
+            "28-train": mode_launches["28-train"][name]}
     for name in ("ring_reduce_scatter", "ring_allgather"):
         path_launches[f"{name}_train"] = train_launches[name]
         by_name[f"{name}_train"]["launches_by_phase"] = {
-            "21": train_launches[name]}
+            "21": train_launches[name],
+            "28-train": mode_launches["28-train"][name]}
     for r in rows:
         r["launches"] = path_launches[r["name"]]
     for name in SERVE_KERNELS:

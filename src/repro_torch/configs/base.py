@@ -1,9 +1,12 @@
-"""Architecture configuration registry (counterpart of ``repro/configs/base.py``).
+"""Architecture and input-shape configuration registry (counterpart of
+``repro/configs/base.py``).
 
-Every architecture is a frozen :class:`ArchConfig`; ``reduced`` derives the
-small CPU-test variant of the same family.  All ten configurations are
-registered, in the reference's order; the dry-run ``ShapeDtypeStruct``
-stand-ins of the reference are not ported (ROADMAP queue 1, item 13).
+Every architecture is a frozen :class:`ArchConfig`; the four input shapes
+are :class:`ShapeSpec` entries in ``SHAPES``.  ``input_specs`` and
+``cache_specs`` build ``meta`` tensors of the reference's
+``ShapeDtypeStruct`` stand-ins for the dry-run (no allocation), and
+``reduced`` derives the small CPU-test variant of the same family.  All ten
+configurations are registered, in the reference's order.
 """
 from __future__ import annotations
 
@@ -64,8 +67,52 @@ class ArchConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve a 500k-token context (skip rule for
+        long_500k)?"""
+        return self.family in ("ssm", "hybrid") or self.attention == "swa"
+
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    # -- parameter counting (for MODEL_FLOPS = 6 N D), the reference's ------
+    def param_count(self, active_only: bool = False) -> int:
+        d, ff, hd = self.d_model, self.d_ff, self.hd
+        nq, nkv = self.num_heads, self.num_kv_heads
+        attn = d * nq * hd + 2 * d * nkv * hd + nq * hd * d
+        mlp_mult = 3 if self.mlp_type == "swiglu" else 2
+        dense_mlp = mlp_mult * d * ff if ff else 0
+        total = 0
+        shared_attn_counted = False
+        for kind in layer_kinds(self):
+            if kind == "attn":
+                total += attn + dense_mlp
+            elif kind == "moe":
+                e = self.experts_per_token if active_only else \
+                    self.num_experts
+                total += attn + e * mlp_mult * d * ff
+                if self.moe_dense_ff:
+                    total += mlp_mult * d * self.moe_dense_ff
+            elif kind == "mamba":
+                d_in = self.ssm_expand * d
+                total += 2 * d * d_in + d_in * d + d_in * self.ssm_conv
+            elif kind == "mlstm":
+                d_in = 2 * d
+                total += 2 * d * d_in + d_in * d + 3 * d_in * hd
+            elif kind == "slstm":
+                total += 4 * d * d + 2 * d * (4 * d // 3)
+            elif kind == "shared_attn":
+                if not shared_attn_counted:
+                    total += attn + dense_mlp
+                    shared_attn_counted = True
+            elif kind == "cross":
+                total += attn + dense_mlp
+            elif kind == "encdec":
+                total += 2 * attn + dense_mlp  # self + cross attention, mlp
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total += self.encoder_layers * (attn + dense_mlp)
+        return int(total)
 
 
 def layer_kinds(cfg: ArchConfig) -> list:
@@ -101,6 +148,75 @@ def repeat_unit(cfg: ArchConfig):
     return tuple(kinds), 1
 
 
+# ---------------------------------------------------------------------------
+# Input shapes, and meta stand-ins for the dry-run
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> bool:
+    if shape.name == "long_500k":
+        return cfg.sub_quadratic
+    return True
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    dt = dtype if isinstance(dtype, torch.dtype) else getattr(torch, dtype)
+    return torch.empty(tuple(int(s) for s in shape), dtype=dt, device="meta")
+
+
+def frontend_specs(cfg: ArchConfig, batch: int) -> dict:
+    """Stubbed modality-frontend embeddings (the one allowed stub)."""
+    out = {}
+    if cfg.family == "audio":
+        out["audio_embeds"] = _meta((batch, cfg.encoder_seq, cfg.d_model),
+                                    cfg.dtype)
+    if cfg.family == "vlm":
+        out["image_embeds"] = _meta((batch, cfg.image_tokens, cfg.d_model),
+                                    cfg.dtype)
+    return out
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta stand-ins for every model input of this step kind."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        specs = {"tokens": _meta((b, s), torch.int32),
+                 "labels": _meta((b, s), torch.int32)}
+        specs.update(frontend_specs(cfg, b))
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": _meta((b, s), torch.int32)}
+        specs.update(frontend_specs(cfg, b))
+        return specs
+    # decode: ONE new token against a seq_len-deep cache; the frontends are
+    # consumed at prefill (their K/V live in the cache)
+    return {"token": _meta((b, 1), torch.int32),
+            "pos": _meta((b,), torch.int32),
+            "cache": cache_specs(cfg, b, s)}
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """Meta tensors matching ``models.kvcache.init_cache``."""
+    from repro_torch.models import kvcache   # local: keep configs light
+    return kvcache.cache_struct(cfg, batch, seq_len)
+
+
 ARCH_NAMES = [
     "minitron_8b",
     "h2o_danube_3_4b",
@@ -122,6 +238,10 @@ def get_config(name: str) -> ArchConfig:
     if key not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
+
+
+def all_configs() -> dict:
+    return {n: get_config(n) for n in ARCH_NAMES}
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.roofline import counter
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128)
@@ -26,7 +27,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """Plain version of K2, in the reference's order: q scaled by hd**-0.5
     in f32 before the dot, keys after the query masked to -1e30, f32
-    softmax, output ``acc / max(l, 1e-30)`` in q's dtype."""
+    softmax, output ``acc / max(l, 1e-30)`` in q's dtype, laid out
+    contiguous as the kernel writes it."""
     B, S, H, hd = q.shape
     g = H // k.shape[2]
     qf = q.float() * hd ** -0.5
@@ -40,7 +42,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(-1, keepdim=True)
     acc = torch.einsum("bhqk,bkhd->bhqd", p, vf)
     out = acc / torch.clamp(l, min=1e-30)
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    return out.permute(0, 2, 1, 3).to(q.dtype).contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -56,8 +58,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; takes one of {tuple(_DTYPE_CODE)}")
-    if ops.on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v)
+    with counter.charge("flash_attention", lambda: counter.flash_work(
+            B, S, H, Hkv, hd, q.element_size())):
+        where = ops.route(q, k, v)
+        if where == "cpu":
+            return flash_attention_plain(q, k, v)
+        if where == "meta":
+            return torch.empty_like(q)
+        return _launch(q, k, v)
+
+
+def _launch(q, k, v):
+    B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -68,6 +80,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                          "16-byte boundary (TMA)")
     out = torch.empty_like(q)
     ops.launch("flash_attention", "ishmem_flash_attention",
-               q.get_device(), *ptrs, out.data_ptr(), B, S, H, Hkv, hd,
+               q.get_device(), *ptrs, out.data_ptr(), B, S, H, k.shape[2], hd,
                _DTYPE_CODE[q.dtype], hd ** -0.5)
     return out

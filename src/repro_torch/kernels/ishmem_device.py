@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import flash_attn, ops
+from repro_torch.roofline import counter
 
 MAX_ROWS = 65535            # table entries map to gridDim.y
 # K10's kernels are instantiated for these head dims only (32: the
@@ -56,7 +57,8 @@ def paged_gather(data: torch.Tensor, table) -> torch.Tensor:
     over ``data`` with a zero row appended.
 
     ``data`` alone decides the route: on the CPU the plain version (the
-    table must lie on the CPU too), on the card the kernel.  The table may
+    table must lie on the CPU too), on ``meta`` an empty output, on the
+    card the kernel.  The table may
     be a numpy array or a CPU tensor (a host table, as the serving path
     passes it): its range is checked on the host and it reaches the card in
     one non-blocking copy from pinned memory, so the call never waits for
@@ -70,14 +72,25 @@ def paged_gather(data: torch.Tensor, table) -> torch.Tensor:
         raise TypeError("paged_gather: table must be a 2-D int32 array")
     R = data.shape[0]
     host = table.device.type == "cpu"
-    if ops.on_cpu(data) or not host:
-        ops.on_cpu(data, table)          # both on the CPU, or on one card
-    if table.numel():
-        lo, hi = torch.stack(torch.aminmax(table)).tolist()
-        if lo < 0 or hi > R:
-            raise IndexError(f"paged_gather: table entries outside [0, {R}]")
-    if data.device.type == "cpu":
-        return paged_gather_plain(data, table)
+    where = ops.route(data)
+    if where == "cpu" or not host:
+        ops.route(data, table)     # both on the CPU or meta, or on one card
+    with counter.charge("paged_gather", lambda: counter.gather_work(
+            table.numel(), data.shape[1] * data.element_size())):
+        if table.numel() and not table.is_meta:
+            lo, hi = torch.stack(torch.aminmax(table)).tolist()
+            if lo < 0 or hi > R:
+                raise IndexError(f"paged_gather: table entries outside "
+                                 f"[0, {R}]")
+        if where == "cpu":
+            return paged_gather_plain(data, table)
+        if where == "meta":
+            return data.new_empty((*table.shape, data.shape[1]))
+        return _gather_launch(data, table, host)
+
+
+def _gather_launch(data, table, host):
+    R = data.shape[0]
     if table.numel() > MAX_ROWS:
         raise ValueError(f"paged_gather: {table.numel()} entries exceed "
                          f"{MAX_ROWS}")
@@ -194,15 +207,27 @@ def paged_flash_attention(data: torch.Tensor, table, q: torch.Tensor, *,
     if max(k_off, v_off) + leaf.reps * T * leaf.nkv * hd > words:
         raise ValueError(f"paged attention: a leaf at {k_off} or {v_off} "
                          f"overruns the {words}-word payload")
-    if table.numel():
-        lo, hi = torch.stack(torch.aminmax(table)).tolist()
-        if lo < 0 or hi > R:
-            raise IndexError(f"paged attention: table entries outside "
-                             f"[0, {R}]")
-    if ops.on_cpu(data, q):
-        return fused_paged_attn_plain(data, table, q, k_off=k_off,
-                                      v_off=v_off, leaf=leaf, layer=layer,
-                                      block_tokens=T)
+    with counter.charge("fused_paged_attn", lambda: counter.paged_attn_work(
+            B, W, nq, leaf.nkv, hd, q.element_size())):
+        if table.numel():
+            lo, hi = torch.stack(torch.aminmax(table)).tolist()
+            if lo < 0 or hi > R:
+                raise IndexError(f"paged attention: table entries outside "
+                                 f"[0, {R}]")
+        where = ops.route(data, q)
+        if where == "cpu":
+            return fused_paged_attn_plain(data, table, q, k_off=k_off,
+                                          v_off=v_off, leaf=leaf,
+                                          layer=layer, block_tokens=T)
+        if where == "meta":
+            return torch.empty_like(q)
+        return _paged_launch(data, table, q, k_off, v_off, leaf, layer, T,
+                             signals)
+
+
+def _paged_launch(data, table, q, k_off, v_off, leaf, layer, T, signals):
+    B, W, nq, hd = q.shape
+    R, words = data.shape
     if not data.dtype == q.dtype == torch.bfloat16:
         raise TypeError(f"paged attention: the kernel takes a bf16 pool and "
                         f"q, got {data.dtype} and {q.dtype}")
@@ -224,7 +249,7 @@ def paged_flash_attention(data: torch.Tensor, table, q: torch.Tensor, *,
     for word, value in signals:
         if word.numel() != 1 or word.dtype != torch.int32:
             raise TypeError("paged attention: a signal is one int32 word")
-        ops.on_cpu(data, word)             # on the pool's card
+        ops.route(data, word)              # on the pool's card
         words_of += [word.data_ptr(), int(value)]
     meta = np.empty(2 * len(words_of) + table.numel(), np.int32)
     meta[:2 * len(words_of)].view(np.int64)[:] = words_of
@@ -285,34 +310,40 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
         view.pool.num_blocks, lay.block_words)
     offs = _leaf_offsets(lay)
     k_off, v_off = offs[(unit_idx, "k")], offs[(unit_idx, "v")]
-    route = fused_route(data, q, dtype)
-    if route == "composition":
-        pay = paged_gather(data, view.table())     # a host table: no sync
-        k = _extract_leaf(pay, lay, k_leaf, view.num_slots, k_off)[layer]
-        v = _extract_leaf(pay, lay, v_leaf, view.num_slots, v_off)[layer]
-        if dtype is not None:
-            k, v = k.to(dtype), v.to(dtype)
-        return heap, flash_attn.flash_attention(q, k.contiguous(),
-                                                v.contiguous())
-    if route == "plain":
-        return heap, fused_paged_attn_plain(
+    with counter.charge("fused_paged_attn", lambda: counter.paged_attn_work(
+            q.shape[0], q.shape[1], q.shape[2], k_leaf.nkv, k_leaf.hd,
+            q.element_size())):
+        route = fused_route(data, q, dtype)
+        if route == "meta":
+            return heap, torch.empty_like(q)
+        if route == "composition":
+            pay = paged_gather(data, view.table())     # a host table: no sync
+            k = _extract_leaf(pay, lay, k_leaf, view.num_slots, k_off)[layer]
+            v = _extract_leaf(pay, lay, v_leaf, view.num_slots, v_off)[layer]
+            if dtype is not None:
+                k, v = k.to(dtype), v.to(dtype)
+            return heap, flash_attn.flash_attention(q, k.contiguous(),
+                                                    v.contiguous())
+        if route == "plain":
+            return heap, fused_paged_attn_plain(
+                data, view.table(), q, k_off=k_off, v_off=v_off,
+                leaf=k_leaf, layer=layer, block_tokens=lay.block_tokens,
+                dtype=dtype)
+        signals = [(heap.read(sig_ptr, view.pe), expected)
+                   for sig_ptr, expected in waits]
+        return heap, paged_flash_attention(
             data, view.table(), q, k_off=k_off, v_off=v_off, leaf=k_leaf,
-            layer=layer, block_tokens=lay.block_tokens, dtype=dtype)
-    signals = [(heap.read(sig_ptr, view.pe), expected)
-               for sig_ptr, expected in waits]
-    return heap, paged_flash_attention(
-        data, view.table(), q, k_off=k_off, v_off=v_off, leaf=k_leaf,
-        layer=layer, block_tokens=lay.block_tokens, signals=signals)
+            layer=layer, block_tokens=lay.block_tokens, signals=signals)
 
 
 def fused_route(data, q, dtype=None) -> str:
     """The route :func:`fused_paged_attn` takes: ``"plain"`` for a pool
-    row on the CPU; ``"kernel"`` (K11, one launch) for a bf16 pool and q on
-    the card with ``dtype`` None or bf16; ``"composition"`` (K3 over every
-    table block, then K2 on the extracted layer) for any other dtype on the
-    card."""
+    row on the CPU; ``"meta"`` for one on ``meta`` (an empty output);
+    ``"kernel"`` (K11, one launch) for a bf16 pool and q on the card with
+    ``dtype`` None or bf16; ``"composition"`` (K3 over every table block,
+    then K2 on the extracted layer) for any other dtype on the card."""
     if not data.is_cuda:
-        return "plain"
+        return "meta" if data.is_meta else "plain"
     bf16 = torch.bfloat16
     if data.dtype == q.dtype == bf16 and dtype in (None, bf16):
         return "kernel"
@@ -365,9 +396,8 @@ def _split(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, tf32_round(x - hi)])
 
 
-def _check_partial(q, k, v) -> bool:
-    """Raise on inputs K10 does not take; True when they lie on the CPU
-    (the plain version's route), False on one CUDA device."""
+def _check_partial(q, k, v) -> str:
+    """Raise on inputs K10 does not take; else the route (``ops.route``)."""
     B, Sq, H, hd = q.shape
     if (k.shape != v.shape or k.dim() != 4 or k.shape[0] != B
             or k.shape[2:] != (H, hd) or k.shape[1] < 1):
@@ -377,14 +407,15 @@ def _check_partial(q, k, v) -> bool:
     if not q.dtype == k.dtype == v.dtype or q.dtype not in codes:
         raise TypeError(f"flash_partial: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; takes one of {tuple(codes)}")
-    if ops.on_cpu(q, k, v):
-        return True
+    where = ops.route(q, k, v)
+    if where != "cuda":
+        return where
     if hd not in PARTIAL_HEAD_DIMS:
         raise ValueError(f"flash_partial: head_dim {hd} not in "
                          f"{PARTIAL_HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_partial: q, k and v must be contiguous")
-    return False
+    return where
 
 
 def flash_partial_split_plain(q: torch.Tensor, k: torch.Tensor,
@@ -410,19 +441,24 @@ def flash_partial_split_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_partial_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """K10's split pass (``split_rows`` and ``split_vt``): the hi/lo planes
     that :func:`flash_partial_split_plain` describes, in one call."""
-    if _check_partial(q, k, v):
-        return flash_partial_split_plain(q, k, v)
+    where = _check_partial(q, k, v)
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
-    f32 = dict(dtype=torch.float32, device=q.device)
-    qs = torch.empty((2, B, Sq, H, hd), **f32)
-    ks = torch.empty((2, B, Skv, H, hd), **f32)
-    vt = torch.empty((2, B, H, hd, -(-Skv // 8) * 8), **f32)
-    ops.launch("flash_partial_split", "ishmem_flash_partial_split",
-               q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), B, Sq, Skv, H, hd,
-               flash_attn._DTYPE_CODE[q.dtype], hd ** -0.5)
-    return qs, ks, vt
+    with counter.charge("flash_partial_split", lambda: counter.split_work(
+            B, Sq, Skv, H, hd, q.element_size())):
+        if where == "cpu":
+            return flash_partial_split_plain(q, k, v)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        qs = torch.empty((2, B, Sq, H, hd), **f32)
+        ks = torch.empty((2, B, Skv, H, hd), **f32)
+        vt = torch.empty((2, B, H, hd, -(-Skv // 8) * 8), **f32)
+        if where == "cuda":
+            ops.launch("flash_partial_split", "ishmem_flash_partial_split",
+                       q.get_device(), q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                       vt.data_ptr(), B, Sq, Skv, H, hd,
+                       flash_attn._DTYPE_CODE[q.dtype], hd ** -0.5)
+        return qs, ks, vt
 
 
 def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -433,18 +469,24 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l)``: the unnormalised output ``(B, Sq, H, hd)`` and the softmax state
     ``(B, Sq, H)``, all f32.  On the card: the split pass, then the
     partial over its planes."""
-    if _check_partial(q, k, v):
-        return flash_partial_plain(q, k, v, q_off=q_off, k_off=k_off)
+    where = _check_partial(q, k, v)
     B, Sq, H, hd = q.shape
-    qs, ks, vt = flash_partial_split(q, k, v)
-    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    ops.launch("flash_partial", "ishmem_flash_partial", q.get_device(),
-               qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), acc.data_ptr(),
-               m.data_ptr(), l.data_ptr(), B, Sq, k.shape[1], H, hd,
-               int(q_off), int(k_off), int(q.dtype == torch.float32))
-    return acc, m, l
+    with counter.charge("flash_partial", lambda: counter.partial_work(
+            B, Sq, k.shape[1], H, hd, q.element_size(), q_off, k_off)):
+        if where == "cpu":
+            return flash_partial_plain(q, k, v, q_off=q_off, k_off=k_off)
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        if where == "meta":
+            return acc, m, l
+        qs, ks, vt = flash_partial_split(q, k, v)
+        ops.launch("flash_partial", "ishmem_flash_partial", q.get_device(),
+                   qs.data_ptr(), ks.data_ptr(), vt.data_ptr(),
+                   acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, Sq,
+                   k.shape[1], H, hd, int(q_off), int(k_off),
+                   int(q.dtype == torch.float32))
+        return acc, m, l
 
 
 def merge_partials(parts):

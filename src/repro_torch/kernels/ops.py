@@ -12,7 +12,10 @@ library loads, in ``_build.ENTRIES``) on the tensor's device and current
 stream, raises on a nonzero ``cudaError_t`` (a launch the card
 refuses never runs, and no later synchronise reports it), and counts the
 launch.  A wrapper given CPU tensors runs its plain PyTorch version instead
-and counts nothing.
+and counts nothing; given ``meta`` tensors (the dry-run) it returns empty
+outputs of the kernel's shapes on ``meta`` and runs neither.  On every
+route it charges the open work counters its kernel's formula
+(``roofline/counter.py``).
 
 ``LAUNCHES`` is the per-kernel count a run reads to show its main path went
 through the kernels.
@@ -50,10 +53,12 @@ def launch(name: str, entry: str, device: int, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU (the plain-version route);
-    False when every one lies on one CUDA device; raises otherwise.  The
-    CUDA case reads no ``torch.device``: it is every launch's test."""
+def route(*tensors) -> str:
+    """Where a wrapper's tensors send it: ``"cuda"`` when every one lies
+    on one CUDA device (the kernel), ``"cpu"`` when every one lies on the
+    CPU (the plain version), ``"meta"`` when every one is a meta tensor
+    (empty outputs, the dry-run); raises otherwise.  The CUDA case reads
+    no ``torch.device``: it is every launch's test."""
     first = tensors[0]
     if first.is_cuda:
         index = first.get_device()
@@ -61,9 +66,11 @@ def on_cpu(*tensors) -> bool:
             if not (t.is_cuda and t.get_device() == index):
                 break
         else:
-            return False
+            return "cuda"
     elif all(t.is_cpu for t in tensors):
-        return True
+        return "cpu"
+    elif all(t.is_meta for t in tensors):
+        return "meta"
     raise ValueError(f"tensors on mixed or unsupported devices: "
                      f"{[str(t.device) for t in tensors]}")
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.roofline import counter
 
 LANE = 128
 OPS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum,
@@ -41,13 +42,17 @@ def reduce_tile(rows: torch.Tensor, op: str = "sum") -> torch.Tensor:
     if rows.dtype not in _DTYPE_CODE:
         raise TypeError(f"reduce_tile: dtype {rows.dtype}; takes one of "
                         f"{tuple(_DTYPE_CODE)}")
-    if ops.on_cpu(rows):
-        return reduce_tile_plain(rows, op)
-    if not rows.is_contiguous():
-        raise ValueError("reduce_tile: rows must be contiguous")
     T, N = rows.shape
-    out = torch.empty(N, dtype=rows.dtype, device=rows.device)
-    ops.launch("reduce_tile", "ishmem_reduce_tile", rows.get_device(),
-               rows.data_ptr(), out.data_ptr(), T, N,
-               _DTYPE_CODE[rows.dtype], _OP_CODE[op])
-    return out
+    with counter.charge("reduce_tile", lambda: counter.reduce_tile_work(
+            T, N, rows.element_size())):
+        where = ops.route(rows)
+        if where == "cpu":
+            return reduce_tile_plain(rows, op)
+        out = torch.empty(N, dtype=rows.dtype, device=rows.device)
+        if where == "cuda":
+            if not rows.is_contiguous():
+                raise ValueError("reduce_tile: rows must be contiguous")
+            ops.launch("reduce_tile", "ishmem_reduce_tile",
+                       rows.get_device(), rows.data_ptr(), out.data_ptr(),
+                       T, N, _DTYPE_CODE[rows.dtype], _OP_CODE[op])
+        return out

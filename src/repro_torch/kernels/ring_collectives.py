@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import _devices
 from repro_torch.kernels import ops
+from repro_torch.roofline import counter
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 REDUCE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C dtype code
@@ -71,15 +72,19 @@ def ring_allgather(x: torch.Tensor) -> torch.Tensor:
     """fcollect: ``x`` ``(npes, chunk...)`` -> ``(npes, npes, chunk...)``,
     where ``out[p][q] = x[q]`` for every PE p."""
     check_stacked("ring_allgather", x, DTYPES)
-    if ops.on_cpu(x):
-        return ring_allgather_plain(x)
-    P = x.shape[0]
-    out = torch.empty((P, P) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    ops.launch("ring_allgather", "ishmem_ring_allgather",
-               x.get_device(), out.data_ptr(), x.data_ptr(), P,
-               x.numel() // P * x.element_size())
-    return out
+    with counter.charge("ring_allgather",
+                        lambda: counter.allgather_work(x)):
+        where = ops.route(x)
+        if where == "cpu":
+            return ring_allgather_plain(x)
+        P = x.shape[0]
+        out = torch.empty((P, P) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        if where == "cuda":
+            ops.launch("ring_allgather", "ishmem_ring_allgather",
+                       x.get_device(), out.data_ptr(), x.data_ptr(), P,
+                       x.numel() // P * x.element_size())
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -107,15 +112,18 @@ def ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
     if x.shape[1] != P:
         raise ValueError(f"ring_reduce_scatter: x must be (npes, npes, ...), "
                          f"got {tuple(x.shape)}")
-    if ops.on_cpu(x):
-        return ring_reduce_scatter_plain(x)
-    out = torch.empty((P,) + tuple(x.shape[2:]), dtype=x.dtype,
-                      device=x.device)
-    ops.launch("ring_reduce_scatter", "ishmem_ring_reduce_scatter",
-               x.get_device(), out.data_ptr(), x.data_ptr(), P,
-               x.numel() // (P * P),
-               REDUCE_DTYPES[x.dtype])
-    return out
+    with counter.charge("ring_reduce_scatter",
+                        lambda: counter.reduce_scatter_work(x)):
+        where = ops.route(x)
+        if where == "cpu":
+            return ring_reduce_scatter_plain(x)
+        out = torch.empty((P,) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        if where == "cuda":
+            ops.launch("ring_reduce_scatter", "ishmem_ring_reduce_scatter",
+                       x.get_device(), out.data_ptr(), x.data_ptr(), P,
+                       x.numel() // (P * P), REDUCE_DTYPES[x.dtype])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -140,13 +148,17 @@ def push_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
     P = x.shape[0]
     if not 0 <= root < P:
         raise ValueError(f"push_broadcast: root {root} outside {P} PEs")
-    if ops.on_cpu(x):
-        return push_broadcast_plain(x, root)
-    out = torch.empty_like(x)
-    ops.launch("push_broadcast", "ishmem_push_broadcast", x.get_device(),
-               out.data_ptr(), x.data_ptr(), P,
-               x.numel() // P * x.element_size(), root)
-    return out
+    with counter.charge("push_broadcast",
+                        lambda: counter.broadcast_work(x)):
+        where = ops.route(x)
+        if where == "cpu":
+            return push_broadcast_plain(x, root)
+        out = torch.empty_like(x)
+        if where == "cuda":
+            ops.launch("push_broadcast", "ishmem_push_broadcast",
+                       x.get_device(), out.data_ptr(), x.data_ptr(), P,
+                       x.numel() // P * x.element_size(), root)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +192,17 @@ def barrier_push(npes: int, *, device=None) -> torch.Tensor:
     if npes < 1:
         raise ValueError(f"barrier_push: npes must be >= 1, got {npes}")
     dev = _devices.resolve(device)
-    if dev.type == "cpu":
-        return barrier_push_plain(npes, dev)
-    if dev.type != "cuda":
-        raise ValueError(f"barrier_push: no kernel for device {dev}")
+    with counter.charge("barrier_push", lambda: counter.barrier_work(npes)):
+        if dev.type == "cpu":
+            return barrier_push_plain(npes, dev)
+        if dev.type == "meta":
+            return torch.empty(npes, dtype=torch.int32, device=dev)
+        if dev.type != "cuda":
+            raise ValueError(f"barrier_push: no kernel for device {dev}")
+        return _barrier_launch(npes, dev)
+
+
+def _barrier_launch(npes: int, dev: torch.device) -> torch.Tensor:
     index = torch.cuda.current_device() if dev.index is None else dev.index
     key = (index, torch._C._cuda_getCurrentRawStream(index))
     state = _BARRIERS.get(key)

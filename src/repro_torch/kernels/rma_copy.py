@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.roofline import counter
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 
@@ -45,13 +46,16 @@ def copy_into(dst_row: torch.Tensor, src: torch.Tensor,
     if not 0 <= offset <= dst_row.numel() - n:
         raise IndexError(f"copy_into: [{offset}, {offset + n}) outside a row "
                          f"of {dst_row.numel()}")
-    if ops.on_cpu(dst_row, src):
-        return copy_into_plain(dst_row, src, offset)
     itemsize = dst_row.itemsize
-    ops.launch("copy_into", "ishmem_copy_into", dst_row.get_device(),
-               dst_row.data_ptr() + int(offset) * itemsize, src.data_ptr(),
-               n * itemsize)
-    return dst_row
+    with counter.charge("copy_into", lambda: counter.copy_work(n, itemsize)):
+        where = ops.route(dst_row, src)
+        if where == "cpu":
+            return copy_into_plain(dst_row, src, offset)
+        if where == "cuda":
+            ops.launch("copy_into", "ishmem_copy_into", dst_row.get_device(),
+                       dst_row.data_ptr() + int(offset) * itemsize,
+                       src.data_ptr(), n * itemsize)
+        return dst_row
 
 
 # ---------------------------------------------------------------------------
@@ -77,13 +81,16 @@ def remote_put(x: torch.Tensor, *, target_offset: int = 1,
     ``n mod w`` elements unwritten when its w slices do not divide n)."""
     from repro_torch.kernels import ring_collectives
     ring_collectives.check_stacked("remote_put", x, DTYPES)
-    if ops.on_cpu(x):
-        return remote_put_plain(x, target_offset)
-    out = torch.empty_like(x)
-    flags = ring_collectives.flags_for(x)
-    P = x.shape[0]
-    ops.launch("remote_put", "ishmem_remote_put", x.get_device(),
-               out.data_ptr(), x.data_ptr(), flags.data_ptr(), flags.numel(),
-               P, x.numel() // P * x.element_size(), target_offset,
-               work_items)
-    return out
+    with counter.charge("remote_put", lambda: counter.put_work(x)):
+        where = ops.route(x)
+        if where == "cpu":
+            return remote_put_plain(x, target_offset)
+        out = torch.empty_like(x)
+        if where == "cuda":
+            flags = ring_collectives.flags_for(x)
+            P = x.shape[0]
+            ops.launch("remote_put", "ishmem_remote_put", x.get_device(),
+                       out.data_ptr(), x.data_ptr(), flags.data_ptr(),
+                       flags.numel(), P, x.numel() // P * x.element_size(),
+                       target_offset, work_items)
+        return out

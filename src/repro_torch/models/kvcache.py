@@ -73,6 +73,15 @@ def cache_shapes(cfg, batch: int, seq_len: int) -> dict:
         for kind in unit]}
 
 
+def cache_struct(cfg, batch: int, seq_len: int) -> dict:
+    """The decode cache as ``meta`` tensors (the dry-run's stand-in), leaf
+    for leaf the reference's ``cache_struct``."""
+    return {"blocks": [
+        {key: torch.empty(shape, dtype=getattr(torch, dt), device="meta")
+         for key, (shape, dt) in entry.items()}
+        for entry in cache_shapes(cfg, batch, seq_len)["blocks"]]}
+
+
 def init_cache(cfg, batch: int, seq_len: int, device) -> dict:
     """Zeros, and -1 (empty) in a ring's ``kpos``."""
     return {"blocks": [

@@ -14,10 +14,13 @@ def dense_init(gen: torch.Generator, shape, scale=None,
     stacked weight), drawn in f32 from ``gen`` — the reference's
     distribution, not its numbers.  A stacked weight is drawn one matrix
     at a time and scaled in place, so the f32 draw of a full-width expert
-    stack (arctic's 2 x 128 experts of 7168 x 4864) never exists whole."""
+    stack (arctic's 2 x 128 experts of 7168 x 4864) never exists whole.
+    On ``meta`` (``gen`` None) it draws nothing."""
     fan_in = shape[0] if len(shape) <= 2 else shape[-2]
     scale = scale if scale is not None else fan_in ** -0.5
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:                      # the dry-run's stand-in: no draw
+        return out
     mats = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
     for m in mats:
         w = torch.randn(m.shape, generator=gen, dtype=torch.float32,

@@ -34,7 +34,12 @@ unit is recomputed in the backward pass
 ring cache (SWA, or a hybrid above 65,536 tokens) keeps the last
 ``window`` positions of the prompt, and decode writes slot ``pos % W`` and
 reads the slots whose ``kpos`` lies in the window.  ``shardctx.constrain``
-has no counterpart.
+sits at the reference's four sites (the gathered weights under
+``fsdp_gather_weights``, the hidden state after each repeat and after the
+embedding, the CE chunk's logits); with no GSPMD it returns its input and
+only records the spec the dry-run's rules give.  Every step runs on
+``meta`` tensors too (``init_params(device="meta")``), which is how the
+dry-run counts its work.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ import torch.utils.checkpoint
 from repro_torch import _devices
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import flash_attn
-from repro_torch.launch import policy as policy_mod
+from repro_torch.launch import policy as policy_mod, shardctx
 from repro_torch.models import attention as attn_mod, moe as moe_mod, \
     ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, \
@@ -92,11 +97,13 @@ def _init_block(gen, kind, cfg, dtype, reps, dev):
 def init_params(cfg, *, seed: int = 0, device=None) -> dict:
     """Random weights with the reference's distributions (``dense_init``),
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
-    (the current CUDA device unless given)."""
+    (the current CUDA device unless given).  On ``meta`` the leaves are
+    empty and nothing is drawn (a meta generator does not exist)."""
     dev = _devices.resolve(device)
     unit, reps = cfgbase.repeat_unit(cfg)
     dtype = getattr(torch, cfg.param_dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
 
     def ones(*shape):
@@ -130,9 +137,13 @@ def init_params(cfg, *, seed: int = 0, device=None) -> dict:
 
 def _layer(tree, r):
     """Repeat ``r`` of a stacked parameter or cache tree."""
+    return _map(lambda leaf: leaf[r], tree)
+
+
+def _map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _layer(v, r) for k, v in tree.items()}
-    return tree[r]
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _flat(o):
@@ -283,10 +294,15 @@ def backbone(params, cfg, x, *, mode, positions=None, cache=None,
     shared = params.get("shared_attn")
     new_blocks = [{} for _ in unit]
 
+    gather = policy_mod.get().fsdp_gather_weights
+
     def unit_body(r, x, aux):
         for i, kind in enumerate(unit):
             bp = shared if kind == "shared_attn" else \
                 _layer(params["blocks"][i], r)
+            if gather:
+                bp = _map(lambda w: shardctx.constrain(w, "gathered_weight"),
+                          bp)
             c = _layer(cache["blocks"][i], r) if cache is not None else None
             x, nc, a = apply_block(kind, bp, x, cfg=cfg, mode=mode,
                                    positions=positions, cache=c,
@@ -297,14 +313,17 @@ def backbone(params, cfg, x, *, mode, positions=None, cache=None,
                     new_blocks[i].setdefault(key, []).append(leaf)
             if a is not None:              # 0 + a is a: start from the first
                 aux = a if aux is None else aux + a
-        return x, aux
+        return shardctx.constrain(x, "hidden"), aux
 
     remat = cfg.remat and mode == "train"
     aux = None
     for r in range(reps):
         if remat:
+            # no unit draws a random number, so there is no RNG state to
+            # keep (forking the card's would add ops a meta run lacks)
             x, aux = torch.utils.checkpoint.checkpoint(
-                unit_body, r, x, aux, use_reentrant=False)
+                unit_body, r, x, aux, use_reentrant=False,
+                preserve_rng_state=False)
         else:
             x, aux = unit_body(r, x, aux)
     if aux is None:
@@ -344,7 +363,8 @@ def _embed(params, cfg, tokens):
     # card sums each row's contributions in f32 and in a fixed order,
     # where indexing's adds them with atomics in the table's dtype (a
     # frequent token's bf16 row then loses most of its small addends)
-    return F.embedding(tokens, params["embed"]).to(cfg.activation_dtype())
+    x = F.embedding(tokens, params["embed"]).to(cfg.activation_dtype())
+    return shardctx.constrain(x, "hidden")
 
 
 def _lm_matrix(params, cfg):
@@ -373,7 +393,7 @@ def train_loss(params, cfg, batch):
     ldt = torch.bfloat16 if pol.logits_bf16 else torch.float32
     total = None
     for c0 in range(0, S, C):
-        logits = (x[:, c0:c0 + C] @ W).to(ldt)
+        logits = shardctx.constrain((x[:, c0:c0 + C] @ W).to(ldt), "logits")
         lse = torch.logsumexp(logits.float(), dim=-1)
         ll = torch.gather(logits, -1,
                           labels[:, c0:c0 + C, None])[..., 0].float()

@@ -63,7 +63,10 @@ def moe_ffn(p, x, cfg):
 
     # ---- load-balance auxiliary loss (Switch/GShard form) ----------------
     flat_e = expert_idx.reshape(-1)                              # (T*k,)
-    assign = torch.bincount(flat_e, minlength=E).float()
+    # tokens per expert, as bincount gives them (bincount has no meta
+    # kernel, so the dry-run could not trace it; scatter_add_ has one)
+    assign = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e)).float()
     aux = E * torch.sum(probs.mean(0) * assign / (T * k)) \
         * cfg.router_aux_weight
 

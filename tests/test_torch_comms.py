@@ -193,15 +193,20 @@ def test_wrappers_reject_bad_input(counts):
 
 
 def test_non_cpu_tensors_never_take_the_plain_version(counts):
+    """Meta tensors (the dry-run) get empty meta outputs of each kernel's
+    shapes, and neither version runs."""
     meta = torch.device("meta")
-    for fn in (rc.ring_allgather, rma_copy.remote_put,
-               lambda t: rc.push_broadcast(t, 0)):
-        with pytest.raises(ValueError):
-            fn(torch.zeros(4, 8, device=meta))
-    with pytest.raises(ValueError):
-        rc.ring_reduce_scatter(torch.zeros(4, 4, 8, device=meta))
-    with pytest.raises(ValueError):
-        rc.barrier_push(4, device="meta")
+    x = torch.zeros(4, 8, device=meta)
+    for fn, shape in ((rc.ring_allgather, (4, 4, 8)),
+                      (rma_copy.remote_put, (4, 8)),
+                      (lambda t: rc.push_broadcast(t, 0), (4, 8))):
+        out = fn(x)
+        assert out.is_meta and out.shape == shape
+    out = rc.ring_reduce_scatter(torch.zeros(4, 4, 8, device=meta))
+    assert out.is_meta and out.shape == (4, 8)
+    out = rc.barrier_push(4, device="meta")
+    assert out.is_meta and out.shape == (4,) and out.dtype == torch.int32
+    assert not any(counts.values())
 
 
 # ---------------------------------------------------------------------------

@@ -1099,3 +1099,78 @@ def test_cuda_seq_parallel_at_hd32_and_hd80(card, kw):
     assert rep["against"] == ("single-PE flash" if kw.get("full")
                               else "plain causal attention")
     assert rep["finite"] and rep["max_abs_err"] <= 5e-5
+
+
+# ---------------------------------------------------------------------------
+# the work counter and the meta route (the dry-run)
+# ---------------------------------------------------------------------------
+
+
+def _charged(fn, *args, **kw):
+    from repro_torch.roofline import counter
+    with torch.no_grad(), counter.count() as c:
+        fn(*args, **kw)
+    s = c.summary()
+    s.pop("peak_bytes")
+    return s
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ring_allgather",
+                                  "ring_reduce_scatter"])
+def test_cuda_kernel_charged_as_its_plain_version(card, name):
+    """On the card the counter charges K2, K5 and K6 exactly what their
+    plain versions are charged on the CPU, and the launch runs."""
+    g = torch.Generator().manual_seed(28)
+    if name == "flash_attention":
+        x = [torch.randn(1, 512, h, 128, generator=g).bfloat16()
+             for h in (32, 8, 8)]
+        fn = flash_attn.flash_attention
+    elif name == "ring_allgather":
+        x, fn = [torch.randn(4, 4096, generator=g).bfloat16()], \
+            rc.ring_allgather
+    else:
+        x, fn = [torch.randn(4, 4, 4096, generator=g)], rc.ring_reduce_scatter
+    cpu = _charged(fn, *x)
+    ops.reset_launches()
+    got = _charged(fn, *[t.to(card) for t in x])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == 1
+    assert got == cpu and got["by_kernel"][name]["calls"] == 1
+
+
+def test_cuda_meta_never_reaches_a_launch_and_cuda_never_takes_meta(card):
+    """Meta tensors return empty meta outputs with no launch, on a machine
+    with the card; a CUDA tensor routes to the kernel, never to meta."""
+    ops.reset_launches()
+    meta = torch.empty(1, 64, 8, 128, dtype=torch.bfloat16, device="meta")
+    out = flash_attn.flash_attention(meta, meta, meta)
+    assert out.is_meta and not any(ops.LAUNCHES.values())
+    assert rc.ring_allgather(torch.empty(4, 128, device="meta")).is_meta
+    assert not any(ops.LAUNCHES.values())
+    q = torch.randn(1, 64, 8, 128, device=card).bfloat16()
+    assert ops.route(q, q, q) == "cuda"
+    with pytest.raises(ValueError):
+        ops.route(q, meta)
+    out = flash_attn.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert out.is_cuda and ops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_cuda_step_counts_equal_its_dry_run(card, kind):
+    """A reduced qwen3-4b step (bf16, so prefill launches K2) on the card
+    counts exactly what its meta dry-run record counts."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(cfgbase.reduced(cfgbase.get_config("qwen3_4b")),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              head_dim=128, remat=True)
+    shape = cfgbase.ShapeSpec("s", kind, 128, 2)
+    rec = dryrun.run_one("qwen3_4b", shape, "card", cfg=cfg)
+    fn, args = dryrun.build_step(cfg, shape, device=card)
+    ops.reset_launches()
+    got = _charged(fn, *args)
+    torch.cuda.synchronize()
+    assert {k: got[k] for k in rec["counted"]} == rec["counted"]
+    assert ops.LAUNCHES["flash_attention"] == (cfg.num_layers
+                                               if kind == "prefill" else 0)

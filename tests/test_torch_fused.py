@@ -245,8 +245,9 @@ def test_fused_never_gathers_whole_payloads(monkeypatch, counts):
     assert out.shape == q.shape and bool(out.isfinite().all())
 
 
-def _fake(is_cuda, dtype):
-    return types.SimpleNamespace(is_cuda=is_cuda, dtype=dtype)
+def _fake(is_cuda, dtype, is_meta=False):
+    return types.SimpleNamespace(is_cuda=is_cuda, dtype=dtype,
+                                 is_meta=is_meta)
 
 
 @pytest.mark.parametrize("pool,q,cast,route", [
@@ -259,12 +260,15 @@ def _fake(is_cuda, dtype):
 ])
 def test_route_by_dtype(pool, q, cast, route):
     """On the card a bf16 pool and q launch K11; every other dtype keeps
-    K3 + K2.  On the CPU every dtype takes the plain version."""
+    K3 + K2.  On the CPU every dtype takes the plain version, on meta (the
+    dry-run) the empty output."""
     dt = lambda name: None if name is None else getattr(torch, name)
     assert ishmem_device.fused_route(_fake(True, dt(pool)), _fake(
         True, dt(q)), dt(cast)) == route
     assert ishmem_device.fused_route(_fake(False, dt(pool)), _fake(
         False, dt(q)), dt(cast)) == "plain"
+    assert ishmem_device.fused_route(_fake(False, dt(pool), True), _fake(
+        False, dt(q), True), dt(cast)) == "meta"
 
 
 def test_bf16_on_the_cpu_takes_the_plain_version(counts):

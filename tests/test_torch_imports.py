@@ -235,3 +235,47 @@ def test_slice_9_module_is_the_ports_own(name):
                          text=True, env={"PYTHONPATH": src}, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+# the dry-run and the roofline: the reference's launch/{dryrun,sharding,
+# mesh,shardctx}.py and roofline/*, each the port's own
+SLICE_10 = ("launch.dryrun", "launch.sharding", "launch.mesh",
+            "launch.shardctx", "roofline", "roofline.counter",
+            "roofline.analysis")
+
+
+@pytest.mark.parametrize("name", SLICE_10)
+def test_slice_10_module_is_the_ports_own(name):
+    """Each dry-run and roofline module imports alone, without JAX or the
+    reference (the reference's dryrun also sets XLA_FLAGS on import: the
+    port's must not)."""
+    code = (
+        "import importlib, os, sys\n"
+        f"mod = importlib.import_module('repro_torch.{name}')\n"
+        "assert mod.__name__.startswith('repro_torch'), mod.__name__\n"
+        "assert 'XLA_FLAGS' not in os.environ\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": src}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+    assert f"repro_torch.{name}" in MODULES
+
+
+def test_dryrun_entry_points_run_on_the_card_unless_cpu_or_meta(no_card):
+    """``init_params`` and ``dryrun.build_step`` default to the card; the
+    caller may pass ``device="cpu"`` or ``device="meta"``."""
+    from repro_torch.launch import dryrun
+    cfg = base.reduced(base.get_config("qwen3_4b"))
+    shape = base.ShapeSpec("d", "decode", 16, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.build_step(cfg, shape)
+    for dev in ("cpu", "meta"):
+        _, args = dryrun.build_step(cfg, shape, device=dev)
+        assert args[0]["embed"].device.type == dev
+        assert args[3]["blocks"][0]["k"].device.type == dev

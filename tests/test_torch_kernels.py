@@ -363,16 +363,17 @@ def test_assemble_host_table_matches_tensor_table(monkeypatch, counts):
 
 def test_non_cpu_tensors_never_take_the_plain_version(counts):
     """A wrapper takes the plain version only because its tensors lie on
-    the CPU; tensors anywhere else go to the kernel or raise (here: the meta
-    device, which no kernel takes)."""
+    the CPU; meta tensors (the dry-run) get empty meta outputs of the
+    kernel's shapes and run neither version; mixed devices raise."""
     meta = torch.device("meta")
+    row = torch.zeros(8, device=meta)
+    assert rma_copy.copy_into(row, torch.zeros(2, device=meta), 0) is row
+    out = flash_attn.flash_attention(*(torch.zeros(1, 4, 2, 8,
+                                                   device=meta),) * 3)
+    assert out.is_meta and out.shape == (1, 4, 2, 8)
+    assert not any(counts.values())
     with pytest.raises(ValueError):
-        rma_copy.copy_into(torch.zeros(8, device=meta),
-                           torch.zeros(2, device=meta), 0)
-    with pytest.raises(ValueError):
-        flash_attn.flash_attention(*(torch.zeros(1, 4, 2, 8, device=meta),) * 3)
-    with pytest.raises(ValueError):
-        ops.on_cpu(torch.zeros(1), torch.zeros(1, device=meta))
+        ops.route(torch.zeros(1), torch.zeros(1, device=meta))
 
 
 def _on(device: str, *shape, dtype=torch.float32) -> torch.Tensor:
@@ -386,23 +387,25 @@ def _on(device: str, *shape, dtype=torch.float32) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("devices,want", [
-    (("cpu",), True), (("cpu", "cpu"), True), (("cpu", "cpu", "cpu"), True),
-    (("cuda",), False), (("cuda", "cuda", "cuda"), False),
-    (("cuda:1", "cuda:1"), False),
+    (("cpu",), "cpu"), (("cpu", "cpu"), "cpu"),
+    (("cpu", "cpu", "cpu"), "cpu"),
+    (("cuda",), "cuda"), (("cuda", "cuda", "cuda"), "cuda"),
+    (("cuda:1", "cuda:1"), "cuda"),
     (("cpu", "meta"), ValueError), (("meta", "cpu"), ValueError),
-    (("meta",), ValueError), (("cuda", "cpu"), ValueError),
+    (("meta",), "meta"), (("cuda", "cpu"), ValueError),
     (("cpu", "cuda"), ValueError), (("cuda", "cuda:1"), ValueError),
     (("cuda", "meta"), ValueError),
 ], ids=lambda v: "-".join(v) if isinstance(v, tuple) else str(v))
 def test_on_cpu_contract(devices, want):
-    """True for all-CPU tensors, False for tensors on one CUDA device,
-    ValueError for anything else."""
+    """``ops.route``: "cpu" for all-CPU tensors, "cuda" for tensors on one
+    CUDA device, "meta" for all-meta tensors (so a CUDA tensor never takes
+    the meta route), ValueError for anything else."""
     tensors = [_on(d, 4) for d in devices]
     if want is ValueError:
         with pytest.raises(ValueError):
-            ops.on_cpu(*tensors)
+            ops.route(*tensors)
     else:
-        assert ops.on_cpu(*tensors) is want
+        assert ops.route(*tensors) == want
 
 
 _F64 = torch.float64
@@ -456,7 +459,9 @@ BROADCAST_BAD = {
     "negative root": (lambda: (_on("cpu", 4, 8), -1), ValueError),
     "no PE axis": (lambda: (_on("cpu"), 0), ValueError),
     "no PEs": (lambda: (_on("cpu", 0, 8), 0), ValueError),
-    "meta": (lambda: (_on("meta", 4, 8), 0), ValueError),
+    # a meta tensor takes the dry-run's route, where the root is still
+    # checked
+    "meta": (lambda: (_on("meta", 4, 8), 4), ValueError),
     "bad dtype and root": (lambda: (_on("cpu", 4, 8, dtype=_F64), 9),
                            TypeError),
     "cuda, root outside": (lambda: (_on("cuda", 4, 8), 4), ValueError),

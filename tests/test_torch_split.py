@@ -109,9 +109,12 @@ def test_split_wrapper_takes_the_plain_version_on_cpu(counts):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError):
         ishmem_device.flash_partial_split(q, k[:, :, :1], v)
-    meta = q.to("meta")
+    meta = [t.to("meta") for t in (q, k, v)]  # the dry-run: empty planes
+    assert [(t.shape, t.dtype, t.is_meta) for t in
+            ishmem_device.flash_partial_split(*meta)] == \
+        [(t.shape, t.dtype, True) for t in want]
     with pytest.raises(ValueError):
-        ishmem_device.flash_partial_split(meta, meta, meta)
+        ishmem_device.flash_partial_split(q, *meta[1:])
 
 
 # ---------------------------------------------------------------------------
