@@ -253,7 +253,44 @@ Phases, each fatal on failure:
    memory term each argument read and each output written once), its
    share of the wall, the MFU, and the eager implementation's counted
    traffic at HBM rate, beside the card's name and power limit (none of
-   these gates the run).
+   these gates the run);
+29. the three policy fields (after 28): phase 28's prefill and decode
+   step under ``attn_repeat_kv=1`` (counts equal the meta records made
+   under that policy exactly, K2 launched 36 times and nothing else, each
+   call with 32 K/V heads and within 2e-2 of its plain version, the
+   prefill and decode logits no farther from the default run's than 1.25
+   times phase 28's SDPA distance, the cache holding 8 K/V heads), under
+   ``decode_onehot_update=1`` and under ``attn_impl=flash`` (logits,
+   caches and launches bitwise the default run's); a one-layer train step
+   under ``attn_impl=flash`` (its forward launches K2 once, and its
+   gradient raises ``NotImplementedError`` naming K2's missing
+   backward); then K2 as MHA at q/k/v (1, 4096, 32, 128) in a row of its
+   own (``flash_attention_mha4k``) beside SDPA;
+30. the four torch examples, each through ``main(["--device", "cuda"])``:
+   the quickstart's printed values equal its CPU run's; the serving
+   example's decode steps, migrations, migrated bytes, installments,
+   prefix hits, mapped blocks and copy-on-writes equal its CPU run's, at
+   the reference's temperatures and at ``--temperature 0``, where every
+   token equals the CPU run's too; the collectives example's fcollect,
+   broadcast and barrier equal their plain versions and its psum is
+   within 1e-4 of the engine's; ``train_lm``'s loss is finite and falls.
+   Each prints its K1/K2/K3/K5/K7/K8 launches and fails if it launched
+   none of the kernels its path runs;
+31. training at published widths and full depth: qwen3-4b at all 36
+   layers with AdamW, and llama-3.2-vision-90b at one repeat unit (5 of
+   100 layers) with Adafactor, each data-parallel over 2 PEs of one
+   512-token sequence, 3 steps through ``trainer.train``.  Each is sized
+   first on meta (``launch.dryrun.run_one``, arguments + temp; past 76 GiB
+   it would train with ``--comms-backend none`` and say so), its K4-K6
+   charges a step equal the count predicted from the leaf list, step 1's
+   DP law holds by relative L2 within 2e-2 in bf16, every loss is finite,
+   the launches are the prediction times the steps, and it prints wall
+   per step, tokens/s and peak ``max_memory_allocated`` beside the meta
+   prediction.  K6 then K5 then get rows at qwen3-4b's stacked w_gate
+   gradient over 2 PEs (``ring_reduce_scatter_full``,
+   ``ring_allgather_full``), bitwise their plain versions, beside
+   ``x.sum(0)`` and ``expand`` + ``contiguous``; phase 21's K5/K6 rows
+   are made here too, after the training phases.
 Every ``ISHMEM_*`` variable is cleared at the start: the phases set the
 knobs they test.  Phases 3, 5, 7-20 and 22-27 print their wall time and
 peak device memory, and K1-K3's rows carry their launches in phases 7-20
@@ -436,6 +473,45 @@ DRY_K2 = 36                          # K2 launches: one a layer
 DRY_LIB_RATIO = 1.25                 # K2's logits spread against SDPA's
 DRY_RUNS = 3                         # timed runs after a warm-up
 ALLOC_TOL = 0.01                     # allocator rounding of the arguments
+# phase 29: phase 28's prefill and decode under the reference's three
+# policy fields.  attn_repeat_kv runs K2 as MHA (K/V heads 8 -> 32) and is
+# held to its own meta records; the other two take the default's route, so
+# they are held bitwise to it
+POLICY_REPEAT = ["attn_repeat_kv=1"]
+POLICY_SAME = (["decode_onehot_update=1"], ["attn_impl=flash"])
+POLICY_FIELDS = (POLICY_REPEAT, *POLICY_SAME)
+# phase 30: the four torch examples; the launches each prints, and those
+# it must make on the card
+EXAMPLE_K = {"copy_into": "K1", "flash_attention": "K2",
+             "paged_gather": "K3", "ring_allgather": "K5",
+             "push_broadcast": "K7", "barrier_push": "K8"}
+EXAMPLE_NEEDS = {
+    "quickstart": ("copy_into",),
+    "serve_batch": ("copy_into", "flash_attention", "paged_gather"),
+    "serve_batch --temperature 0": ("copy_into", "flash_attention",
+                                    "paged_gather"),
+    "shmem_collectives": ("ring_allgather", "push_broadcast",
+                          "barrier_push"),
+    "train_lm": ()}
+SERVE_EXAMPLE_COUNTS = ("decode_steps", "migrations", "bytes_migrated",
+                        "stream_chunks", "prefix_hits",
+                        "blocks_prefix_shared", "cow_copies")
+COLL_TOL = 1e-4                      # tests/test_comms_equiv.py
+# phase 31: training at published widths and full depth (qwen3-4b, AdamW)
+# and at one repeat unit of the vision model (Adafactor), data-parallel
+# over 2 PEs of one 512-token sequence each, 3 steps, no checkpoint.  A
+# configuration whose meta peak (arguments + temp) passes FULL_TRAIN_FIT
+# trains with --comms-backend none instead (the card holds about 79 GiB)
+FULL_TRAIN = [
+    dict(label="qwen3-4b", arch="qwen3-4b", layers=None, npes=2, seq=512,
+         batch=2, steps=3, why="no cut: all 36 layers"),
+    dict(label="llama-3.2-vision-90b", arch="llama-3.2-vision-90b",
+         layers=5, npes=2, seq=512, batch=2, steps=3,
+         why="one repeat unit (4 self-attention layers and 1 "
+             "cross-attention layer) of 100 layers: the whole model's "
+             "bf16 weights are 169 GiB")]
+FULL_TRAIN_FIT = 76 * 2**30
+FULL_LEAF_ELEMS = 36 * 2560 * 9728   # qwen3-4b's stacked w_gate
 COUNT_KEYS = ("flops", "bytes", "transcendental", "collective_bytes",
               "collective_by_kind", "n_collective_sites", "by_kernel")
 
@@ -2000,41 +2076,42 @@ def _phase_ms(torch, fn, names):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def check_train_rows(torch, rc, dev, deferred):
-    """K6 then K5 at the embedding leaf's shape in phase 21: qwen3-4b's
-    (151936, 2560) bf16 gradient on 4 PEs, as ``ShmemOps`` lays it out,
-    rows (4, 4, 97,239,040); bitwise against the plain versions, timed
-    beside them, ``x.sum(0)`` and ``expand`` + ``contiguous`` (device
-    times with the other rows', last)."""
-    P, k = TRAIN["npes"], TRAIN_EMBED_ELEMS // TRAIN["npes"]
+def check_train_rows(torch, rc, dev, deferred, *, P, elems, suffix, leaf,
+                     phase):
+    """K6 then K5 at a training gradient leaf of ``elems`` bf16 elements
+    over ``P`` PEs, as ``ShmemOps`` lays it out, rows (P, P, elems / P):
+    bitwise against the plain versions, timed beside them, ``x.sum(0)`` and
+    ``expand`` + ``contiguous`` (device times with the other rows',
+    last).  Rows ``ring_reduce_scatter_<suffix>`` and
+    ``ring_allgather_<suffix>``."""
+    k = elems // P
     gen = torch.Generator(device=dev).manual_seed(21)
     rows = torch.randn((P, P, k), generator=gen, device=dev,
                        dtype=torch.bfloat16)
     mine = rc.ring_reduce_scatter(rows)
     if not torch.equal(mine, rc.ring_reduce_scatter_plain(rows)):
-        fail("K6 differs from its plain version at the embedding leaf")
+        fail(f"K6 differs from its plain version at {leaf}")
     full = rc.ring_allgather(mine)
     if not torch.equal(full, rc.ring_allgather_plain(mine)):
-        fail("K5 differs from its plain version at the embedding leaf")
+        fail(f"K5 differs from its plain version at {leaf}")
     del full
+    torch.cuda.empty_cache()
     nbytes = (P * P + P) * k * 2             # read x once, write out once
     out = []
     for name, k_id, replaces, kernel, plain, library, match, shape in (
-            ("ring_reduce_scatter_train", "K6",
+            (f"ring_reduce_scatter_{suffix}", "K6",
              "src/repro/kernels/ring_collectives.py:125",
              lambda: rc.ring_reduce_scatter(rows),
              lambda: rc.ring_reduce_scatter_plain(rows),
              lambda: rows.sum(0), "reduce_scatter_pull",
-             "x (4, 4, 97239040) bf16: the embedding leaf's gradient "
-             "reduce-scatter in phase 21"),
-            ("ring_allgather_train", "K5",
+             f"x ({P}, {P}, {k}) bf16: {leaf} reduce-scatter in {phase}"),
+            (f"ring_allgather_{suffix}", "K5",
              "src/repro/kernels/ring_collectives.py:67",
              lambda: rc.ring_allgather(mine),
              lambda: rc.ring_allgather_plain(mine),
              lambda: mine.unsqueeze(0).expand(P, *mine.shape).contiguous(),
              "allgather_pull",
-             "x (4, 97239040) bf16: the embedding leaf's gradient "
-             "all-gather in phase 21")):
+             f"x ({P}, {k}) bf16: {leaf} all-gather in {phase}")):
         row = {"name": name, "route": "cuda",
                "source": "src/repro_torch/csrc/ring_collectives.cu",
                "replaces": replaces, "max_abs_err": 0.0,
@@ -2055,11 +2132,11 @@ def check_train_rows(torch, rc, dev, deferred):
     return out
 
 
-def phase_train(torch, ops, rc, dev, deferred):
+def phase_train(torch, ops, dev):
     """Phase 21: training at qwen3-4b's published widths, depth cut to
     TRAIN_LAYERS, data-parallel over 4 simulated PEs whose gradients reduce
     through ``ShmemOps`` (K4 for small leaves, K6 then K5 for large ones).
-    Returns (the training run's launches, the K5/K6 rows)."""
+    Returns the training run's launches."""
     import os
     import tempfile
     from repro_torch.comms import api
@@ -2224,7 +2301,7 @@ def phase_train(torch, ops, rc, dev, deferred):
     del params_a, state_a, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, check_train_rows(torch, rc, dev, deferred)
+    return launches
 
 
 def _counts_equal(card, rec, label):
@@ -2394,6 +2471,7 @@ def phase_dryrun(torch, ops, dev, smi):
     out = {"prefill": _report(torch, analysis, "prefill", rec, wall, peak,
                               smi)}
     out["prefill"]["launches"] = launches
+    out["prefill"]["k2_rel_l2"], out["prefill"]["sdpa_rel_l2"] = rel, lib
 
     # ---- (b) one dense decode step against that cache ---------------------
     rec_d = dryrun.run_one(DRY_ARCH, decode, "card", cfg=cfg)
@@ -2502,6 +2580,474 @@ def phase_dryrun(torch, ops, dev, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return {"28": launches, "28-train": launches_t}, out
+
+
+def _same(torch, a, b) -> bool:
+    """Two trees of tensors (dicts, lists, tuples) bitwise equal."""
+    from repro_torch.train import tree as tree_mod
+    la, lb = tree_mod.leaves(a), tree_mod.leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def phase_policy(torch, ops, dev, smi, deferred, dry):
+    """Phase 29: phase 28's prefill and decode step under each of the three
+    policy fields (module docstring).  ``dry`` is phase 28's measurements.
+    Returns (the launches of the ``attn_repeat_kv`` prefill, K2's MHA row)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels import flash_attn
+    from repro_torch.launch import dryrun, policy as policy_mod
+    from repro_torch.models import model
+    from repro_torch.roofline import counter
+    from repro_torch.train import train_step as ts
+    cfg = cfgbase.get_config(DRY_ARCH)
+    prefill = cfgbase.ShapeSpec(**DRY_PREFILL)
+    decode = cfgbase.ShapeSpec(**DRY_DECODE)
+    say("phase 29, the policy fields on phase 28's qwen3-4b prefill "
+        "(1 x 4096, 36 layers) and its decode step: "
+        + ", ".join(" ".join(f) for f in POLICY_FIELDS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn, args = dryrun.build_step(cfg, prefill, device=dev, seed=0)
+    params = args[0]
+    pos = torch.full((1,), prefill.seq_len - 1, dtype=torch.int32,
+                     device=dev)
+
+    def run(fields):
+        """Prefill then one decode step under ``fields``: (logits, cache,
+        decode logits, new cache, prefill counts, decode counts, prefill
+        launches)."""
+        with policy_mod.use(policy_mod.parse_overrides(fields)), \
+                torch.no_grad():
+            ops.reset_launches()
+            with counter.count() as card:
+                logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            token = logits.argmax(-1, keepdim=True).to(torch.int32)
+            with counter.count() as card_d:
+                dlogits, dcache = model.decode_step(params, cfg, token, pos,
+                                                    cache)
+            torch.cuda.synchronize()
+        return logits, cache, dlogits, dcache, card, card_d, launches
+
+    base = run([])
+    # ---- attn_repeat_kv: the card's counts against the meta records -------
+    pol = policy_mod.parse_overrides(POLICY_REPEAT)
+    recs = {}
+    for shape in (prefill, decode):
+        rec = dryrun.run_one(DRY_ARCH, shape, "card", cfg=cfg, policy=pol)
+        if rec["status"] != "ok" or rec["policy"] != dataclasses.asdict(pol):
+            fail(f"phase 29 dry-run of the {shape.kind} under "
+                 f"{POLICY_REPEAT}: {rec['status']}")
+        recs[shape.kind] = rec
+    logits, cache, dlogits, dcache, card, card_d, launches = run(
+        POLICY_REPEAT)
+    _counts_equal(card, recs["prefill"], "phase 29 prefill under "
+                  "attn_repeat_kv")
+    _counts_equal(card_d, recs["decode"], "phase 29 decode under "
+                  "attn_repeat_kv")
+    k2 = recs["prefill"]["counted"]["by_kernel"]["flash_attention"]
+    want_k2 = counter.flash_work(1, prefill.seq_len, cfg.num_heads,
+                                 cfg.num_heads, cfg.hd, 2)
+    if launches["flash_attention"] != DRY_K2 or \
+            sum(launches.values()) != DRY_K2 or \
+            k2["bytes"] != DRY_K2 * want_k2["bytes"]:
+        fail(f"phase 29 prefill under attn_repeat_kv launched {launches}, "
+             f"or K2 was charged {k2}, not {DRY_K2} MHA calls")
+    # each K2 call as MHA, within 2e-2 of its plain version
+    kernel, per_call = flash_attn.flash_attention, []
+
+    def both(q, k, v):
+        got, want = kernel(q, k, v), flash_attn.flash_attention_plain(q, k, v)
+        tol = TOL["bfloat16"]
+        per_call.append((k.shape[2], float((got.float() - want.float())
+                                           .abs().max()),
+                         int((~torch.isclose(got.float(), want.float(),
+                                             rtol=tol, atol=tol)).sum())))
+        return got
+    flash_attn.flash_attention = both
+    try:
+        run(POLICY_REPEAT)
+    finally:
+        flash_attn.flash_attention = kernel
+    heads = {h for h, _, _ in per_call}
+    outside = sum(n for _, _, n in per_call)
+    say(f"phase 29 attn_repeat_kv prefill: launches {launches}; counts "
+        f"equal the meta records (prefill {card.n_ops}, decode "
+        f"{card_d.n_ops} aten ops); K2 charged {k2['calls']} calls, "
+        f"{k2['bytes']:,} B (MHA at Hkv = {cfg.num_heads}); {len(per_call)} "
+        f"calls with K/V heads {sorted(heads)}, max|err| against the plain "
+        f"version {max(e for _, e, _ in per_call):.4e}, elements outside "
+        f"{TOL['bfloat16']}: {outside}")
+    if len(per_call) != DRY_K2 or heads != {cfg.num_heads} or outside:
+        fail(f"phase 29: K2 under attn_repeat_kv ran {len(per_call)} calls "
+             f"with K/V heads {heads}, {outside} elements outside "
+             f"{TOL['bfloat16']}")
+    sdpa = dry["prefill"]["sdpa_rel_l2"]
+    rel = _rel_l2(torch, logits, base[0])
+    drel = _rel_l2(torch, dlogits, base[2])
+    say(f"phase 29 attn_repeat_kv logits against the default run: prefill "
+        f"relative L2 {rel:.4e} (bitwise {torch.equal(logits, base[0])}), "
+        f"decode {drel:.4e}; gate {DRY_LIB_RATIO} x SDPA's {sdpa:.4e} "
+        f"(phase 28); the cache keeps {cache['blocks'][0]['k'].shape[-2]} "
+        f"K/V heads")
+    if not (bool(torch.isfinite(logits).all()) and
+            bool(torch.isfinite(dlogits).all())) or \
+            max(rel, drel) > DRY_LIB_RATIO * sdpa or \
+            cache["blocks"][0]["k"].shape[-2] != cfg.num_kv_heads:
+        fail(f"phase 29 attn_repeat_kv: logits {rel:.4e} / {drel:.4e} from "
+             f"the default run, above {DRY_LIB_RATIO} x {sdpa:.4e}, not "
+             f"finite, or the cache holds repeated heads")
+    del logits, cache, dlogits, dcache
+    # ---- decode_onehot_update and attn_impl=flash: the default's route ----
+    for fields in POLICY_SAME:
+        got = run(fields)
+        same = _same(torch, got[:4], base[:4])
+        say(f"phase 29 {' '.join(fields)}: logits, cache, decode logits "
+            f"and new cache bitwise the default run's: {same}; launches "
+            f"{ {k: n for k, n in got[6].items() if n} }")
+        if not same or got[6] != base[6]:
+            fail(f"phase 29 {fields}: not bitwise the default run, or "
+                 f"launches {got[6]} differ from {base[6]}")
+        del got
+    del base, fn, args, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- attn_impl=flash cannot train --------------------------------------
+    one = dataclasses.replace(cfg, num_layers=1)
+    params = model.init_params(one, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    toks = torch.randint(0, cfg.vocab_size, (1, 513), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with policy_mod.use(policy_mod.parse_overrides(["attn_impl=flash"])):
+        ops.reset_launches()
+        with torch.no_grad():
+            loss, _ = model.train_loss(params, one, batch)
+        fwd = dict(ops.LAUNCHES)
+        try:
+            ts.value_and_grad(params, one, batch)
+        except NotImplementedError as err:
+            reason = str(err)
+        else:
+            reason = None
+    say(f"phase 29 attn_impl=flash in training (qwen3-4b, 1 layer, 512 "
+        f"tokens): the forward launched K2 {fwd['flash_attention']} time(s), "
+        f"loss {float(loss):.4f}; the train step raised "
+        f"NotImplementedError: {reason}")
+    if reason is None or "forward-only" not in reason or \
+            fwd["flash_attention"] != 1 or not math.isfinite(float(loss)):
+        fail("phase 29: a train step under attn_impl=flash did not raise "
+             "NotImplementedError naming K2's missing backward, or its "
+             "forward did not go through K2")
+    del params, toks, batch
+    torch.cuda.empty_cache()
+    # ---- K2 as MHA at (1, 4096, 32, 128) -----------------------------------
+    F = torch.nn.functional
+    B, S, H, hd = 1, prefill.seq_len, cfg.num_heads, cfg.hd
+    q, k, v = _qkv(torch, gen, dev, torch.bfloat16, B, S, H, H, hd)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bound, by, flops = _flash_bound(B, S, H, H, hd)
+    got = flash_attn.flash_attention(q, k, v)
+    want = flash_attn.flash_attention_plain(q, k, v)
+    tol = TOL["bfloat16"]
+    if not bool(torch.isclose(got.float(), want.float(), rtol=tol,
+                              atol=tol).all()):
+        fail("phase 29: K2 at (1, 4096, 32, 128) MHA is outside 2e-2 of its "
+             "plain version")
+    row = {"name": "flash_attention_mha4k", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attn.cu",
+           "replaces": "src/repro/kernels/flash_attn.py:62",
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "ms": time_ms(torch, lambda: flash_attn.flash_attention(q, k, v)),
+           "plain_ms": time_ms(torch, lambda: flash_attn.flash_attention_plain(
+               q, k, v), iters=5),
+           "bound_ms": bound, "bound_by": by, "flops": flops,
+           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True)),
+           "shape": f"q/k/v ({B},{S},{H},{hd}) bf16, MHA: qwen3-4b's prefill "
+                    "under attn_repeat_kv (phase 29)"}
+    del got, want
+    deferred.append((row, "device_ms",
+                     lambda: flash_attn.flash_attention(q, k, v),
+                     "flash_fwd_wgmma"))
+    deferred.append((row, "library_device_ms",
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=True), None))
+    say(f"flash_attention_mha4k (K2) [{row['shape']}]: {row['ms']:.4f} ms by "
+        f"events; plain {row['plain_ms']:.4f} ms; SDPA "
+        f"{row['library_ms']:.4f} ms; bound {bound:.4f} ms ({by}); max|err| "
+        f"{row['max_abs_err']:.3e} ({smi})")
+    return launches, row
+
+
+def _load_example(name):
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    if not path.is_file():
+        fail(f"{path} not found: run from a checkout")
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(fn, *a, **kw):
+    """``fn``'s result and the lines it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue().splitlines()
+
+
+def _equal_values(a, b) -> bool:
+    """Two example reports (dicts of numbers, strings, lists, numpy arrays)
+    equal, value for value."""
+    import numpy as np
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _equal_values(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_equal_values, a, b))
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and bool((a == b).all())
+    return a == b
+
+
+def phase_examples(torch, ops):
+    """Phase 30: the four ``examples/torch_*.py`` on the card, each through
+    ``main(["--device", "cuda"])`` (module docstring).  Returns {example:
+    launches}."""
+    launches = {}
+
+    def on_card(name, mod, argv, **kw):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lines = _quiet(mod.main, ["--device", "cuda"] + argv, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = dict(ops.LAUNCHES)
+        return out, lines, wall
+
+    def report(name, lines, wall):
+        for line in lines:
+            say(f"phase 30 {name}: {line}")
+        got = {EXAMPLE_K[k]: n for k, n in launches[name].items()
+               if k in EXAMPLE_K}
+        say(f"phase 30 {name}: {wall:.2f} s wall on the card; launches "
+            f"{got}")
+        missing = [EXAMPLE_K[k] for k in EXAMPLE_NEEDS[name]
+                   if not launches[name][k]]
+        if missing:
+            fail(f"phase 30 {name} never launched {missing}")
+
+    # quickstart: every printed value equals the CPU run's
+    mod = _load_example("torch_quickstart")
+    card, lines, wall = on_card("quickstart", mod, [])
+    report("quickstart", lines, wall)
+    cpu, _ = _quiet(mod.main, ["--device", "cpu"])
+    if not _equal_values(card, cpu):
+        fail(f"phase 30 quickstart on the card printed {card}, the CPU run "
+             f"{cpu}")
+    say("phase 30 quickstart: every printed value equals the CPU run's")
+
+    # serve_batch: counts that do not depend on the sampled tokens equal
+    # the CPU run's; greedy, so do the tokens
+    mod = _load_example("torch_serve_batch")
+    for argv in ([], ["--temperature", "0"]):
+        name = "serve_batch" + (" --temperature 0" if argv else "")
+        card, lines, wall = on_card(name, mod, argv)
+        report(name, lines, wall)
+        cpu, _ = _quiet(mod.main, ["--device", "cpu"] + argv)
+        counts = {act: {k: (card[act]["stats"][k], cpu[act]["stats"][k])
+                        for k in SERVE_EXAMPLE_COUNTS}
+                  for act in ("act2", "act3")}
+        say(f"phase 30 {name}: (card, CPU) counts {counts}")
+        if any(a != b for act in counts.values() for a, b in act.values()):
+            fail(f"phase 30 {name}: the card's counts differ from the CPU "
+                 f"run's: {counts}")
+        if argv:
+            toks = {arch: (card["act1"][arch]["generated"],
+                           cpu["act1"][arch]["generated"])
+                    for arch in mod.ACT1_ARCHS}
+            toks.update({f"{act} {rid}": (card[act]["outs"][rid],
+                                          cpu[act]["outs"].get(rid))
+                         for act in ("act2", "act3")
+                         for rid in card[act]["outs"]})
+            diff = [k for k, (a, b) in toks.items()
+                    if not _equal_values(a, b)]
+            say(f"phase 30 {name}: tokens of {len(toks) - len(diff)} of "
+                f"{len(toks)} generations equal the CPU run's")
+            if diff:
+                fail(f"phase 30 {name}: tokens differ from the CPU run's "
+                     f"at {diff}")
+
+    # shmem_collectives: its checks hold on the card
+    mod = _load_example("torch_shmem_collectives")
+    card, lines, wall = on_card("shmem_collectives", mod, [])
+    report("shmem_collectives", lines, wall)
+    if not (card["fcollect_ok"] and card["broadcast_ok"] and
+            card["barrier_ok"] and card["barrier"] == [1] * 8 and
+            card["psum_err"] <= COLL_TOL):
+        fail(f"phase 30 shmem_collectives: fcollect {card['fcollect_ok']}, "
+             f"broadcast {card['broadcast_ok']}, barrier {card['barrier']}, "
+             f"psum |diff| {card['psum_err']:.3e} (limit {COLL_TOL})")
+
+    # train_lm: its default run, a finite loss that falls
+    mod = _load_example("torch_train_lm")
+    card, lines, wall = on_card("train_lm", mod, [], log_fn=lambda *_: None)
+    report("train_lm", lines, wall)
+    losses = [h["loss"] for h in card["history"]]
+    if not all(math.isfinite(x) for x in losses) or not card["decreased"]:
+        fail(f"phase 30 train_lm: losses {losses} not finite or not falling")
+    return launches
+
+
+def _predicted_reduce(leaves, P):
+    """K4/K5/K6 launches of one data-parallel step, from the leaf list:
+    ``ShmemOps.psum_overlap`` passes a leaf of at most 2 MiB over all PEs
+    around the ring (P - 1 K4 puts) and reduces a larger one by K6 then
+    K5."""
+    per = {"remote_put": 0, "ring_reduce_scatter": 0, "ring_allgather": 0}
+    for leaf in leaves:
+        if leaf.numel() * leaf.element_size() * P <= 2 * (1 << 20):
+            per["remote_put"] += P - 1
+        else:
+            per["ring_reduce_scatter"] += 1
+            per["ring_allgather"] += 1
+    return per
+
+
+def phase_full_train(torch, ops, dev, smi, spec):
+    """One configuration of phase 31 (module docstring): sized on meta,
+    the DP law of step 1, then ``spec["steps"]`` steps through
+    ``trainer.train``.  Returns (launches of the run, its report)."""
+    from repro_torch.comms import api
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model
+    from repro_torch.train import optimizer, train_step as ts, trainer, \
+        tree as tree_mod
+    full = cfgbase.get_config(spec["arch"])
+    cfg = full if spec["layers"] is None else dataclasses.replace(
+        full, num_layers=spec["layers"])
+    P, label = spec["npes"], spec["label"]
+    shape = cfgbase.ShapeSpec(f"train_{spec['seq']}_b{spec['batch']}",
+                              "train", spec["seq"], spec["batch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(spec["arch"], shape, "card", cfg=cfg, comms_npes=P)
+    if rec["status"] != "ok":
+        fail(f"phase 31 {label}: the meta record failed: {rec['status']}")
+    mem = rec["memory"]
+    pred = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    backend = "shmem" if pred <= FULL_TRAIN_FIT else "none"
+    charged = {k: rec["counted"]["by_kernel"].get(k, {"calls": 0})["calls"]
+               for k in TRAIN_KERNELS}
+    say(f"phase 31 {label}: " + json.dumps({
+        "arch": spec["arch"], "num_layers": f"{full.num_layers} -> "
+        f"{cfg.num_layers}", "why": spec["why"], "widths": "published",
+        "dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
+        "remat": cfg.remat, "params": cfg.param_count(), "npes": P,
+        "seq": spec["seq"], "global_batch": spec["batch"]})
+        + f"; sized on meta in {time.perf_counter() - t0:.1f} s: arguments "
+        f"{mem['argument_size_in_bytes'] / 2**30:.2f} GiB + temp "
+        f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB = {pred / 2**30:.2f} "
+        f"GiB (limit {FULL_TRAIN_FIT / 2**30:.0f} GiB) -> comms backend "
+        f"{backend}; K4-K6 charged a step {charged}")
+    if backend == "none":
+        say(f"phase 31 {label}: the DP step does not fit beside its "
+            f"gradients' stacked copies, so it trains with --comms-backend "
+            f"none; phase 21 keeps holding the DP law at {TRAIN_LAYERS} "
+            f"layers; the DP law is skipped here")
+    before = torch.cuda.memory_allocated()
+    params = model.init_params(cfg, seed=0, device=dev)
+    leaves = tree_mod.leaves(params)
+    want = _predicted_reduce(leaves, P) if backend == "shmem" else {
+        k: 0 for k in TRAIN_KERNELS}
+    if backend == "shmem" and charged != want:
+        fail(f"phase 31 {label}: the meta record charges {charged} a step, "
+             f"the leaf list predicts {want}")
+    shmem = api.get_ops("shmem", npes=P)
+    stream = TokenStream(DataConfig(cfg.vocab_size, spec["seq"],
+                                    spec["batch"], seed=0), device=dev)
+    batch0 = stream.batch(0)
+    t0 = time.perf_counter()
+    batch0.update(stream.frontend(0, cfg, spec["batch"]))
+    frontend_s = time.perf_counter() - t0
+    law = None
+    if backend == "shmem":
+        ops.reset_launches()
+        _, mean = ts.dp_grads(params, cfg, batch0, shmem)
+        torch.cuda.synchronize()
+        law_launches = {k: ops.LAUNCHES[k] for k in TRAIN_KERNELS}
+        _, _, single = ts.value_and_grad(params, cfg, batch0)
+        names = [k for k, _ in tree_mod.flatten(params)]
+        errs = {n: _rel_l2(torch, a, b) for n, a, b in
+                zip(names, mean, single)}
+        law = max(errs.items(), key=lambda kv: kv[1])
+        say(f"phase 31 {label} DP law ({cfg.param_dtype}, {len(names)} "
+            f"leaves): relative "
+            f"L2 of the ring-reduced mean against one backward on the whole "
+            f"batch at most {law[1]:.3e} ({law[0]}; bound {TRAIN_BF16_TOL}); "
+            f"launches {law_launches} (predicted {want})")
+        if law[1] > TRAIN_BF16_TOL or law_launches != want:
+            fail(f"phase 31 {label} DP law: {law[0]} is {law[1]:.3e} from "
+                 f"the single-device gradient (bound {TRAIN_BF16_TOL}), or "
+                 f"launches {law_launches} are not {want}")
+        del mean, single
+        torch.cuda.empty_cache()
+    state = (params, optimizer.init(cfg.optimizer, params))
+    del leaves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    logs = []
+    t0 = time.perf_counter()
+    _, _, hist = trainer.train(cfg, trainer.TrainConfig(
+        steps=spec["steps"], seq_len=spec["seq"], global_batch=spec["batch"],
+        log_every=1, comms_backend=backend, comms_npes=P, device=str(dev)),
+        log_fn=logs.append, state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - before
+    for line in logs:
+        say(f"phase 31 {label}: {line}")
+    steps = [h["wall_s"] for h in hist]
+    per_step = [b - a for a, b in zip([0.0] + steps, steps)]
+    later = sorted(per_step[1:])[len(per_step[1:]) // 2]
+    tokens = spec["batch"] * spec["seq"]
+    out = {"backend": backend, "wall_s": wall, "per_step_s": per_step,
+           "median_after_first_s": later, "tokens_per_s": tokens / later,
+           "peak_bytes": peak, "predicted_bytes": pred,
+           "frontend_s": frontend_s, "losses": [h["loss"] for h in hist],
+           "dp_law_rel_l2": None if law is None else law[1],
+           "launches": {k: launches[k] for k in TRAIN_KERNELS},
+           "card": smi}
+    say(f"phase 31 {label} ({smi}): {wall:.2f} s for {spec['steps']} steps; "
+        f"per step {[round(x, 3) for x in per_step]} s (median after the "
+        f"first {later:.3f} s, {tokens / later:,.1f} tokens/s; the host's "
+        f"frontend draw {frontend_s:.3f} s of each step); peak "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB above the phase's "
+        f"baseline beside the predicted argument + temp {pred / 2**30:.2f} "
+        f"GiB ({peak / pred - 1:+.4f}); losses "
+        f"{[round(h['loss'], 4) for h in hist]}; launches {out['launches']}")
+    steps_want = {k: n * spec["steps"] for k, n in want.items()}
+    if out["launches"] != steps_want:
+        fail(f"phase 31 {label} launched {out['launches']}, not {steps_want}")
+    if not all(math.isfinite(h["loss"]) for h in hist) or \
+            len(hist) != spec["steps"]:
+        fail(f"phase 31 {label}: losses {out['losses']} not finite")
+    del state, params, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def _k11_on_pool(torch, dev_kern, flash_attn, ops, sched, label):
@@ -3371,13 +3917,37 @@ def run(torch, tmp: Path) -> None:
         mode_launches[label] = run_launches
 
     # ---- 21. training, data-parallel through the ring kernels -------------
-    train_launches, train_rows = phase_train(torch, ops, ring_collectives,
-                                             dev, deferred)
-    rows += train_rows
+    train_launches = phase_train(torch, ops, dev)
 
     # ---- 28. the dry-run held by the card ---------------------------------
     dry_launches, dry = phase_dryrun(torch, ops, dev, smi)
     mode_launches.update(dry_launches)
+
+    # ---- 29. the three policy fields ----------------------------------------
+    mode_launches["29"], mha = phase_policy(torch, ops, dev, smi, deferred,
+                                            dry)
+    rows.append(mha)
+
+    # ---- 30. the four torch examples ---------------------------------------
+    example_launches = phase_examples(torch, ops)
+    for name, run_launches in example_launches.items():
+        mode_launches[f"30 {name}"] = run_launches
+
+    # ---- 31. training at full width and depth -------------------------------
+    full_train = {}
+    for spec in FULL_TRAIN:
+        mode_launches[f"31 {spec['label']}"], full_train[spec["label"]] = \
+            phase_full_train(torch, ops, dev, smi, spec)
+    # the K5/K6 rows, made after the training phases so that their inputs
+    # do not share the card with them
+    rows += check_train_rows(
+        torch, ring_collectives, dev, deferred, P=TRAIN["npes"],
+        elems=TRAIN_EMBED_ELEMS, suffix="train", phase="phase 21",
+        leaf="the embedding leaf's gradient")
+    rows += check_train_rows(
+        torch, ring_collectives, dev, deferred, P=FULL_TRAIN[0]["npes"],
+        elems=FULL_LEAF_ELEMS, suffix="full", phase="phase 31",
+        leaf="qwen3-4b's stacked w_gate gradient")
 
     # ---- device-only times of the short kernels (torch.profiler) -----------
     for row, key, fn, match, *kw in deferred:
@@ -3451,15 +4021,25 @@ def run(torch, tmp: Path) -> None:
     if path_launches["reduce_tile"]:
         fail(f"K9 launched {path_launches['reduce_tile']} times on the "
              f"paths, which should not call it")
-    for name in TRAIN_KERNELS:               # K4-K6: phases 4, 21 and 28c
+    for name in TRAIN_KERNELS:       # K4-K6: phases 4, 21, 28c, 30 and 31
         by_name[name]["launches_by_phase"] = {
             "4": coll_launches[name], "21": train_launches[name],
-            "28-train": mode_launches["28-train"][name]}
+            **{phase: run[name] for phase, run in mode_launches.items()
+               if phase == "28-train" or phase.startswith(("30", "31"))}}
     for name in ("ring_reduce_scatter", "ring_allgather"):
         path_launches[f"{name}_train"] = train_launches[name]
         by_name[f"{name}_train"]["launches_by_phase"] = {
             "21": train_launches[name],
             "28-train": mode_launches["28-train"][name]}
+        path_launches[f"{name}_full"] = mode_launches["31 qwen3-4b"][name]
+        by_name[f"{name}_full"]["launches_by_phase"] = {
+            f"31 {label}": mode_launches[f"31 {label}"][name]
+            for label in full_train}
+    path_launches["flash_attention_mha4k"] = \
+        mode_launches["29"]["flash_attention"]
+    by_name["flash_attention_mha4k"]["launches_in"] = \
+        "phase 29's full-depth qwen3-4b prefill under attn_repeat_kv"
+    by_name["ring_reduce_scatter_full"]["phase_31"] = full_train
     for r in rows:
         r["launches"] = path_launches[r["name"]]
     for name in SERVE_KERNELS:

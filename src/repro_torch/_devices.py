@@ -17,4 +17,7 @@ def resolve(device=None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" names the current device, as tensors made there record it
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

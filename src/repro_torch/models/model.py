@@ -22,14 +22,16 @@ cross-attention over image embeddings, scaled by ``tanh(gate)``),
 - ``decode_step`` : ONE token against the cache (cross K/V come from it).
 
 Prefill self-attention goes through the K2 flash kernel (its plain
-version for CPU tensors), except under a sliding window, which the
-reference computes in plain JAX (``blockwise_causal_attn``) and so does
-the port; the reference's ``attn_impl`` switch has no counterpart.
-Training never goes through K2, which has no backward in either package:
-it follows the reference's default (blockwise) policy, ``full_attn``
-under a causal mask up to 1024 tokens with no window, else
-``blockwise_causal_attn``.  With ``cfg.remat`` each repeat of the layer
-unit is recomputed in the backward pass
+version for CPU tensors) under either ``attn_impl``, except under a
+sliding window, which the reference computes in plain JAX
+(``blockwise_causal_attn``) and so does the port.  Training follows the
+policy: under the default ("blockwise") ``full_attn`` under a causal mask
+up to 1024 tokens with no window, else ``blockwise_causal_attn``; under
+"flash" its forward goes through K2, which has no backward in either
+package, so a gradient through it raises ``NotImplementedError``.  Under
+``attn_repeat_kv`` the K/V heads are repeated to the query heads before
+every attention (the cache keeps them unrepeated).  With ``cfg.remat``
+each repeat of the layer unit is recomputed in the backward pass
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).  A
 ring cache (SWA, or a hybrid above 65,536 tokens) keeps the last
 ``window`` positions of the prompt, and decode writes slot ``pos % W`` and
@@ -150,26 +152,54 @@ def _flat(o):
     return o.reshape(o.shape[0], o.shape[1], -1)
 
 
+def _repeat_kv(cfg, k, v):
+    """``attn_repeat_kv``: each K/V head repeated ``q_per_kv`` times along
+    the head axis in ``jnp.repeat`` order, so attention runs as MHA."""
+    if policy_mod.get().attn_repeat_kv and cfg.q_per_kv > 1:
+        k = k.repeat_interleave(cfg.q_per_kv, dim=2)
+        v = v.repeat_interleave(cfg.q_per_kv, dim=2)
+    return k, v
+
+
+def _flash(q, k, v):
+    """K2 on a path that may be differentiated.  The reference passes its
+    kernel ``block_q/k = min(attn_block_q/k, 256)``; K2 and its plain
+    version take no block size, and the function does not depend on one.
+    K2 has no backward, nor has the reference's Pallas kernel (its
+    ``pallas_call`` JVP rule fails), so a gradient through it raises
+    instead of taking another attention."""
+    if torch.is_grad_enabled() and q.requires_grad:
+        raise NotImplementedError(
+            "attn_impl='flash' cannot train: the flash kernel (K2) is "
+            "forward-only, as is the reference's Pallas kernel, whose "
+            "pallas_call has no JVP rule to differentiate through; train "
+            "under attn_impl='blockwise'")
+    return flash_attn.flash_attention(q, k, v)
+
+
 def _self_attention(p, x, cfg, mode, positions, cache, pos):
     """Returns (attn_out, new cache entries)."""
     window = cfg.window if cfg.attention == "swa" else None
     if mode in ("train", "prefill"):
         q = attn_mod.project_q(p, x, cfg, positions)
         k, v = attn_mod.project_kv(p, x, cfg, positions)
+        kr, vr = _repeat_kv(cfg, k, v)
         S = x.shape[1]
-        if mode == "train" and S <= 1024 and window is None:
+        flash = window is None and (
+            mode == "prefill" or policy_mod.get().attn_impl == "flash")
+        if flash:                  # K2; a train step only under "flash"
+            o = _flash(q, kr, vr)
+        elif S <= 1024 and window is None:
             causal = torch.ones((S, S), dtype=torch.bool,
                                 device=x.device).tril()
-            o = attn_mod.full_attn(q, k, v, mask=causal[None, None, None])
-        elif mode == "train" or window is not None:
-            o = attn_mod.blockwise_causal_attn(q, k, v, window=window)
-        else:                      # K2 has no backward: prefill only
-            o = flash_attn.flash_attention(q, k, v)
+            o = attn_mod.full_attn(q, kr, vr, mask=causal[None, None, None])
+        else:
+            o = attn_mod.blockwise_causal_attn(q, kr, vr, window=window)
         new = {}
         if cache is not None:
             W = cache["k"].shape[1]
             # dense: slots [0, S); ring: the last min(W, S) positions at
-            # slot position % W
+            # slot position % W; the cache keeps the unrepeated heads
             kpos = torch.arange(S - min(W, S), S, device=x.device)
             slots = kpos % W
             for key, val in (("k", k), ("v", v)):
@@ -187,7 +217,9 @@ def _self_attention(p, x, cfg, mode, positions, cache, pos):
     slot = pos % W if ring else pos
     # one-hot select, not a scatter: a dense position past the cache is
     # dropped (the reference's out-of-bounds rule) and the write needs no
-    # sync
+    # sync.  This is the reference's decode_onehot_update branch, and for
+    # every position its scatter branch writes the same cache, so the
+    # field changes nothing here
     hot = torch.arange(W, device=pos.device)[None, :] == slot[:, None]
     new = {key: torch.where(hot[:, :, None, None], val.to(cache[key].dtype),
                             cache[key])
@@ -199,7 +231,8 @@ def _self_attention(p, x, cfg, mode, positions, cache, pos):
         new["kpos"] = kpos
     else:
         valid = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
-    o = attn_mod.decode_attn(q, new["k"], new["v"], valid)
+    kr, vr = _repeat_kv(cfg, new["k"], new["v"])
+    o = attn_mod.decode_attn(q, kr, vr, valid)
     return _flat(o) @ p["wo"], new
 
 

@@ -279,3 +279,42 @@ def test_dryrun_entry_points_run_on_the_card_unless_cpu_or_meta(no_card):
         _, args = dryrun.build_step(cfg, shape, device=dev)
         assert args[0]["embed"].device.type == dev
         assert args[3]["blocks"][0]["k"].device.type == dev
+
+
+TORCH_EXAMPLES = sorted(
+    (Path(repro_torch.__file__).resolve().parents[2] / "examples")
+    .glob("torch_*.py"))
+
+
+def test_four_torch_examples():
+    assert [p.name for p in TORCH_EXAMPLES] == [
+        "torch_quickstart.py", "torch_serve_batch.py",
+        "torch_shmem_collectives.py", "torch_train_lm.py"]
+
+
+@pytest.mark.parametrize("path", TORCH_EXAMPLES, ids=lambda p: p.stem)
+def test_torch_example_imports_without_jax_or_the_reference(path):
+    """Each torch example imports ``repro_torch``, ``torch`` and numpy
+    only: loading it pulls in neither JAX nor the JAX package, and no line
+    of it imports them."""
+    import ast
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = [a.name for a in node.names] if isinstance(
+            node, ast.Import) else [node.module] if isinstance(
+                node, ast.ImportFrom) else []
+        for name in names:
+            assert name.split(".")[0] in (
+                "argparse", "dataclasses", "time", "numpy", "torch",
+                "repro_torch"), f"{path.name}: imports {name}"
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": src}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""

@@ -368,18 +368,19 @@ def test_policy_overrides():
     assert pol.attn_p_bf16 and pol.attn_block_k == 1024 and \
         pol.ce_chunk == 128
     # the fields only the sharding rules read are taken since the dry-run
-    # was ported; the two that change the model's compute are refused
+    # was ported, and the three that change the model's compute since
+    # they were ported too
     pol = policy.parse_overrides(["fsdp_gather_weights=1",
                                   "hidden_spec=dshard", "moe_expert_shard=1",
                                   "small_cache_bytes=4096"])
     assert pol.fsdp_gather_weights and pol.hidden_spec == "dshard" and \
         pol.moe_expert_shard and pol.small_cache_bytes == 4096
-    for pair in ("attn_repeat_kv=1", "decode_onehot_update=1",
-                 "attn_impl=flash"):
-        with pytest.raises(ValueError, match="item 14"):
-            policy.parse_overrides([pair])
+    pol = policy.parse_overrides(["attn_repeat_kv=1", "decode_onehot_update=1",
+                                  "attn_impl=flash"])
+    assert pol.attn_repeat_kv and pol.decode_onehot_update and \
+        pol.attn_impl == "flash"
     ref_fields = set(ref_policy.PerfPolicy.__dataclass_fields__)
-    assert set(policy.PerfPolicy.__dataclass_fields__) <= ref_fields
+    assert set(policy.PerfPolicy.__dataclass_fields__) == ref_fields
     for name, f in policy.PerfPolicy.__dataclass_fields__.items():
         assert f.default == ref_policy.PerfPolicy.__dataclass_fields__[
             name].default
