@@ -9,10 +9,12 @@ Data updates are functional, as in the reference: :meth:`write` clones the
 pool and stores into the clone's row through the K1 copy kernel
 (``kernels/rma_copy.py``; its plain version for a CPU pool), so every heap
 snapshot keeps its bytes.  The clone costs one pass over the pool (2.4 GB at
-the full-width serving configuration).  Allocation (``calloc``, growth)
-mutates the heap object itself, as a host-side collective, but never a pool
-tensor a snapshot may share.  64-bit dtypes narrow to 32-bit, as JAX does
-with x64 off, so pointer dtypes and byte counts match the reference's.
+the full-width serving configuration); a :class:`HeapTally` that every
+snapshot shares counts the bytes cloned and stored.  Allocation
+(``calloc``, growth) mutates the heap object itself, as a host-side
+collective, but never a pool tensor a snapshot may share.  64-bit dtypes
+narrow to 32-bit, as JAX does with x64 off, so pointer dtypes and byte
+counts match the reference's.
 """
 from __future__ import annotations
 
@@ -76,6 +78,22 @@ class SymPtr(NamedTuple):
 
 
 @dataclasses.dataclass
+class HeapTally:
+    """Cumulative counts of the heap's data ops (``write``, ``write_all``,
+    ``calloc``), one object shared by every snapshot descending from one
+    heap: the bytes of the pools they cloned, the bytes they stored, and
+    the calls."""
+    copy_bytes: int = 0
+    store_bytes: int = 0
+    writes: int = 0
+
+    def add(self, pool: torch.Tensor, store_bytes: int) -> None:
+        self.copy_bytes += pool.numel() * pool.element_size()
+        self.store_bytes += store_bytes
+        self.writes += 1
+
+
+@dataclasses.dataclass
 class SymmetricHeap:
     """Functional symmetric heap.  Data ops return a new heap."""
 
@@ -85,6 +103,7 @@ class SymmetricHeap:
     _cursor: dict = dataclasses.field(default_factory=dict)
     _free: dict = dataclasses.field(default_factory=dict)
     words_per_pool: int = 1 << 20
+    tally: HeapTally = dataclasses.field(default_factory=HeapTally)
 
     # ----------------------------------------------------------- allocation
     def malloc(self, shape, dtype) -> SymPtr:
@@ -122,7 +141,9 @@ class SymmetricHeap:
         tensor keep their bytes."""
         ptr = self.malloc(shape, dtype)
         pool = self.pools[ptr.dtype].clone()
-        pool[:, ptr.offset:ptr.offset + _aligned(ptr.size)] = 0
+        n = _aligned(ptr.size)
+        pool[:, ptr.offset:ptr.offset + n] = 0
+        self.tally.add(pool, self.npes * n * pool.element_size())
         self.pools[ptr.dtype] = pool
         return ptr
 
@@ -187,6 +208,7 @@ class SymmetricHeap:
         value = self.coerce(ptr, value)
         pool = self.pools[ptr.dtype].clone()
         rma_copy.copy_into(pool[pe], value, ptr.offset)
+        self.tally.add(pool, value.numel() * value.element_size())
         return self.replace_pool(ptr.dtype, pool)
 
     def read_all(self, ptr: SymPtr) -> torch.Tensor:
@@ -200,6 +222,7 @@ class SymmetricHeap:
         pool = self.pools[ptr.dtype].clone()
         for pe in range(self.npes):
             rma_copy.copy_into(pool[pe], values[pe].contiguous(), ptr.offset)
+        self.tally.add(pool, values.numel() * values.element_size())
         return self.replace_pool(ptr.dtype, pool)
 
     def replace_pool(self, dt, pool) -> "SymmetricHeap":
@@ -208,7 +231,7 @@ class SymmetricHeap:
         return SymmetricHeap(self.npes, pools, self.device,
                              dict(self._cursor),
                              {k: list(v) for k, v in self._free.items()},
-                             self.words_per_pool)
+                             self.words_per_pool, self.tally)
 
 
 def create(npes: int, words_per_pool: int = 1 << 20,

@@ -10,6 +10,8 @@ Counterpart of ``repro/launch/serve.py`` (its lockstep mode,
 ``--metrics``, ``--refit``, ``--audit``, ``--recorder``, ``--alerts``,
 ``--profile`` and ``--calibration``, which build one
 :class:`repro_torch.obs.Obs` bundle with the ``ISHMEM_OBS_*`` variables).
+``--trace-clock wall`` is the port's own: the reference traces on the
+step clock alone.
 Runs on the current CUDA device unless ``--device`` says otherwise;
 ``--full`` serves the architecture at its published widths instead of the
 reduced test variant.
@@ -40,6 +42,11 @@ reduced test variant.
   # until the close; write the span trace (load it in ui.perfetto.dev)
   PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
       --stream-chunks 4 --trace /tmp/serve_trace.json
+
+  # where the decode step and staging spend their time: the trace on
+  # the torch profiler's clock, with spans inside each step
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg --full \
+      --prompt-len 512 --kv-blocks 256 --trace /tmp/t.json --trace-clock wall
 
   # every request a sample of one prompt: the prefix blocks are mapped,
   # not staged again, and copied on the first divergent write
@@ -414,7 +421,8 @@ def make_obs(args):
         trace_limit=cfg.trace_limit, audit_period=audit,
         recorder_window=recorder, recorder_path=cfg.recorder_path,
         alerts=alerts, alert_target=cfg.alert_target,
-        alert_windows=cfg.alert_windows, prof=prof, calibration=calibration)
+        alert_windows=cfg.alert_windows, prof=prof, calibration=calibration,
+        trace_clock=args.trace_clock or cfg.trace_clock)
     return obs, (args.trace or cfg.trace_path), \
         (args.metrics or cfg.metrics_path), \
         (prof_cli_path or cfg.prof_path), \
@@ -633,6 +641,7 @@ def build_parser() -> argparse.ArgumentParser:
     """The launcher's flags; the fleet's defaults come from the
     ``ISHMEM_FLEET_*`` variables.  A malformed one fails only a ``--fleet``
     run (:func:`parse_args`)."""
+    from repro_torch.obs import env as obs_env
     from repro_torch.serve.frontend.env import FleetEnv, load_fleet_env
     try:
         fenv, fenv_err = load_fleet_env(), None
@@ -735,6 +744,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", metavar="OUT.json", default=None,
                     help="record causal spans and write a Chrome trace "
                          "(fails if it does not validate)")
+    ap.add_argument("--trace-clock", choices=obs_env.TRACE_CLOCKS,
+                    default=None,
+                    help="the trace's clock: 'step' (the default: scheduler "
+                         "steps, so traces diff across runs) or 'wall' "
+                         "(Unix microseconds, the torch profiler's clock, "
+                         "with the decode step's parts and staging as "
+                         "spans of their own)")
     ap.add_argument("--metrics", metavar="OUT.json", default=None,
                     help="per-fleet-step metrics time series (heap "
                          "fragmentation, ring occupancy, pool residency, "

@@ -31,18 +31,20 @@ from repro_torch.obs import prof as prof_mod
 from repro_torch.obs.alerts import (DEFAULT_WINDOWS, Alert, BurnRateMonitor,
                               BurnWindow, parse_windows)
 from repro_torch.obs.audit import AuditError, AuditViolation, FleetAuditor
-from repro_torch.obs.env import ObsConfig, load_obs_env
+from repro_torch.obs.env import TRACE_CLOCKS, ObsConfig, load_obs_env
 from repro_torch.obs.export import (chrome_trace, request_chains, validate,
                               write_chrome_trace)
 from repro_torch.obs.metrics import MetricsRegistry, sample_fleet
 from repro_torch.obs.prof import NULL_PROF, ProfClock, Profiler, ProfSample
 from repro_torch.obs.recorder import FlightRecorder, RingTracer
 from repro_torch.obs.refit import OnlineRefitter, RefitEvent
-from repro_torch.obs.tracer import NULL_TRACER, SpanTracer, TraceEvent, Tracer
+from repro_torch.obs.tracer import (NULL_TRACER, SpanTracer, TraceEvent,
+                                    Tracer, WallClock)
 
 __all__ = [
     "Obs", "ObsConfig", "load_obs_env",
     "Tracer", "SpanTracer", "TraceEvent", "NULL_TRACER", "RingTracer",
+    "WallClock",
     "Profiler", "ProfClock", "ProfSample", "NULL_PROF",
     "MetricsRegistry", "sample_fleet",
     "OnlineRefitter", "RefitEvent",
@@ -77,13 +79,18 @@ class Obs:
                  recorder_path: str = "postmortem_trace.json",
                  alerts: bool = False, alert_target: float = 0.9,
                  alert_windows: Union[str, tuple] = DEFAULT_WINDOWS,
-                 prof: bool = False, calibration: bool = False):
+                 prof: bool = False, calibration: bool = False,
+                 trace_clock: str = "step"):
+        if trace_clock not in TRACE_CLOCKS:
+            raise ValueError(f"trace_clock: expected one of {TRACE_CLOCKS}, "
+                             f"got {trace_clock!r}")
+        clock = WallClock() if trace_clock == "wall" else None
         if trace:
-            self.tracer = SpanTracer(max_events=trace_limit)
+            self.tracer = SpanTracer(max_events=trace_limit, clock=clock)
         elif recorder_window > 0:
             # recorder without full tracing: bounded last-K-steps ring
             self.tracer = RingTracer(window_steps=recorder_window,
-                                     max_events=trace_limit)
+                                     max_events=trace_limit, clock=clock)
         else:
             self.tracer = NULL_TRACER
         # the burn-rate monitor reads the per-class ledger off the metrics
@@ -121,7 +128,8 @@ class Obs:
                    recorder_path=cfg.recorder_path,
                    alerts=cfg.alerts, alert_target=cfg.alert_target,
                    alert_windows=cfg.alert_windows,
-                   prof=cfg.prof, calibration=cfg.calibration)
+                   prof=cfg.prof, calibration=cfg.calibration,
+                   trace_clock=cfg.trace_clock)
 
     @classmethod
     def from_config(cls, cfg: ObsConfig) -> "Obs":

@@ -126,7 +126,9 @@ class BurnRateMonitor:
 
         step = fleet.elapsed_steps
         paths = None
-        if tracer is not None and getattr(tracer, "enabled", False):
+        # the critical path counts steps in step-clocked timestamps
+        if tracer is not None and getattr(tracer, "enabled", False) \
+                and not getattr(tracer, "timed", False):
             paths = critical_mod.fleet_paths(
                 export_mod.request_chains(tracer))
         offenders = []

@@ -104,6 +104,11 @@ def main(argv=None) -> int:
 
     with open(args.trace) as f:
         doc = json.load(f)
+    if (doc.get("otherData") or {}).get("clock", "step") != "step":
+        # the critical path counts scheduler steps in ts / STEP_QUANTUM
+        raise SystemExit(f"{args.trace}: a wall-clock trace; the critical "
+                         f"path reads step-clocked traces (--trace-clock "
+                         f"step)")
     warnings: list = []
     errors = export.validate(doc, warnings=warnings)
     events = export.events_from_doc(doc)

@@ -18,6 +18,10 @@ run is bitwise-identical to one built before this subsystem existed.
                                  due re-fit runs (default 64)
 ``ISHMEM_OBS_TRACE_LIMIT``       tracer event-buffer bound (default 2^20);
                                  accepts K/M suffixes
+``ISHMEM_OBS_TRACE_CLOCK``       ``step`` (default: deterministic, diffs
+                                 across runs) or ``wall`` (integer Unix
+                                 microseconds, the torch profiler's clock;
+                                 adds the spans inside a step)
 ``ISHMEM_OBS_AUDIT``             invariant-audit period in fleet steps
                                  (``0``/unset = auditors off); each audit
                                  runs every ``repro_torch.obs.audit`` family and
@@ -44,7 +48,8 @@ run is bitwise-identical to one built before this subsystem existed.
                                  ``PROF``); a path writes the report JSON
 ===============================  ============================================
 
-CLI flags on ``launch/serve.py`` (``--trace``/``--metrics``/``--refit``/
+CLI flags on ``launch/serve.py`` (``--trace``/``--trace-clock``/
+``--metrics``/``--refit``/
 ``--audit``/``--recorder``/``--alerts``/``--profile``/``--calibration``)
 override the environment.
 """
@@ -57,6 +62,7 @@ from typing import Mapping, Optional
 from repro_torch.tune.env import parse_bytes
 
 PREFIX = "ISHMEM_OBS_"
+TRACE_CLOCKS = ("step", "wall")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +84,7 @@ class ObsConfig:
     prof_path: Optional[str] = None
     calibration: bool = False
     calibration_path: Optional[str] = None
+    trace_clock: str = "step"           # TRACE_CLOCKS
 
     @property
     def enabled(self) -> bool:
@@ -150,6 +157,10 @@ def load_obs_env(environ: Optional[Mapping[str, str]] = None) -> ObsConfig:
     except ValueError:
         raise ValueError(f"ISHMEM_OBS_ALERT_TARGET: expected a float in "
                          f"(0, 1), got {raw_target!r}") from None
+    trace_clock = get("TRACE_CLOCK") or "step"
+    if trace_clock not in TRACE_CLOCKS:
+        raise ValueError(f"{PREFIX}TRACE_CLOCK: expected one of "
+                         f"{TRACE_CLOCKS}, got {trace_clock!r}")
     alert_windows = get("ALERT_WINDOWS") or "8:6,32:3"
     from repro_torch.obs.alerts import parse_windows
     parse_windows(alert_windows)        # fail fast on a malformed spec
@@ -170,4 +181,5 @@ def load_obs_env(environ: Optional[Mapping[str, str]] = None) -> ObsConfig:
                      alert_windows=alert_windows,
                      prof=prof, prof_path=prof_path,
                      calibration=calibration,
-                     calibration_path=calibration_path)
+                     calibration_path=calibration_path,
+                     trace_clock=trace_clock)

@@ -47,12 +47,15 @@ def _event_json(ev: TraceEvent) -> dict:
         obj["id"] = str(ev.id)
     if ev.args:
         obj["args"] = ev.args
+    if ev.step is not None:
+        obj["step"] = ev.step
     return obj
 
 
 def chrome_trace_events(span_events, *, dropped: int = 0,
                         other: Optional[dict] = None,
-                        measured: Optional[List[dict]] = None) -> dict:
+                        measured: Optional[List[dict]] = None,
+                        clock: str = "step") -> dict:
     """Trace-Event-Format document from an explicit event sequence — the
     serializer behind :func:`chrome_trace`, reused by the flight recorder
     for windowed postmortem dumps.  ``other`` merges extra keys into
@@ -62,7 +65,11 @@ def chrome_trace_events(span_events, *, dropped: int = 0,
     (:func:`repro_torch.obs.calibrate.measured_track_events`): wall-clock profiler
     instants on step-clocked timestamps.  The track is additive — omitting
     it yields a byte-identical document, which is what keeps profiling-off
-    exports bitwise."""
+    exports bitwise.
+
+    ``clock="wall"`` names a :class:`~repro_torch.obs.tracer.WallClock`
+    trace in the metadata: ``ts`` are integer Unix microseconds, and each
+    event carries its scheduler step under ``step``."""
     events: List[dict] = []
     span_events = list(span_events)
     measured = list(measured or [])
@@ -92,7 +99,8 @@ def chrome_trace_events(span_events, *, dropped: int = 0,
         events.append(ev)
     other_data = {
         "schema_version": TRACE_SCHEMA_VERSION,
-        "clock": "step",                # ts = step * 1000 + sub-tick
+        "clock": clock,                 # step: ts = step * 1000 + sub-tick
+                                        # wall: ts = Unix microseconds
         "dropped_events": dropped,
     }
     if measured:
@@ -110,7 +118,8 @@ def chrome_trace(tracer: SpanTracer, *,
                  measured: Optional[List[dict]] = None) -> dict:
     """Full Trace-Event-Format document (``traceEvents`` + metadata)."""
     return chrome_trace_events(tracer.events, dropped=tracer.dropped,
-                               measured=measured)
+                               measured=measured,
+                               clock="wall" if tracer.timed else "step")
 
 
 def write_chrome_trace(tracer: SpanTracer, path: str, *,
@@ -134,10 +143,11 @@ def validate(doc: dict, *, warnings: Optional[list] = None) -> List[str]:
     - every event has ``ph``/``name``/``pid``/``tid``; non-metadata events
       have a numeric ``ts`` that is non-decreasing per (pid, tid) track
     - every ``ts`` (and ``dur``, when present) is an INTEGER value: the
-      deterministic step clock only produces ``step*1000 + sub-tick``, so a
-      fractional timestamp means a wall-clock (``ProfClock``) value leaked
-      into a deterministic field — measured seconds belong in ``args``
-      (the ``measured`` track keeps wall time there for exactly this rule)
+      deterministic step clock only produces ``step*1000 + sub-tick`` and
+      the ``WallClock`` integer microseconds, so a fractional timestamp
+      means a profiler (``ProfClock``) value leaked into a ``ts`` field —
+      measured seconds belong in ``args`` (the ``measured`` track keeps
+      wall time there for exactly this rule)
     - ``B``/``E`` slice stacks balance per (pid, tid) and never go negative
     - ``b``/``e`` async spans balance per (cat, id, name), end-after-begin
     - every flow start (``s``) has a matching finish (``f``) with the same
@@ -303,7 +313,8 @@ def events_from_doc(doc: dict) -> List[TraceEvent]:
         out.append(TraceEvent(ph=ev.get("ph"), name=ev.get("name"),
                               cat=ev.get("cat"), ts=ev.get("ts"),
                               pid=ev.get("pid"), tid=ev.get("tid"),
-                              id=eid, args=ev.get("args")))
+                              id=eid, args=ev.get("args"),
+                              step=ev.get("step")))
     return out
 
 

@@ -33,7 +33,7 @@ import json
 from typing import Deque, List, Optional
 
 from repro_torch.obs.export import chrome_trace_events
-from repro_torch.obs.tracer import STEP_QUANTUM, SpanTracer, TraceEvent
+from repro_torch.obs.tracer import SpanTracer, TraceEvent, event_step
 
 __all__ = ["RingTracer", "FlightRecorder"]
 
@@ -41,23 +41,26 @@ __all__ = ["RingTracer", "FlightRecorder"]
 class RingTracer(SpanTracer):
     """A :class:`SpanTracer` whose buffer is a last-``window_steps`` ring.
 
-    Events older than the window (by step-clocked timestamp) are evicted
-    from the front as new ones arrive; ``evicted`` counts them.  A hard
+    Events older than the window (by the step each was recorded in) are
+    evicted from the front as new ones arrive; ``evicted`` counts them.  A hard
     ``max_events`` cap additionally bounds pathological single-step floods.
     Nothing is ever "dropped" in the truncation sense — the ring is the
     design, and :class:`FlightRecorder` repairs the window edge at dump
     time."""
 
-    def __init__(self, window_steps: int = 64, max_events: int = 1 << 20):
-        super().__init__(max_events=max_events)
+    def __init__(self, window_steps: int = 64, max_events: int = 1 << 20,
+                 clock=None):
+        super().__init__(max_events=max_events, clock=clock)
         self.window_steps = window_steps
         self.events: Deque[TraceEvent] = collections.deque()
         self.evicted = 0
 
     def _emit(self, ev: TraceEvent, *, force: bool = False) -> None:
+        if self.timed:
+            ev.step = self.clock.step
         self.events.append(ev)
-        floor = (self.clock.step - self.window_steps) * STEP_QUANTUM
-        while self.events and self.events[0].ts < floor:
+        floor = self.clock.step - self.window_steps
+        while self.events and event_step(self.events[0]) < floor:
             self.events.popleft()
             self.evicted += 1
         while len(self.events) > self.max_events:
@@ -91,8 +94,8 @@ class FlightRecorder:
 
     # -------------------------------------------------------- window + fix
     def _window(self, step: int) -> List[TraceEvent]:
-        floor = (step - self.window_steps) * STEP_QUANTUM
-        return [ev for ev in self.tracer.events if ev.ts >= floor]
+        floor = step - self.window_steps
+        return [ev for ev in self.tracer.events if event_step(ev) >= floor]
 
     @staticmethod
     def _repair(events: List[TraceEvent]) -> List[TraceEvent]:
@@ -166,6 +169,7 @@ class FlightRecorder:
         evicted = getattr(self.tracer, "evicted", 0)
         return chrome_trace_events(
             events, dropped=getattr(self.tracer, "dropped", 0),
+            clock="wall" if self.tracer.timed else "step",
             other={"postmortem": {
                 "reason": reason,
                 "step": step,

@@ -7,12 +7,18 @@ is bitwise the untraced one.  ``SpanTracer`` records Trace-Event-Format
 events (``B/E`` slices, ``b/e`` async spans keyed by request id, ``i``
 instants, ``C`` counters, ``s/f`` flows) stamped by a ``StepClock``: one
 scheduler step is one quantum, events within a step take sub-ticks, so a
-trace is reproducible for a fixed seed.  ``obs/export.py`` serialises it;
-the ``Obs`` bundle (``obs/__init__.py``) installs a tracer on a run.
+trace is reproducible for a fixed seed.  A tracer built on a ``WallClock``
+stamps integer microseconds on the clock ``torch.profiler`` stamps its
+events with instead, keeps each event's scheduler step beside it, and is
+``timed``: only then do the serving path's spans inside a step (the decode
+step's parts, staging) record, as a step-clocked span there has no
+duration.  ``obs/export.py`` serialises it; the ``Obs`` bundle
+(``obs/__init__.py``) installs a tracer on a run.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 #: sub-ticks per scheduler step; exported ts = step * quantum + seq
@@ -22,6 +28,8 @@ STEP_QUANTUM = 1000
 class StepClock:
     """Deterministic step-based clock: ``now()`` increases monotonically,
     by sub-ticks within a step and by quanta across steps."""
+
+    timed = False
 
     def __init__(self):
         self.step = 0
@@ -38,6 +46,37 @@ class StepClock:
         return float(ts)
 
 
+class WallClock:
+    """Integer microseconds since the Unix epoch, on the clock the torch
+    profiler stamps host and device events with (``time.time_ns``).  One
+    ``time_ns``/``perf_counter_ns`` pair taken at construction anchors
+    it, so it never runs backwards when the system clock is stepped.
+    ``set_step`` only records the scheduler step, which every event
+    stamped on this clock carries."""
+
+    timed = True
+
+    def __init__(self):
+        self.step = 0
+        self._unix_ns = time.time_ns()
+        self._perf_ns = time.perf_counter_ns()
+
+    def set_step(self, step: int) -> None:
+        self.step = max(self.step, step)
+
+    def now(self) -> int:
+        return self.at_ns(time.perf_counter_ns())
+
+    def at_ns(self, perf_counter_ns: int) -> int:
+        """The clock's reading at a ``time.perf_counter_ns()`` value."""
+        return (self._unix_ns + perf_counter_ns - self._perf_ns) // 1000
+
+
+def event_step(ev) -> int:
+    """The scheduler step an event was recorded in, on either clock."""
+    return ev.step if ev.step is not None else int(ev.ts) // STEP_QUANTUM
+
+
 @dataclasses.dataclass
 class TraceEvent:
     """One Trace-Event-Format record (see module docstring for phases)."""
@@ -49,6 +88,7 @@ class TraceEvent:
     tid: object                   # thread track ("pe3" / "cq" / "requests")
     id: Optional[int] = None      # async-span / flow correlation id (rid)
     args: Optional[dict] = None
+    step: Optional[int] = None    # scheduler step, under a WallClock only
 
 
 class Tracer:
@@ -56,9 +96,11 @@ class Tracer:
     nothing, so unguarded calls are safe too."""
 
     enabled: bool = False
+    timed: bool = False           # stamped on a WallClock
 
-    def __init__(self):
-        self.clock = StepClock()
+    def __init__(self, clock=None):
+        self.clock = StepClock() if clock is None else clock
+        self.timed = self.clock.timed
 
     def begin(self, name, cat, pid, tid, **args) -> None:
         pass
@@ -99,8 +141,8 @@ class SpanTracer(Tracer):
 
     enabled = True
 
-    def __init__(self, max_events: int = 1 << 20):
-        super().__init__()
+    def __init__(self, max_events: int = 1 << 20, clock=None):
+        super().__init__(clock)
         self.max_events = max_events
         self.events: List[TraceEvent] = []
         self.dropped = 0
@@ -113,6 +155,8 @@ class SpanTracer(Tracer):
         if len(self.events) >= self.max_events and not force:
             self.dropped += 1
             return
+        if self.timed:
+            ev.step = self.clock.step
         self.events.append(ev)
 
     def now(self) -> float:

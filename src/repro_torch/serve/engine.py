@@ -130,15 +130,28 @@ class Engine:
         return self._advance(slots, cache, tok), tok
 
     def decode_slots_paged(self, slots: SlotBatch, gen, ctx, heap, view,
-                           temperature: float = 0.0):
+                           temperature: float = 0.0, track=None):
         """ONE decode step reading K/V straight from the symmetric-heap
         block pool: the view assembles every paged leaf through the slot
         block tables (K3), the same decode runs, and each active slot's new
         K/V token is written back into its pool block.  The returned bank
         keeps only non-paged state.  Returns ``(new_slots, tokens, heap)``.
         With a profiler on ``ctx``, the decode proper runs in a
-        ``paged_attn`` scope labelled with the assembled cache's bytes."""
+        ``paged_attn`` scope labelled with the assembled cache's bytes.
+        With a wall-clocked tracer on ``ctx`` (``tracer.timed``), the four
+        parts record ``decode.assemble``, ``decode.model``,
+        ``decode.sample`` and ``decode.writeback`` spans on ``track`` (the
+        caller's ``(pid, tid)``, by default the view's PE), and the heap's
+        tally ends the writeback as a ``heap`` counter."""
+        tr = ctx.tracer if ctx.tracer.timed else None
+        if tr is not None:
+            pid, tid = track or (f"pod{ctx.node_of(view.pe)}",
+                                 f"pe{view.pe}")
+            tr.begin("decode.assemble", "engine", pid, tid)
         cache = view.assemble(heap, slots.cache)
+        if tr is not None:
+            tr.end("decode.assemble", "engine", pid, tid)
+            tr.begin("decode.model", "engine", pid, tid)
         pf = getattr(ctx, "prof", None)
         if pf is not None and pf.enabled:
             kv_bytes = sum(leaf.numel() * leaf.element_size()
@@ -154,8 +167,17 @@ class Engine:
             logits, new_cache = model.decode_step(self.params, self.cfg,
                                                   slots.tok[:, None],
                                                   slots.pos, cache)
+        if tr is not None:
+            tr.end("decode.model", "engine", pid, tid)
+            tr.begin("decode.sample", "engine", pid, tid)
         tok = self._sample(logits, gen, temperature)
+        if tr is not None:
+            tr.end("decode.sample", "engine", pid, tid)
+            tr.begin("decode.writeback", "engine", pid, tid)
         heap = view.writeback(ctx, heap, new_cache, slots.pos, slots.active)
+        if tr is not None:
+            tr.counter("heap", pid, tid, **dataclasses.asdict(heap.tally))
+            tr.end("decode.writeback", "engine", pid, tid)
         return self._advance(slots, view.strip(new_cache), tok), tok, heap
 
     # ------------------------------------------------------- lockstep API

@@ -167,6 +167,11 @@ class KVMigrator:
         if ids is None:
             return heap, None
         start = len(shared_ids)
+        tr = self._tracer()
+        timed = tr is not None and tr.timed
+        if timed:
+            pid, tid = self._track(src_pe)
+            tr.begin("kvx.stage", "kvx", pid, tid, rid=req_id)
         payloads = pack_blocks(lay, cache, batch_idx=batch_idx,
                                n_blocks=n_prompt - start, start=start)
         for bid, payload in zip(ids[start:n_prompt], payloads):
@@ -176,11 +181,13 @@ class KVMigrator:
         self._staged_tails[req_id] = pack_tail(lay, cache,
                                                batch_idx=batch_idx,
                                                device=heap.device)
-        tr = self._tracer()
         if tr is not None:
             pid, tid = self._track(src_pe)
             tr.instant("stage", "kvx", pid, tid, rid=req_id,
                        blocks=n_prompt - start, shared=len(shared_ids))
+        if timed:
+            tr.counter("heap", pid, tid, **dataclasses.asdict(heap.tally))
+            tr.end("kvx.stage", "kvx", pid, tid)
         return heap, ids
 
     def _wire_plan(self, req_id: int, skip) -> tuple:

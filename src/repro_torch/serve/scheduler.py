@@ -989,6 +989,7 @@ class DisaggScheduler:
         """One decode step over every decode PE with an active slot."""
         stepped = False
         tr = self._tracer()
+        timed = tr is not None and tr.timed
         for pe in self.decode_pes:
             bank = self.banks[pe]
             if not bank.active.any():
@@ -1018,7 +1019,13 @@ class DisaggScheduler:
             stepped = True
             if tr is not None:
                 tr.end("decode", "sched", self._trace_pid, f"pe{pe}")
+            if timed:
+                tr.begin("decode.readback", "sched", self._trace_pid,
+                         f"pe{pe}")
             toks = toks.tolist()
+            if timed:
+                tr.end("decode.readback", "sched", self._trace_pid,
+                       f"pe{pe}")
             for s, rid in enumerate(self.slot_req[pe]):
                 if rid is None or self.requests[rid].state != DECODING:
                     continue
@@ -1034,7 +1041,7 @@ class DisaggScheduler:
         if self.paged:
             bank, toks, self.heap = self.engine.decode_slots_paged(
                 bank, gen, self.ctx, self.heap, self.views[pe],
-                self.scfg.temperature)
+                self.scfg.temperature, track=(self._trace_pid, f"pe{pe}"))
             return bank, toks
         return self.engine.decode_slots(bank, gen, self.scfg.temperature)
 

@@ -432,8 +432,12 @@ def test_obs_env_surface_exact(environ):
         assert str(got.value) == str(e)
         return
     got = load_obs_env(environ)
-    assert {k: getattr(got, k) for k in got.__dataclass_fields__} == \
+    # every field of the reference's, and the port's own trace clock at
+    # its default (the reference traces on the step clock alone)
+    assert {k: getattr(got, k) for k in want.__dataclass_fields__} == \
         {k: getattr(want, k) for k in want.__dataclass_fields__}
+    assert set(got.__dataclass_fields__) - set(want.__dataclass_fields__) \
+        == {"trace_clock"} and got.trace_clock == "step"
     assert Obs.from_config(got).tracer.enabled == got.trace
 
 
