@@ -1514,7 +1514,8 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched, label):
     nan_pools = heap.pools[pool.data.dtype].clone()
     nan_pools[pe, pool.data.offset:pool.data.offset + pool.data.size].view(
         pool.num_blocks, lay.block_words)[unused] = float("nan")
-    nan_heap = heap.replace_pool(pool.data.dtype, nan_pools)
+    nan_heap = dataclasses.replace(
+        heap, pools={**heap.pools, pool.data.dtype: nan_pools})
     per_call = None
     for label, h in ((label, heap),
                      (f"its copy with {len(unused)} unused blocks NaN",
@@ -1564,7 +1565,7 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched, label):
         for sig_ptr, expected in waits:
             h, _, _ = device_mod.signal_wait_until(wg, h, sig_ptr, pe, "ge",
                                                    expected)
-        data = device_mod.get(wg, h, pool.data, pe).reshape(
+        data = device_mod.get_view(wg, h, pool.data, pe).reshape(
             pool.num_blocks, lay.block_words)
         pay = dev_kern.paged_gather(data, view.table())
         k, v = (dev_kern._extract_leaf(pay, lay, x, view.num_slots,
@@ -1900,7 +1901,7 @@ def _check_tails(torch, sched, label):
     """Every decode slot's tail in the pool, bitwise the packed tail of a
     fresh prefill of the last request admitted there: the cross K/V, or a
     ring's kpos, whose -1 is a NaN bit pattern in f32 that K1, the pool
-    clones and the pack and unpack must carry as bits."""
+    stores and the pack and unpack must carry as bits."""
     from repro_torch.serve import kvpool
     lay, eng, last = sched.pool.layout, sched.engine, {}
     for req in sched.requests.values():

@@ -3,7 +3,8 @@
 Counterpart of ``repro/core/amo.py``.  Each AMO is a linearisable
 read-modify-write of one element of the symmetric heap: a blocking AMO
 first completes every queued op on that element, then stores through the
-heap (K1 on a CUDA heap) and returns the pre-image.  Non-fetching nbi AMOs
+heap (K1 on a CUDA heap, in place) and returns the pre-image, an owned
+copy that a later store leaves as it was.  Non-fetching nbi AMOs
 queue on the completion queue, where adjacent adds to one element merge.
 Bitwise AMOs take the heap's int32 pool (the port keeps no unsigned pool).
 """
@@ -24,7 +25,7 @@ def _rmw(ctx, heap, ptr: SymPtr, pe, fn, opname, src_pe=0):
     # (it reads, so nothing may be dropped)
     heap = ctx.pending.resolve_store_conflicts(ctx, heap, ptr, pe,
                                                covers=False)
-    old = heap.read(ptr, pe).reshape(())
+    old = heap.read(ptr, pe).reshape(()).clone()
     new = fn(old)
     tier = ctx.tier(src_pe, pe)
     path = "proxy" if tier == "dcn" else "direct"

@@ -1,7 +1,7 @@
 """The paper-named API facade: ``ishmem_*`` / ``ishmemx_*`` over the core.
 
 Counterpart of ``repro/core/api.py``.  A stateful wrapper that threads
-``(ctx, heap)`` through the functional core, so application code reads
+``(ctx, heap)`` through the core's ``heap``-in, ``heap``-out calls, so application code reads
 like the paper's listings:
 
     sh = Ishmem(npes=8, node_size=4)             # heap on the current card

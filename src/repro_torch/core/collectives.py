@@ -13,9 +13,8 @@ the cutover engine and recorded on the context's telemetry:
   record names the algorithm);
 - ``alltoall``: pairwise exchange.
 
-Every op is functional over the heap: it reads the team's rows, computes
-them in plain torch, and stores them back through ``write_all`` (K1 on a
-CUDA heap).  The device-initiated ring kernels serve the comms backend
+Every op reads the team's rows, computes them in plain torch, and stores
+them back through ``write_all`` (K1 on a CUDA heap, in place).  The device-initiated ring kernels serve the comms backend
 (``comms/api.py``), as in the reference.
 """
 from __future__ import annotations

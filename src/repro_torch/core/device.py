@@ -32,7 +32,8 @@ from repro_torch.core.signal import SIGNAL_ADD, SIGNAL_SET, _CMP, _sig_apply
 from repro_torch.core.teams import Team
 
 __all__ = [
-    "WorkGroup", "work_group", "put", "get", "put_nbi", "put_signal_nbi",
+    "WorkGroup", "work_group", "put", "get", "get_view", "put_nbi",
+    "put_signal_nbi",
     "signal_wait_until", "broadcast", "reduce", "SIGNAL_SET", "SIGNAL_ADD",
 ]
 
@@ -91,7 +92,14 @@ def put(wg: WorkGroup, heap, dest: SymPtr, value, dst_pe: int):
 
 
 def get(wg: WorkGroup, heap, src: SymPtr, src_pe_remote: int):
-    """ishmemx_get_work_group: cooperative one-sided load."""
+    """ishmemx_get_work_group: cooperative one-sided load, an owned copy."""
+    return get_view(wg, heap, src, src_pe_remote).clone()
+
+
+def get_view(wg: WorkGroup, heap, src: SymPtr, src_pe_remote: int):
+    """:func:`get`, telemetry and all, as a view of the live pool: for a
+    caller that consumes it before any later store (the fused route's
+    gather over a whole pool row, which must not be copied)."""
     ctx = wg.ctx
     tier = wg.tier(src_pe_remote)
     path = cutover.choose_path(src.nbytes, work_items=wg.size, tier=tier,
@@ -107,7 +115,7 @@ def put_nbi(wg: WorkGroup, heap, dest: SymPtr, value, dst_pe: int):
     group's width; the transport is chosen at flush on the coalesced size.
     The queue owns a copy of the payload."""
     ctx = wg.ctx
-    value = heap.coerce(dest, value).clone()
+    value = heap.staged(dest, value)
     tier = wg.tier(dst_pe)
     marker_path = "proxy" if tier == "dcn" else "engine"
     ctx.record("device_put_nbi(pending)", dest.nbytes, marker_path, tier,
@@ -161,7 +169,7 @@ def signal_wait_until(wg: WorkGroup, heap, sig_ptr: SymPtr, pe: int,
     ctx.record("device_signal_wait", 0, "direct", "local", wg.size)
     _instant(wg, "device_signal_wait", cmp=cmp, value=int(value),
              observed=int(cur), spins=spins, ok=ok)
-    return heap, cur, ok
+    return heap, cur.clone(), ok
 
 
 # ---------------------------------------------------------------------------

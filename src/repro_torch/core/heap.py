@@ -5,16 +5,22 @@ Counterpart of ``repro/core/heap.py``.  The PGAS address space is one
 identically laid-out row, and a :class:`SymPtr` ``(dtype, offset, shape)`` is
 valid at every PE.  Allocation metadata lives host-side.
 
-Data updates are functional, as in the reference: :meth:`write` clones the
-pool and stores into the clone's row through the K1 copy kernel
-(``kernels/rma_copy.py``; its plain version for a CPU pool), so every heap
-snapshot keeps its bytes.  The clone costs one pass over the pool (2.4 GB at
-the full-width serving configuration); a :class:`HeapTally` that every
-snapshot shares counts the bytes cloned and stored.  Allocation
-(``calloc``, growth) mutates the heap object itself, as a host-side
-collective, but never a pool tensor a snapshot may share.  64-bit dtypes
-narrow to 32-bit, as JAX does with x64 off, so pointer dtypes and byte
-counts match the reference's.
+The heap is memory that is stored into, as an OpenSHMEM symmetric heap is:
+:meth:`write` and :meth:`write_all` store into the live pool's rows through
+the K1 copy kernel (``kernels/rma_copy.py``; its plain version for a CPU
+pool), :meth:`calloc` zeroes its span in place, and each returns the heap
+itself, so ``heap = heap.write(...)`` threads one mutable object.  (The
+reference's heap is functional, JAX arrays being immutable; no caller reads
+a heap superseded by a later store.)  A value that can outlive a later store
+is owned: the RMA, AMO, signal and device-side fetches return payload-sized
+copies, and :meth:`read` / :meth:`read_all` views serve readers that consume
+them at once.  A store whose source overlaps its own destination copies the
+source first, so K1 never reads bytes it writes.  A deferred (nbi) put
+holds a copy of its payload until it lands (:meth:`staged`).  Pool growth
+in :meth:`malloc` is the one place a new pool tensor is made.  A
+:class:`HeapTally` counts the bytes the heap copies and stores.  64-bit
+dtypes narrow to 32-bit, as JAX does with x64 off, so pointer dtypes and
+byte counts match the reference's.
 """
 from __future__ import annotations
 
@@ -79,23 +85,24 @@ class SymPtr(NamedTuple):
 
 @dataclasses.dataclass
 class HeapTally:
-    """Cumulative counts of the heap's data ops (``write``, ``write_all``,
-    ``calloc``), one object shared by every snapshot descending from one
-    heap: the bytes of the pools they cloned, the bytes they stored, and
-    the calls."""
+    """Cumulative counts of one heap's data movement: ``copy_bytes``, the
+    bytes copied besides the stores themselves (a pool's old contents at
+    growth, a self-overlapping store's source, a deferred put's staged
+    payload and the completion queue's merged run of them);
+    ``store_bytes``, the bytes its data ops (``write``, ``write_all``,
+    ``calloc``) store; ``writes``, those calls."""
     copy_bytes: int = 0
     store_bytes: int = 0
     writes: int = 0
 
-    def add(self, pool: torch.Tensor, store_bytes: int) -> None:
-        self.copy_bytes += pool.numel() * pool.element_size()
+    def add(self, store_bytes: int) -> None:
         self.store_bytes += store_bytes
         self.writes += 1
 
 
 @dataclasses.dataclass
 class SymmetricHeap:
-    """Functional symmetric heap.  Data ops return a new heap."""
+    """Symmetric heap.  Data ops store in place and return the heap."""
 
     npes: int
     pools: dict                    # dtype str -> (npes, words) tensor
@@ -131,20 +138,20 @@ class SymmetricHeap:
             pad = torch.zeros((self.npes, max(words * 2, cur + n_aligned)
                                - words), dtype=TORCH_DTYPES[dt],
                               device=self.device)
-            self.pools[dt] = torch.cat([self.pools[dt], pad], dim=1)
+            old = self.pools[dt]
+            self.pools[dt] = torch.cat([old, pad], dim=1)
+            self.tally.copy_bytes += old.numel() * old.element_size()
         self._cursor[dt] = cur + n_aligned
         return SymPtr(dt, cur, shape)
 
     def calloc(self, shape, dtype) -> SymPtr:
         """shmem_calloc: like malloc, but the whole aligned span reads zero
-        at every PE.  Zeroes a clone, so snapshots sharing the old pool
-        tensor keep their bytes."""
+        at every PE, zeroed in place."""
         ptr = self.malloc(shape, dtype)
-        pool = self.pools[ptr.dtype].clone()
+        pool = self.pools[ptr.dtype]
         n = _aligned(ptr.size)
-        pool[:, ptr.offset:ptr.offset + n] = 0
-        self.tally.add(pool, self.npes * n * pool.element_size())
-        self.pools[ptr.dtype] = pool
+        pool[:, ptr.offset:ptr.offset + n].zero_()
+        self.tally.add(self.npes * n * pool.element_size())
         return ptr
 
     def free(self, ptr: SymPtr) -> None:
@@ -196,20 +203,26 @@ class SymmetricHeap:
                             device=self.device)
         return t.reshape(ptr.size).contiguous()
 
+    def staged(self, ptr: SymPtr, value) -> torch.Tensor:
+        """An owned copy of ``value``, coerced for ``ptr``: the payload a
+        deferred store holds until it lands, counted in ``copy_bytes``."""
+        value = self.coerce(ptr, value).clone()
+        self.tally.copy_bytes += value.numel() * value.element_size()
+        return value
+
     def read(self, ptr: SymPtr, pe: int) -> torch.Tensor:
-        """Local load of the buffer as seen at PE ``pe`` (a view of the
-        pool, which no data op ever mutates)."""
+        """Local load of the buffer as seen at PE ``pe``: a view of the
+        live pool, which a later store changes."""
         flat = self.pools[ptr.dtype][pe, ptr.offset:ptr.offset + ptr.size]
         return flat.reshape(ptr.shape)
 
     def write(self, ptr: SymPtr, pe: int, value) -> "SymmetricHeap":
-        """Store ``value`` at PE ``pe``: clone the pool, store into the
-        clone's row with K1, return the new heap."""
-        value = self.coerce(ptr, value)
-        pool = self.pools[ptr.dtype].clone()
-        rma_copy.copy_into(pool[pe], value, ptr.offset)
-        self.tally.add(pool, value.numel() * value.element_size())
-        return self.replace_pool(ptr.dtype, pool)
+        """Store ``value`` at PE ``pe``'s row with K1, in place; returns
+        this heap."""
+        value = self._unaliased(ptr, [pe], self.coerce(ptr, value))
+        rma_copy.copy_into(self.pools[ptr.dtype][pe], value, ptr.offset)
+        self.tally.add(value.numel() * value.element_size())
+        return self
 
     def read_all(self, ptr: SymPtr) -> torch.Tensor:
         """(npes, *shape) view of the buffer across every PE."""
@@ -217,21 +230,34 @@ class SymmetricHeap:
         return flat.reshape((self.npes,) + ptr.shape)
 
     def write_all(self, ptr: SymPtr, values) -> "SymmetricHeap":
+        """Store row ``pe`` of ``values`` at every PE ``pe`` with K1, in
+        place; returns this heap."""
         values = torch.as_tensor(values, dtype=TORCH_DTYPES[ptr.dtype],
                                  device=self.device).reshape(self.npes, -1)
-        pool = self.pools[ptr.dtype].clone()
+        values = self._unaliased(ptr, range(self.npes), values)
+        pool = self.pools[ptr.dtype]
         for pe in range(self.npes):
             rma_copy.copy_into(pool[pe], values[pe].contiguous(), ptr.offset)
-        self.tally.add(pool, values.numel() * values.element_size())
-        return self.replace_pool(ptr.dtype, pool)
+        self.tally.add(values.numel() * values.element_size())
+        return self
 
-    def replace_pool(self, dt, pool) -> "SymmetricHeap":
-        pools = dict(self.pools)
-        pools[dt] = pool
-        return SymmetricHeap(self.npes, pools, self.device,
-                             dict(self._cursor),
-                             {k: list(v) for k, v in self._free.items()},
-                             self.words_per_pool, self.tally)
+    def _unaliased(self, ptr: SymPtr, pes, src: torch.Tensor) -> torch.Tensor:
+        """``src``, or a copy of it where its bytes overlap ``ptr``'s span
+        at one of ``pes``, the bytes a store of it writes: K1 never reads
+        bytes it is writing."""
+        if not src.numel():
+            return src
+        pool = self.pools[ptr.dtype]
+        item = pool.element_size()
+        lo = src.data_ptr()
+        hi = lo + item * (1 + sum((n - 1) * st for n, st in
+                                  zip(src.shape, src.stride())))
+        for pe in pes:
+            start = pool[pe].data_ptr() + ptr.offset * item
+            if lo < start + ptr.size * item and start < hi:
+                self.tally.copy_bytes += src.numel() * item
+                return src.clone()
+        return src
 
 
 def create(npes: int, words_per_pool: int = 1 << 20,

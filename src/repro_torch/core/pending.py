@@ -220,7 +220,7 @@ class CompletionQueue:
 
     # -------------------------------------------------------------- flush
     def flush(self, ctx, heap, *, proxy=None):
-        """Complete every pending op, in order.  Returns the new heap.
+        """Complete every pending op, in order.  Returns the heap.
         While the proxy ring is partitioned only the prefix before the
         first cross-pod op completes; the rest waits for the heal."""
         limit = self._partition_limit(ctx, self.ops)
@@ -319,6 +319,8 @@ class CompletionQueue:
                        head.tier, head.work_items)
             return heap.write(head.ptr, head.pe, new), False
         ptr, value = _merge_puts(group)
+        if len(group) > 1:                    # the run's merged payload
+            heap.tally.copy_bytes += value.numel() * value.element_size()
         tracer = ctx.tracer
         if head.tier == "dcn" and proxy is not None:
             if proxy.ring_full():

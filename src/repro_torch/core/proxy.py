@@ -72,7 +72,9 @@ class HostProxy:
     def _payload(ptr: SymPtr, value) -> torch.Tensor:
         """``value`` flat in the pointer's dtype, on the device it lies on
         (a Python value on the CPU; the drain's store moves it to the
-        heap).  Heap views need no copy: no data op mutates a pool."""
+        heap).  Staged as it is until the drain: a caller passes a payload
+        it owns (the completion queue's are), not a view of a pool that a
+        store may change before then."""
         return torch.as_tensor(value, dtype=TORCH_DTYPES[ptr.dtype]) \
             .reshape(ptr.size).contiguous()
 

@@ -4,9 +4,11 @@ nbi put/get, quiet and fence.
 Counterpart of ``repro/core/rma.py``.  Semantics are one-sided: ``put``
 stores into the destination PE's row of the symmetric heap, ``get`` loads
 from the source PE's row.  Every op picks a transport through the cutover
-engine and records it on the context's telemetry; every store lands through
-the K1 copy kernel on a CUDA heap (``SymmetricHeap.write``).  ``put_nbi``
-and ``get_nbi`` go through the context's completion queue.
+engine and records it on the context's telemetry; every store lands in
+place through the K1 copy kernel on a CUDA heap (``SymmetricHeap.write``).
+The fetches return owned copies of the payload, as the reference's
+immutable arrays are: a later store never changes what was fetched.
+``put_nbi`` and ``get_nbi`` go through the context's completion queue.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def get(ctx, heap: SymmetricHeap, src: SymPtr, src_pe_remote, *,
     tier = ctx.tier(src_pe, src_pe_remote)
     path = _pick(ctx, src.nbytes, work_items, tier)
     ctx.record("get", src.nbytes, path, tier, work_items)
-    return heap.read(src, src_pe_remote)
+    return heap.read(src, src_pe_remote).clone()
 
 
 def p(ctx, heap, dest: SymPtr, scalar, dst_pe, *, src_pe: int = 0):
@@ -56,7 +58,7 @@ def g(ctx, heap, src: SymPtr, src_pe_remote, *, src_pe: int = 0):
     tier = ctx.tier(src_pe, src_pe_remote)
     path = "proxy" if tier == "dcn" else "direct"
     ctx.record("g", TORCH_DTYPES[src.dtype].itemsize, path, tier, 1)
-    return heap.read(src, src_pe_remote).reshape(())
+    return heap.read(src, src_pe_remote).reshape(()).clone()
 
 
 def iput(ctx, heap, dest: SymPtr, value, dst_pe, *, dst_stride: int = 1,
@@ -87,7 +89,7 @@ def iget(ctx, heap, src: SymPtr, src_pe_remote, *, src_stride: int = 1,
     """ishmem_iget: strided load."""
     data = heap.read(src, src_pe_remote).reshape(-1)
     n = nelems if nelems is not None else data.numel() // max(1, src_stride)
-    out = data[::src_stride][:n]
+    out = data[::src_stride][:n].clone()
     nbytes = int(n) * TORCH_DTYPES[src.dtype].itemsize
     tier = ctx.tier(src_pe, src_pe_remote)
     ctx.record("iget", nbytes, _pick(ctx, nbytes, 1, tier), tier, 1)
@@ -100,7 +102,7 @@ def put_nbi(ctx, heap, dest, value, dst_pe, *, src_pe: int = 0,
     deferred onto the completion queue and lands at the next completion
     point.  The queue owns a copy of the payload, so no view keeps an older
     (possibly multi-gigabyte) pool tensor alive while the op is pending."""
-    value = heap.coerce(dest, value).clone()
+    value = heap.staged(dest, value)
     tier = ctx.tier(src_pe, dst_pe)
     path = "proxy" if tier == "dcn" else "engine"
     # trace marker only (t=0): the completed transfer is priced at flush
@@ -124,7 +126,7 @@ def get_nbi(ctx, heap, src, src_pe_remote, *, src_pe: int = 0,
     ctx.pending.submit(pending_mod.GET, "get_nbi", src, src_pe_remote, tier,
                        src_pe=src_pe, work_items=work_items,
                        marker=ctx.ledger[-1] if ctx.ledger else None)
-    return heap.read(src, src_pe_remote)
+    return heap.read(src, src_pe_remote).clone()
 
 
 def quiet(ctx, heap, *, proxy=None):

@@ -67,7 +67,7 @@ def put_signal_nbi(ctx, heap, dest, value, sig_ptr, signal, sig_op, dst_pe, *,
 
 def signal_fetch(ctx, heap, sig_ptr, pe):
     """ishmem_signal_fetch: the signal word's current value."""
-    return heap.read(sig_ptr, pe).reshape(())
+    return heap.read(sig_ptr, pe).reshape(()).clone()
 
 
 def signal_wait_until(ctx, heap, sig_ptr, pe, cmp: str, value):
@@ -76,7 +76,7 @@ def signal_wait_until(ctx, heap, sig_ptr, pe, cmp: str, value):
     everything before it, which covers the data half of a put_signal_nbi) is
     flushed first.  Returns ``(heap, value, satisfied)``."""
     heap = ctx.pending.flush_dependency(ctx, heap, sig_ptr, pe)
-    cur = heap.read(sig_ptr, pe).reshape(())
+    cur = heap.read(sig_ptr, pe).reshape(()).clone()
     ok = bool(_CMP[cmp](cur.item(), value))
     ctx.record("signal_wait", 0, "direct", "local", 1)
     return heap, cur, ok

@@ -306,7 +306,7 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
                          f"{unit_idx} differ in shape")
     # collaborative local load of the pool row (device_get telemetry at the
     # group's width): a view, no copy
-    data = device_mod.get(wg, heap, view.pool.data, view.pe).reshape(
+    data = device_mod.get_view(wg, heap, view.pool.data, view.pe).reshape(
         view.pool.num_blocks, lay.block_words)
     offs = _leaf_offsets(lay)
     k_off, v_off = offs[(unit_idx, "k")], offs[(unit_idx, "v")]

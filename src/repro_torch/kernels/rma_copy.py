@@ -28,9 +28,9 @@ def copy_into_plain(dst_row: torch.Tensor, src: torch.Tensor,
 def copy_into(dst_row: torch.Tensor, src: torch.Tensor,
               offset: int) -> torch.Tensor:
     """Store ``src`` (flattened) into ``dst_row`` at element ``offset``, in
-    place, and return ``dst_row``.  The caller owns ``dst_row``: the
-    functional heap passes a freshly cloned pool row, so no snapshot sees
-    the store."""
+    place, and return ``dst_row``.  ``src`` must not overlap the bytes it is
+    stored over (the body keeps four loads in flight): the heap passes its
+    live pool row, and copies a source that overlaps first."""
     # every launch on the heap's store path runs these checks: each reads
     # an attribute once, the cheaper forms (ndim, itemsize) where there are
     # two, in the order that decides which error a bad call raises

@@ -186,9 +186,8 @@ def scramble_rows(heap, pes):
     (bit for bit the reference's).  A dead PE's memory is gone; anything
     that still reads it after recovery carries the poison into decoded
     tokens, which the chaos harness's bitwise check then catches.  The
-    rows are filled in place on the pool's own device, so every snapshot
-    sharing the pool loses them too (and a multi-gigabyte pool is not
-    copied).  Returns the heap."""
+    rows are filled in place on the pool's own device, as every store
+    lands.  Returns the heap."""
     rows = [int(pe) for pe in pes]
     for pool in heap.pools.values():
         if pool.dtype.is_floating_point:

@@ -191,11 +191,10 @@ class Fleet:
     def step(self, arrivals: Optional[List[RequestSpec]] = None) -> None:
         """One fleet step: fire the plan's faults, submit this step's
         arrivals, advance every pod.  The heap is threaded through the
-        pods: there is one symmetric memory, but each scheduler evolves its
-        ``heap`` functionally, and the completion queue is fleet-shared, so
-        a flush driven by pod B may complete ops pod A submitted.  Handing
-        each pod the canonical heap and taking its result back lands those
-        flushes in the memory every other pod reads."""
+        pods: there is one symmetric memory, stored into in place, and the
+        completion queue is fleet-shared, so a flush driven by pod B may
+        complete ops pod A submitted into the memory every other pod
+        reads."""
         if self.obs is not None:
             self.obs.begin_step(self.elapsed_steps)
         if self.injector is not None:
@@ -207,9 +206,6 @@ class Fleet:
             pod.sched.heap = self.heap
             pod.sched.step()
             self.heap = pod.sched.heap
-        for pod in self.pods:
-            # drop the older snapshots: on the card each holds a pool
-            pod.sched.heap = self.heap
         self.elapsed_steps += 1
         if self.obs is not None:
             self.obs.end_step(self)

@@ -64,7 +64,7 @@ def full_release(fleet, sched, req, heap):
     """Release every resource a request holds — block-table refs, COW
     reserves, prefix-entry ref, decode slot, stream signal, retained staged
     tail — resetting heap words only on live rows.  Refcount-exact: every
-    pool invariant holds immediately after.  Returns the new heap."""
+    pool invariant holds immediately after.  Returns the heap."""
     fault = fleet.ctx.fault
     pool, mig = sched.pool, sched.migrator
     pe, slot = req.decode_pe, req.slot

@@ -184,7 +184,11 @@ def test_nbi_amos_merge_and_gets_defer():
         s.keep((cq.pending_first(p, 6), cq.pending_for(p, 6),
                 cq.pending_first(p, 1), cq.pending_first(q, 5),
                 cq.pending_first(p, 0)))
-        s.keep(s.amo.fetch(s.ctx, s.heap, p, 6))      # forces the adds first
+        # forces the adds first; the heap they land in is threaded on (the
+        # reference's ``fetch`` returns the pre-image alone, and its heap
+        # then keeps no flushed add, where the port's stores in place)
+        s.heap, old = s.amo._rmw(s.ctx, s.heap, p, 6, lambda o: o, "fetch")
+        s.keep(old)
         s.keep(len(s.ctx.pending))
         s.heap = s.rma.quiet(s.ctx, s.heap)
         s.keep(s.amo.fetch(s.ctx, s.heap, p, 1))

@@ -3,8 +3,10 @@
 Two parts:
 
 1. the heap laws of ``tests/test_heap.py`` proved again on the port's
-   ``SymmetricHeap`` (CPU pools), plus the functional-update law the
-   port's clone-on-write keeps: an old snapshot keeps its bytes;
+   ``SymmetricHeap`` (CPU pools), plus the port's own store law: every
+   store lands in the live pool and returns the same heap, a value fetched
+   before it keeps its bytes, and a store whose source overlaps its
+   destination lands the reference's bytes;
 2. one op script — put, get, p, put_nbi, fence, quiet, put_signal_nbi,
    signal_wait_until — replayed on both packages over PEs in three tiers.
    Data movement and control must agree exactly: every pool byte for byte,
@@ -19,8 +21,8 @@ import torch
 from repro.core import context as ref_context, cutover as ref_cutover, \
     rma as ref_rma, signal as ref_signal, teams as ref_teams
 from repro_torch import _bridge
-from repro_torch.core import context, cutover, heap as heap_mod, rma, \
-    signal, teams
+from repro_torch.core import amo, context, cutover, device, \
+    heap as heap_mod, rma, signal, teams
 from _torch_threads import one_intra_op_thread  # noqa: F401
 
 
@@ -150,19 +152,66 @@ def test_allocations_never_overlap(seed):
         spans[dt].append((lo, hi))
 
 
-def test_old_snapshots_keep_their_bytes():
-    """write() is functional: the heap it was called on keeps its bytes,
-    and calloc on a later heap never disturbs an earlier snapshot."""
-    h0 = _heap()
-    a = h0.malloc((200,), "float32")
-    h1 = h0.write(a, 1, torch.full((200,), 3.0))
-    h2 = h1.write(a, 1, torch.full((200,), 4.0))
-    assert float(h0.read(a, 1)[0]) == 0.0
-    assert float(h1.read(a, 1)[0]) == 3.0
-    assert float(h2.read(a, 1)[0]) == 4.0
-    h2.free(a)
-    h2.calloc((200,), "float32")
-    assert float(h1.read(a, 1)[0]) == 3.0
+def _free_calloc(ctx, h, a, c):
+    h.free(a)
+    h.free(c)
+    assert h.calloc(a.shape, a.dtype) == a and h.calloc((), c.dtype) == c
+    return h
+
+
+# each store: (it, applied to a float buffer ``a`` of 3.0s and an int32
+# counter ``c`` at PE 1, then a's and c's bytes there after it)
+STORES = {
+    "put": (lambda ctx, h, a, c: rma.put(
+        ctx, rma.put(ctx, h, a, torch.full((200,), 4.0), 1), c, 9, 1),
+        [4.0] * 200, 9),
+    "p": (lambda ctx, h, a, c: rma.p(
+        ctx, rma.p(ctx, h, a.index(0), 4.0, 1), c, 9, 1),
+        [4.0] + [3.0] * 199, 9),
+    "iput": (lambda ctx, h, a, c: rma.iput(
+        ctx, rma.iput(ctx, h, a, torch.full((100,), 4.0), 1, dst_stride=2),
+        c, [9], 1), [4.0, 3.0] * 100, 9),
+    "put_nbi+quiet": (lambda ctx, h, a, c: rma.quiet(ctx, rma.put_nbi(
+        ctx, rma.put_nbi(ctx, h, a, torch.full((200,), 4.0), 1), c, 9, 1)),
+        [4.0] * 200, 9),
+    "calloc": (_free_calloc, [0.0] * 200, 0),
+}
+
+
+@pytest.mark.parametrize("store", list(STORES))
+def test_old_snapshots_keep_their_bytes(store):
+    """A store lands in the live pool tensor and returns the heap it was
+    called on; what was fetched before it (get, g, iget, get_nbi, a
+    work-group get and a fetching AMO's pre-image) keeps the bytes it was
+    fetched with, where a ``get_view`` reads the store."""
+    ctx, h = context.init(npes=2, device="cpu")
+    a = h.malloc((200,), "float32")
+    c = h.malloc((), "int32")
+    h = rma.put(ctx, h, a, torch.full((200,), 3.0), 1)
+    fetched = {"get": rma.get(ctx, h, a, 1),
+               "g": rma.g(ctx, h, a.index(0), 1),
+               "iget": rma.iget(ctx, h, a, 1, src_stride=2),
+               "get_nbi": rma.get_nbi(ctx, h, a, 1),
+               "device_get": device.get(device.work_group(ctx), h, a, 1)}
+    view = device.get_view(device.work_group(ctx), h, a, 1)
+    h, fetched["fetch_add"] = amo.fetch_add(ctx, h, c, 5, 1)
+    h = rma.quiet(ctx, h)
+    pools = dict(h.pools)
+    fn, want_a, want_c = STORES[store]
+    assert fn(ctx, h, a, c) is h
+    assert all(h.pools[dt] is pool for dt, pool in pools.items())
+    assert h.read(a, 1).tolist() == want_a and int(h.read(c, 1)) == want_c
+    assert h.read(a, 0).tolist() == [0.0] * 200
+    assert fetched["get"].tolist() == [3.0] * 200
+    assert float(fetched["g"]) == 3.0
+    assert fetched["iget"].tolist() == [3.0] * 100
+    assert fetched["get_nbi"].tolist() == [3.0] * 200
+    assert fetched["device_get"].tolist() == [3.0] * 200
+    assert view.tolist() == want_a
+    assert int(fetched["fetch_add"]) == 0
+    # nothing is copied but a deferred put's staged payloads (a's and c's)
+    assert h.tally.copy_bytes == (200 * 4 + 4 if store == "put_nbi+quiet"
+                                  else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +339,65 @@ def test_pending_ops_leave_target_untouched_until_quiet():
     assert torch.equal(h.read(p, 1), torch.zeros(128)) and len(ctx.pending)
     h = rma.quiet(ctx, h)
     assert torch.equal(h.read(p, 1), torch.ones(128)) and not ctx.pending
+
+
+def _stored_like_the_reference(store):
+    """Fill ``f`` at PEs 1 and 2 on both packages, run ``store(side)``, and
+    return the port heap's copied and stored bytes of the store once every
+    pool matches byte for byte."""
+    sides = [_Side(ref=True), _Side(ref=False)]
+    rng = np.random.default_rng(7)
+    fill = {pe: rng.normal(size=3000).astype(np.float32) for pe in (1, 2)}
+    for side in sides:
+        for pe, x in fill.items():
+            side.heap = side.rma.put(side.ctx, side.heap, side.f,
+                                     side.val(x, "float32"), pe)
+        if not side.ref:
+            tally = side.heap.tally
+            before = (tally.copy_bytes, tally.store_bytes)
+        store(side)
+    ref, port = sides
+    ref_pools, port_pools = ref.pools(), port.pools()
+    for dt in ref_pools:
+        assert torch.equal(ref_pools[dt], port_pools[dt]), dt
+    assert ref.records() == port.records()
+    return tally.copy_bytes - before[0], tally.store_bytes - before[1]
+
+
+# a store whose source is a view of the bytes it is stored over: shifted
+# up or down a row, the very same span, every PE's row at once
+OVERLAPS = {
+    "up": lambda s: s.heap.write(s.ptr("f", 1, 2000), 1,
+                                 s.heap.read(s.ptr("f", 0, 2000), 1)),
+    "down": lambda s: s.heap.write(s.ptr("f", 0, 2000), 1,
+                                   s.heap.read(s.ptr("f", 1, 2000), 1)),
+    "same": lambda s: s.heap.write(s.ptr("f", 0, 2000), 2,
+                                   s.heap.read(s.ptr("f", 0, 2000), 2)),
+    "all_rows": lambda s: s.heap.write_all(
+        s.ptr("f", 300, 2000), s.heap.read_all(s.ptr("f", 0, 2000))),
+}
+
+
+@pytest.mark.parametrize("case", list(OVERLAPS))
+def test_self_overlapping_store_lands_the_reference_bytes(case):
+    """K1 never reads bytes it is writing: an overlapping source is copied
+    first (and counted), so the row ends as the reference's does."""
+    copied, stored = _stored_like_the_reference(
+        lambda s: setattr(s, "heap", OVERLAPS[case](s)))
+    rows = NPES if case == "all_rows" else 1
+    assert copied == stored == rows * 2000 * 4
+
+
+@pytest.mark.parametrize("src_pe", [1, 2])
+def test_put_from_another_block_of_the_row_lands_the_reference_bytes(src_pe):
+    """Copy-on-write's put: the source is ``heap.read`` of another span of
+    a pool row (the destination's own row, or another PE's), stored with
+    ``rma.put`` as it is, with no copy."""
+    def store(s):
+        s.heap = s.rma.put(s.ctx, s.heap, s.ptr("f", 1536, 1024),
+                           s.heap.read(s.ptr("f", 256, 1024), src_pe), 1,
+                           src_pe=1)
+    assert _stored_like_the_reference(store) == (0, 1024 * 4)
 
 
 # ---------------------------------------------------------------------------

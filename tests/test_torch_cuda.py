@@ -771,7 +771,7 @@ def test_cuda_remaining_families_match_single_pe(card, arch, layers):
 def test_cuda_ring_tails_carry_nan_bits(card):
     """Reduced h2o-danube (window 64) at 40-token prompts and a 70-token
     cache: the ring's 24 empty slots hold kpos -1, a NaN bit pattern in
-    the f32 tail, through K1, the pool clones and the unpack; decode wraps
+    the f32 tail, through K1, the pool stores and the unpack; decode wraps
     into slot 0.  Tokens bitwise the single-PE baseline, and every slot's
     tail bitwise the packed tail of its last request."""
     from repro_torch.serve import kvpool

@@ -170,16 +170,20 @@ def test_seeded_corruptions_draw_the_reference_violations(tmp_path):
             for req in pod.sched.requests.values():
                 if (req.state == DECODING and req.slot >= 0
                         and len(req.out) + 2 < req.max_new):
-                    ptr = f.pool.sig_ptr(req.slot)
-                    old = f.heap
+                    ptr, pe = f.pool.sig_ptr(req.slot), req.decode_pe
+                    # the port's heap stores in place: keep the word's
+                    # bytes, not the heap, to put back
+                    was = f.heap.read(ptr, pe)
                     if isinstance(f, Fleet):
-                        f.heap = f.heap.write(ptr, req.decode_pe,
+                        was = was.clone()
+                        f.heap = f.heap.write(ptr, pe,
                                               torch.ones(1, dtype=torch.int32))
                     else:
                         import jax.numpy as jnp
-                        f.heap = f.heap.write(ptr, req.decode_pe,
+                        f.heap = f.heap.write(ptr, pe,
                                               jnp.ones((1,), jnp.int32))
-                    return lambda: setattr(f, "heap", old)
+                    return lambda: setattr(f, "heap",
+                                           f.heap.write(ptr, pe, was))
         return None
 
     todo = {"refcount-": refcount, "residency-": residency,

@@ -27,7 +27,8 @@ except ImportError:
     from _minihyp import given, settings, strategies as st
 
 from repro_torch.configs import base
-from repro_torch.core import context
+from repro_torch.core import context, heap as heap_mod
+from repro_torch.core import pending as pending_mod
 from repro_torch.models import model
 from repro_torch.serve import kvpool as kvpool_mod
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -471,6 +472,49 @@ def _disagg(params, *, n_req=5, num_slots=3, NEW=6, admit_delay=0,
     for p in prompts:
         sched.submit({"tokens": p})
     return sched, prompts, _run(sched), eng
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_serving_stores_into_the_live_pools(params, shared, monkeypatch):
+    """Every store of a disaggregated run (staging, the wire, signals,
+    admission's zeroing, decode's writeback, copy-on-write) lands in the
+    pool tensors set-up made: from the first step to the last the heap is
+    one object, no pool moves, and nothing is copied but the deferred
+    puts' staged payloads and their merged runs, while the stores are
+    counted."""
+    cfg, ctx, heap, eng, pool = _setup(params, block_tokens=4)
+    payloads = []
+    staged, merge = heap_mod.SymmetricHeap.staged, pending_mod._merge_puts
+
+    def staged_counted(self, ptr, value):
+        value = staged(self, ptr, value)
+        payloads.append(value.numel() * value.element_size())
+        return value
+
+    def merge_counted(group):
+        ptr, value = merge(group)
+        if len(group) > 1:
+            payloads.append(value.numel() * value.element_size())
+        return ptr, value
+
+    monkeypatch.setattr(heap_mod.SymmetricHeap, "staged", staged_counted)
+    monkeypatch.setattr(pending_mod, "_merge_puts", merge_counted)
+    sched = _sched(ctx, heap, eng, pool, decode_pes=[2, 3], num_slots=2,
+                   NEW=6, temperature=0.7 if shared else 0.0,
+                   shared_prefix=shared)
+    for i in range(4):
+        sched.submit({"tokens": _prompt(10, seed=1 if shared else 40 + i)},
+                     **({"prefix_len": 10} if shared else {}))
+    ptrs = {dt: t.data_ptr() for dt, t in heap.pools.items()}
+    copied, stored = heap.tally.copy_bytes, heap.tally.store_bytes
+
+    def in_place():
+        assert sched.heap is heap
+        assert {dt: t.data_ptr() for dt, t in heap.pools.items()} == ptrs
+        assert heap.tally.copy_bytes == copied + sum(payloads)
+    _run(sched, each=in_place)
+    assert heap.tally.store_bytes > stored and sum(payloads) > 0
+    assert sched.stats.cow_copies >= (1 if shared else 0)
 
 
 def test_dense_rehydrate_fallback_matches_paged(params):

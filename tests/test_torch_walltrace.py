@@ -5,7 +5,7 @@ each event's scheduler step; the spans inside a step (the decode step's
 parts, its readback, staging) nest where they belong; a span and a
 ``record_function`` range around the same call agree on the torch
 profiler's clock once rebased by the trace's start; the heap's tally
-counts clones and stores exactly; and tracing changes no token, while a
+counts its copies and stores exactly; and tracing changes no token, while a
 step-clocked or absent tracer records none of the wall-only spans.
 """
 import collections
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.configs import base
-from repro_torch.core import context, heap as heap_mod
+from repro_torch.core import context, heap as heap_mod, rma
 from repro_torch.models import model
 from repro_torch.obs import Obs, load_obs_env
 from repro_torch.obs.export import (chrome_trace, events_from_doc,
@@ -171,27 +171,62 @@ def test_span_and_record_function_agree_after_rebasing():
 
 
 def test_heap_tally_counts_clones_and_stores_exactly():
+    """Stores land in place: a data op's ``copy_bytes`` grows only when a
+    pool grows (its old contents) and when a store's source overlaps its
+    own destination (the source); every data op counts the bytes it
+    stores."""
     heap = heap_mod.create(4, words_per_pool=1024, device="cpu")
-    f32 = 4 * 1024 * 4                   # one float32 pool's bytes
     p = heap.calloc((100,), "float32")   # a new pool, zeroed: 128 words
     t = heap.tally
-    assert (t.copy_bytes, t.store_bytes, t.writes) == (f32, 4 * 128 * 4, 1)
-    h2 = heap.write(p, 1, torch.ones(100))
-    h3 = h2.write_all(p, torch.zeros(4, 100))
-    assert h2.tally is t and h3.tally is t
+    assert (t.copy_bytes, t.store_bytes, t.writes) == (0, 4 * 128 * 4, 1)
+    assert heap.write(p, 1, torch.ones(100)) is heap
+    assert heap.write_all(p, torch.zeros(4, 100)) is heap
     assert (t.copy_bytes, t.store_bytes, t.writes) == \
-        (3 * f32, 4 * 128 * 4 + 400 + 1600, 3)
-    b = h3.calloc((300,), "bfloat16")    # another pool: 2 bytes a word
-    h4 = h3.write(b, 0, torch.ones(300, dtype=torch.bfloat16))
-    assert h4.tally is t
-    assert (t.copy_bytes, t.store_bytes, t.writes) == \
-        (3 * f32 + 2 * 4 * 1024 * 2, 4 * 128 * 4 + 400 + 1600
-         + 4 * 384 * 2 + 600, 5)
-    big = h4.malloc((2000,), "float32")  # grows the pool to 2176 words
-    h5 = h4.write(big, 2, torch.ones(2000))
-    assert t.copy_bytes == 3 * f32 + 2 * 4 * 1024 * 2 + 4 * 2176 * 4
-    assert h5.tally.store_bytes == t.store_bytes
+        (0, 4 * 128 * 4 + 400 + 1600, 3)
+    b = heap.calloc((300,), "bfloat16")  # another pool: 2 bytes a word
+    heap.write(b, 0, torch.ones(300, dtype=torch.bfloat16))
+    stored = 4 * 128 * 4 + 400 + 1600 + 4 * 384 * 2 + 600
+    assert (t.copy_bytes, t.store_bytes, t.writes) == (0, stored, 5)
+    # another PE's row, or another span of the same row: stored as it is
+    heap.write(p, 2, heap.read(p, 1))
+    heap.write(heap_mod.SymPtr("float32", p.offset + 100, (28,)), 1,
+               heap.read(p, 1)[:28])
+    assert (t.copy_bytes, t.store_bytes) == (0, stored + 400 + 112)
+    # the span one word up from its own source: the source is copied first
+    heap.write(heap_mod.SymPtr("float32", p.offset + 1, (99,)), 1,
+               heap.read(p, 1)[:99])
+    assert (t.copy_bytes, t.store_bytes) == (396, stored + 400 + 112 + 396)
+    pool = heap.pools["float32"]
+    big = heap.malloc((2000,), "float32")  # grows the pool to 2176 words
+    assert heap.pools["float32"] is not pool
+    assert t.copy_bytes == 396 + 4 * 1024 * 4
+    heap.write(big, 2, torch.ones(2000))
+    assert t.copy_bytes == 396 + 4 * 1024 * 4 and t.writes == 9
     assert heap_mod.create(4, device="cpu").tally is not t
+
+
+def test_deferred_puts_count_their_staged_payloads():
+    """A deferred put copies its payload at submission, and the completion
+    queue copies a combined run of them into one buffer at the flush: both
+    count in ``copy_bytes``, the run's store once in ``store_bytes``."""
+    ctx, heap = context.init(npes=2, device="cpu")
+    a = heap.malloc((256,), "float32")
+    t = heap.tally
+    before = (t.copy_bytes, t.store_bytes, t.writes)
+    heap = rma.put_nbi(ctx, heap, heap_mod.SymPtr("float32", a.offset,
+                                                  (100,)), torch.ones(100), 1)
+    heap = rma.put_nbi(ctx, heap, heap_mod.SymPtr("float32", a.offset + 100,
+                                                  (28,)), torch.ones(28), 1)
+    assert (t.copy_bytes - before[0], t.store_bytes, t.writes) == \
+        (512, before[1], before[2])
+    heap = rma.quiet(ctx, heap)
+    assert (t.copy_bytes - before[0], t.store_bytes - before[1],
+            t.writes - before[2]) == (512 + 512, 512, 1)
+    assert heap.read(a, 1)[:128].tolist() == [1.0] * 128
+    heap = rma.put_nbi(ctx, heap, a, torch.zeros(256), 0)
+    heap = rma.quiet(ctx, heap)          # a run of one: no merged buffer
+    assert (t.copy_bytes - before[0], t.store_bytes - before[1]) == \
+        (512 + 512 + 1024, 512 + 1024)
 
 
 @pytest.mark.parametrize("kw", CASES)
