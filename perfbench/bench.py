@@ -1,9 +1,15 @@
 """Finding the pieces of a cell by name: ``BENCHMARK.json`` at the root of
 the checkout, the configuration file it names, the traffic mix at
 ``perfbench/traffic/<mix>.json``, the limits of the cell's check at
-``perfbench/limits/<cell>.json`` and one reader a metric at
-``perfbench/metrics/<metric>.py``.  Adding a cell, a mix, a configuration
-or a metric adds files and entries; no file here changes."""
+``perfbench/limits/<cell>.json``, one reader a metric at
+``perfbench/metrics/<metric>.py``, and the model FLOP formulas of each
+layer kind the configuration's ``layers`` name at
+``perfbench/work/<kind>.py``.  Adding a cell, a mix, a configuration or a
+metric adds files and entries; no file here changes.  A configuration of
+another family adds its file (its ``arch``, the ``layers`` of its decoder
+and the ``reference`` module it names under ``perfbench/reference/``), a
+mix, the cell's limits, and a formula file for a layer kind that has
+none yet."""
 from __future__ import annotations
 
 import dataclasses

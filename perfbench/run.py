@@ -81,7 +81,9 @@ def _power_limit() -> str:
 
 def make_job(args, cell: dict, device, checker=None):
     """The namespace a runner runs: the run's arguments, the cell's
-    configuration, mix and reference, the set-up clock, and the check
+    configuration (its ``arch``, the program's ``ArchConfig`` of it, and
+    the decoder ``layers`` the model FLOP count sums over), mix and
+    reference, the set-up clock, and the check
     (``checker(job, limits)``, the cell's own where none is given)."""
     import torch
 
@@ -92,7 +94,8 @@ def make_job(args, cell: dict, device, checker=None):
         workload=args.workload, seed=int(args.seed),
         seconds=float(args.seconds), trace=bool(args.trace),
         device=torch.device(device), arch=conf["arch"],
-        cfg=bench_mod.arch_config(conf["arch"]), mix=cell["mix"],
+        layers=conf["layers"], cfg=bench_mod.arch_config(conf["arch"]),
+        mix=cell["mix"],
         reference=reference.load(conf["reference"]), log=log,
         t_process=T_PROCESS, setup_s=None,
         trace_seconds=min(float(cell["mix"].get("trace_seconds",

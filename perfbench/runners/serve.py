@@ -279,7 +279,7 @@ def _observe(job, srv, warm, t_open, t_close) -> dict:
     due = {rid: t for rid, t in sorted(srv.due.items(), key=lambda x: x[1])
            if rid not in warm}
     window = t_close - t_open
-    arch = job.arch
+    arch, layers = job.arch, job.layers
     # the model FLOPs of the work the window completed: each token
     # emitted in it was one decode (at its context) or, for a first
     # token, one prefill
@@ -288,8 +288,8 @@ def _observe(job, srv, warm, t_open, t_close) -> dict:
         S = srv.spec[rid].prompt_len
         for j, t in enumerate(ts):
             if t_open < t <= t_close:
-                flops += (yardstick.prefill_flops(arch, S) if j == 0
-                          else yardstick.decode_flops(arch, S + j))
+                flops += (yardstick.prefill_flops(arch, S, layers) if j == 0
+                          else yardstick.decode_flops(arch, S + j, layers))
     return {
         "window_s": window, "setup_s": job.setup_s,
         "tokens": stats.tokens_in(stamps, t_open, t_close),

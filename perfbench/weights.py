@@ -5,8 +5,20 @@ reference.
 The program's layout (key names, stacked shapes, dtypes) is read from its
 ``init_params`` on ``meta``, which allocates and draws nothing.  The
 values are the benchmark's: one ``randn`` call per dtype into a flat
-buffer, each matrix leaf a view of it scaled in place by fan_in^-0.5
-(the embedding by 0.02), norms one.
+buffer, each drawn leaf a view of it scaled in place.  Every leaf of every
+configuration the port holds falls under one of three rules (``rule``):
+
+- a key that names a norm (``norm`` at its start or end: ``norm1``,
+  ``norm_x``, ``q_norm``, ``gnorm``, ``final_norm``) is ones;
+- a matrix is drawn at fan_in^-0.5, fan_in its second-to-last axis (the
+  embedding at 0.02);
+- any other leaf, a vector a layer (Mamba2's ``A_log``, ``dt_bias``,
+  ``D``, ``conv_b``, the cross block's ``gate``, the xLSTM biases), is
+  drawn at ``VECTOR_SCALE``.
+
+A leaf under ``blocks`` is stacked over the repeats of its layer on axis
+0; that axis is set aside before a leaf is judged a matrix or a vector,
+so it is never a fan-in.
 """
 from __future__ import annotations
 
@@ -14,7 +26,8 @@ import math
 
 import torch
 
-ONES = ("norm1", "norm2", "final_norm", "q_norm", "k_norm")
+EMBED_SCALE = 0.02
+VECTOR_SCALE = 0.5
 
 
 def _paths(tree, prefix=()):
@@ -34,10 +47,16 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def _scale(name: str, shape) -> float:
-    if name == "embed":
-        return 0.02
-    return (shape[0] if len(shape) <= 2 else shape[-2]) ** -0.5
+def rule(path: tuple, shape) -> float | None:
+    """The scale leaf ``path`` of ``shape`` is drawn at, or None for
+    ones."""
+    name = path[-1]
+    if name.startswith("norm") or name.endswith("norm"):
+        return None
+    core = tuple(shape)[1:] if "blocks" in path[:-1] else tuple(shape)
+    if len(core) >= 2:
+        return EMBED_SCALE if name == "embed" else core[-2] ** -0.5
+    return VECTOR_SCALE
 
 
 def make(cfg, seed: int, device) -> dict:
@@ -45,21 +64,17 @@ def make(cfg, seed: int, device) -> dict:
     ``device``."""
     from repro_torch.models import model
     meta = model.init_params(cfg, device="meta")
-    leaves = list(_paths(meta))
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    mats = {}       # dtype -> [(path, shape, scale)]
+    drawn = {}      # dtype -> [(path, shape, scale)]
     params = _empty_like_tree(meta)
-    for path, m in leaves:
-        name = path[-1]
-        if name in ONES:
+    for path, m in _paths(meta):
+        scale = rule(path, m.shape)
+        if scale is None:
             _set(params, path, torch.ones(m.shape, dtype=m.dtype,
                                           device=device))
-        elif m.dim() >= 2:
-            mats.setdefault(m.dtype, []).append((path, m.shape,
-                                                 _scale(name, m.shape)))
         else:
-            raise ValueError(f"no rule for leaf {name!r} {tuple(m.shape)}")
-    for dtype, entries in mats.items():
+            drawn.setdefault(m.dtype, []).append((path, m.shape, scale))
+    for dtype, entries in drawn.items():
         total = sum(math.prod(s) for _, s, _ in entries)
         flat = torch.randn(total, generator=gen, dtype=dtype, device=device)
         off = 0

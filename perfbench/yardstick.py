@@ -4,8 +4,17 @@ count that the per-layer metrics divide by.
 These are copies, not imports.  The program may change its own roofline
 code; a reading here must not move with it.  Each copy names the port
 function it was taken from, as of commit 3a70f0e (``src/repro_torch``).
+
+The model FLOP count is a sum over the decoder layers that the
+configuration file states (``"layers"``, run-length: ``[["attn", 36]]``),
+each layer counted by the formulas of its kind in
+``perfbench/work/<kind>.py``.  A configuration of another family adds its
+file with its ``layers``, and a formula file for each kind that has none
+yet; nothing here changes.
 """
 from __future__ import annotations
+
+from perfbench import work
 
 # ---------------------------------------------------------------------------
 # H100 SXM peaks (data sheet, dense, at a 700 W power limit); copied from
@@ -55,56 +64,69 @@ def reduce_scatter_work(P: int, numel: int, itemsize: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# model FLOPs (for mfu): 2 x the matmul parameters a token passes through,
-# plus attention over its context; training is 3x the forward
+# model FLOPs (for mfu): a sum over the configuration's decoder layers, each
+# counted by its kind's formulas in perfbench/work/<kind>.py (the matmul
+# parameters a token passes through, and its attention over the visible
+# context); plus the LM head; training is 3x the forward
 # ---------------------------------------------------------------------------
 
-def _attn_params(a: dict) -> int:
-    d, nq, nkv, hd = a["d_model"], a["num_heads"], a["num_kv_heads"], \
-        a["head_dim"] or a["d_model"] // a["num_heads"]
-    return d * nq * hd + 2 * d * nkv * hd + nq * hd * d
-
-
-def _mlp_params(a: dict) -> int:
-    mult = 3 if a["mlp_type"] == "swiglu" else 2
-    return mult * a["d_model"] * a["d_ff"] if a["d_ff"] else 0
-
-
-def _attention_layers(a: dict) -> int:
-    """The decoder's layers, all attention blocks, for the one family the
-    benchmark runs (configs/base.py::layer_kinds for "dense")."""
-    if a["family"] != "dense":
-        raise ValueError(f"no FLOP count for family {a['family']!r}")
-    return a["num_layers"]
-
-
-def flop_parts(a: dict) -> tuple:
-    """(body, per_context, head): the forward FLOPs of one token through
-    the layers' matmul parameters, the attention FLOPs per position of its
-    context (QK^T and PV over every layer), and the LM head's."""
-    hd = a["head_dim"] or a["d_model"] // a["num_heads"]
-    n = _attention_layers(a)
-    body = n * 2.0 * (_attn_params(a) + _mlp_params(a))
-    per_ctx = n * 4.0 * a["num_heads"] * hd
+def flop_parts(a: dict, layers=None) -> tuple:
+    """(body, per_ctx, head): the forward FLOPs of one token through the
+    layers, the FLOPs per visible position of its context summed over the
+    layers, and the LM head's.  ``layers``: [[kind, count], ...] as the
+    configuration file states them; where none are given, ``num_layers``
+    attention blocks of the dense family."""
+    if layers is None:
+        if a["family"] != "dense":
+            raise ValueError(f"a configuration of family {a['family']!r} "
+                             f"states its decoder layers (\"layers\")")
+        layers = [("attn", a["num_layers"])]
+    body = per_ctx = 0.0
+    for kind, n in layers:
+        f = work.formula(kind)
+        body += n * f.token_flops(a)
+        per_ctx += n * f.context_flops(a)
     return body, per_ctx, 2.0 * a["d_model"] * a["vocab_size"]
 
 
-def prefill_flops(a: dict, S: int) -> float:
-    """A prompt of S tokens: position t attends over t + 1 positions; the
-    head runs at the last position only (the program computes one row of
-    logits)."""
-    body, per_ctx, head = flop_parts(a)
-    return S * body + per_ctx * S * (S + 1) / 2 + head
+def _window(a: dict):
+    """The positions a query sees at most: ``window`` under sliding-window
+    attention, else no limit."""
+    return a["window"] if a.get("attention") == "swa" else None
 
 
-def decode_flops(a: dict, context: int) -> float:
-    """One decoded token whose attention reads ``context`` positions."""
-    body, per_ctx, head = flop_parts(a)
-    return body + per_ctx * context + head
+def visible(a: dict, context: int) -> int:
+    """The positions one query at ``context`` positions attends over."""
+    W = _window(a)
+    return context if W is None else min(context, W)
 
 
-def train_flops(a: dict, S: int, B: int) -> float:
+def visible_prefix_sum(a: dict, S: int):
+    """Sum of ``visible(a, t)`` over t = 1..S: the (query, position)
+    pairs of a causal prompt of S tokens."""
+    W = _window(a)
+    if W is None or S <= W:
+        return S * (S + 1) / 2
+    return W * (W + 1) / 2 + (S - W) * W
+
+
+def prefill_flops(a: dict, S: int, layers=None) -> float:
+    """A prompt of S tokens: position t attends over its visible positions
+    of the first t + 1; the head runs at the last position only (the
+    program computes one row of logits)."""
+    body, per_ctx, head = flop_parts(a, layers)
+    return S * body + per_ctx * visible_prefix_sum(a, S) + head
+
+
+def decode_flops(a: dict, context: int, layers=None) -> float:
+    """One decoded token whose attention reads the visible positions of
+    ``context``."""
+    body, per_ctx, head = flop_parts(a, layers)
+    return body + per_ctx * visible(a, context) + head
+
+
+def train_flops(a: dict, S: int, B: int, layers=None) -> float:
     """One training step of B sequences of S tokens: 3x the forward, the
     head at every position."""
-    body, per_ctx, head = flop_parts(a)
-    return 3.0 * B * (S * (body + head) + per_ctx * S * (S + 1) / 2)
+    body, per_ctx, head = flop_parts(a, layers)
+    return 3.0 * B * (S * (body + head) + per_ctx * visible_prefix_sum(a, S))
