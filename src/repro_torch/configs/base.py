@@ -6,7 +6,9 @@ are :class:`ShapeSpec` entries in ``SHAPES``.  ``input_specs`` and
 ``cache_specs`` build ``meta`` tensors of the reference's
 ``ShapeDtypeStruct`` stand-ins for the dry-run (no allocation), and
 ``reduced`` derives the small CPU-test variant of the same family.  All ten
-configurations are registered, in the reference's order.
+configurations are registered, in the reference's order, and after them
+the port's own (``PORT_ARCH_NAMES``: deepseek-v2-lite, whose latent
+attention and DeepSeek routing the reference has no counterpart of).
 """
 from __future__ import annotations
 
@@ -53,6 +55,21 @@ class ArchConfig:
     cross_attn_every: int = 0
     image_tokens: int = 0
 
+    # --- latent attention (MLA) and DeepSeek routing ------------------------
+    kv_lora_rank: int = 0            # > 0: every layer attends by MLA
+    qk_nope_head_dim: int = 0        # per-head q/k width without rotary
+    qk_rope_head_dim: int = 0        # q/k rotary width (one shared k_pe)
+    v_head_dim: int = 0
+    rope_yarn_factor: float = 1.0    # > 1: YaRN-scaled rotary frequencies
+    rope_yarn_original: int = 4096   # original_max_position_embeddings
+    rope_yarn_beta_fast: float = 32.0
+    rope_yarn_beta_slow: float = 1.0
+    rope_yarn_mscale: float = 1.0
+    rope_yarn_mscale_all_dim: float = 1.0
+    norm_topk_prob: bool = True      # renormalise the top-k gates to 1
+    first_k_dense: int = 0           # leading MLA layers with a dense MLP
+    first_dense_ff: int = 0          # ... of this width
+
     # --- numerics / training ------------------------------------------------
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
@@ -85,8 +102,21 @@ class ArchConfig:
         dense_mlp = mlp_mult * d * ff if ff else 0
         total = 0
         shared_attn_counted = False
+        mla = 0
+        if self.kv_lora_rank:
+            r, dr = self.kv_lora_rank, self.qk_rope_head_dim
+            mla = (d * nq * (self.qk_nope_head_dim + dr) + d * (r + dr)
+                   + r * nq * (self.qk_nope_head_dim + self.v_head_dim)
+                   + nq * self.v_head_dim * d)
         for kind in layer_kinds(self):
-            if kind == "attn":
+            if kind == "mla":
+                total += mla + mlp_mult * d * self.first_dense_ff
+            elif kind == "mla_moe":
+                e = self.experts_per_token if active_only else \
+                    self.num_experts
+                total += (mla + e * mlp_mult * d * ff + d * self.num_experts
+                          + mlp_mult * d * self.moe_dense_ff)
+            elif kind == "attn":
                 total += attn + dense_mlp
             elif kind == "moe":
                 e = self.experts_per_token if active_only else \
@@ -116,7 +146,12 @@ class ArchConfig:
 
 
 def layer_kinds(cfg: ArchConfig) -> list:
-    """Per-layer block kinds for the decoder stack."""
+    """Per-layer block kinds for the decoder stack.  Under latent attention
+    the first ``first_k_dense`` layers are ``mla`` (a dense MLP) and the
+    rest ``mla_moe`` (routed and shared experts)."""
+    if cfg.kv_lora_rank:
+        k = cfg.first_k_dense
+        return ["mla"] * k + ["mla_moe"] * (cfg.num_layers - k)
     if cfg.family == "moe":
         return ["moe"] * cfg.num_layers
     if cfg.family == "audio":
@@ -230,13 +265,19 @@ ARCH_NAMES = [
     "qwen3_4b",
 ]
 
-_ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
+#: configurations of the port alone (no counterpart in the reference)
+PORT_ARCH_NAMES = [
+    "deepseek_v2_lite",
+]
+
+_ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES + PORT_ARCH_NAMES}
 
 
 def get_config(name: str) -> ArchConfig:
     key = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if key not in ARCH_NAMES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    known = ARCH_NAMES + PORT_ARCH_NAMES
+    if key not in known:
+        raise KeyError(f"unknown arch {name!r}; known: {known}")
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
 
 
@@ -247,7 +288,8 @@ def all_configs() -> dict:
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """<=2-ish layers (one repeat unit), d_model<=512, <=4 experts, small
     vocab — the same rule as the reference, so both packages build the same
-    reduced model."""
+    reduced model.  Under latent attention: the leading dense layers and two
+    after them, MLA widths cut alike (no reference counterpart)."""
     unit, _ = repeat_unit(cfg)
     layers = len(unit) if len(unit) > 1 else 2
     heads = min(cfg.num_heads, 4)
@@ -275,4 +317,11 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         param_dtype="float32",
         remat=False,
     )
+    if cfg.kv_lora_rank:
+        changes.update(num_layers=cfg.first_k_dense + 2,
+                       kv_lora_rank=min(cfg.kv_lora_rank, 64),
+                       qk_nope_head_dim=min(cfg.qk_nope_head_dim, 32),
+                       qk_rope_head_dim=min(cfg.qk_rope_head_dim, 16),
+                       v_head_dim=min(cfg.v_head_dim, 32),
+                       first_dense_ff=min(cfg.first_dense_ff, 512))
     return dataclasses.replace(cfg, **changes)

@@ -10,12 +10,23 @@ reference's default policy does.  That,
 the encoder's and cross-attention's :func:`full_attn` and decode attention
 stay plain torch, as the reference computes them outside any Pallas
 kernel: f32 scores and softmax, masked scores -1e30.
+
+Multi-head latent attention (DeepSeek-V2, :func:`init_mla`) has no
+counterpart in the reference.  Its cache holds one row a token: the
+RMS-normed latent of ``kv_lora_rank`` values and the one rotary key of
+``qk_rope_head_dim`` shared by every head.  Prefill and training run it
+expanded (:func:`mla_prefill`: the latent lifted by ``wkv_b`` to each
+head's k_nope and v); decode runs it absorbed (:func:`mla_decode`: q_nope
+taken into the latent space through W_UK, scores over the latent row and
+the rotary key, the latent output lifted by W_UV).  K2 takes equal q/k/v
+head widths, so MLA computes neither form with it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init, head_rms_norm
+from repro_torch.models.layers import apply_rope, apply_rope_interleaved, \
+    dense_init, head_rms_norm, rms_norm, yarn_inv_freq, yarn_mscale
 
 NEG_INF = -1e30
 
@@ -144,3 +155,125 @@ def decode_attn(q, k_cache, v_cache, valid_mask):
     """One-token attention against a cache.  q: (B,1,nq,hd); caches:
     (B,S,nkv,hd); valid_mask: (B,S) bool."""
     return full_attn(q, k_cache, v_cache, mask=valid_mask)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2, no q LoRA)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg, dtype, *, reps, device=None):
+    """``wq`` (d, H x (nope + rope)), ``wkv_a`` (d, latent + rope: the
+    published ``kv_a_proj_with_mqa``), ``kv_norm`` (the ``kv_a_layernorm``
+    over the latent), ``wkv_b`` (latent, H x (nope + v)) and ``wo``."""
+    d, H = cfg.d_model, cfg.num_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+
+    def w(shape):
+        return dense_init(gen, (reps, *shape), dtype=dtype, device=device)
+
+    return {"wq": w((d, H * (dn + dr))), "wkv_a": w((d, r + dr)),
+            "kv_norm": torch.ones((reps, r), dtype=dtype, device=device),
+            "wkv_b": w((r, H * (dn + dv))), "wo": w((H * dv, d))}
+
+
+def mla_row_width(cfg) -> int:
+    """Values a token stores a layer: the latent and the rotary key."""
+    return cfg.kv_lora_rank + cfg.qk_rope_head_dim
+
+
+def mla_softmax_scale(cfg) -> float:
+    """``(nope + rope)^-0.5``, times YaRN's ``mscale(factor,
+    mscale_all_dim)`` squared."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    m = yarn_mscale(cfg.rope_yarn_factor, cfg.rope_yarn_mscale_all_dim)
+    return scale * m * m
+
+
+def _mla_project(p, x, cfg, positions):
+    """(q_nope (B,S,H,nope), q_pe (B,S,H,rope), row (B,S,latent + rope)):
+    the query, and the cache row of each token: its normed latent and its
+    rotary key, both turned to ``positions``."""
+    B, S, _ = x.shape
+    H, r, dn = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, -1)
+    ckv = x @ p["wkv_a"]
+    inv = yarn_inv_freq(cfg, x.device)
+    scale = (yarn_mscale(cfg.rope_yarn_factor, cfg.rope_yarn_mscale)
+             / yarn_mscale(cfg.rope_yarn_factor,
+                           cfg.rope_yarn_mscale_all_dim))
+    q_pe = apply_rope_interleaved(q[..., dn:], positions, inv, scale)
+    k_pe = apply_rope_interleaved(ckv[..., None, r:], positions, inv, scale)
+    row = torch.cat([rms_norm(ckv[..., :r], p["kv_norm"]), k_pe[:, :, 0]],
+                    dim=-1)
+    return q[..., :dn], q_pe, row
+
+
+def mla_causal_attn(q, k, v, scale: float, *, block_q: int = 1024):
+    """Causal attention with q/k and v of different head widths, f32
+    scores and softmax, over query blocks of ``block_q``.  q, k:
+    (B,S,H,dqk); v: (B,S,H,dv)."""
+    S = q.shape[1]
+    outs = []
+    for q0 in range(0, S, block_q):
+        q1 = min(S, q0 + block_q)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q1].float(),
+                         k[:, :q1].float()) * scale
+        causal = (torch.arange(q1, device=q.device)[None, :]
+                  <= torch.arange(q0, q1, device=q.device)[:, None])
+        s = s.masked_fill(~causal, NEG_INF)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                                 v[:, :q1].float()))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def mla_prefill(p, x, cfg, positions, cache=None):
+    """The expanded form over a whole sequence: the latent lifted to each
+    head's k_nope and v, the rotary key broadcast to every head.  Returns
+    (out (B,S,d), new cache entries): with a cache, slots [0, S) of
+    ``ckv`` hold the rows."""
+    B, S, _ = x.shape
+    H, dn = cfg.num_heads, cfg.qk_nope_head_dim
+    q_nope, q_pe, row = _mla_project(p, x, cfg, positions)
+    r = cfg.kv_lora_rank
+    kv = (row[..., :r] @ p["wkv_b"]).reshape(B, S, H, -1)
+    k_pe = row[..., None, r:].expand(B, S, H, cfg.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([kv[..., :dn], k_pe], dim=-1)
+    o = mla_causal_attn(q, k, kv[..., dn:], mla_softmax_scale(cfg))
+    new = {}
+    if cache is not None:
+        new["ckv"] = torch.zeros_like(cache["ckv"])
+        new["ckv"][:, :S, 0] = row.to(cache["ckv"].dtype)
+    return o.reshape(B, S, -1) @ p["wo"], new
+
+
+def mla_decode(p, x, cfg, pos, cache):
+    """The absorbed form of one token a row at ``pos`` (B,): the row is
+    written into slot ``pos`` of the cache by a one-hot select (a position
+    past the cache is dropped, as a dense cache drops it), q_nope is taken
+    into the latent space through W_UK, each head scores the latent rows
+    and the rotary keys of slots ``<= pos`` (f32), and its latent output is
+    lifted through W_UV.  x: (B,1,d); ``cache["ckv"]``: (B,W,1,latent +
+    rope).  Returns (out (B,1,d), {"ckv": the new cache})."""
+    B = x.shape[0]
+    H, r, dn = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    q_nope, q_pe, row = _mla_project(p, x, cfg, pos[:, None])
+    old = cache["ckv"]
+    W = old.shape[1]
+    slots = torch.arange(W, device=pos.device)[None, :]
+    hot = slots == pos[:, None]
+    ckv = torch.where(hot[:, :, None, None], row[:, :, None].to(old.dtype),
+                      old)
+    wkv_b = p["wkv_b"].reshape(r, H, -1).float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(),
+                         wkv_b[..., :dn])
+    q_all = torch.cat([q_lat, q_pe[:, 0].float()], dim=-1)   # (B,H,r+rope)
+    rows = ckv[:, :, 0].float()                               # (B,W,r+rope)
+    s = torch.einsum("bhc,bwc->bhw", q_all, rows) * mla_softmax_scale(cfg)
+    s = s.masked_fill(~(slots <= pos[:, None])[:, None], NEG_INF)
+    o_lat = torch.einsum("bhw,bwr->bhr", torch.softmax(s, -1),
+                         rows[..., :r])
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wkv_b[..., dn:])
+    return o.reshape(B, 1, -1).to(x.dtype) @ p["wo"], {"ckv": ckv}

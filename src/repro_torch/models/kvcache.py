@@ -7,7 +7,12 @@ an ``encdec`` entry adds the encoder output's projected ``ck``/``cv`` over
 ``encoder_seq`` frames, a ``cross`` entry holds only ``ck``/``cv`` over
 ``image_tokens``; the recurrent entries hold f32 states (``mamba``:
 ``state`` and ``conv``; ``mlstm``: ``C``, ``n``, ``m``; ``slstm``: ``c``,
-``n``, ``m``, ``h``).
+``n``, ``m``, ``h``).  A latent-attention model (``mla``, ``mla_moe``)
+has one entry whatever its layer kinds, ``{"ckv"}`` of shape
+``(num_layers, B, W, 1, kv_lora_rank + qk_rope_head_dim)``: each layer's
+row a token, the normed latent and the shared rotary key
+(``models/attention.py::mla_decode``), stacked in layer order
+(:func:`entry_of`), so the pool pages one leaf.
 
 Self-attention caches are dense (``seq_len`` slots, valid while slot <=
 pos) or a ring of ``window`` slots when the architecture is windowed at
@@ -19,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import base as cfgbase
-from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import attention as attn_mod, ssm as ssm_mod
 
 
 def self_cache_len(cfg, seq_len: int) -> int:
@@ -64,8 +69,22 @@ def _entry(kind, cfg, batch, seq_len) -> dict:
     raise ValueError(kind)
 
 
+def entry_of(cfg, unit_len: int, i: int, r: int) -> tuple:
+    """(entry, index on its axis 0) of the cache that position ``i`` of
+    repeat ``r`` of the layer unit reads: its own entry's repeat ``r``, or
+    under latent attention the one entry's layer ``r * unit_len + i``."""
+    if cfg.kv_lora_rank:
+        return 0, r * unit_len + i
+    return i, r
+
+
 def cache_shapes(cfg, batch: int, seq_len: int) -> dict:
     """``{"blocks": [{key: (shape, dtype name)}]}`` of the decode cache."""
+    if cfg.kv_lora_rank:
+        W = self_cache_len(cfg, seq_len)
+        return {"blocks": [{"ckv": ((cfg.num_layers, batch, W, 1,
+                                     attn_mod.mla_row_width(cfg)),
+                                    cfg.dtype)}]}
     unit, reps = cfgbase.repeat_unit(cfg)
     return {"blocks": [
         {key: ((reps, *shape), dt)

@@ -5,6 +5,8 @@ Math accumulates in float32 and casts back to the activation dtype.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -63,6 +65,58 @@ def apply_rope(x, positions, theta):
     x1 = x[..., :half].float()
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """``0.1 * mscale * ln(scale) + 1`` (1 where ``scale <= 1``), the YaRN
+    attention scale of DeepSeek-V2's ``yarn_get_mscale``."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_inv_freq(cfg, device=None) -> torch.Tensor:
+    """The rotary inverse frequencies of the ``qk_rope_head_dim`` dims as
+    DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding`` computes them: the
+    interpolated ``freq_inter = freq_extra / factor`` where a dim turns
+    fewer than ``beta_slow`` times over the original context, the original
+    ``freq_extra`` where more than ``beta_fast``, a linear ramp between the
+    floor and ceil of those two correction dims (at a factor of 1, plain
+    RoPE frequencies)."""
+    dim, base = cfg.qk_rope_head_dim, cfg.rope_theta
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (base ** exps)
+    inter = 1.0 / (cfg.rope_yarn_factor * base ** exps)
+
+    def correction_dim(rotations):
+        return (dim * math.log(cfg.rope_yarn_original
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(correction_dim(cfg.rope_yarn_beta_fast)), 0)
+    high = min(math.ceil(correction_dim(cfg.rope_yarn_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    mask = 1.0 - ramp                   # 1: keep the original frequency
+    return inter * (1 - mask) + extra * mask
+
+
+def apply_rope_interleaved(x, positions, inv_freq, scale: float = 1.0):
+    """DeepSeek-V2's rotary embedding in f32: the pairs ``(x[2i],
+    x[2i+1])`` are first gathered into the half-split order (evens, then
+    odds), then turned by ``positions * inv_freq[i]`` as :func:`apply_rope`
+    turns them; the result stays in the half-split order, as the published
+    code leaves it.  cos and sin carry ``scale`` (YaRN's mscale ratio).
+    x: (..., seq, heads, dim); positions: (..., seq)."""
+    dim = x.shape[-1]
+    half = dim // 2
+    xf = x.float().unflatten(-1, (half, 2)).transpose(-1, -2).flatten(-2)
+    angles = positions[..., None].float() * inv_freq       # (..., seq, half)
+    cos = (torch.cos(angles) * scale)[..., None, :]
+    sin = (torch.sin(angles) * scale)[..., None, :]
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 

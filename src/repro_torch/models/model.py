@@ -8,6 +8,9 @@ and the forward passes loop over the repeats.  Block kinds: ``attn``,
 ``params["shared_attn"]``, unstacked, with a ``{}`` placeholder at its
 position in ``params["blocks"]``; every repeat keeps its own K/V cache),
 ``moe`` (attention and the routed experts of ``models/moe.py``),
+``mla`` and ``mla_moe`` (DeepSeek-V2: multi-head latent attention of
+``models/attention.py``, then a dense MLP of ``first_dense_ff`` or the
+dropless routed and shared experts of ``models/moe.py``),
 ``encdec`` (whisper's decoder: self-attention, cross-attention over the
 encoder output, MLP; the encoder's stacked ``attn`` blocks live at
 ``params["encoder"]``), ``cross`` (the vision model's gated
@@ -41,9 +44,14 @@ sits at the reference's four sites (the gathered weights under
 embedding, the CE chunk's logits); with no GSPMD it returns its input and
 only records the spec the dry-run's rules give.  Every step runs on
 ``meta`` tensors too (``init_params(device="meta")``), which is how the
-dry-run counts its work.
+dry-run counts its work.  Prefill, decode and the blocks under them take
+``spans`` (``obs/layerspans.py``, or None): the latent-attention blocks
+mark their attention and MoE as ``<step>.mla`` and ``<step>.moe`` and
+report the MoE's routing to its ``moe`` counter.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -53,12 +61,17 @@ from repro_torch import _devices
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels import flash_attn
 from repro_torch.launch import policy as policy_mod, shardctx
-from repro_torch.models import attention as attn_mod, moe as moe_mod, \
-    ssm as ssm_mod
+from repro_torch.models import attention as attn_mod, kvcache, \
+    moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, \
     rms_norm
 
 _SELF_ATTN = ("attn", "shared_attn", "moe", "encdec")
+_MLA = ("mla", "mla_moe")
+
+
+def _no_part(name):
+    return contextlib.nullcontext()
 
 
 def _init_block(gen, kind, cfg, dtype, reps, dev):
@@ -84,6 +97,18 @@ def _init_block(gen, kind, cfg, dtype, reps, dev):
         return {"norm1": ones(), "attn": attn(), "norm2": ones(),
                 "moe": moe_mod.init_moe(gen, cfg, dtype, reps=reps,
                                         device=dev)}
+    if kind in _MLA:
+        bp = {"norm1": ones(),
+              "attn": attn_mod.init_mla(gen, cfg, dtype, reps=reps,
+                                        device=dev),
+              "norm2": ones()}
+        if kind == "mla":
+            bp["mlp"] = init_mlp(gen, d, cfg.first_dense_ff, cfg.mlp_type,
+                                 dtype, reps=reps, device=dev)
+        else:
+            bp["moe"] = moe_mod.init_moe(gen, cfg, dtype, reps=reps,
+                                         device=dev)
+        return bp
     if kind == "encdec":
         return {"norm1": ones(), "attn": attn(), "norm_x": ones(),
                 "cross": attn(), "norm2": ones(), "mlp": mlp()}
@@ -259,14 +284,47 @@ def _check_mode(mode):
         raise ValueError(f"unknown mode {mode!r}")
 
 
+def _mla_block(kind, bp, x, cfg, mode, positions, cache, pos, spans):
+    """Latent attention, then the dense MLP (``mla``) or the dropless
+    routed and shared experts (``mla_moe``), both residual."""
+    part = spans.part if spans is not None else _no_part
+    aux = None
+    with part("mla"):
+        h = rms_norm(x, bp["norm1"])
+        if mode == "decode":
+            o, new_cache = attn_mod.mla_decode(bp["attn"], h, cfg, pos,
+                                               cache)
+        else:
+            o, new_cache = attn_mod.mla_prefill(bp["attn"], h, cfg,
+                                                positions, cache)
+        x = x + o
+    if kind == "mla":
+        return x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]),
+                             cfg.mlp_type), new_cache, aux
+    count = None
+    if spans is not None and spans.counting:
+        def count(**routing):
+            spans.counter("moe", **routing)
+    with part("moe"):
+        h = rms_norm(x, bp["norm2"])
+        B, S, d = h.shape
+        y, aux = moe_mod.moe_ffn_dropless(bp["moe"], h.reshape(B * S, d),
+                                          cfg, count)
+        x = x + y.reshape(B, S, d)
+    return x, new_cache, aux
+
+
 def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
-                enc_out=None, image_embeds=None, pos=None):
+                enc_out=None, image_embeds=None, pos=None, spans=None):
     """Returns (x_out, new cache entries, aux): the MoE's load-balance loss
     (f32 scalar), None for the other kinds (the reference's zero).  Prefill
     starts every recurrent state from zero, as the reference does, and
     returns the end state; training keeps no cache."""
     _check_mode(mode)
     aux = None
+    if kind in _MLA:
+        return _mla_block(kind, bp, x, cfg, mode, positions, cache, pos,
+                          spans)
     if kind in _SELF_ATTN:
         h = rms_norm(x, bp["norm1"])
         o, new_cache = _self_attention(bp["attn"], h, cfg, mode, positions,
@@ -318,14 +376,14 @@ def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
 
 
 def backbone(params, cfg, x, *, mode, positions=None, cache=None,
-             enc_out=None, image_embeds=None, pos=None):
+             enc_out=None, image_embeds=None, pos=None, spans=None):
     """x: (B,S,d) embedded inputs.  Returns (x, new_cache, aux), aux the
     f32 sum of the blocks' auxiliary losses in the reference's order
     (repeat by repeat, block by block)."""
     _check_mode(mode)
     unit, reps = cfgbase.repeat_unit(cfg)
     shared = params.get("shared_attn")
-    new_blocks = [{} for _ in unit]
+    new_blocks = [{} for _ in (unit if cache is None else cache["blocks"])]
 
     gather = policy_mod.get().fsdp_gather_weights
 
@@ -336,14 +394,16 @@ def backbone(params, cfg, x, *, mode, positions=None, cache=None,
             if gather:
                 bp = _map(lambda w: shardctx.constrain(w, "gathered_weight"),
                           bp)
-            c = _layer(cache["blocks"][i], r) if cache is not None else None
+            ci, cr = kvcache.entry_of(cfg, len(unit), i, r)
+            c = _layer(cache["blocks"][ci], cr) if cache is not None \
+                else None
             x, nc, a = apply_block(kind, bp, x, cfg=cfg, mode=mode,
                                    positions=positions, cache=c,
                                    enc_out=enc_out, image_embeds=image_embeds,
-                                   pos=pos)
+                                   pos=pos, spans=spans)
             if mode != "train":
                 for key, leaf in nc.items():
-                    new_blocks[i].setdefault(key, []).append(leaf)
+                    new_blocks[ci].setdefault(key, []).append(leaf)
             if a is not None:              # 0 + a is a: start from the first
                 aux = a if aux is None else aux + a
         return shardctx.constrain(x, "hidden"), aux
@@ -436,7 +496,7 @@ def train_loss(params, cfg, batch):
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(params, cfg, batch, cache):
+def prefill(params, cfg, batch, cache, spans=None):
     """Fill the cache from a full prompt (``batch["tokens"]``, plus the
     family's frontend embeddings); returns (last_logits f32, cache)."""
     tokens = batch["tokens"]
@@ -446,17 +506,18 @@ def prefill(params, cfg, batch, cache):
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x, new_cache, _ = backbone(params, cfg, x, mode="prefill",
                                positions=positions, cache=cache,
-                               enc_out=enc_out, image_embeds=image_embeds)
+                               enc_out=enc_out, image_embeds=image_embeds,
+                               spans=spans)
     x = rms_norm(x[:, -1:], params["final_norm"])
     logits = (x @ _lm_matrix(params, cfg)).float()
     return logits[:, 0], new_cache
 
 
-def decode_step(params, cfg, token, pos, cache):
+def decode_step(params, cfg, token, pos, cache, spans=None):
     """ONE token (B,1) at positions pos (B,) against the cache."""
     x = _embed(params, cfg, token)
     x, new_cache, _ = backbone(params, cfg, x, mode="decode", cache=cache,
-                               pos=pos)
+                               pos=pos, spans=spans)
     x = rms_norm(x, params["final_norm"])
     logits = (x @ _lm_matrix(params, cfg)).float()
     return logits[:, 0], new_cache

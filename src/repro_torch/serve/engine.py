@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import _devices
 from repro_torch.models import kvcache, model
+from repro_torch.obs.layerspans import LayerSpans
 from repro_torch.train import tree
 
 
@@ -80,15 +81,17 @@ class Engine:
             active=np.zeros((num_slots,), bool))
 
     def prefill_request(self, request: dict, gen=None,
-                        temperature: float = 0.0):
+                        temperature: float = 0.0, spans=None):
         """Prefill ONE request (batch axis 1).  Returns ``(first_token,
         logits, cache1)``: the B=1 cache a migration packs from, and the
-        token sampled from the last position."""
+        token sampled from the last position.  ``spans``
+        (``obs/layerspans.py``) marks the parts of the model's layers."""
         S = request["tokens"].shape[1]
         if S > self.max_len:
             raise ValueError(f"prompt of {S} exceeds the cache ({self.max_len})")
         cache = kvcache.init_cache(self.cfg, 1, self.max_len, self.device)
-        logits, cache = model.prefill(self.params, self.cfg, request, cache)
+        logits, cache = model.prefill(self.params, self.cfg, request, cache,
+                                      spans=spans)
         tok = self._sample(logits, gen, temperature)
         return int(tok[0]), logits, cache
 
@@ -142,11 +145,13 @@ class Engine:
         parts record ``decode.assemble``, ``decode.model``,
         ``decode.sample`` and ``decode.writeback`` spans on ``track`` (the
         caller's ``(pid, tid)``, by default the view's PE), and the heap's
-        tally ends the writeback as a ``heap`` counter."""
+        tally ends the writeback as a ``heap`` counter.  With that tracer
+        or a recording ``torch.profiler``, the model's layers mark their
+        parts inside ``decode.model`` (``obs/layerspans.py``)."""
         tr = ctx.tracer if ctx.tracer.timed else None
+        pid, tid = track or (f"pod{ctx.node_of(view.pe)}", f"pe{view.pe}")
+        spans = LayerSpans.make("decode", tr, (pid, tid))
         if tr is not None:
-            pid, tid = track or (f"pod{ctx.node_of(view.pe)}",
-                                 f"pe{view.pe}")
             tr.begin("decode.assemble", "engine", pid, tid)
         cache = view.assemble(heap, slots.cache)
         if tr is not None:
@@ -161,12 +166,13 @@ class Engine:
                           work_items=int(slots.active.sum())) as ps:
                 logits, new_cache = model.decode_step(
                     self.params, self.cfg, slots.tok[:, None], slots.pos,
-                    cache)
+                    cache, spans=spans)
                 logits = ps(logits)
         else:
             logits, new_cache = model.decode_step(self.params, self.cfg,
                                                   slots.tok[:, None],
-                                                  slots.pos, cache)
+                                                  slots.pos, cache,
+                                                  spans=spans)
         if tr is not None:
             tr.end("decode.model", "engine", pid, tid)
             tr.begin("decode.sample", "engine", pid, tid)

@@ -6,8 +6,9 @@ prefill PE hands a finished request to a decode PE with one-sided
 ``put_signal_nbi``: the layout is identical on every PE, which makes a
 block id a cluster-wide address.
 
-- **paged leaves** — the self-attention K/V tensors, split along the token
-  axis into blocks of ``block_tokens``; block *b* holds ``[b*T, (b+1)*T)``
+- **paged leaves** — the self-attention K/V tensors (and latent
+  attention's ``ckv`` rows), split along the token axis into blocks of
+  ``block_tokens``; block *b* holds ``[b*T, (b+1)*T)``
   of every paged leaf, flattened and concatenated in a fixed order.  A
   dense cache migrates ``ceil(S/T)`` blocks for a prompt of S tokens; a
   ring (SWA window) always moves all ``ceil(W/T)``, since occupied slots
@@ -42,6 +43,9 @@ from repro_torch.core.heap import TORCH_DTYPES, SymPtr, SymmetricHeap
 from repro_torch.models import kvcache
 
 HEADER_WORDS = 4            # (req_id, prompt_len, first_token, n_blocks)
+#: cache leaves paged over their token axis: self-attention K and V, and
+#: latent attention's one row a token (``ckv``)
+PAGED_KEYS = ("k", "v", "ckv")
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +130,7 @@ def build_layout(cfg, max_len: int, *, block_tokens: int = 16) -> KVLayout:
     for ui, entry in enumerate(struct["blocks"]):
         for key in sorted(entry):
             shape, dt = entry[key]
-            if key in ("k", "v") and len(shape) == 5 and shape[2] == W:
+            if key in PAGED_KEYS and len(shape) == 5 and shape[2] == W:
                 paged.append(PagedLeaf(ui, key, shape[0], shape[2],
                                        shape[3], shape[4]))
                 kv_dtype = dt if kv_dtype is None else kv_dtype

@@ -65,6 +65,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.obs.layerspans import LayerSpans
 from repro_torch.serve import kvpool as kvpool_mod
 from repro_torch.serve.engine import Engine, ServeConfig, seeded
 from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, StreamState, \
@@ -508,6 +509,8 @@ class DisaggScheduler:
                              rid=req.rid, prompt_len=req.prompt_len)
                 gen = (seeded(self.engine.device, self.scfg.seed, req.rid)
                        if self.scfg.temperature > 0 else None)
+                spans = LayerSpans.make("prefill", tr,
+                                        (self._trace_pid, f"pe{pe}"))
                 pf = self._prof()
                 if pf is not None:
                     with pf.scope("serve_prefill",
@@ -515,11 +518,13 @@ class DisaggScheduler:
                                   path="engine", tier="local") as ps:
                         req.first_token, _, req.prefill_cache = ps(
                             self.engine.prefill_request(
-                                req.batch, gen, self.scfg.temperature))
+                                req.batch, gen, self.scfg.temperature,
+                                spans=spans))
                 else:
                     req.first_token, _, req.prefill_cache = \
                         self.engine.prefill_request(req.batch, gen,
-                                                    self.scfg.temperature)
+                                                    self.scfg.temperature,
+                                                    spans=spans)
                 self.stats.prefills += 1
                 if tr is not None:
                     tr.end("prefill", "sched", self._trace_pid, f"pe{pe}")

@@ -234,8 +234,8 @@ def run_lockstep(case, ref_params, params, monkeypatch):
     reng._decode = lambda *a: (lambda out: rlogits.append(
         np.asarray(out[0])) or out)(rdecode(*a))
     pdecode = model.decode_step
-    monkeypatch.setattr(engine_mod.model, "decode_step", lambda *a: (
-        lambda out: plogits.append(out[0].numpy()) or out)(pdecode(*a)))
+    monkeypatch.setattr(engine_mod.model, "decode_step", lambda *a, **kw: (
+        lambda out: plogits.append(out[0].numpy()) or out)(pdecode(*a, **kw)))
     for p, emb in zip(prompts, embeds):
         rsched.submit({"tokens": jnp.asarray(p),
                        **{k: jnp.asarray(e) for k, e in emb.items()}},
