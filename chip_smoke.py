@@ -1971,7 +1971,8 @@ def phase_family(torch, ops, serve, spec, extra=(), *, dev):
         f"layout: {len(lay.paged)} paged leaves, {len(lay.tail)} tail "
         f"leaves, {lay.block_words} words a block, {lay.tail_words} tail "
         f"words a request, {lay.blocks_per_request} blocks a request"
-        f"{' (ring)' if lay.ring else ''}; {cut}")
+        f"{' (ring)' if lay.ring else ''}; {cut}; decode graph "
+        f"{sched.stats.decode_graph.counter()}")
     if (lay.block_words, lay.tail_words) != (block_words, tail_words):
         fail(f"{label}: layout of {lay.block_words} block words and "
              f"{lay.tail_words} tail words, not {block_words} and "
@@ -3107,7 +3108,8 @@ def phase_cross_pod(torch, ops, serve, dev_kern, flash_attn, barrier_out,
         say(f"{label}: {wall:.2f} s wall, {st.decode_steps} decode steps, "
             f"peak {peak:.1f} GiB; launches {launches}; {msgs} proxy "
             f"messages, {px.backpressure} backpressure drains; "
-            f"{st.bytes_cross_pod} of {st.bytes_migrated} B cross-pod")
+            f"{st.bytes_cross_pod} of {st.bytes_migrated} B cross-pod; "
+            f"decode graph {st.decode_graph.counter()}")
         missing = [k for k in SERVE_KERNELS if launches[k] == 0]
         if missing:
             fail(f"{label} never launched {missing}")
@@ -3686,9 +3688,12 @@ def run(torch, tmp: Path) -> None:
     counts = (st.prefills, st.migrations, st.admissions, st.evictions)
     ratio = sched.ctx.pending.stats.coalescing_ratio()
     say(f"SchedStats prefills/migrations/admissions/evictions = {counts}; "
-        f"coalescing ratio {ratio:.2f}")
+        f"coalescing ratio {ratio:.2f}; decode graph "
+        f"{st.decode_graph.counter()}")
     if counts != (8, 8, 8, 8) or not ratio > 1.0:
         fail("scheduler counters do not balance")
+    if st.decode_graph.captures != 1 or st.decode_graph.eager_steps:
+        fail("the paged decode step did not replay one captured graph")
 
     eng, slots = sched.engine, len(sched.banks[sched.decode_pes[0]].active)
     t0 = time.perf_counter()

@@ -120,18 +120,24 @@ def _leaf_offsets(lay) -> dict:
     return offs
 
 
-def _extract_leaf(pay, lay, leaf, num_slots: int, off: int):
+def _extract_leaf(pay, lay, leaf, num_slots: int, off: int, out=None):
     """Rebuild one paged leaf ``(reps, num_slots, width, nkv, hd)`` from the
     gathered payload ``(num_slots, nb, block_words)``: the slicing that
     ``PagedDecodeView.assemble`` applies, so the leaf is bitwise what a
-    dense cache would hold."""
+    dense cache would hold.  The one copy it makes goes into ``out``
+    (``(reps, num_slots, nb * T, nkv, hd)``) where given, else into a new
+    tensor; the leaf is its first ``width`` positions."""
     T = lay.block_tokens
     nb = lay.blocks_per_request
     n = leaf.words_per_token * T
-    out = pay[:, :, off:off + n].reshape(
-        num_slots, nb, leaf.reps, T, leaf.nkv, leaf.hd)
-    return out.permute(2, 0, 1, 3, 4, 5).reshape(
-        leaf.reps, num_slots, nb * T, leaf.nkv, leaf.hd)[:, :, :leaf.width]
+    blocks = pay[:, :, off:off + n].reshape(
+        num_slots, nb, leaf.reps, T, leaf.nkv, leaf.hd).permute(
+        2, 0, 1, 3, 4, 5)
+    if out is None:
+        out = blocks.reshape(leaf.reps, num_slots, nb * T, leaf.nkv, leaf.hd)
+    else:
+        out.view(leaf.reps, num_slots, nb, T, leaf.nkv, leaf.hd).copy_(blocks)
+    return out[:, :, :leaf.width]
 
 
 def paged_layer_plain(data: torch.Tensor, table: torch.Tensor, off: int,

@@ -101,10 +101,13 @@ def cache_struct(cfg, batch: int, seq_len: int) -> dict:
         for entry in cache_shapes(cfg, batch, seq_len)["blocks"]]}
 
 
-def init_cache(cfg, batch: int, seq_len: int, device) -> dict:
-    """Zeros, and -1 (empty) in a ring's ``kpos``."""
+def init_cache(cfg, batch: int, seq_len: int, device,
+               skip=frozenset()) -> dict:
+    """Zeros, and -1 (empty) in a ring's ``kpos``; without the leaves
+    ``(entry index, key)`` in ``skip``."""
     return {"blocks": [
         {key: torch.full(shape, -1 if key == "kpos" else 0,
                          dtype=getattr(torch, dt), device=device)
-         for key, (shape, dt) in entry.items()}
-        for entry in cache_shapes(cfg, batch, seq_len)["blocks"]]}
+         for key, (shape, dt) in entry.items() if (ui, key) not in skip}
+        for ui, entry in enumerate(
+            cache_shapes(cfg, batch, seq_len)["blocks"])]}

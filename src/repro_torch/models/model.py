@@ -47,7 +47,9 @@ only records the spec the dry-run's rules give.  Every step runs on
 dry-run counts its work.  Prefill, decode and the blocks under them take
 ``spans`` (``obs/layerspans.py``, or None): the latent-attention blocks
 mark their attention and MoE as ``<step>.mla`` and ``<step>.moe`` and
-report the MoE's routing to its ``moe`` counter.
+report the MoE's routing to its ``moe`` counter.  ``decode_step`` also
+takes a captured graph of itself (``models/decode_graph.py``), which it
+replays instead of issuing the step eagerly.
 """
 from __future__ import annotations
 
@@ -301,10 +303,7 @@ def _mla_block(kind, bp, x, cfg, mode, positions, cache, pos, spans):
     if kind == "mla":
         return x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]),
                              cfg.mlp_type), new_cache, aux
-    count = None
-    if spans is not None and spans.counting:
-        def count(**routing):
-            spans.counter("moe", **routing)
+    count = spans.routing if spans is not None and spans.counting else None
     with part("moe"):
         h = rms_norm(x, bp["norm2"])
         B, S, d = h.shape
@@ -513,8 +512,17 @@ def prefill(params, cfg, batch, cache, spans=None):
     return logits[:, 0], new_cache
 
 
-def decode_step(params, cfg, token, pos, cache, spans=None):
-    """ONE token (B,1) at positions pos (B,) against the cache."""
+def decode_step(params, cfg, token, pos, cache, spans=None, graph=None):
+    """ONE token (B,1) at positions pos (B,) against the cache.  With
+    ``graph`` (a ``models/decode_graph.py::DecodeGraph``) the step is that
+    graph's replay, captured from :func:`_decode_step` on its first call."""
+    if graph is not None:
+        return graph.run(params, cfg, token, pos, cache, spans)
+    return _decode_step(params, cfg, token, pos, cache, spans)
+
+
+def _decode_step(params, cfg, token, pos, cache, spans=None):
+    """The eager body of :func:`decode_step`."""
     x = _embed(params, cfg, token)
     x, new_cache, _ = backbone(params, cfg, x, mode="decode", cache=cache,
                                pos=pos, spans=spans)

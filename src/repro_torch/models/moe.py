@@ -147,9 +147,10 @@ def moe_ffn_dropless(p, x, cfg, count=None):
     ``DROPLESS_STATIC_TOKENS`` tokens (a token takes k distinct experts, so
     no expert receives more), else the most any expert received.  The
     shared experts (``dense_mlp``) are added for every token.  ``count``,
-    where given, is called with the call's routing: tokens routed, the most
-    any one expert received, the experts touched, and the assignments
-    dropped (0)."""
+    where given, is called with the call's routing as it stands on the
+    device (:func:`routing_counts` reads it on the host): the tokens
+    routed, the tokens each expert received, each assignment's rank among
+    its expert's, and the rows an expert holds."""
     T, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     dev = x.device
@@ -166,7 +167,14 @@ def moe_ffn_dropless(p, x, cfg, count=None):
     if "dense_mlp" in p:
         y = y + apply_mlp(p["dense_mlp"], x, cfg.mlp_type)
     if count is not None:
-        count(tokens=T, max_per_expert=int(assign.max()),
-              experts_touched=int((assign > 0).sum()),
-              dropped=int((rank >= C).sum()))
+        count(tokens=T, assign=assign, rank=rank, capacity=C)
     return y, aux
+
+
+def routing_counts(tokens, assign, rank, capacity) -> dict:
+    """A dropless MoE call's routing on the host: tokens routed, the most
+    any one expert received, the experts touched, and the assignments
+    dropped (0)."""
+    return dict(tokens=tokens, max_per_expert=int(assign.max()),
+                experts_touched=int((assign > 0).sum()),
+                dropped=int((rank >= capacity).sum()))

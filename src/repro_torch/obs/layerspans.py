@@ -64,3 +64,9 @@ class LayerSpans:
     def counter(self, name: str, **values) -> None:
         if self.tracer is not None:
             self.tracer.counter(name, self.pid, self.tid, **values)
+
+    def routing(self, **route) -> None:
+        """A MoE call's routing (``models/moe.py::moe_ffn_dropless``) as
+        its ``moe`` counter."""
+        from repro_torch.models.moe import routing_counts
+        self.counter("moe", **routing_counts(**route))

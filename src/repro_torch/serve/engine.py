@@ -4,7 +4,12 @@ The decode cache is a fixed bank of ``num_slots`` request slots; requests
 enter a slot mid-flight and leave it the step they finish.  One decode step
 always runs the whole bank; inactive slots carry ``pos=0, tok=0`` padding
 whose cache writes are masked or overwritten at the next admission.  The
-engine runs eagerly (no ``jit``).
+engine runs eagerly (no ``jit``), except the paged decode step on a card:
+where ``models/decode_graph.py::eager_reason`` allows, it replays as CUDA
+graphs captured on a bank shape's first step, over paged leaves rebuilt
+each step in persistent buffers (``serve/paged_attn.py::leaf_buffers``).
+Prefill, the dense decode path and the families no graph has been held
+bitwise to run eagerly.
 
 Sampling with temperature > 0 draws from a ``torch.Generator`` the caller
 passes (seeded from ``ServeConfig.seed``); its numbers differ from
@@ -20,8 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch import _devices
-from repro_torch.models import kvcache, model
+from repro_torch.models import decode_graph, kvcache, model
 from repro_torch.obs.layerspans import LayerSpans
+from repro_torch.serve import kvpool, paged_attn
 from repro_torch.train import tree
 
 
@@ -63,6 +69,8 @@ class Engine:
         self.cfg = cfg_arch
         self.params = params
         self.max_len = max_len
+        self._leaves = {}          # paged-leaf buffers by bank shape
+        self._graphs = {}          # DecodeGraph by decode_graph.graph_key
 
     def _sample(self, logits, gen: Optional[torch.Generator],
                 temperature: float):
@@ -72,11 +80,17 @@ class Engine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
     # ------------------------------------------------------------ slot API
-    def init_slots(self, num_slots: int) -> SlotBatch:
+    def init_slots(self, num_slots: int, paged: bool = False) -> SlotBatch:
+        """An empty bank; ``paged`` leaves out the leaves the block pool
+        pages, which the paged decode step rebuilds from the pool."""
         zeros = torch.zeros(num_slots, dtype=torch.int64, device=self.device)
+        skip = frozenset(
+            (pl.unit_idx, pl.key)
+            for pl in kvpool.build_layout(self.cfg, self.max_len).paged) \
+            if paged else frozenset()
         return SlotBatch(
             cache=kvcache.init_cache(self.cfg, num_slots, self.max_len,
-                                     self.device),
+                                     self.device, skip=skip),
             pos=zeros, tok=zeros.clone(),
             active=np.zeros((num_slots,), bool))
 
@@ -123,29 +137,67 @@ class Engine:
                          active=slots.active.copy())
 
     def decode_slots(self, slots: SlotBatch, gen=None,
-                     temperature: float = 0.0):
-        """ONE decode step over the whole bank.  Returns ``(new_slots,
-        tokens)``."""
+                     temperature: float = 0.0, tally=None):
+        """ONE decode step over the whole bank, eagerly (counted ``dense``
+        on ``tally``, a ``decode_graph.DecodeGraphTally``).  Returns
+        ``(new_slots, tokens)``."""
+        if tally is not None:
+            tally.eager("dense")
         logits, cache = model.decode_step(self.params, self.cfg,
                                           slots.tok[:, None], slots.pos,
                                           slots.cache)
         tok = self._sample(logits, gen, temperature)
         return self._advance(slots, cache, tok), tok
 
+    def _paged_leaves(self, view):
+        """The paged-leaf buffers of ``view``'s bank shape, shared by every
+        decode PE of this engine (they step one after another on one
+        stream)."""
+        key = (view.num_slots, view.pool.layout)
+        if key not in self._leaves:
+            self._leaves[key] = paged_attn.leaf_buffers(
+                view.pool.layout, view.num_slots, self.device)
+        return self._leaves[key]
+
+    def _decode_graph(self, slots, cache, view, tally):
+        """The captured step this paged step replays, or None (counted on
+        ``tally`` by its reason) where it runs eagerly."""
+        reason = decode_graph.eager_reason(self.cfg, self.device,
+                                           slots.num_slots)
+        if reason is not None:
+            if tally is not None:
+                tally.eager(reason)
+            return None
+        key = decode_graph.graph_key(self.params, cache, slots.num_slots)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = decode_graph.DecodeGraph(
+                (pl.unit_idx, pl.key) for pl in view.pool.layout.paged)
+        if tally is not None:
+            tally.captures += not graph.ready
+            tally.replays += 1
+        return graph
+
     def decode_slots_paged(self, slots: SlotBatch, gen, ctx, heap, view,
-                           temperature: float = 0.0, track=None):
+                           temperature: float = 0.0, track=None,
+                           tally=None):
         """ONE decode step reading K/V straight from the symmetric-heap
         block pool: the view assembles every paged leaf through the slot
         block tables (K3), the same decode runs, and each active slot's new
         K/V token is written back into its pool block.  The returned bank
         keeps only non-paged state.  Returns ``(new_slots, tokens, heap)``.
+        The leaves are rebuilt in this engine's persistent buffers, and on a
+        card the decode proper replays a captured graph
+        (``models/decode_graph.py``) where ``eager_reason`` allows; ``tally``
+        (a ``DecodeGraphTally``) counts captures, replays and eager steps.
         With a profiler on ``ctx``, the decode proper runs in a
         ``paged_attn`` scope labelled with the assembled cache's bytes.
         With a wall-clocked tracer on ``ctx`` (``tracer.timed``), the four
         parts record ``decode.assemble``, ``decode.model``,
         ``decode.sample`` and ``decode.writeback`` spans on ``track`` (the
-        caller's ``(pid, tid)``, by default the view's PE), and the heap's
-        tally ends the writeback as a ``heap`` counter.  With that tracer
+        caller's ``(pid, tid)``, by default the view's PE), ``tally`` ends
+        ``decode.model`` as a ``decode_graph`` counter and the heap's tally
+        ends the writeback as a ``heap`` counter.  With that tracer
         or a recording ``torch.profiler``, the model's layers mark their
         parts inside ``decode.model`` (``obs/layerspans.py``)."""
         tr = ctx.tracer if ctx.tracer.timed else None
@@ -153,10 +205,11 @@ class Engine:
         spans = LayerSpans.make("decode", tr, (pid, tid))
         if tr is not None:
             tr.begin("decode.assemble", "engine", pid, tid)
-        cache = view.assemble(heap, slots.cache)
+        cache = view.assemble(heap, slots.cache, out=self._paged_leaves(view))
         if tr is not None:
             tr.end("decode.assemble", "engine", pid, tid)
             tr.begin("decode.model", "engine", pid, tid)
+        graph = self._decode_graph(slots, cache, view, tally)
         pf = getattr(ctx, "prof", None)
         if pf is not None and pf.enabled:
             kv_bytes = sum(leaf.numel() * leaf.element_size()
@@ -166,14 +219,16 @@ class Engine:
                           work_items=int(slots.active.sum())) as ps:
                 logits, new_cache = model.decode_step(
                     self.params, self.cfg, slots.tok[:, None], slots.pos,
-                    cache, spans=spans)
+                    cache, spans=spans, graph=graph)
                 logits = ps(logits)
         else:
             logits, new_cache = model.decode_step(self.params, self.cfg,
                                                   slots.tok[:, None],
                                                   slots.pos, cache,
-                                                  spans=spans)
+                                                  spans=spans, graph=graph)
         if tr is not None:
+            if tally is not None:
+                tr.counter("decode_graph", pid, tid, **tally.counter())
             tr.end("decode.model", "engine", pid, tid)
             tr.begin("decode.sample", "engine", pid, tid)
         tok = self._sample(logits, gen, temperature)
@@ -184,7 +239,7 @@ class Engine:
         if tr is not None:
             tr.counter("heap", pid, tid, **dataclasses.asdict(heap.tally))
             tr.end("decode.writeback", "engine", pid, tid)
-        return self._advance(slots, view.strip(new_cache), tok), tok, heap
+        return self._advance(slots, view.unpaged(new_cache), tok), tok, heap
 
     # ------------------------------------------------------- lockstep API
     def generate(self, batch, scfg: ServeConfig = ServeConfig()):

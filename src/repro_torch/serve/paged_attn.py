@@ -7,7 +7,10 @@ the decode-side KV cache, indexed per slot through block tables:
   decode PE's pool row with the K3 kernel (``kernels/ishmem_device.py``;
   unmapped table entries read zeros) and rebuilds each paged leaf
   ``(reps, B, W, nkv, hd)`` exactly as a dense cache would hold it, so the
-  decode step is bitwise the dense one;
+  decode step is bitwise the dense one; the engine hands it persistent
+  buffers to rebuild them in (:func:`leaf_buffers`), which its captured
+  decode graph reads, and the slot bank holds no paged leaf
+  (:meth:`PagedDecodeView.unpaged`);
 - **writeback** — stores each active slot's freshly projected K/V token
   into its owning block (a local store on the decode PE); a ring wraps at
   ``pos % W``, and its ``kpos`` stays with the slot bank's tail leaves;
@@ -31,7 +34,7 @@ import torch
 from repro_torch.core import rma
 from repro_torch.core.heap import TORCH_DTYPES
 from repro_torch.kernels import ishmem_device
-from repro_torch.serve.kvpool import KVPool
+from repro_torch.serve.kvpool import KVLayout, KVPool
 
 
 @dataclasses.dataclass
@@ -39,6 +42,17 @@ class _SlotMap:
     """Host-side per-slot decode state: which request, which COW targets."""
     req_id: int
     cow: Dict[int, int]          # table index -> reserved private block id
+
+
+def leaf_buffers(layout: KVLayout, num_slots: int, device) -> dict:
+    """One dense buffer ``(reps, num_slots, nb * T, nkv, hd)`` a paged leaf,
+    keyed ``(unit index, key)``, for ``assemble`` to rebuild the leaves in.
+    Every word is written by each assemble, so they start empty."""
+    nbt = layout.blocks_per_request * layout.block_tokens
+    dtype = TORCH_DTYPES[layout.kv_dtype]
+    return {(pl.unit_idx, pl.key): torch.empty(
+        (pl.reps, num_slots, nbt, pl.nkv, pl.hd), dtype=dtype, device=device)
+        for pl in layout.paged}
 
 
 class PagedDecodeView:
@@ -98,10 +112,11 @@ class PagedDecodeView:
         return table
 
     # ------------------------------------------------------------- assemble
-    def assemble(self, heap, cache):
+    def assemble(self, heap, cache, out=None):
         """Rebuild every paged leaf of the batched decode cache from the
-        pool row through the slot block tables.  Non-paged leaves pass
-        through from ``cache``."""
+        pool row through the slot block tables, into ``out`` (from
+        :func:`leaf_buffers`) where given, else into new tensors.
+        Non-paged leaves pass through from ``cache``."""
         lay = self.pool.layout
         if not lay.paged:
             return cache
@@ -113,25 +128,22 @@ class PagedDecodeView:
         cache = dict(cache)
         blocks = [dict(e) for e in cache["blocks"]]
         for pl in lay.paged:
-            leaf = ishmem_device._extract_leaf(
-                pay, lay, pl, self.num_slots, offs[(pl.unit_idx, pl.key)])
-            ref = blocks[pl.unit_idx][pl.key]
-            blocks[pl.unit_idx][pl.key] = leaf.to(ref.dtype)
+            key = (pl.unit_idx, pl.key)
+            blocks[pl.unit_idx][pl.key] = ishmem_device._extract_leaf(
+                pay, lay, pl, self.num_slots, offs[key],
+                out=None if out is None else out[key])
         cache["blocks"] = blocks
         return cache
 
-    def strip(self, cache):
-        """Zero the paged leaves of a post-step cache: the pool row is the
-        single source of truth, and the slot bank never re-grows a dense
-        copy."""
-        lay = self.pool.layout
-        cache = dict(cache)
-        blocks = [dict(e) for e in cache["blocks"]]
-        for pl in lay.paged:
-            blocks[pl.unit_idx][pl.key] = torch.zeros_like(
-                blocks[pl.unit_idx][pl.key])
-        cache["blocks"] = blocks
-        return cache
+    def unpaged(self, cache):
+        """A post-step cache without its paged leaves, for the slot bank:
+        the pool row is the single source of truth, and the bank never
+        holds a dense copy."""
+        paged = {(pl.unit_idx, pl.key) for pl in self.pool.layout.paged}
+        return dict(cache, blocks=[
+            {key: leaf for key, leaf in entry.items()
+             if (ui, key) not in paged}
+            for ui, entry in enumerate(cache["blocks"])])
 
     # ------------------------------------------------------------ writeback
     def writeback(self, ctx, heap, new_cache, pos, active):

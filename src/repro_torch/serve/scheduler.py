@@ -65,6 +65,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.models.decode_graph import DecodeGraphTally
 from repro_torch.obs.layerspans import LayerSpans
 from repro_torch.serve import kvpool as kvpool_mod
 from repro_torch.serve.engine import Engine, ServeConfig, seeded
@@ -218,6 +219,11 @@ class SchedStats:
         default_factory=list)
     e2e_steps: List[int] = dataclasses.field(default_factory=list)
 
+    def __post_init__(self):
+        # the port's own tally, outside the fields the reference's
+        # SchedStats shares: how often the decode step replayed a graph
+        self.decode_graph = DecodeGraphTally()
+
 
 class DisaggScheduler:
     """Drives prefill PEs, the migration engine, and decode slot banks."""
@@ -278,7 +284,8 @@ class DisaggScheduler:
         # request routed anywhere can map blocks any pod staged
         self.prefix_index: Dict[tuple, PrefixEntry] = (
             {} if prefix_index is None else prefix_index)
-        self.banks = {pe: engine.init_slots(num_slots) for pe in decode_pes}
+        self.banks = {pe: engine.init_slots(num_slots, paged=paged)
+                      for pe in decode_pes}
         self.slot_req: Dict[int, List[Optional[int]]] = {
             pe: [None] * num_slots for pe in decode_pes}
         self.stats = SchedStats()
@@ -1046,9 +1053,11 @@ class DisaggScheduler:
         if self.paged:
             bank, toks, self.heap = self.engine.decode_slots_paged(
                 bank, gen, self.ctx, self.heap, self.views[pe],
-                self.scfg.temperature, track=(self._trace_pid, f"pe{pe}"))
+                self.scfg.temperature, track=(self._trace_pid, f"pe{pe}"),
+                tally=self.stats.decode_graph)
             return bank, toks
-        return self.engine.decode_slots(bank, gen, self.scfg.temperature)
+        return self.engine.decode_slots(bank, gen, self.scfg.temperature,
+                                        tally=self.stats.decode_graph)
 
     def _maybe_finish(self, req: Request) -> None:
         eos_hit = (self.scfg.eos_id >= 0

@@ -10,7 +10,8 @@ that has the card and no JAX:
 every test here skips.  Data movement (K1, K3-K9) is compared bitwise,
 attention (K2, K10) to the reference's tolerances, 2e-5 in f32 and 2e-2 in
 bf16; K2's bf16 kernel is also held bitwise to itself run to run and across
-batch positions, and K11 bitwise to K3 followed by K2.
+batch positions, and K11 bitwise to K3 followed by K2.  The paged decode
+step replayed as CUDA graphs is held bitwise to the eager step.
 """
 import dataclasses
 import json
@@ -781,6 +782,8 @@ def test_cuda_ring_tails_carry_nan_bits(card):
                         "--block-tokens", "8", "--kv-blocks", "48"])
     lay = sched.pool.layout
     assert lay.ring and lay.cache_width == 64
+    tally = sched.stats.decode_graph    # kpos rides in the graph's inputs
+    assert tally.captures == 1 and tally.replays and not tally.eager_steps
     last = {}
     for req in sched.requests.values():
         assert req.out == sched.engine.generate_in_slot(
@@ -794,6 +797,143 @@ def test_cuda_ring_tails_carry_nan_bits(card):
         got = sched.migrator.gather_tail(sched.heap, slot, pe)
         assert int(want.isnan().sum()) == 2 * 24
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the decode step replayed as CUDA graphs (models/decode_graph.py)
+# ---------------------------------------------------------------------------
+
+
+def _stepped(sched):
+    """Step ``sched`` to its end; returns every pool after every step and
+    every decode step's logits."""
+    from repro_torch.models import model
+    step, logits, pools = model.decode_step, [], []
+
+    def recorded(*a, **kw):
+        out = step(*a, **kw)
+        logits.append(out[0].clone())
+        return out
+
+    model.decode_step = recorded
+    try:
+        while not sched.done():
+            sched.step()
+            pools.append({dt: pool.clone()
+                          for dt, pool in sched.heap.pools.items()})
+    finally:
+        model.decode_step = step
+    return pools, logits
+
+
+def _single_pe(sched, slots=2):
+    """Each request's tokens against ``Engine.generate_in_slot``."""
+    for req in sched.requests.values():
+        assert req.out == sched.engine.generate_in_slot(
+            req.batch, dataclasses.replace(sched.scfg,
+                                           max_new_tokens=req.max_new),
+            num_slots=slots, slot=req.slot), req.rid
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite"])
+def test_cuda_decode_graph_is_bitwise_the_eager_step(card, arch, temperature,
+                                                     monkeypatch):
+    """Reduced qwen3-4b and DeepSeek-V2-Lite served disaggregated over 24
+    requests (admissions, evictions and copy-on-write mid-flight, 40 steps
+    and more), once with every paged step eager and once replayed as
+    graphs: every step's logits and pools and every token bitwise equal,
+    greedy and sampled from the same seeded generators; one capture, a
+    replay a PE step.  Greedy, every request is bitwise the single-PE
+    dense baseline."""
+    from _torch_decode_traffic import build
+    from repro_torch.models import decode_graph
+    with monkeypatch.context() as m:
+        m.setattr(decode_graph, "eager_reason", lambda *a: "eager")
+        eager = build(arch, "cuda", requests=24, temperature=temperature)
+        want_pools, want_logits = _stepped(eager)
+    sched = build(arch, "cuda", requests=24, temperature=temperature)
+    pools, logits = _stepped(sched)
+    st, tally = sched.stats, sched.stats.decode_graph
+    assert st.decode_steps >= 40 and st.cow_copies > 0
+    assert st.admissions == st.evictions == 24
+    assert (tally.captures, tally.replays, tally.eager_steps) == \
+        (1, len(logits), {})
+    assert eager.stats.decode_graph.eager_steps == {"eager": len(logits)}
+    assert len(logits) == len(want_logits) and len(pools) == len(want_pools)
+    for got, want in zip(logits, want_logits):
+        assert torch.equal(got, want)
+    for got, want in zip(pools, want_pools):
+        for dt, pool in got.items():
+            assert torch.equal(pool, want[dt]), dt
+    for rid, req in sched.requests.items():
+        assert req.out == eager.requests[rid].out
+    if temperature == 0.0:
+        _single_pe(sched)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite"])
+def test_cuda_decode_graph_under_a_profiler_and_a_wall_tracer(card, arch):
+    """The same run with nothing recording, and with a wall-clocked tracer
+    and a recording profiler (from after the capture): equal tokens and
+    tally.  The tracer's ``decode_graph`` counter ends at the tally; a
+    latent-attention model's parts record as spans inside ``decode.model``
+    and as ranges with device time, and its routing as ``moe`` counters."""
+    from _torch_decode_traffic import build
+    from repro_torch.obs.tracer import SpanTracer, WallClock
+    plain = build(arch, "cuda", requests=8)
+    plain.run()
+    sched = build(arch, "cuda", requests=8)
+    tracer = sched.ctx.tracer = SpanTracer(clock=WallClock())
+    while not sched.stats.decode_graph.captures:
+        sched.step()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        while not sched.done():
+            sched.step()
+        torch.cuda.synchronize()
+    for rid, req in sched.requests.items():
+        assert req.out == plain.requests[rid].out
+    tally = sched.stats.decode_graph
+    assert tally == plain.stats.decode_graph and tally.captures == 1
+    counts = [ev.args for ev in tracer.events
+              if ev.ph == "C" and ev.name == "decode_graph"]
+    assert counts and counts[-1] == tally.counter()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels
+    names = {ev.name for ev in tracer.events if ev.ph == "B"}
+    if arch == "deepseek-v2-lite":
+        assert {"decode.mla", "decode.moe"} <= names
+        ranges = {e.name: e for e in kernels
+                  if e.name in ("decode.mla", "decode.moe")}
+        assert set(ranges) == {"decode.mla", "decode.moe"}
+        moe = [ev.args for ev in tracer.events
+               if ev.ph == "C" and ev.name == "moe"]
+        assert all(c["dropped"] == 0 for c in moe)
+        decode = [c for c in moe if c["tokens"] == 2]     # the bank's rows
+        assert decode and all(1 <= c["max_per_expert"] <= 2 for c in decode)
+    else:
+        assert not {"decode.mla", "decode.moe"} & names
+
+
+def test_cuda_decode_graph_captures_again_for_another_bank(card):
+    """One engine serving banks of 2 then of 3 slots: a graph each, each
+    captured once, and every request bitwise its single-PE baseline."""
+    from _torch_decode_traffic import build
+    two = build("qwen3-4b", "cuda", requests=6, slots=2)
+    two.run()
+    three = build("qwen3-4b", "cuda", requests=6, slots=3)
+    three.engine = two.engine
+    three.run()
+    assert len(two.engine._graphs) == 2
+    for sched in (two, three):
+        tally = sched.stats.decode_graph
+        assert tally.captures == 1 and tally.replays > 0
+        assert not tally.eager_steps
+    _single_pe(two)
+    _single_pe(three, slots=3)
 
 
 # ---------------------------------------------------------------------------

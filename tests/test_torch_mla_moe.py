@@ -155,7 +155,8 @@ def test_a_token_gets_the_same_alone_and_in_an_overloaded_batch(T):
     p["router"][0, 0] = 10.0                 # expert 0 takes every token
     x = _overloading_batch(T, cfg.d_model, gen)
     seen = {}
-    y, _ = moe.moe_ffn_dropless(p, x, cfg, lambda **c: seen.update(c))
+    y, _ = moe.moe_ffn_dropless(
+        p, x, cfg, lambda **c: seen.update(moe.routing_counts(**c)))
     assert seen == {"tokens": T, "max_per_expert": T,
                     "experts_touched": seen["experts_touched"],
                     "dropped": 0}

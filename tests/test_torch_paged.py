@@ -431,7 +431,8 @@ def test_assembled_leaves_equal_dense_rehydrate(params):
     assembled = view.assemble(sched.heap, bank.cache)
     rid = next(iter(pool.block_tables))
     payloads, tail = sched.migrator.gather(sched.heap, rid, 0, 2)
-    dense = kvpool_mod.insert_blocks(pool.layout, bank.cache, 0, payloads)
+    dense = kvpool_mod.insert_blocks(pool.layout, eng.init_slots(2).cache,
+                                     0, payloads)
     for pl in pool.layout.paged:
         assert torch.equal(assembled["blocks"][pl.unit_idx][pl.key][:, 0],
                            dense["blocks"][pl.unit_idx][pl.key][:, 0])
