@@ -1543,7 +1543,7 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched, label):
         del assembled
     del nan_heap, nan_pools
     torch.cuda.empty_cache()
-    offs = dev_kern._leaf_offsets(lay)
+    offs = lay.leaf_offsets
     v_leaf = next(x for x in lay.paged
                   if x.unit_idx == leaf.unit_idx and x.key == "v")
 
@@ -1568,9 +1568,7 @@ def check_fused_paged_attn(torch, dev_kern, flash_attn, ops, sched, label):
         data = device_mod.get_view(wg, h, pool.data, pe).reshape(
             pool.num_blocks, lay.block_words)
         pay = dev_kern.paged_gather(data, view.table())
-        k, v = (dev_kern._extract_leaf(pay, lay, x, view.num_slots,
-                                       offs[(x.unit_idx, x.key)])[0]
-                for x in (leaf, v_leaf))
+        k, v = (lay.gathered_leaf(pay, x)[0] for x in (leaf, v_leaf))
         return flash_attn.flash_attention(q, k.contiguous(), v.contiguous())
 
     got, want, before = fused(), plain(), composed()

@@ -16,7 +16,7 @@ from typing import Optional, Set
 
 from repro_torch.core import cutover, heap as heap_mod, \
     pending as pending_mod, teams
-from repro_torch.obs import tracer as tracer_mod
+from repro_torch.obs import prof as prof_mod, tracer as tracer_mod
 from repro_torch.tune import env as env_mod, telemetry as telemetry_mod
 
 OpRecord = telemetry_mod.OpRecord
@@ -50,11 +50,11 @@ class ShmemContext:
     pending: pending_mod.CompletionQueue = dataclasses.field(
         default_factory=pending_mod.CompletionQueue)
     tracer: tracer_mod.Tracer = tracer_mod.NULL_TRACER
-    # wall-clock profiler (obs.prof): None unless a driver attaches one, so
-    # hot paths guard on ``prof is not None and prof.enabled``.  Its
+    # wall-clock profiler (obs.prof): the no-op NULL_PROF until
+    # ``Profiler.attach``, so hot paths open its scopes unguarded.  Its
     # perf_counter values land only in wallclock telemetry buckets and its
     # own samples, never in a trace timestamp or the modeled comm clock
-    prof: Optional[object] = None
+    prof: prof_mod.Profiler = prof_mod.NULL_PROF
     # which PEs are dead and whether the proxy ring is partitioned: the
     # completion queue consults it at flush time
     fault: FaultState = dataclasses.field(default_factory=FaultState)

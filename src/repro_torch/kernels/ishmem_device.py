@@ -110,36 +110,6 @@ def _gather_launch(data, table, host):
 # ---------------------------------------------------------------------------
 
 
-def _leaf_offsets(lay) -> dict:
-    """Word offset of each paged leaf inside a block payload."""
-    offs = {}
-    off = 0
-    for leaf in lay.paged:
-        offs[(leaf.unit_idx, leaf.key)] = off
-        off += leaf.words_per_token * lay.block_tokens
-    return offs
-
-
-def _extract_leaf(pay, lay, leaf, num_slots: int, off: int, out=None):
-    """Rebuild one paged leaf ``(reps, num_slots, width, nkv, hd)`` from the
-    gathered payload ``(num_slots, nb, block_words)``: the slicing that
-    ``PagedDecodeView.assemble`` applies, so the leaf is bitwise what a
-    dense cache would hold.  The one copy it makes goes into ``out``
-    (``(reps, num_slots, nb * T, nkv, hd)``) where given, else into a new
-    tensor; the leaf is its first ``width`` positions."""
-    T = lay.block_tokens
-    nb = lay.blocks_per_request
-    n = leaf.words_per_token * T
-    blocks = pay[:, :, off:off + n].reshape(
-        num_slots, nb, leaf.reps, T, leaf.nkv, leaf.hd).permute(
-        2, 0, 1, 3, 4, 5)
-    if out is None:
-        out = blocks.reshape(leaf.reps, num_slots, nb * T, leaf.nkv, leaf.hd)
-    else:
-        out.view(leaf.reps, num_slots, nb, T, leaf.nkv, leaf.hd).copy_(blocks)
-    return out[:, :, :leaf.width]
-
-
 def paged_layer_plain(data: torch.Tensor, table: torch.Tensor, off: int,
                       leaf, layer: int, block_tokens: int) -> torch.Tensor:
     """One layer of one paged leaf, ``(num_slots, width, nkv, hd)``: the
@@ -147,7 +117,8 @@ def paged_layer_plain(data: torch.Tensor, table: torch.Tensor, off: int,
     so layer L's tokens are ``T * nkv * hd`` words from ``off + L * T * nkv
     * hd``.  Only those words of each mapped block are read; an unmapped
     entry (``== data.shape[0]``) reads zeros, and keys past ``leaf.width``
-    are cut.  Bitwise ``_extract_leaf`` of K3's gather at that layer."""
+    are cut.  Bitwise ``KVLayout.gathered_leaf`` of K3's gather at that
+    layer."""
     n = block_tokens * leaf.nkv * leaf.hd
     start = off + layer * n
     idx = table.long()
@@ -302,10 +273,8 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
         raise ValueError("fused_paged_attn requires a paged layout")
     if unit_idx is None:
         unit_idx = lay.paged[0].unit_idx
-    k_leaf = next(p for p in lay.paged
-                  if p.unit_idx == unit_idx and p.key == "k")
-    v_leaf = next(p for p in lay.paged
-                  if p.unit_idx == unit_idx and p.key == "v")
+    k_leaf, v_leaf = (next(p for p in lay.paged if p.path == (unit_idx, key))
+                      for key in ("k", "v"))
     if (k_leaf.reps, k_leaf.width, k_leaf.nkv, k_leaf.hd) != \
             (v_leaf.reps, v_leaf.width, v_leaf.nkv, v_leaf.hd):
         raise ValueError("fused_paged_attn: K and V leaves of unit "
@@ -314,8 +283,7 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
     # group's width): a view, no copy
     data = device_mod.get_view(wg, heap, view.pool.data, view.pe).reshape(
         view.pool.num_blocks, lay.block_words)
-    offs = _leaf_offsets(lay)
-    k_off, v_off = offs[(unit_idx, "k")], offs[(unit_idx, "v")]
+    k_off, v_off = (lay.leaf_offsets[x.path] for x in (k_leaf, v_leaf))
     with counter.charge("fused_paged_attn", lambda: counter.paged_attn_work(
             q.shape[0], q.shape[1], q.shape[2], k_leaf.nkv, k_leaf.hd,
             q.element_size())):
@@ -324,8 +292,8 @@ def fused_paged_attn(wg, heap, view, q: torch.Tensor, *, unit_idx=None,
             return heap, torch.empty_like(q)
         if route == "composition":
             pay = paged_gather(data, view.table())     # a host table: no sync
-            k = _extract_leaf(pay, lay, k_leaf, view.num_slots, k_off)[layer]
-            v = _extract_leaf(pay, lay, v_leaf, view.num_slots, v_off)[layer]
+            k = lay.gathered_leaf(pay, k_leaf)[layer]
+            v = lay.gathered_leaf(pay, v_leaf)[layer]
             if dtype is not None:
                 k, v = k.to(dtype), v.to(dtype)
             return heap, flash_attn.flash_attention(q, k.contiguous(),

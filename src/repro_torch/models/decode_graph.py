@@ -23,9 +23,9 @@ Capture follows the model's part marks (``obs/layerspans.py``): each part
 (a latent-attention model's ``mla`` and ``moe`` of every layer) is a graph
 of its own, and the work between parts (the embedding, a dense MLP, the
 head and the stacked cache) is a graph too, so a replay runs each part
-under its ``record_function`` range and its wall span where the step's
-``spans`` record them.  A model that marks no parts is one graph.  The
-MoE's routing (``models/moe.py::moe_ffn_dropless``) is kept as the
+under its ``record_function`` range and its wall span where the current
+marks record them.  A model that marks no parts is one graph.  The MoE's
+routing (``models/moe.py::moe_ffn_dropless``) is kept as the
 graph's own tensors and read back once after the replay, only where a
 timed tracer counts it.
 
@@ -47,6 +47,7 @@ import torch
 from repro_torch.configs import base as cfgbase
 from repro_torch.launch import policy as policy_mod
 from repro_torch.models import model as model_mod, moe as moe_mod
+from repro_torch.obs import layerspans
 
 #: layer kinds whose replayed decode step is bitwise the eager one on the
 #: card (``tests/test_torch_cuda.py``)
@@ -106,7 +107,7 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 class _Segments:
-    """Stands in for the step's ``LayerSpans`` while it is captured: each
+    """The step's marks while it is captured (``layerspans.use``): each
     part the model marks ends the graph being captured and begins its own,
     and every MoE call's routing is kept as tensors."""
     counting = True
@@ -174,7 +175,7 @@ class DecodeGraph:
              for key, leaf in entry.items()}
             for ui, entry in enumerate(cache["blocks"])]}
 
-    def run(self, params, cfg, token, pos, cache, spans=None):
+    def run(self, params, cfg, token, pos, cache):
         """The step's ``(logits, new cache)``: captured on the first call,
         replayed on every call.  The logits and the new cache's persistent
         leaves are the graph's own outputs, overwritten by the next replay;
@@ -183,11 +184,9 @@ class DecodeGraph:
             self._capture(params, cfg, token, pos, cache)
         self._load(token, pos, cache)
         for name, graph in self.graphs:
-            if name is None or spans is None:
+            with layerspans.part(name) if name else contextlib.nullcontext():
                 graph.replay()
-            else:
-                with spans.part(name):
-                    graph.replay()
+        spans = layerspans.current()
         if spans is not None and spans.counting and self.routes:
             for counts in self._read_routes():
                 spans.counter("moe", **counts)
@@ -206,9 +205,9 @@ class DecodeGraph:
         self.cache = self._own(cache)
         stream = torch.cuda.Stream(device=token.device)
         stream.wait_stream(torch.cuda.current_stream(token.device))
-        with torch.cuda.stream(stream):
-            # the eager step once on the capture's stream: its lazy
-            # set-up happens here, outside the capture
+        with torch.cuda.stream(stream), layerspans.use(None):
+            # the eager step once on the capture's stream, unmarked: its
+            # lazy set-up happens here, outside the capture
             model_mod._decode_step(params, cfg, self.tok, self.pos,
                                    self.cache)
         torch.cuda.current_stream(token.device).wait_stream(stream)
@@ -216,11 +215,11 @@ class DecodeGraph:
         gc.collect()
         torch.cuda.empty_cache()
         seg = _Segments(torch.cuda.graph_pool_handle())
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), layerspans.use(seg):
             seg.begin()
             try:
                 self.logits, self.out_cache = model_mod._decode_step(
-                    params, cfg, self.tok, self.pos, self.cache, spans=seg)
+                    params, cfg, self.tok, self.pos, self.cache)
                 seg.end()
             except BaseException:
                 seg.abort()

@@ -44,16 +44,14 @@ sits at the reference's four sites (the gathered weights under
 embedding, the CE chunk's logits); with no GSPMD it returns its input and
 only records the spec the dry-run's rules give.  Every step runs on
 ``meta`` tensors too (``init_params(device="meta")``), which is how the
-dry-run counts its work.  Prefill, decode and the blocks under them take
-``spans`` (``obs/layerspans.py``, or None): the latent-attention blocks
-mark their attention and MoE as ``<step>.mla`` and ``<step>.moe`` and
-report the MoE's routing to its ``moe`` counter.  ``decode_step`` also
-takes a captured graph of itself (``models/decode_graph.py``), which it
-replays instead of issuing the step eagerly.
+dry-run counts its work.  The latent-attention blocks mark their
+attention and MoE as ``<step>.mla`` and ``<step>.moe`` on the marks the
+caller made current (``obs/layerspans.py``), and the MoE reports its
+routing there.  ``decode_step`` also takes a captured graph of itself
+(``models/decode_graph.py``), which it replays instead of issuing the step
+eagerly.
 """
 from __future__ import annotations
-
-import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -67,13 +65,10 @@ from repro_torch.models import attention as attn_mod, kvcache, \
     moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, dense_init, init_mlp, \
     rms_norm
+from repro_torch.obs import layerspans
 
 _SELF_ATTN = ("attn", "shared_attn", "moe", "encdec")
 _MLA = ("mla", "mla_moe")
-
-
-def _no_part(name):
-    return contextlib.nullcontext()
 
 
 def _init_block(gen, kind, cfg, dtype, reps, dev):
@@ -286,12 +281,11 @@ def _check_mode(mode):
         raise ValueError(f"unknown mode {mode!r}")
 
 
-def _mla_block(kind, bp, x, cfg, mode, positions, cache, pos, spans):
+def _mla_block(kind, bp, x, cfg, mode, positions, cache, pos):
     """Latent attention, then the dense MLP (``mla``) or the dropless
     routed and shared experts (``mla_moe``), both residual."""
-    part = spans.part if spans is not None else _no_part
     aux = None
-    with part("mla"):
+    with layerspans.part("mla"):
         h = rms_norm(x, bp["norm1"])
         if mode == "decode":
             o, new_cache = attn_mod.mla_decode(bp["attn"], h, cfg, pos,
@@ -303,18 +297,17 @@ def _mla_block(kind, bp, x, cfg, mode, positions, cache, pos, spans):
     if kind == "mla":
         return x + apply_mlp(bp["mlp"], rms_norm(x, bp["norm2"]),
                              cfg.mlp_type), new_cache, aux
-    count = spans.routing if spans is not None and spans.counting else None
-    with part("moe"):
+    with layerspans.part("moe"):
         h = rms_norm(x, bp["norm2"])
         B, S, d = h.shape
         y, aux = moe_mod.moe_ffn_dropless(bp["moe"], h.reshape(B * S, d),
-                                          cfg, count)
+                                          cfg)
         x = x + y.reshape(B, S, d)
     return x, new_cache, aux
 
 
 def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
-                enc_out=None, image_embeds=None, pos=None, spans=None):
+                enc_out=None, image_embeds=None, pos=None):
     """Returns (x_out, new cache entries, aux): the MoE's load-balance loss
     (f32 scalar), None for the other kinds (the reference's zero).  Prefill
     starts every recurrent state from zero, as the reference does, and
@@ -322,8 +315,7 @@ def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
     _check_mode(mode)
     aux = None
     if kind in _MLA:
-        return _mla_block(kind, bp, x, cfg, mode, positions, cache, pos,
-                          spans)
+        return _mla_block(kind, bp, x, cfg, mode, positions, cache, pos)
     if kind in _SELF_ATTN:
         h = rms_norm(x, bp["norm1"])
         o, new_cache = _self_attention(bp["attn"], h, cfg, mode, positions,
@@ -375,7 +367,7 @@ def apply_block(kind, bp, x, *, cfg, mode, positions=None, cache=None,
 
 
 def backbone(params, cfg, x, *, mode, positions=None, cache=None,
-             enc_out=None, image_embeds=None, pos=None, spans=None):
+             enc_out=None, image_embeds=None, pos=None):
     """x: (B,S,d) embedded inputs.  Returns (x, new_cache, aux), aux the
     f32 sum of the blocks' auxiliary losses in the reference's order
     (repeat by repeat, block by block)."""
@@ -399,7 +391,7 @@ def backbone(params, cfg, x, *, mode, positions=None, cache=None,
             x, nc, a = apply_block(kind, bp, x, cfg=cfg, mode=mode,
                                    positions=positions, cache=c,
                                    enc_out=enc_out, image_embeds=image_embeds,
-                                   pos=pos, spans=spans)
+                                   pos=pos)
             if mode != "train":
                 for key, leaf in nc.items():
                     new_blocks[ci].setdefault(key, []).append(leaf)
@@ -495,7 +487,7 @@ def train_loss(params, cfg, batch):
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(params, cfg, batch, cache, spans=None):
+def prefill(params, cfg, batch, cache):
     """Fill the cache from a full prompt (``batch["tokens"]``, plus the
     family's frontend embeddings); returns (last_logits f32, cache)."""
     tokens = batch["tokens"]
@@ -505,27 +497,26 @@ def prefill(params, cfg, batch, cache, spans=None):
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x, new_cache, _ = backbone(params, cfg, x, mode="prefill",
                                positions=positions, cache=cache,
-                               enc_out=enc_out, image_embeds=image_embeds,
-                               spans=spans)
+                               enc_out=enc_out, image_embeds=image_embeds)
     x = rms_norm(x[:, -1:], params["final_norm"])
     logits = (x @ _lm_matrix(params, cfg)).float()
     return logits[:, 0], new_cache
 
 
-def decode_step(params, cfg, token, pos, cache, spans=None, graph=None):
+def decode_step(params, cfg, token, pos, cache, graph=None):
     """ONE token (B,1) at positions pos (B,) against the cache.  With
     ``graph`` (a ``models/decode_graph.py::DecodeGraph``) the step is that
     graph's replay, captured from :func:`_decode_step` on its first call."""
     if graph is not None:
-        return graph.run(params, cfg, token, pos, cache, spans)
-    return _decode_step(params, cfg, token, pos, cache, spans)
+        return graph.run(params, cfg, token, pos, cache)
+    return _decode_step(params, cfg, token, pos, cache)
 
 
-def _decode_step(params, cfg, token, pos, cache, spans=None):
+def _decode_step(params, cfg, token, pos, cache):
     """The eager body of :func:`decode_step`."""
     x = _embed(params, cfg, token)
     x, new_cache, _ = backbone(params, cfg, x, mode="decode", cache=cache,
-                               pos=pos, spans=spans)
+                               pos=pos)
     x = rms_norm(x, params["final_norm"])
     logits = (x @ _lm_matrix(params, cfg)).float()
     return logits[:, 0], new_cache

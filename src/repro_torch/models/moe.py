@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.models.layers import apply_mlp, dense_init, gelu, \
     init_mlp, silu
+from repro_torch.obs import layerspans
 
 
 def init_moe(gen, cfg, dtype, *, reps, device=None):
@@ -141,16 +142,16 @@ def moe_ffn(p, x, cfg):
     return y.to(x.dtype), aux
 
 
-def moe_ffn_dropless(p, x, cfg, count=None):
+def moe_ffn_dropless(p, x, cfg):
     """x: (T, d) -> (y: (T, d), aux_loss: f32 scalar), with no token
     dropped: each expert holds C rows, C = T up to
     ``DROPLESS_STATIC_TOKENS`` tokens (a token takes k distinct experts, so
     no expert receives more), else the most any expert received.  The
-    shared experts (``dense_mlp``) are added for every token.  ``count``,
-    where given, is called with the call's routing as it stands on the
-    device (:func:`routing_counts` reads it on the host): the tokens
-    routed, the tokens each expert received, each assignment's rank among
-    its expert's, and the rows an expert holds."""
+    shared experts (``dense_mlp``) are added for every token.  The call's
+    routing goes to the running step's marks (``obs/layerspans.py::
+    routing``) as it stands on the device (:func:`routing_counts` reads it
+    on the host): the tokens routed, the tokens each expert received, each
+    assignment's rank among its expert's, and the rows an expert holds."""
     T, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     dev = x.device
@@ -166,8 +167,7 @@ def moe_ffn_dropless(p, x, cfg, count=None):
     y = (routed.float() * gate[..., None]).sum(dim=1).to(x.dtype)
     if "dense_mlp" in p:
         y = y + apply_mlp(p["dense_mlp"], x, cfg.mlp_type)
-    if count is not None:
-        count(tokens=T, assign=assign, rank=rank, capacity=C)
+    layerspans.routing(tokens=T, assign=assign, rank=rank, capacity=C)
     return y, aux
 
 

@@ -10,14 +10,48 @@ a wall-clocked tracer (``tracer.timed``, inside the engine's
 name, whose device-side span the profiler keeps.  The MoE also records a
 ``moe`` counter a call on the timed tracer: tokens routed, the most any
 one expert received, the experts touched, and the assignments dropped.
-Where neither records, :meth:`LayerSpans.make` returns None and the model
-marks nothing.
+The marks are ambient, as the policy is: a caller makes a step's marks
+current with :func:`use`, and the model calls :func:`part` and
+:func:`routing`, which do nothing while none are.  Where neither records,
+:meth:`LayerSpans.make` returns None and nothing is marked.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+
+_CURRENT = None             # the marks of the step running now
+_NO_PART = contextlib.nullcontext()
+
+
+def current():
+    return _CURRENT
+
+
+@contextlib.contextmanager
+def use(marks):
+    """Make ``marks`` current in the block: a :class:`LayerSpans`, None,
+    or a stand-in with its ``part``, ``counting`` and ``routing``
+    (``models/decode_graph.py`` captures through one)."""
+    global _CURRENT
+    prev, _CURRENT = _CURRENT, marks
+    try:
+        yield marks
+    finally:
+        _CURRENT = prev
+
+
+def part(name: str):
+    marks = _CURRENT
+    return _NO_PART if marks is None else marks.part(name)
+
+
+def routing(**route) -> None:
+    """A MoE call's routing (``models/moe.py::moe_ffn_dropless``)."""
+    marks = _CURRENT
+    if marks is not None and marks.counting:
+        marks.routing(**route)
 
 
 class LayerSpans:
@@ -66,7 +100,6 @@ class LayerSpans:
             self.tracer.counter(name, self.pid, self.tid, **values)
 
     def routing(self, **route) -> None:
-        """A MoE call's routing (``models/moe.py::moe_ffn_dropless``) as
-        its ``moe`` counter."""
+        """A MoE call's routing as its ``moe`` counter."""
         from repro_torch.models.moe import routing_counts
         self.counter("moe", **routing_counts(**route))

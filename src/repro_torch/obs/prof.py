@@ -29,9 +29,9 @@ without touching the deterministic side:
   ``tune.estimator.build_table(sample_source="wallclock")`` so the online
   refitter can hot-swap a genuinely measured table mid-run.
 
-Profiling off is the shared :data:`NULL_PROF` (or an unset ``ctx.prof``):
-scopes are no-ops, ``ps(x)`` is identity, nothing is recorded, and every
-deterministic output stays bitwise-identical.
+Profiling off is the shared :data:`NULL_PROF`, which a context carries
+until a profiler is attached: scopes are no-ops, ``ps(x)`` is identity,
+nothing is recorded, and every deterministic output stays bitwise-identical.
 """
 from __future__ import annotations
 
@@ -161,8 +161,9 @@ class Profiler:
     """Scoped wall-clock profiler a driver attaches to a context.
 
     Mirrors the tracer's lifecycle: ``attach(ctx)`` installs it as
-    ``ctx.prof``; instrumented hot paths fetch it with ``getattr`` and guard
-    on ``enabled``, so an unattached/disabled run pays one attribute check.
+    ``ctx.prof`` in place of :data:`NULL_PROF`; instrumented hot paths open
+    its scopes unguarded and test ``enabled`` only before working out a
+    scope's byte count, so an unattached run pays a no-op scope.
     ``set_step`` mirrors ``StepClock.set_step`` (monotonic max) so samples
     carry the deterministic step they were measured at."""
 
@@ -253,8 +254,8 @@ class _NullProf(Profiler):
         super().__init__(sink_records=False)
 
     def attach(self, ctx) -> "Profiler":      # pragma: no cover — guard only
-        raise RuntimeError("NULL_PROF must not be attached; leave ctx.prof "
-                           "unset for profiling-off")
+        raise RuntimeError("NULL_PROF must not be attached; a context "
+                           "carries it already for profiling-off")
 
     def scope(self, op: str, *, nbytes: int, path: str = "engine",
               tier: str = "local", work_items: int = 1):

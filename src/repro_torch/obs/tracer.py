@@ -1,9 +1,10 @@
 """Span tracer: causal, step-clocked events across the serving stack.
 
 Counterpart of ``repro/obs/tracer.py``.  Every context carries the no-op
-``NULL_TRACER``; hot paths test ``tracer.enabled`` before building event
-arguments, so with it instrumentation costs one attribute read and the run
-is bitwise the untraced one.  ``SpanTracer`` records Trace-Event-Format
+``NULL_TRACER``; hot paths wrap a region in ``tracer.span`` and test
+``tracer.enabled`` before building event arguments that cost work, so with
+it instrumentation costs an attribute read or two and the run is bitwise
+the untraced one.  ``SpanTracer`` records Trace-Event-Format
 events (``B/E`` slices, ``b/e`` async spans keyed by request id, ``i``
 instants, ``C`` counters, ``s/f`` flows) stamped by a ``StepClock``: one
 scheduler step is one quantum, events within a step take sub-ticks, so a
@@ -12,11 +13,13 @@ stamps integer microseconds on the clock ``torch.profiler`` stamps its
 events with instead, keeps each event's scheduler step beside it, and is
 ``timed``: only then do the serving path's spans inside a step (the decode
 step's parts, staging) record, as a step-clocked span there has no
-duration.  ``obs/export.py`` serialises it; the ``Obs`` bundle
+duration: such a site traces on ``tracer if tracer.timed else
+NULL_TRACER``.  ``obs/export.py`` serialises it; the ``Obs`` bundle
 (``obs/__init__.py``) installs a tracer on a run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -108,6 +111,9 @@ class Tracer:
     def end(self, name, cat, pid, tid, **args) -> None:
         pass
 
+    def span(self, name, cat, pid, tid, **args):
+        return _NO_SPAN
+
     def async_begin(self, name, cat, id, pid, tid, **args) -> None:
         pass
 
@@ -126,6 +132,8 @@ class Tracer:
     def flow_end(self, id, name, pid, tid) -> None:
         pass
 
+
+_NO_SPAN = contextlib.nullcontext()
 
 #: shared do-nothing tracer
 NULL_TRACER = Tracer()
@@ -174,6 +182,14 @@ class SpanTracer(Tracer):
             stack.pop()
         self._emit(TraceEvent("E", name, cat, self.now(), pid, tid,
                               args=args or None), force=True)
+
+    @contextlib.contextmanager
+    def span(self, name, cat, pid, tid, **args):
+        """``begin`` and ``end`` around a block; a block that raises leaves
+        its span open, as a bare ``begin`` would."""
+        self.begin(name, cat, pid, tid, **args)
+        yield
+        self.end(name, cat, pid, tid)
 
     # ------------------------------------------------------- async spans
     def async_begin(self, name, cat, id, pid, tid, **args) -> None:

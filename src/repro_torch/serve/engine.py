@@ -26,7 +26,8 @@ import torch
 
 from repro_torch import _devices
 from repro_torch.models import decode_graph, kvcache, model
-from repro_torch.obs.layerspans import LayerSpans
+from repro_torch.obs import layerspans
+from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serve import kvpool, paged_attn
 from repro_torch.train import tree
 
@@ -84,9 +85,7 @@ class Engine:
         """An empty bank; ``paged`` leaves out the leaves the block pool
         pages, which the paged decode step rebuilds from the pool."""
         zeros = torch.zeros(num_slots, dtype=torch.int64, device=self.device)
-        skip = frozenset(
-            (pl.unit_idx, pl.key)
-            for pl in kvpool.build_layout(self.cfg, self.max_len).paged) \
+        skip = kvpool.build_layout(self.cfg, self.max_len).paged_keys \
             if paged else frozenset()
         return SlotBatch(
             cache=kvcache.init_cache(self.cfg, num_slots, self.max_len,
@@ -95,17 +94,16 @@ class Engine:
             active=np.zeros((num_slots,), bool))
 
     def prefill_request(self, request: dict, gen=None,
-                        temperature: float = 0.0, spans=None):
+                        temperature: float = 0.0):
         """Prefill ONE request (batch axis 1).  Returns ``(first_token,
         logits, cache1)``: the B=1 cache a migration packs from, and the
-        token sampled from the last position.  ``spans``
-        (``obs/layerspans.py``) marks the parts of the model's layers."""
+        token sampled from the last position.  The model's layers mark
+        their parts on the current marks (``obs/layerspans.py``)."""
         S = request["tokens"].shape[1]
         if S > self.max_len:
             raise ValueError(f"prompt of {S} exceeds the cache ({self.max_len})")
         cache = kvcache.init_cache(self.cfg, 1, self.max_len, self.device)
-        logits, cache = model.prefill(self.params, self.cfg, request, cache,
-                                      spans=spans)
+        logits, cache = model.prefill(self.params, self.cfg, request, cache)
         tok = self._sample(logits, gen, temperature)
         return int(tok[0]), logits, cache
 
@@ -172,7 +170,7 @@ class Engine:
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = decode_graph.DecodeGraph(
-                (pl.unit_idx, pl.key) for pl in view.pool.layout.paged)
+                view.pool.layout.paged_keys)
         if tally is not None:
             tally.captures += not graph.ready
             tally.replays += 1
@@ -190,55 +188,43 @@ class Engine:
         card the decode proper replays a captured graph
         (``models/decode_graph.py``) where ``eager_reason`` allows; ``tally``
         (a ``DecodeGraphTally``) counts captures, replays and eager steps.
-        With a profiler on ``ctx``, the decode proper runs in a
-        ``paged_attn`` scope labelled with the assembled cache's bytes.
+        The decode proper runs in ``ctx.prof``'s ``paged_attn`` scope.
         With a wall-clocked tracer on ``ctx`` (``tracer.timed``), the four
         parts record ``decode.assemble``, ``decode.model``,
-        ``decode.sample`` and ``decode.writeback`` spans on ``track`` (the
-        caller's ``(pid, tid)``, by default the view's PE), ``tally`` ends
-        ``decode.model`` as a ``decode_graph`` counter and the heap's tally
-        ends the writeback as a ``heap`` counter.  With that tracer
-        or a recording ``torch.profiler``, the model's layers mark their
-        parts inside ``decode.model`` (``obs/layerspans.py``)."""
-        tr = ctx.tracer if ctx.tracer.timed else None
+        ``decode.sample`` and ``decode.writeback`` spans on ``track`` (by
+        default the view's PE), ``tally`` ends ``decode.model`` as a
+        ``decode_graph`` counter and the heap's tally ends the writeback as
+        a ``heap`` counter.  With that tracer or a recording
+        ``torch.profiler``, the model's layers mark their parts inside
+        ``decode.model`` (``obs/layerspans.py``)."""
+        tr, pf = ctx.tracer if ctx.tracer.timed else NULL_TRACER, ctx.prof
         pid, tid = track or (f"pod{ctx.node_of(view.pe)}", f"pe{view.pe}")
-        spans = LayerSpans.make("decode", tr, (pid, tid))
-        if tr is not None:
-            tr.begin("decode.assemble", "engine", pid, tid)
-        cache = view.assemble(heap, slots.cache, out=self._paged_leaves(view))
-        if tr is not None:
-            tr.end("decode.assemble", "engine", pid, tid)
-            tr.begin("decode.model", "engine", pid, tid)
-        graph = self._decode_graph(slots, cache, view, tally)
-        pf = getattr(ctx, "prof", None)
-        if pf is not None and pf.enabled:
+        with tr.span("decode.assemble", "engine", pid, tid):
+            cache = view.assemble(heap, slots.cache,
+                                  out=self._paged_leaves(view))
+        with tr.span("decode.model", "engine", pid, tid):
+            graph = self._decode_graph(slots, cache, view, tally)
             kv_bytes = sum(leaf.numel() * leaf.element_size()
-                           for leaf in tree.leaves(cache))
+                           for leaf in tree.leaves(cache)) \
+                if pf.enabled else 0
             with pf.scope("paged_attn", nbytes=kv_bytes, path="engine",
                           tier="local",
-                          work_items=int(slots.active.sum())) as ps:
+                          work_items=int(slots.active.sum())) as ps, \
+                    layerspans.use(layerspans.LayerSpans.make(
+                        "decode", tr, (pid, tid))):
                 logits, new_cache = model.decode_step(
                     self.params, self.cfg, slots.tok[:, None], slots.pos,
-                    cache, spans=spans, graph=graph)
+                    cache, graph=graph)
                 logits = ps(logits)
-        else:
-            logits, new_cache = model.decode_step(self.params, self.cfg,
-                                                  slots.tok[:, None],
-                                                  slots.pos, cache,
-                                                  spans=spans, graph=graph)
-        if tr is not None:
-            if tally is not None:
+            if tr.enabled and tally is not None:
                 tr.counter("decode_graph", pid, tid, **tally.counter())
-            tr.end("decode.model", "engine", pid, tid)
-            tr.begin("decode.sample", "engine", pid, tid)
-        tok = self._sample(logits, gen, temperature)
-        if tr is not None:
-            tr.end("decode.sample", "engine", pid, tid)
-            tr.begin("decode.writeback", "engine", pid, tid)
-        heap = view.writeback(ctx, heap, new_cache, slots.pos, slots.active)
-        if tr is not None:
-            tr.counter("heap", pid, tid, **dataclasses.asdict(heap.tally))
-            tr.end("decode.writeback", "engine", pid, tid)
+        with tr.span("decode.sample", "engine", pid, tid):
+            tok = self._sample(logits, gen, temperature)
+        with tr.span("decode.writeback", "engine", pid, tid):
+            heap = view.writeback(ctx, heap, new_cache, slots.pos,
+                                  slots.active)
+            if tr.enabled:
+                tr.counter("heap", pid, tid, **dataclasses.asdict(heap.tally))
         return self._advance(slots, view.unpaged(new_cache), tok), tok, heap
 
     # ------------------------------------------------------- lockstep API

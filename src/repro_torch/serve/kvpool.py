@@ -35,7 +35,8 @@ that ``remap`` moves into a table or ``release_ids`` returns.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Dict, FrozenSet, List, Optional, Tuple
 
 import torch
 
@@ -68,6 +69,11 @@ class PagedLeaf:
     def words_per_token(self) -> int:
         return self.reps * self.nkv * self.hd
 
+    @property
+    def path(self) -> tuple:
+        """``(unit index, key)``, its place in a cache's ``blocks``."""
+        return self.unit_idx, self.key
+
 
 @dataclasses.dataclass(frozen=True)
 class TailLeaf:
@@ -95,6 +101,44 @@ class KVLayout:
     @property
     def block_bytes(self) -> int:
         return self.block_words * TORCH_DTYPES[self.kv_dtype].itemsize
+
+    # ------------------------------------------------------ block format
+    @functools.cached_property
+    def paged_keys(self) -> FrozenSet[tuple]:
+        """The ``(unit index, key)`` of every paged leaf."""
+        return frozenset(pl.path for pl in self.paged)
+
+    @functools.cached_property
+    def leaf_offsets(self) -> Dict[tuple, int]:
+        """Each paged leaf's word offset in a block, by ``path``: the leaves
+        lie in ``paged`` order, as :func:`pack_blocks` concatenates them."""
+        offs, off = {}, 0
+        for pl in self.paged:
+            offs[pl.path] = off
+            off += pl.words_per_token * self.block_tokens
+        return offs
+
+    def leaf_view(self, payload: torch.Tensor, pl: PagedLeaf) -> torch.Tensor:
+        """``pl``'s tokens inside ``payload``, whose last axis is one
+        block's ``block_words``: a ``(..., reps, T, nkv, hd)`` view."""
+        off = self.leaf_offsets[pl.path]
+        n = pl.words_per_token * self.block_tokens
+        return payload[..., off:off + n].unflatten(
+            -1, (pl.reps, self.block_tokens, pl.nkv, pl.hd))
+
+    def gathered_leaf(self, pay: torch.Tensor, pl: PagedLeaf,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Leaf ``pl`` ``(reps, B, width, nkv, hd)``, bitwise a dense
+        cache's, from ``pay`` ``(B, n, block_words)``, each row's first n
+        blocks in table order as K3 gathers them, copied into ``out``
+        (``(reps, B, n * T, nkv, hd)``) where given; the leaf is its first
+        ``width`` positions (fewer where n blocks hold fewer)."""
+        blocks = self.leaf_view(pay, pl).permute(2, 0, 1, 3, 4, 5)
+        if out is None:
+            out = blocks.flatten(2, 3)
+        else:
+            out.unflatten(2, blocks.shape[2:4]).copy_(blocks)
+        return out[:, :, :pl.width]
 
     def blocks_for_prompt(self, prompt_len: int) -> int:
         """Blocks that migrate for a prompt: a dense cache fills slots
@@ -228,25 +272,14 @@ def insert_blocks(layout: KVLayout, cache, slot: int,
     decode cache (inverse of :func:`pack_blocks`; the dense-rehydrate
     admission).  Returns a new cache dict; leaves it writes are cloned
     first."""
-    T = layout.block_tokens
-    cache = dict(cache)
     blocks = [dict(e) for e in cache["blocks"]]
-    off = 0
+    pay = torch.stack([p.reshape(-1) for p in payloads])[None]
     for pl in layout.paged:
-        n = pl.words_per_token * T
         leaf = blocks[pl.unit_idx][pl.key].clone()
-        for b, payload in enumerate(payloads):
-            t0 = b * T
-            width = min(T, pl.width - t0)
-            if width <= 0:
-                continue
-            sl = payload.reshape(-1)[off:off + n].reshape(pl.reps, T, pl.nkv,
-                                                          pl.hd)
-            leaf[:, slot, t0:t0 + width] = sl[:, :width].to(leaf.dtype)
+        sl = layout.gathered_leaf(pay, pl)[:, 0]
+        leaf[:, slot, :sl.shape[1]] = sl.to(leaf.dtype)
         blocks[pl.unit_idx][pl.key] = leaf
-        off += n
-    cache["blocks"] = blocks
-    return cache
+    return dict(cache, blocks=blocks)
 
 
 def insert_tail(layout: KVLayout, cache, slot: int, tail_vec):

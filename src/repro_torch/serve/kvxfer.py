@@ -50,6 +50,7 @@ import torch
 from repro_torch.core import cutover, device as device_mod, rma, \
     signal as signal_mod
 from repro_torch.core.heap import SymPtr
+from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serve.kvpool import HEADER_WORDS, KVPool, pack_blocks, \
     pack_tail
 
@@ -140,10 +141,6 @@ class KVMigrator:
                            if work_items is None else work_items)
         self._staged_tails = {}     # req_id -> packed tail vector
 
-    def _tracer(self):
-        tr = self.ctx.tracer
-        return tr if tr.enabled else None
-
     def _track(self, pe: int) -> tuple:
         return f"pod{self.ctx.node_of(pe)}", f"pe{pe}"
 
@@ -167,27 +164,25 @@ class KVMigrator:
         if ids is None:
             return heap, None
         start = len(shared_ids)
-        tr = self._tracer()
-        timed = tr is not None and tr.timed
-        if timed:
-            pid, tid = self._track(src_pe)
-            tr.begin("kvx.stage", "kvx", pid, tid, rid=req_id)
-        payloads = pack_blocks(lay, cache, batch_idx=batch_idx,
-                               n_blocks=n_prompt - start, start=start)
-        for bid, payload in zip(ids[start:n_prompt], payloads):
-            heap = rma.put(self.ctx, heap, self.pool.block_ptr(bid), payload,
-                           src_pe, src_pe=src_pe, work_items=self.work_items)
-        self.pool.set_home(ids[start:n_prompt], src_pe)
-        self._staged_tails[req_id] = pack_tail(lay, cache,
-                                               batch_idx=batch_idx,
-                                               device=heap.device)
-        if tr is not None:
-            pid, tid = self._track(src_pe)
+        tr = self.ctx.tracer
+        wall = tr if tr.timed else NULL_TRACER
+        pid, tid = self._track(src_pe)
+        with wall.span("kvx.stage", "kvx", pid, tid, rid=req_id):
+            payloads = pack_blocks(lay, cache, batch_idx=batch_idx,
+                                   n_blocks=n_prompt - start, start=start)
+            for bid, payload in zip(ids[start:n_prompt], payloads):
+                heap = rma.put(self.ctx, heap, self.pool.block_ptr(bid),
+                               payload, src_pe, src_pe=src_pe,
+                               work_items=self.work_items)
+            self.pool.set_home(ids[start:n_prompt], src_pe)
+            self._staged_tails[req_id] = pack_tail(lay, cache,
+                                                   batch_idx=batch_idx,
+                                                   device=heap.device)
             tr.instant("stage", "kvx", pid, tid, rid=req_id,
                        blocks=n_prompt - start, shared=len(shared_ids))
-        if timed:
-            tr.counter("heap", pid, tid, **dataclasses.asdict(heap.tally))
-            tr.end("kvx.stage", "kvx", pid, tid)
+            if wall.enabled:
+                wall.counter("heap", pid, tid,
+                             **dataclasses.asdict(heap.tally))
         return heap, ids
 
     def _wire_plan(self, req_id: int, skip) -> tuple:
@@ -266,13 +261,11 @@ class KVMigrator:
             bytes_tail=lay.tail_words * 4,
             bytes_skipped=n_skipped * lay.block_bytes,
             expected_signal=expected_signal(len(send)), bytes_dcn=dcn)
-        tr = self._tracer()
-        if tr is not None:
-            pid, tid = self._track(src_pe)
-            tr.instant("migrate", "kvx", pid, tid, rid=req_id,
-                       dst_pe=dst_pe, tier=tier, runs=n_runs,
-                       bytes=report.bytes_total, bytes_dcn=dcn)
-            tr.flow_start(req_id, "migration", pid, tid)
+        tr, (pid, tid) = self.ctx.tracer, self._track(src_pe)
+        tr.instant("migrate", "kvx", pid, tid, rid=req_id,
+                   dst_pe=dst_pe, tier=tier, runs=n_runs,
+                   bytes=report.bytes_total, bytes_dcn=dcn)
+        tr.flow_start(req_id, "migration", pid, tid)
         return heap, report
 
     def migrate_fused(self, heap, req_id: int, *, src_pe: int, dst_pe: int,
@@ -310,13 +303,11 @@ class KVMigrator:
             bytes_skipped=n_skipped * lay.block_bytes,
             expected_signal=expected_signal(len(send)), bytes_dcn=dcn,
             fused=True)
-        tr = self._tracer()
-        if tr is not None:
-            pid, tid = self._track(src_pe)
-            tr.instant("migrate_fused", "kvx", pid, tid, rid=req_id,
-                       dst_pe=dst_pe, tier=tier, blocks=len(send),
-                       bytes=report.bytes_total, bytes_dcn=dcn)
-            tr.flow_start(req_id, "migration", pid, tid)
+        tr, (pid, tid) = self.ctx.tracer, self._track(src_pe)
+        tr.instant("migrate_fused", "kvx", pid, tid, rid=req_id,
+                   dst_pe=dst_pe, tier=tier, blocks=len(send),
+                   bytes=report.bytes_total, bytes_dcn=dcn)
+        tr.flow_start(req_id, "migration", pid, tid)
         return heap, report
 
     # ----------------------------------------------------- chunked streaming
@@ -347,12 +338,10 @@ class KVMigrator:
         st.runs += n_runs
         st.chunks += 1
         st.bytes_dcn += dcn
-        tr = self._tracer()
-        if tr is not None:
-            pid, tid = self._track(st.src_pe)
-            tr.instant("stream_chunk", "kvx", pid, tid, rid=st.req_id,
-                       chunk=st.chunks, blocks=len(take),
-                       remaining=len(st.pending))
+        tr, (pid, tid) = self.ctx.tracer, self._track(st.src_pe)
+        tr.instant("stream_chunk", "kvx", pid, tid, rid=st.req_id,
+                   chunk=st.chunks, blocks=len(take),
+                   remaining=len(st.pending))
         return heap
 
     def stream_flush(self, heap, st: StreamState):
@@ -388,13 +377,11 @@ class KVMigrator:
             bytes_skipped=st.n_skipped * lay.block_bytes,
             expected_signal=expected_signal(st.sent),
             chunks=st.chunks, bytes_dcn=st.bytes_dcn)
-        tr = self._tracer()
-        if tr is not None:
-            pid, tid = self._track(st.src_pe)
-            tr.instant("stream_close", "kvx", pid, tid, rid=st.req_id,
-                       dst_pe=st.dst_pe, chunks=st.chunks,
-                       bytes=report.bytes_total, bytes_dcn=st.bytes_dcn)
-            tr.flow_start(st.req_id, "migration", pid, tid)
+        tr, (pid, tid) = self.ctx.tracer, self._track(st.src_pe)
+        tr.instant("stream_close", "kvx", pid, tid, rid=st.req_id,
+                   dst_pe=st.dst_pe, chunks=st.chunks,
+                   bytes=report.bytes_total, bytes_dcn=st.bytes_dcn)
+        tr.flow_start(st.req_id, "migration", pid, tid)
         return heap, report
 
     def _note_block(self, nbytes: int, src_pe: int, dst_pe: int) -> None:
@@ -440,12 +427,10 @@ class KVMigrator:
         if not ok:
             return heap, None
         hdr = heap.read(self.pool.header_ptr(slot), dst_pe).tolist()
-        tr = self._tracer()
-        if tr is not None:
-            pid, tid = self._track(dst_pe)
-            tr.instant("admit", "kvx", pid, tid, rid=hdr[0], slot=slot,
-                       expected_signal=expected)
-            tr.flow_end(hdr[0], "migration", pid, tid)
+        tr, (pid, tid) = self.ctx.tracer, self._track(dst_pe)
+        tr.instant("admit", "kvx", pid, tid, rid=hdr[0], slot=slot,
+                   expected_signal=expected)
+        tr.flow_end(hdr[0], "migration", pid, tid)
         return heap, {"req_id": hdr[0], "prompt_len": hdr[1],
                       "first_token": hdr[2], "n_blocks": hdr[3]}
 
@@ -468,13 +453,11 @@ class KVMigrator:
         if not ok:
             return heap, None, resident
         hdr = heap.read(self.pool.header_ptr(slot), dst_pe).tolist()
-        tr = self._tracer()
-        if tr is not None:
-            pid, tid = self._track(dst_pe)
-            tr.instant("admit_fused", "kvx", pid, tid, rid=hdr[0], slot=slot,
-                       expected_signal=fused_admit_signal(n_wire),
-                       resident=resident)
-            tr.flow_end(hdr[0], "migration", pid, tid)
+        tr, (pid, tid) = self.ctx.tracer, self._track(dst_pe)
+        tr.instant("admit_fused", "kvx", pid, tid, rid=hdr[0], slot=slot,
+                   expected_signal=fused_admit_signal(n_wire),
+                   resident=resident)
+        tr.flow_end(hdr[0], "migration", pid, tid)
         return heap, {"req_id": hdr[0], "prompt_len": hdr[1],
                       "first_token": hdr[2], "n_blocks": hdr[3]}, resident
 
@@ -493,11 +476,10 @@ class KVMigrator:
             if not ok:
                 break
             resident = k
-        tr = self._tracer()
-        if tr is not None and rid is not None and resident > have:
-            pid, tid = self._track(dst_pe)
-            tr.instant("consume", "kvx", pid, tid, rid=rid,
-                       blocks=resident - have, resident=resident)
+        if rid is not None and resident > have:
+            self.ctx.tracer.instant("consume", "kvx", *self._track(dst_pe),
+                                    rid=rid, blocks=resident - have,
+                                    resident=resident)
         return heap, resident
 
     def gather_tail(self, heap, slot: int, pe: int):

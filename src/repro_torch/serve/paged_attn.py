@@ -50,7 +50,7 @@ def leaf_buffers(layout: KVLayout, num_slots: int, device) -> dict:
     Every word is written by each assemble, so they start empty."""
     nbt = layout.blocks_per_request * layout.block_tokens
     dtype = TORCH_DTYPES[layout.kv_dtype]
-    return {(pl.unit_idx, pl.key): torch.empty(
+    return {pl.path: torch.empty(
         (pl.reps, num_slots, nbt, pl.nkv, pl.hd), dtype=dtype, device=device)
         for pl in layout.paged}
 
@@ -124,22 +124,17 @@ class PagedDecodeView:
             self.pool.num_blocks, lay.block_words)
         # a host table: checked on the host, one non-blocking copy
         pay = ishmem_device.paged_gather(data, self.table())  # (B, nb, words)
-        offs = ishmem_device._leaf_offsets(lay)
-        cache = dict(cache)
         blocks = [dict(e) for e in cache["blocks"]]
         for pl in lay.paged:
-            key = (pl.unit_idx, pl.key)
-            blocks[pl.unit_idx][pl.key] = ishmem_device._extract_leaf(
-                pay, lay, pl, self.num_slots, offs[key],
-                out=None if out is None else out[key])
-        cache["blocks"] = blocks
-        return cache
+            blocks[pl.unit_idx][pl.key] = lay.gathered_leaf(
+                pay, pl, out=None if out is None else out[pl.path])
+        return dict(cache, blocks=blocks)
 
     def unpaged(self, cache):
         """A post-step cache without its paged leaves, for the slot bank:
         the pool row is the single source of truth, and the bank never
         holds a dense copy."""
-        paged = {(pl.unit_idx, pl.key) for pl in self.pool.layout.paged}
+        paged = self.pool.layout.paged_keys
         return dict(cache, blocks=[
             {key: leaf for key, leaf in entry.items()
              if (ui, key) not in paged}
@@ -166,15 +161,11 @@ class PagedDecodeView:
             ptr = self.pool.block_ptr(self.table_of(s)[b])
             payload = heap.read(ptr, self.pe)
             parts = []
-            off = 0
             for pl in lay.paged:
-                n = pl.words_per_token * T
-                sl = payload[off:off + n].reshape(pl.reps, T, pl.nkv,
-                                                  pl.hd).clone()
+                sl = lay.leaf_view(payload, pl).clone()
                 col = new_cache["blocks"][pl.unit_idx][pl.key][:, s, idx]
                 sl[:, t] = col.to(sl.dtype)
                 parts.append(sl.reshape(-1))
-                off += n
             heap = heap.write(ptr, self.pe, torch.cat(parts))
         return heap
 

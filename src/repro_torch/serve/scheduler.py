@@ -66,7 +66,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.models.decode_graph import DecodeGraphTally
-from repro_torch.obs.layerspans import LayerSpans
+from repro_torch.obs import layerspans
+from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serve import kvpool as kvpool_mod
 from repro_torch.serve.engine import Engine, ServeConfig, seeded
 from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, StreamState, \
@@ -304,23 +305,13 @@ class DisaggScheduler:
         tr = self.ctx.tracer
         return tr if tr.enabled else None
 
-    def _prof(self):
-        """The wall-clock profiler when measuring, else None (hot paths
-        guard on it).  Its perf_counter values stay in its samples and the
-        wallclock telemetry buckets, never in step-clocked state."""
-        pf = getattr(self.ctx, "prof", None)
-        return pf if pf is not None and pf.enabled else None
-
-    def _stream_flush(self, pf, st) -> None:
-        """Drain a stream's queue prefix, inside a ``stream_flush`` scope
-        when profiling."""
-        if pf is None:
-            self.heap = self.migrator.stream_flush(self.heap, st)
-            return
+    def _stream_flush(self, st) -> None:
+        """Drain a stream's queue prefix in a ``stream_flush`` scope."""
         tier = self.ctx.tier(st.src_pe, st.dst_pe)
-        with pf.scope("stream_flush", nbytes=st.sent * self._block_bytes,
-                      path="proxy" if tier == "dcn" else "direct", tier=tier,
-                      work_items=self.migrator.work_items) as ps:
+        with self.ctx.prof.scope(
+                "stream_flush", nbytes=st.sent * self._block_bytes,
+                path="proxy" if tier == "dcn" else "direct", tier=tier,
+                work_items=self.migrator.work_items) as ps:
             self.heap = ps(self.migrator.stream_flush(self.heap, st))
 
     def _trace_phase(self, req: Request, phase: Optional[str],
@@ -466,10 +457,9 @@ class DisaggScheduler:
         previous installment's queue prefix, then issue the next or park
         the stream (all blocks issued, waiting slot-less).  Parked streams
         keep draining and bind a slot the moment one frees."""
-        pf = self._prof()
         for req in list(self.streaming):
             st = req.stream
-            self._stream_flush(pf, st)
+            self._stream_flush(st)
             if st.pending:
                 self.heap = self.migrator.stream_chunk(self.heap, st,
                                                        self.stream_chunks)
@@ -481,7 +471,7 @@ class DisaggScheduler:
                                   end_args={"chunks": st.chunks,
                                             "blocks_sent": st.sent})
         for req in self.policy.waiting_order(list(self.parked)):
-            self._stream_flush(pf, req.stream)
+            self._stream_flush(req.stream)
             self._try_bind(req)
 
     def _phase_prefill(self) -> None:
@@ -510,31 +500,21 @@ class DisaggScheduler:
                     req, "prefill",
                     end_args={"queue_steps": self._step - req.arrival_step},
                     pe=pe)
-                tr = self._tracer()
-                if tr is not None:
-                    tr.begin("prefill", "sched", self._trace_pid, f"pe{pe}",
-                             rid=req.rid, prompt_len=req.prompt_len)
+                tr, track = self.ctx.tracer, (self._trace_pid, f"pe{pe}")
                 gen = (seeded(self.engine.device, self.scfg.seed, req.rid)
                        if self.scfg.temperature > 0 else None)
-                spans = LayerSpans.make("prefill", tr,
-                                        (self._trace_pid, f"pe{pe}"))
-                pf = self._prof()
-                if pf is not None:
-                    with pf.scope("serve_prefill",
-                                  nbytes=req.prompt_len * self._token_bytes,
-                                  path="engine", tier="local") as ps:
-                        req.first_token, _, req.prefill_cache = ps(
-                            self.engine.prefill_request(
-                                req.batch, gen, self.scfg.temperature,
-                                spans=spans))
-                else:
-                    req.first_token, _, req.prefill_cache = \
+                with tr.span("prefill", "sched", *track, rid=req.rid,
+                             prompt_len=req.prompt_len), \
+                        self.ctx.prof.scope(
+                            "serve_prefill",
+                            nbytes=req.prompt_len * self._token_bytes,
+                            path="engine", tier="local") as ps, \
+                        layerspans.use(layerspans.LayerSpans.make(
+                            "prefill", tr, track)):
+                    req.first_token, _, req.prefill_cache = ps(
                         self.engine.prefill_request(req.batch, gen,
-                                                    self.scfg.temperature,
-                                                    spans=spans)
+                                                    self.scfg.temperature))
                 self.stats.prefills += 1
-                if tr is not None:
-                    tr.end("prefill", "sched", self._trace_pid, f"pe{pe}")
             else:
                 del self.queue[idx]
             if not self._stage(req):                 # pool exhausted: park
@@ -1000,44 +980,33 @@ class DisaggScheduler:
     def _phase_decode(self) -> None:
         """One decode step over every decode PE with an active slot."""
         stepped = False
-        tr = self._tracer()
-        timed = tr is not None and tr.timed
+        tr, pf = self.ctx.tracer, self.ctx.prof
+        wall = tr if tr.timed else NULL_TRACER
         for pe in self.decode_pes:
             bank = self.banks[pe]
             if not bank.active.any():
                 continue
             if self.fused_attn:
                 self._consume_fused(pe)
-            if tr is not None:
-                tr.begin("decode", "sched", self._trace_pid, f"pe{pe}",
-                         slots=int(bank.active.sum()))
+            track = (self._trace_pid, f"pe{pe}")
             gen = (seeded(self.engine.device, self.scfg.seed,
                           10_000 + self._step, pe)
                    if self.scfg.temperature > 0 else None)
-            pf = self._prof()
-            if pf is not None:
-                # KV bytes the step reads: the context tokens of the PE's
-                # active slots at the per-token KV size
-                ctx_tokens = int(bank.pos.cpu().numpy()[bank.active].sum())
-                with pf.scope("serve_decode",
-                              nbytes=ctx_tokens * self._token_bytes,
-                              path="engine", tier="local",
-                              work_items=int(bank.active.sum())) as ps:
-                    bank, toks = self._decode(pe, bank, gen)
-                    toks = ps(toks)
-            else:
+            # KV bytes the step reads: its context tokens (read back, a host
+            # sync, only when profiling) at the per-token KV size
+            kv_bytes = int(bank.pos.cpu().numpy()[bank.active].sum()) \
+                * self._token_bytes if pf.enabled else 0
+            with tr.span("decode", "sched", *track,
+                         slots=int(bank.active.sum())), \
+                    pf.scope("serve_decode", nbytes=kv_bytes, path="engine",
+                             tier="local",
+                             work_items=int(bank.active.sum())) as ps:
                 bank, toks = self._decode(pe, bank, gen)
+                toks = ps(toks)
             self.banks[pe] = bank
             stepped = True
-            if tr is not None:
-                tr.end("decode", "sched", self._trace_pid, f"pe{pe}")
-            if timed:
-                tr.begin("decode.readback", "sched", self._trace_pid,
-                         f"pe{pe}")
-            toks = toks.tolist()
-            if timed:
-                tr.end("decode.readback", "sched", self._trace_pid,
-                       f"pe{pe}")
+            with wall.span("decode.readback", "sched", *track):
+                toks = toks.tolist()
             for s, rid in enumerate(self.slot_req[pe]):
                 if rid is None or self.requests[rid].state != DECODING:
                     continue
@@ -1114,9 +1083,7 @@ class DisaggScheduler:
         if tr is not None:
             # monotonic: a fleet already advanced the shared clock
             tr.clock.set_step(self._step)
-        pf = self._prof()
-        if pf is not None:
-            pf.set_step(self._step)
+        self.ctx.prof.set_step(self._step)
         self._phase_recover()
         self._phase_prefill()
         self._phase_admit()

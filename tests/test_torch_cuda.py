@@ -26,7 +26,7 @@ from repro_torch.kernels import flash_attn, ishmem_device, ops, \
     reduce_tile as rt, ring_collectives as rc, rma_copy
 from repro_torch.launch import serve
 from repro_torch.obs.export import validate
-from repro_torch.serve.kvpool import PagedLeaf
+from repro_torch.serve.kvpool import KVLayout, PagedLeaf
 
 pytestmark = [pytest.mark.cuda,
               pytest.mark.skipif("not torch.cuda.is_available()",
@@ -263,9 +263,11 @@ def _k11_pool(card, case, seed):
     nb = -(-width // T)
     leaves = tuple(PagedLeaf(u, key, reps, width, nkv, hd)
                    for u in (0, 1) for key in ("k", "v"))
-    lay = types.SimpleNamespace(
-        block_tokens=T, blocks_per_request=nb, paged=leaves,
-        block_words=sum(x.words_per_token for x in leaves) * T)
+    lay = KVLayout(
+        block_tokens=T, blocks_per_request=nb,
+        block_words=sum(x.words_per_token for x in leaves) * T,
+        tail_words=1, kv_dtype="bfloat16", cache_width=width, ring=False,
+        paged=leaves, tail=())
     rng = np.random.default_rng(seed)
     R = 2 * nb + 3
     data = torch.from_numpy(rng.normal(size=(R, lay.block_words)).astype(
@@ -289,15 +291,13 @@ def _k11_pool(card, case, seed):
 def _k11_composition(data, table, q, lay, unit, layer):
     """K3 over every table block, the leaf slicing of ``assemble``, K2."""
     pay = ishmem_device.paged_gather(data, table)
-    offs = ishmem_device._leaf_offsets(lay)
-    k, v = (ishmem_device._extract_leaf(pay, lay, x, q.shape[0],
-                                        offs[(unit, x.key)])[layer]
+    k, v = (lay.gathered_leaf(pay, x)[layer]
             for x in lay.paged if x.unit_idx == unit)
     return flash_attn.flash_attention(q, k.contiguous(), v.contiguous())
 
 
 def _k11_kwargs(lay, unit, layer):
-    offs = ishmem_device._leaf_offsets(lay)
+    offs = lay.leaf_offsets
     return dict(k_off=offs[(unit, "k")], v_off=offs[(unit, "v")],
                 leaf=lay.paged[2 * unit], layer=layer,
                 block_tokens=lay.block_tokens)

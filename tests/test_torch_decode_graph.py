@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs import base
 from repro_torch.models import decode_graph, model
+from repro_torch.obs import layerspans
 from repro_torch.obs.layerspans import LayerSpans
 from repro_torch.obs.tracer import SpanTracer, WallClock
 from repro_torch.serve.engine import Engine
@@ -200,12 +201,12 @@ def test_the_capture_segments_at_the_model_part_marks(arch, monkeypatch):
         return LayerSpans.make("decode", SpanTracer(clock=WallClock()),
                                ("p", "t"))
 
-    eager_spans = spans()
-    want_logits, want_cache = model.decode_step(params, cfg, tok, pos, cache,
-                                                spans=eager_spans)
-    step_spans = spans()
-    logits, new_cache = model.decode_step(params, cfg, tok, pos, cache,
-                                          spans=step_spans, graph=graph)
+    with layerspans.use(spans()) as eager_spans:
+        want_logits, want_cache = model.decode_step(params, cfg, tok, pos,
+                                                    cache)
+    with layerspans.use(spans()) as step_spans:
+        logits, new_cache = model.decode_step(params, cfg, tok, pos, cache,
+                                              graph=graph)
     assert graph.ready and torch.equal(logits, want_logits)
     for entry, want in zip(new_cache["blocks"], want_cache["blocks"]):
         for key, leaf in entry.items():

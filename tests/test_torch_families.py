@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro.configs import base as ref_base
+from repro.kernels import ishmem_device as ref_dev
 from repro.models import attention as ref_attn, kvcache as ref_kvcache, \
     layers as ref_layers, model as ref_model, moe as ref_moe
 from repro.serve import kvpool as ref_kvpool
@@ -440,13 +441,24 @@ def _layout_fields(lay):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_build_layout_matches_reference(arch, max_len, dtype):
-    """Every field, leaf for leaf; above the reduced window danube's
-    layout is a ring whose tail is its int32 ``kpos``, and a ring needs all
-    its blocks whatever the prompt."""
+    """Every field, leaf for leaf, and each paged leaf's word offset in a
+    block, where its view of a block lies; above the reduced window
+    danube's layout is a ring whose tail is its int32 ``kpos``, and a ring
+    needs all its blocks whatever the prompt."""
     rc, pc = _cfgs(arch, dtype)
     lay = kvpool.build_layout(pc, max_len, block_tokens=8)
     rlay = ref_kvpool.build_layout(rc, max_len, block_tokens=8)
     assert _layout_fields(lay) == _layout_fields(rlay)
+    assert lay.leaf_offsets == ref_dev._leaf_offsets(rlay)
+    assert lay.paged_keys == set(ref_dev._leaf_offsets(rlay))
+    words = torch.arange(lay.block_words)
+    for pl in lay.paged:
+        off = lay.leaf_offsets[pl.path]
+        view = lay.leaf_view(words, pl)
+        T = lay.block_tokens
+        assert view.shape == (pl.reps, T, pl.nkv, pl.hd)
+        assert torch.equal(view.reshape(-1), torch.arange(
+            off, off + pl.words_per_token * T))
     for S, new in ((5, 1), (20, 4), (max_len - 4, 4)):
         assert lay.blocks_for_prompt(S) == rlay.blocks_for_prompt(S)
         assert lay.blocks_for_decode(S, new) == rlay.blocks_for_decode(S, new)

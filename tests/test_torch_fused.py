@@ -4,7 +4,8 @@ package on the CPU.
 K11 reads one layer of one paged K/V leaf through the slot table and
 attends over it.  Its plain version (``fused_paged_attn_plain``) must be
 bitwise equal to the composition the port ran before (K3's plain gather of
-every block's whole payload, ``_extract_leaf`` and K2's plain version), and
+every block's whole payload, ``KVLayout.gathered_leaf`` and K2's plain
+version), and
 ``fused_paged_attn`` must agree with the reference's to the 5e-5 that
 ``tests/test_torch_device.py`` holds it to.  The pools are made from numpy
 seeds: some slots unmapped, widths that are multiples of neither the block
@@ -39,7 +40,7 @@ from repro_torch.configs import base
 from repro_torch.core import context, device
 from repro_torch.kernels import _build, flash_attn, ishmem_device, ops
 from repro_torch.serve.engine import Engine, ServeConfig
-from repro_torch.serve.kvpool import KVPool, PagedLeaf
+from repro_torch.serve.kvpool import KVLayout, KVPool, PagedLeaf
 from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator
 from repro_torch.serve.paged_attn import PagedDecodeView
 from repro_torch.serve.scheduler import DisaggScheduler
@@ -74,9 +75,11 @@ def _pool(case, seed, *, poison):
     nb = -(-width // T)
     leaves = tuple(PagedLeaf(u, key, reps, width, nkv, hd)
                    for u in (0, 1) for key in ("k", "v"))
-    lay = types.SimpleNamespace(
-        block_tokens=T, blocks_per_request=nb, paged=leaves,
-        block_words=sum(x.words_per_token for x in leaves) * T)
+    lay = KVLayout(
+        block_tokens=T, blocks_per_request=nb,
+        block_words=sum(x.words_per_token for x in leaves) * T,
+        tail_words=1, kv_dtype="float32", cache_width=width, ring=False,
+        paged=leaves, tail=())
     rng = np.random.default_rng(seed)
     R = 2 * nb + FREE
     data = rng.normal(size=(R, lay.block_words)).astype(np.float32)
@@ -108,9 +111,7 @@ def _composition(data, table, q, lay, unit, layer):
     """K3's plain gather of every block's payload, the leaf slicing of
     ``assemble``, then K2's plain version: the port's route before K11."""
     pay = ishmem_device.paged_gather_plain(data, table)
-    offs = ishmem_device._leaf_offsets(lay)
-    kv = [ishmem_device._extract_leaf(pay, lay, leaf, SLOTS,
-                                      offs[(unit, leaf.key)])[layer]
+    kv = [lay.gathered_leaf(pay, leaf)[layer]
           for leaf in lay.paged if leaf.unit_idx == unit]
     return flash_attn.flash_attention_plain(q, *(x.contiguous()
                                                  for x in kv))
@@ -124,7 +125,7 @@ def test_plain_bitwise_equals_composition(case, dtype, poison, counts):
     dt = getattr(torch, dtype)
     data_t, q_t = torch.from_numpy(data).to(dt), torch.from_numpy(q).to(dt)
     table = _table(tables, data.shape[0], lay.blocks_per_request)
-    offs = ishmem_device._leaf_offsets(lay)
+    offs = lay.leaf_offsets
     leaf = lay.paged[2]                              # unit 1: k_off > 0
     for layer in (0, leaf.reps - 1):
         got = ishmem_device.fused_paged_attn_plain(
@@ -143,17 +144,16 @@ def test_plain_bitwise_equals_composition(case, dtype, poison, counts):
 
 @pytest.mark.parametrize("case", CASES)
 def test_one_layer_is_the_composition_layer(case):
-    """The layer that K11 reads is the layer ``_extract_leaf`` cuts from
+    """The layer that K11 reads is the layer ``gathered_leaf`` cuts from
     the whole payload, at every layer, unmapped slots giving zeros."""
     lay, data, tables, _ = _pool(case, 2, poison=True)
     table = torch.from_numpy(_table(tables, data.shape[0],
                                     lay.blocks_per_request))
     data_t = torch.from_numpy(data)
     pay = ishmem_device.paged_gather_plain(data_t, table)
-    offs = ishmem_device._leaf_offsets(lay)
     for leaf in lay.paged:
-        off = offs[(leaf.unit_idx, leaf.key)]
-        whole = ishmem_device._extract_leaf(pay, lay, leaf, SLOTS, off)
+        off = lay.leaf_offsets[leaf.path]
+        whole = lay.gathered_leaf(pay, leaf)
         for layer in range(leaf.reps):
             got = ishmem_device.paged_layer_plain(
                 data_t, table, off, leaf, layer, lay.block_tokens)

@@ -23,6 +23,7 @@ is held to the benchmark's plain float32 reference
 import collections
 import dataclasses
 import math
+import types
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from perfbench.reference import mla_moe as ref
 from repro_torch.configs import base
 from repro_torch.core import context
 from repro_torch.models import attention, kvcache, layers, model, moe
+from repro_torch.obs import layerspans
 from repro_torch.obs.layerspans import LayerSpans
 from repro_torch.obs.tracer import SpanTracer, WallClock
 from repro_torch.serve import kvpool
@@ -155,8 +157,11 @@ def test_a_token_gets_the_same_alone_and_in_an_overloaded_batch(T):
     p["router"][0, 0] = 10.0                 # expert 0 takes every token
     x = _overloading_batch(T, cfg.d_model, gen)
     seen = {}
-    y, _ = moe.moe_ffn_dropless(
-        p, x, cfg, lambda **c: seen.update(moe.routing_counts(**c)))
+    counter = types.SimpleNamespace(
+        counting=True,
+        routing=lambda **c: seen.update(moe.routing_counts(**c)))
+    with layerspans.use(counter):
+        y, _ = moe.moe_ffn_dropless(p, x, cfg)
     assert seen == {"tokens": T, "max_per_expert": T,
                     "experts_touched": seen["experts_touched"],
                     "dropped": 0}
@@ -300,8 +305,9 @@ def test_ranges_under_a_recording_profiler_and_none_otherwise(params):
     cache = kvcache.init_cache(cfg, 1, 8, "cpu")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        spans = LayerSpans.make("prefill", None, ("p", "t"))
-        model.prefill(params, cfg, {"tokens": toks}, cache, spans=spans)
+        with layerspans.use(LayerSpans.make("prefill", None,
+                                            ("p", "t"))) as spans:
+            model.prefill(params, cfg, {"tokens": toks}, cache)
     names = collections.Counter(e.name for e in prof.events())
     assert names["prefill.mla"] == 3 and names["prefill.moe"] == 2
     assert not spans.counting

@@ -30,8 +30,8 @@ from repro_torch.obs.export import (TRACE_SCHEMA_VERSION, chain_gaps,
                                     events_from_doc, request_chains,
                                     request_chains_doc, validate,
                                     write_chrome_trace)
-from repro_torch.obs import Obs, OnlineRefitter, calibrate_mod, \
-    load_obs_env, prof_mod
+from repro_torch.obs import NULL_PROF, Obs, OnlineRefitter, \
+    calibrate_mod, load_obs_env, prof_mod
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, STEP_QUANTUM, SpanTracer, \
     StepClock
@@ -405,7 +405,7 @@ def test_obs_bundle_wiring(tmp_path):
     with pytest.raises(RuntimeError):
         obs.calibration_report()
     ctx, _ = context.init(npes=2, node_size=2, device="cpu")
-    assert ctx.tracer is NULL_TRACER and ctx.prof is None
+    assert ctx.tracer is NULL_TRACER and ctx.prof is NULL_PROF
     on = Obs(trace=True, refit_period=25, trace_limit=4096, calibration=True)
     on.attach(ctx)
     assert ctx.tracer is on.tracer and on.tracer.max_events == 4096

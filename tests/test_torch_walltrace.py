@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.configs import base
 from repro_torch.core import context, heap as heap_mod, rma
-from repro_torch.models import model
-from repro_torch.obs import Obs, load_obs_env
+from repro_torch.models import kvcache, model
+from repro_torch.obs import Obs, Profiler, load_obs_env
 from repro_torch.obs.export import (chrome_trace, events_from_doc,
                                     request_chains, validate)
 from repro_torch.obs.tracer import NULL_TRACER, SpanTracer, WallClock
@@ -27,6 +27,7 @@ from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.kvxfer import KVMigrator
 from repro_torch.serve.scheduler import DisaggScheduler
+from repro_torch.train import tree
 
 from _torch_lockstep import fleet_engines, fleet_specs
 from _torch_threads import one_intra_op_thread  # noqa: F401
@@ -43,10 +44,12 @@ def params():
     return model.init_params(cfg, seed=0, device="cpu")
 
 
-def _serve(params, tracer, **kw):
+def _serve(params, tracer, prof=None, **kw):
     cfg = base.reduced(base.get_config("qwen3-4b"))
     ctx, heap = context.init(npes=4, node_size=4, device="cpu")
     ctx.tracer = tracer
+    if prof is not None:
+        prof.attach(ctx)
     eng = Engine(cfg, params, max_len=MAXLEN, device="cpu")
     pool = KVPool.create(heap, cfg, MAXLEN, num_blocks=24, max_slots=2,
                          block_tokens=4)
@@ -231,16 +234,21 @@ def test_deferred_puts_count_their_staged_payloads():
 
 @pytest.mark.parametrize("kw", CASES)
 def test_tracing_changes_no_token_and_off_records_nothing(params, kw):
-    """The run with no tracer, with a step-clocked one and with a wall
-    one: the same tokens, counters, heap words and heap tally; the
-    step-clocked trace holds none of the wall-only spans and counter."""
+    """The run with no tracer, with a step-clocked one, with a wall one
+    and with an attached profiler: the same tokens, counters, heap words
+    and heap tally; the step-clocked trace holds none of the wall-only
+    spans and counter; the profiler's samples carry the byte counts of
+    what each scope covers."""
     off, outs_off = _serve(params, NULL_TRACER, **kw)
     step = SpanTracer()
     on_step, outs_step = _serve(params, step, **kw)
     wall = SpanTracer(clock=WallClock())
     on_wall, outs_wall = _serve(params, wall, **kw)
+    prof = Profiler()
+    on_prof, outs_prof = _serve(params, NULL_TRACER, prof=prof, **kw)
     assert NULL_TRACER.timed is False and not hasattr(NULL_TRACER, "events")
-    for outs, sched in ((outs_step, on_step), (outs_wall, on_wall)):
+    for outs, sched in ((outs_step, on_step), (outs_wall, on_wall),
+                        (outs_prof, on_prof)):
         assert {k: v.tolist() for k, v in outs.items()} == \
             {k: v.tolist() for k, v in outs_off.items()}
         assert sched.stats == off.stats
@@ -252,6 +260,43 @@ def test_tracing_changes_no_token_and_off_records_nothing(params, kw):
     assert all(ev.step is None for ev in step.events)
     assert {ev.name for ev in wall.events} >= set(WALL_ONLY) - (
         {"kvx.stage"} if kw.get("fused_attn") else set())
+
+    samples = collections.defaultdict(list)
+    for sm in prof.samples:
+        samples[sm.op].append(sm)
+    assert set(samples) == {"serve_prefill", "serve_decode", "paged_attn"} \
+        | ({"stream_flush"} if kw.get("stream_chunks") else set())
+    lay = on_prof.pool.layout
+    token_bytes = lay.block_bytes // lay.block_tokens
+    prompts = [r.prompt_len for r in on_prof.requests.values()]
+    assert [(sm.nbytes, sm.path, sm.tier, sm.work_items)
+            for sm in samples["serve_prefill"]] == \
+        [(S * token_bytes, "engine", "local", 1) for S in prompts]
+    # a request decodes max_new - 1 steps over S, S + 1, ... context tokens
+    decode = samples["serve_decode"]
+    steps = sum(ev.ph == "B" and ev.name == "decode" for ev in step.events)
+    assert len(decode) == len(samples["paged_attn"]) == steps
+    assert sum(sm.nbytes for sm in decode) == token_bytes * sum(
+        S + j for S in prompts for j in range(5 - 1))
+    assert sum(sm.work_items for sm in decode) == off.stats.decode_tokens
+    assert [sm.work_items for sm in samples["paged_attn"]] == \
+        [sm.work_items for sm in decode]
+    # the decode proper reads the bank's whole assembled cache
+    cache = kvcache.init_cache(on_prof.engine.cfg, 2, MAXLEN, "cpu")
+    kv_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(cache))
+    assert {sm.nbytes for sm in samples["paged_attn"]} == {kv_bytes}
+    assert {(sm.path, sm.tier) for sm in decode + samples["paged_attn"]} \
+        == {("engine", "local")}
+    # each installment of one block is flushed once, so a stream's flushes
+    # carry 1, 2, ... of its blocks
+    flushes = sorted(sm.nbytes for sm in samples["stream_flush"])
+    assert flushes == sorted(
+        k * lay.block_bytes for S in prompts
+        for k in range(1, lay.blocks_for_prompt(S) + 1)
+        if kw.get("stream_chunks"))
+    assert all((sm.path, sm.tier, sm.work_items) ==
+               ("direct", "ici", on_prof.migrator.work_items)
+               for sm in samples["stream_flush"])
 
 
 def test_the_clock_setting_reaches_the_tracer(monkeypatch):
