@@ -28,7 +28,11 @@ Phases, each fatal on failure:
    passes, under PyTorch's sync debug mode set to raise, so the call is
    shown to make no device sync, with a card-table call as the control
    that the mode sees one, then at six edge shapes with host and card
-   tables, and an out-of-range host table refused before any launch),
+   tables, and an out-of-range host table refused before any launch;
+   decode attention over views of cell 1's gathered block payload, 8 rows
+   of mixed length, to 1e-3, bitwise run to run and against the dense
+   cache, its stored columns bitwise the plain version's, a call that
+   stores bitwise one that does not over the cache holding the columns),
    each timed with CUDA events beside
    its plain version and one PyTorch call computing the same function
    (timed only; the port never calls it).  The ring kernels K4-K8 run at
@@ -59,7 +63,9 @@ Phases, each fatal on failure:
    its published widths and depth, 2 prefill + 2 decode PEs, 8 requests of
    512 tokens, 16 new tokens each, 3 slots per decode PE, 256 KV blocks of
    16 tokens.  Launch counts are zeroed just before and read just after;
-   every kernel must have launched.  Every request's greedy tokens must
+   every kernel must have launched, decode attention once a layer a PE
+   decode step (and once a layer in the graph capture's eager warm-up),
+   every step in the payload form.  Every request's greedy tokens must
    equal, bitwise, the port's own single-PE baseline at the same shapes
    (``Engine.generate_in_slot``), and the scheduler's counters must balance;
 4. the collectives path: ``repro_torch.launch.shmem_collectives --full``
@@ -242,7 +248,8 @@ Phases, each fatal on failure:
    layers both part from it by about 2e-2), and the
    rise of ``memory_allocated`` while the arguments are built within 1% of
    the predicted argument bytes; then one dense ``decode_step`` against
-   that cache (counts equal, no launch, the bytes resident above the
+   that cache (counts equal, decode attention launched 36 times and
+   nothing else, the bytes resident above the
    prefill's baseline within 1% of its predicted arguments) and phase
    21's data-parallel train step (4 of 36 layers, 4 PEs; counts equal,
    arguments within 1%, K4-K6 launched as phase 21 predicts,
@@ -470,6 +477,7 @@ DRY_DECODE = dict(DRY_PREFILL, name="decode_4k_b1", kind="decode")
 DRY_TRAIN = dict(name="train_512_b8", kind="train", seq_len=TRAIN["seq"],
                  global_batch=TRAIN["batch"])
 DRY_K2 = 36                          # K2 launches: one a layer
+DRY_DECODE_ATTN = 36                 # the decode step's: one a layer
 DRY_LIB_RATIO = 1.25                 # K2's logits spread against SDPA's
 DRY_RUNS = 3                         # timed runs after a warm-up
 ALLOC_TOL = 0.01                     # allocator rounding of the arguments
@@ -1044,6 +1052,138 @@ def check_gather(torch, ishmem_device, ops, dev, deferred):
                      "paged_gather_kernel"))
     deferred.append((out, "library_device_ms",
                      lambda: torch.index_select(padded, 0, idx), None))
+    return out
+
+
+# cell 1's decode bank: 8 rows of mixed length (mean 600 positions) over
+# qwen3-4b's block payload, 76 blocks of 16 tokens x 36 layers x K and V x
+# 8 KV heads x 128; layer 17's K and V attended
+DECODE_BANK = dict(B=8, nb=76, T=16, layers=36, nkv=8, g=4, hd=128, layer=17,
+                   pos=(256, 380, 470, 530, 600, 690, 800, 1070))
+# its outputs (about 0.05-0.1 here) against the plain version: a few bf16
+# ulps (1.2e-4 measured on an H100)
+DECODE_ATTN_TOL = 1e-3
+
+
+def check_decode_attn(torch, decode_attn, ops, dev, deferred):
+    """Decode attention (``kernels/decode_attn.py``, no ``pallas_call``) at
+    cell 1's bank over views of the gathered block payload: against its
+    plain version to :data:`DECODE_ATTN_TOL`, bitwise run to run and
+    against the dense cache of the same positions, the stored columns
+    bitwise the plain version's, and a call that stores bitwise one that
+    does not over the cache already holding the new columns; timed beside
+    its bound (the live K/V rows, q and the output once), the plain version
+    and SDPA over the dense cache (the yardstick only: the port never calls
+    it)."""
+    import torch.nn.functional as F
+    c = DECODE_BANK
+    B, nb, T, nkv, g, hd = (c[k] for k in ("B", "nb", "T", "nkv", "g", "hd"))
+    W, nq = nb * T, nkv * g
+
+    def views(p):
+        kv = p.unflatten(2, (2, c["layers"], T, nkv, hd))[:, :, :, c["layer"]]
+        return kv[:, :, 0], kv[:, :, 1]
+
+    def bank():
+        """q, the payload, the attended layer's K and V views of it, the
+        new columns and the positions, drawn from one seed."""
+        gen = torch.Generator(device=dev).manual_seed(5)
+        payload = torch.randn(B, nb, 2 * c["layers"] * T * nkv * hd,
+                              generator=gen, device=dev).bfloat16()
+        q = torch.randn(B, 1, nq, hd, generator=gen, device=dev).bfloat16()
+        new = [torch.randn(B, 1, nkv, hd, generator=gen,
+                           device=dev).bfloat16() for _ in range(2)]
+        return (q, payload, *views(payload), new,
+                torch.tensor(c["pos"], device=dev))
+
+    q, payload, k, v, new, pos = bank()
+    ops.reset_launches()
+    got = decode_attn.decode_attention(q, k, v, pos)
+    again = decode_attn.decode_attention(q, k, v, pos)
+    dense_k, dense_v = (t.flatten(1, 2).contiguous() for t in (k, v))
+    dense = decode_attn.decode_attention(q, dense_k, dense_v, pos)
+    want = decode_attn.decode_attention_plain(q, k, v, pos)
+    stored = payload.clone()
+    ks, vs = views(stored)
+    got_new = decode_attn.decode_attention(q, ks, vs, pos, *new)
+    over_stored = decode_attn.decode_attention(q, ks, vs, pos)
+    plain_store = payload.clone()
+    kw, vw = views(plain_store)
+    want_new = decode_attn.decode_attention_plain(q, kw, vw, pos, *new)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in ((got, want), (got_new, want_new)))
+    if err > DECODE_ATTN_TOL:
+        fail(f"decode attention differs from its plain version: {err}")
+    if not (torch.equal(got, again) and torch.equal(got, dense)):
+        fail("decode attention is not bitwise run to run and dense = payload")
+    if not (torch.equal(ks, kw) and torch.equal(vs, vw)):
+        fail("decode attention stored other columns than its plain version")
+    if not torch.equal(got_new, over_stored):
+        fail("decode attention with a store is not bitwise the same call "
+             "without one over the cache that holds the new columns")
+    if ops.LAUNCHES["decode_attention"] != 5:
+        fail(f"decode attention launched {ops.LAUNCHES['decode_attention']} "
+             "times for 5 calls")
+    del stored, plain_store, ks, vs, kw, vw
+    say(f"decode attention: cell 1's bank bitwise run to run, dense = "
+        f"payload and store = stored, max|err| {err:.2e} against its plain "
+        f"version")
+
+    live = sum(min(p + 1, W) for p in c["pos"])
+    nbytes = 2 * live * nkv * hd * 2 + 2 * B * nq * hd * 2
+
+    def sdpa_args(q, dense_k, dense_v, pos):
+        """SDPA's operands over the dense cache: q, K and V as (B, heads,
+        positions, hd) (K and V repeated to the query heads where SDPA
+        takes no ``enable_gqa``), the validity mask, and the keywords."""
+        mask = (torch.arange(W, device=dev)[None, :] <= pos[:, None])[
+            :, None, None]
+        qs = q.transpose(1, 2)
+        ks, vs = dense_k.transpose(1, 2), dense_v.transpose(1, 2)
+        try:
+            F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                           enable_gqa=True)
+            return qs, ks, vs, mask, {"enable_gqa": True}
+        except TypeError:      # a PyTorch without enable_gqa
+            return (qs, *(t.repeat_interleave(g, dim=1) for t in (ks, vs)),
+                    mask, {})
+
+    # the device times are taken after the training phases: the inputs are
+    # drawn again then, so that nothing of this check (the 1.43 GB bank, or
+    # a small tensor pinning its freed segment) is held through them
+    held = {"kernel": (q, k, v, pos),
+            "library": sdpa_args(q, dense_k, dense_v, pos)}
+
+    def kernel():
+        if "kernel" not in held:
+            bq, _, bk, bv, _, bpos = bank()
+            held["kernel"] = (bq, bk, bv, bpos)
+        return decode_attn.decode_attention(*held["kernel"])
+
+    def library():
+        if "library" not in held:
+            bq, _, bk, bv, _, bpos = bank()
+            held["library"] = sdpa_args(bq, *(t.flatten(1, 2).contiguous()
+                                              for t in (bk, bv)), bpos)
+        qs, ks, vs, mask, kw = held["library"]
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              **kw)
+    out = {"name": "decode_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/decode_attn.cu",
+           "replaces": "none (the reference decodes in plain jnp)",
+           "max_abs_err": err, "ms": time_ms(torch, kernel),
+           "plain_ms": time_ms(
+               torch, lambda: decode_attn.decode_attention_plain(q, k, v,
+                                                                 pos)),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": time_ms(torch, library),
+           "shape": f"q ({B},1,{nq},{hd}) over payload views ({B},{nb},{T},"
+                    f"{nkv},{hd}) bf16, {live} live positions"}
+    held.clear()
+    deferred.append((out, "device_ms", kernel, "decode_attn",
+                     {"per_call": 1}))
+    deferred.append((out, "library_device_ms", library, None))
     return out
 
 
@@ -2505,9 +2645,11 @@ def phase_dryrun(torch, ops, dev, smi):
     torch.cuda.synchronize()
     dpeak = torch.cuda.max_memory_allocated() - before
     _counts_equal(card, rec_d, "phase 28 decode")
-    if any(ops.LAUNCHES.values()) or not bool(torch.isfinite(dlogits).all()):
-        fail(f"phase 28 decode launched {ops.LAUNCHES} or gave non-finite "
-             f"logits")
+    if {k: n for k, n in ops.LAUNCHES.items() if n} != {
+            "decode_attention": DRY_DECODE_ATTN} or \
+            not bool(torch.isfinite(dlogits).all()):
+        fail(f"phase 28 decode launched {ops.LAUNCHES}, not decode attention "
+             f"{DRY_DECODE_ATTN} times, or gave non-finite logits")
     with torch.no_grad():
         wall = _timed(torch, step)
     out["decode"] = _report(torch, analysis, "decode", rec_d, wall, dpeak,
@@ -3582,8 +3724,8 @@ def run(torch, tmp: Path) -> None:
     """The phases (module docstring); ``tmp`` takes every file they
     write."""
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import _build, flash_attn, ishmem_device, ops, \
-        reduce_tile, ring_collectives, rma_copy
+    from repro_torch.kernels import _build, decode_attn, flash_attn, \
+        ishmem_device, ops, reduce_tile, ring_collectives, rma_copy
     from repro_torch.launch import serve, shmem_collectives
     from repro_torch.obs import export
     from repro_torch.serve import engine as engine_mod
@@ -3642,7 +3784,8 @@ def run(torch, tmp: Path) -> None:
             check_flash(torch, flash_attn, dev, deferred),
             check_flash80(torch, flash_attn, dev, deferred),
             *check_flash_serving(torch, flash_attn, dev, deferred),
-            check_gather(torch, ishmem_device, ops, dev, deferred)]
+            check_gather(torch, ishmem_device, ops, dev, deferred),
+            check_decode_attn(torch, decode_attn, ops, dev, deferred)]
     torch.cuda.empty_cache()
     rows += check_ring(torch, ring_collectives, rma_copy, _build, dev,
                        deferred)
@@ -3692,6 +3835,16 @@ def run(torch, tmp: Path) -> None:
         fail("scheduler counters do not balance")
     if st.decode_graph.captures != 1 or st.decode_graph.eager_steps:
         fail("the paged decode step did not replay one captured graph")
+    pe_steps, layers = st.decode_graph.replays, sched.engine.cfg.num_layers
+    want = layers * (pe_steps + st.decode_graph.captures)
+    say(f"paged decode {st.paged_decode.counter()}; decode attention "
+        f"{launches['decode_attention']} launches, {want} wanted "
+        f"({layers} layers x ({pe_steps} PE steps + 1 warm-up))")
+    if st.paged_decode.counter() != {"payload_steps": pe_steps,
+                                     "leaf_steps": 0} or \
+            launches["decode_attention"] != want:
+        fail("the paged decode step did not attend over the block payload "
+             "with one decode-attention launch a layer a PE step")
 
     eng, slots = sched.engine, len(sched.banks[sched.decode_pes[0]].active)
     t0 = time.perf_counter()
@@ -4004,6 +4157,7 @@ def run(torch, tmp: Path) -> None:
     path_launches["flash_partial_hd80"] = \
         ring_widths["zamba2"]["flash_partial"]
     path_launches["fused_paged_attn"] = fused_launches["fused_paged_attn"]
+    path_launches["decode_attention"] = launches["decode_attention"]
     path_launches["flash_attention_hd80"] = \
         mode_launches["10"]["flash_attention"]
     path_launches["fused_paged_attn_hd80"] = \

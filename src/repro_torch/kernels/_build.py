@@ -26,7 +26,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("rma_copy.cu", "flash_attn.cu", "ishmem_device.cu",
-           "ring_collectives.cu", "flash_partial.cu", "reduce_tile.cu")
+           "ring_collectives.cu", "flash_partial.cu", "reduce_tile.cu",
+           "decode_attn.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libishmem_kernels.so"
@@ -52,6 +53,9 @@ SIGNATURES = {
     "ishmem_flash_partial": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P],
     "ishmem_reduce_tile": [_I, _P, _P, _I, _LL, _I, _I, _P],
+    "ishmem_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _F,
+                                _P],
 }
 
 _lib = None

@@ -5,7 +5,8 @@ and the ring allreduces built from the kernels
 Each wrapper (``rma_copy.copy_into`` and ``remote_put``,
 ``flash_attn.flash_attention``, ``ishmem_device.paged_gather``,
 ``paged_flash_attention``, ``flash_partial_split`` and ``flash_partial``,
-``ring_collectives``' four and ``reduce_tile.reduce_tile``) checks its
+``ring_collectives``' four, ``reduce_tile.reduce_tile`` and
+``decode_attn.decode_attention``) checks its
 inputs, allocates its outputs
 and calls :func:`launch`, which runs the C entry point (bound once, when the
 library loads, in ``_build.ENTRIES``) on the tensor's device and current
@@ -30,7 +31,7 @@ LAUNCHES = {"copy_into": 0, "flash_attention": 0, "paged_gather": 0,
             "remote_put": 0, "ring_allgather": 0, "ring_reduce_scatter": 0,
             "push_broadcast": 0, "barrier_push": 0, "reduce_tile": 0,
             "flash_partial_split": 0, "flash_partial": 0,
-            "fused_paged_attn": 0}
+            "fused_paged_attn": 0, "decode_attention": 0}
 
 
 def reset_launches() -> None:

@@ -16,7 +16,8 @@ The fields that a ported path reads:
   sharding rules, and the modeled gradient reduce charges every leaf the
   full allreduce instead of a 1/npes ZeRO shard for matrices
 - ``attn_repeat_kv``      : K/V heads repeated ``q_per_kv`` times before
-  attention (the cache keeps them unrepeated), so K2 runs as MHA
+  attention (the cache keeps them unrepeated), so K2 runs as MHA; the
+  decode kernel shares the unrepeated heads itself
 - ``decode_onehot_update``: the decode's cache write as a one-hot select,
   which is how the port's decode always writes it
 - ``overlap_grad_reduce`` : pipeline per-leaf gradient reduce against the

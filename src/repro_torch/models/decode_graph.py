@@ -1,8 +1,8 @@
 """The decode step replayed as captured CUDA graphs.
 
 On the card the eager decode step is paced by the host: it issues a few
-hundred small kernels a layer (norms, rotary, projections, the one-hot
-cache write, f32 attention, the MLP or the experts), and the card waits
+hundred small kernels a layer (norms, rotary, projections, the cache
+write and attention, the MLP or the experts), and the card waits
 between them.  A :class:`DecodeGraph` captures the step once and replays
 it: the same kernels on the same tensors, so the tokens, logits and cache
 are bitwise the eager step's.
@@ -12,10 +12,14 @@ A graph reads and writes fixed addresses, so a holder owns, for one key
 the weights, and the policy fields decode reads):
 
 - the static inputs: the token and position, and every cache leaf; the
-  leaves named ``persistent`` are adopted as they come at capture (the
-  engine's paged-leaf buffers, which ``PagedDecodeView.assemble`` fills in
-  place every step), the others are copied in before each replay;
-- the graphs, captured into one memory pool, and their outputs.
+  leaves named ``persistent`` are adopted as they come at capture (views
+  of the engine's payload or paged-leaf buffers, which ``PagedDecodeView``
+  fills in place every step), the others are copied in before each
+  replay;
+- the graphs, captured into one memory pool, and their outputs;
+- the port's kernel launches the capture recorded (``kernels/ops.py``'s
+  ``LAUNCHES``), which count once a replay and not at the capture, so the
+  count says what ran.
 
 The first call warms the eager body up on a side stream (cuBLAS's
 workspace for that stream, the allocator's blocks), then captures it.
@@ -45,6 +49,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs import base as cfgbase
+from repro_torch.kernels import ops
 from repro_torch.launch import policy as policy_mod
 from repro_torch.models import model as model_mod, moe as moe_mod
 from repro_torch.obs import layerspans
@@ -186,6 +191,8 @@ class DecodeGraph:
         for name, graph in self.graphs:
             with layerspans.part(name) if name else contextlib.nullcontext():
                 graph.replay()
+        for name, n in self.launches.items():
+            ops.LAUNCHES[name] += n
         spans = layerspans.current()
         if spans is not None and spans.counting and self.routes:
             for counts in self._read_routes():
@@ -215,6 +222,7 @@ class DecodeGraph:
         gc.collect()
         torch.cuda.empty_cache()
         seg = _Segments(torch.cuda.graph_pool_handle())
+        before = dict(ops.LAUNCHES)
         with torch.cuda.stream(stream), layerspans.use(seg):
             seg.begin()
             try:
@@ -226,6 +234,10 @@ class DecodeGraph:
                 raise
         torch.cuda.current_stream(token.device).wait_stream(stream)
         self.graphs, self.routes = seg.graphs, seg.routes
+        self.launches = {name: n - before[name]
+                         for name, n in ops.LAUNCHES.items()
+                         if n != before[name]}
+        ops.LAUNCHES.update(before)         # captured, not yet run
 
     def _read_routes(self) -> list:
         """Each MoE call's routing counts, read in one copy to the host."""

@@ -33,21 +33,26 @@ up to 1024 tokens with no window, else ``blockwise_causal_attn``; under
 "flash" its forward goes through K2, which has no backward in either
 package, so a gradient through it raises ``NotImplementedError``.  Under
 ``attn_repeat_kv`` the K/V heads are repeated to the query heads before
-every attention (the cache keeps them unrepeated).  With ``cfg.remat``
-each repeat of the layer unit is recomputed in the backward pass
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).  A
+every attention but the decode kernel's, which shares each K/V head among
+its query heads itself (the cache keeps them unrepeated).  With
+``cfg.remat`` each repeat of the layer unit is recomputed in the backward
+pass (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).  A
 ring cache (SWA, or a hybrid above 65,536 tokens) keeps the last
 ``window`` positions of the prompt, and decode writes slot ``pos % W`` and
-reads the slots whose ``kpos`` lies in the window.  ``shardctx.constrain``
-sits at the reference's four sites (the gathered weights under
-``fsdp_gather_weights``, the hidden state after each repeat and after the
-embedding, the CE chunk's logits); with no GSPMD it returns its input and
-only records the spec the dry-run's rules give.  Every step runs on
-``meta`` tensors too (``init_params(device="meta")``), which is how the
-dry-run counts its work.  The latent-attention blocks mark their
-attention and MoE as ``<step>.mla`` and ``<step>.moe`` on the marks the
-caller made current (``obs/layerspans.py``), and the MoE reports its
-routing there.  ``decode_step`` also takes a captured graph of itself
+reads the slots whose ``kpos`` lies in the window.  Decode attention over
+a bf16 cache that is not a ring goes through ``kernels/decode_attn.py``
+(its plain version on the CPU); over the paged step's block payload (K
+and V as ``(B, nb, T, nkv, hd)`` views, the payload form of
+``serve/paged_attn.py``) it stores the new column in place and returns no
+K/V leaf.  ``shardctx.constrain`` sits at the reference's four sites (the
+gathered weights under ``fsdp_gather_weights``, the hidden state after
+each repeat and after the embedding, the CE chunk's logits); with no GSPMD
+it returns its input and only records the spec the dry-run's rules give.
+Every step runs on ``meta`` tensors too (``init_params(device="meta")``),
+which is how the dry-run counts its work.  The latent-attention blocks
+mark their attention and MoE as ``<step>.mla`` and ``<step>.moe`` on the
+marks the caller made current (``obs/layerspans.py``), and the MoE reports
+its routing there.  ``decode_step`` also takes a captured graph of itself
 (``models/decode_graph.py``), which it replays instead of issuing the step
 eagerly.
 """
@@ -59,7 +64,7 @@ import torch.utils.checkpoint
 
 from repro_torch import _devices
 from repro_torch.configs import base as cfgbase
-from repro_torch.kernels import flash_attn
+from repro_torch.kernels import decode_attn, flash_attn
 from repro_torch.launch import policy as policy_mod, shardctx
 from repro_torch.models import attention as attn_mod, kvcache, \
     moe as moe_mod, ssm as ssm_mod
@@ -234,6 +239,14 @@ def _self_attention(p, x, cfg, mode, positions, cache, pos):
     # ---- decode: one token per row at its own position -------------------
     q = attn_mod.project_q(p, x, cfg, pos[:, None])
     k, v = attn_mod.project_kv(p, x, cfg, pos[:, None])
+    if cache["k"].dim() == 5:
+        # the paged step's payload form (serve/paged_attn.py): K and V are
+        # (B, nb, T, nkv, hd) views of the gathered block payload; the new
+        # column is stored there in place, and no leaf comes back to stack
+        dt = cache["k"].dtype
+        o = decode_attn.decode_attention(q, cache["k"], cache["v"], pos,
+                                         k_new=k.to(dt), v_new=v.to(dt))
+        return _flat(o) @ p["wo"], {}
     W = cache["k"].shape[1]
     ring = "kpos" in cache
     slot = pos % W if ring else pos
@@ -246,6 +259,9 @@ def _self_attention(p, x, cfg, mode, positions, cache, pos):
     new = {key: torch.where(hot[:, :, None, None], val.to(cache[key].dtype),
                             cache[key])
            for key, val in (("k", k), ("v", v))}
+    if not ring and new["k"].dtype == torch.bfloat16:
+        o = decode_attn.decode_attention(q, new["k"], new["v"], pos)
+        return _flat(o) @ p["wo"], new
     if ring:
         kpos = torch.where(hot, pos[:, None].to(torch.int32), cache["kpos"])
         valid = (kpos >= 0) & (kpos > (pos - W)[:, None]) & \

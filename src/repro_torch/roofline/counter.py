@@ -117,6 +117,21 @@ def paged_attn_work(B: int, W: int, nq: int, nkv: int, hd: int,
             "transcendental": pairs}
 
 
+def decode_attn_work(B: int, W: int, nq: int, nkv: int, hd: int,
+                     itemsize: int, *, stores: bool = False) -> dict:
+    """Decode attention: one query a row over the cache's W positions (a
+    shape cannot tell the live length, which lies on the device, so every
+    position is charged, as the reference's masked full-width decode
+    counts), one exp a pair; q read and o written, K and V of ``B·W``
+    tokens read, and with ``stores`` the new column read and written."""
+    pairs = B * nq * W
+    column = 4 * B * nkv * hd if stores else 0
+    return {"flops": 4 * hd * pairs,
+            "bytes": itemsize * (2 * B * nq * hd + 2 * B * W * nkv * hd
+                                 + column),
+            "transcendental": pairs}
+
+
 def visible_pairs(Sq: int, Skv: int, q_off: int, k_off: int) -> int:
     """(query, key) pairs with key position <= query position."""
     total = 0

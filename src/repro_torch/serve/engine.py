@@ -6,10 +6,11 @@ always runs the whole bank; inactive slots carry ``pos=0, tok=0`` padding
 whose cache writes are masked or overwritten at the next admission.  The
 engine runs eagerly (no ``jit``), except the paged decode step on a card:
 where ``models/decode_graph.py::eager_reason`` allows, it replays as CUDA
-graphs captured on a bank shape's first step, over paged leaves rebuilt
-each step in persistent buffers (``serve/paged_attn.py::leaf_buffers``).
-Prefill, the dense decode path and the families no graph has been held
-bitwise to run eagerly.
+graphs captured on a bank shape's first step, over persistent buffers the
+pool's blocks are gathered into each step (``PagedDecodeView.gather``:
+the block payload itself, or the dense leaves rebuilt from it).  Prefill,
+the dense decode path and the families no graph has been held bitwise to
+run eagerly.
 
 Sampling with temperature > 0 draws from a ``torch.Generator`` the caller
 passes (seeded from ``ServeConfig.seed``); its numbers differ from
@@ -28,7 +29,7 @@ from repro_torch import _devices
 from repro_torch.models import decode_graph, kvcache, model
 from repro_torch.obs import layerspans
 from repro_torch.obs.tracer import NULL_TRACER
-from repro_torch.serve import kvpool, paged_attn
+from repro_torch.serve import kvpool
 from repro_torch.train import tree
 
 
@@ -70,7 +71,7 @@ class Engine:
         self.cfg = cfg_arch
         self.params = params
         self.max_len = max_len
-        self._leaves = {}          # paged-leaf buffers by bank shape
+        self._buffers = {}         # gather's buffers by form, bank shape
         self._graphs = {}          # DecodeGraph by decode_graph.graph_key
 
     def _sample(self, logits, gen: Optional[torch.Generator],
@@ -147,16 +148,6 @@ class Engine:
         tok = self._sample(logits, gen, temperature)
         return self._advance(slots, cache, tok), tok
 
-    def _paged_leaves(self, view):
-        """The paged-leaf buffers of ``view``'s bank shape, shared by every
-        decode PE of this engine (they step one after another on one
-        stream)."""
-        key = (view.num_slots, view.pool.layout)
-        if key not in self._leaves:
-            self._leaves[key] = paged_attn.leaf_buffers(
-                view.pool.layout, view.num_slots, self.device)
-        return self._leaves[key]
-
     def _decode_graph(self, slots, cache, view, tally):
         """The captured step this paged step replays, or None (counted on
         ``tally`` by its reason) where it runs eagerly."""
@@ -180,28 +171,33 @@ class Engine:
                            temperature: float = 0.0, track=None,
                            tally=None):
         """ONE decode step reading K/V straight from the symmetric-heap
-        block pool: the view assembles every paged leaf through the slot
-        block tables (K3), the same decode runs, and each active slot's new
-        K/V token is written back into its pool block.  The returned bank
-        keeps only non-paged state.  Returns ``(new_slots, tokens, heap)``.
-        The leaves are rebuilt in this engine's persistent buffers, and on a
-        card the decode proper replays a captured graph
-        (``models/decode_graph.py``) where ``eager_reason`` allows; ``tally``
-        (a ``DecodeGraphTally``) counts captures, replays and eager steps.
-        The decode proper runs in ``ctx.prof``'s ``paged_attn`` scope.
-        With a wall-clocked tracer on ``ctx`` (``tracer.timed``), the four
-        parts record ``decode.assemble``, ``decode.model``,
-        ``decode.sample`` and ``decode.writeback`` spans on ``track`` (by
-        default the view's PE), ``tally`` ends ``decode.model`` as a
-        ``decode_graph`` counter and the heap's tally ends the writeback as
-        a ``heap`` counter.  With that tracer or a recording
-        ``torch.profiler``, the model's layers mark their parts inside
-        ``decode.model`` (``obs/layerspans.py``)."""
+        block pool: the view gathers every slot's blocks through the slot
+        block tables (K3) in the form it picks and counts
+        (``PagedDecodeView.gather``: the block payload itself, or the dense
+        leaves rebuilt from it), the same decode runs, and each active
+        slot's new K/V token is written back into its pool block.  The
+        returned bank keeps only non-paged state.  Returns ``(new_slots,
+        tokens, heap)``.  The blocks land in this engine's persistent
+        buffers, and on a card the decode proper replays a captured graph
+        (``models/decode_graph.py``) where ``eager_reason`` allows;
+        ``tally`` (a ``DecodeGraphTally``) counts captures, replays and
+        eager steps.  The decode proper runs in ``ctx.prof``'s
+        ``paged_attn`` scope.  With a wall-clocked
+        tracer on ``ctx`` (``tracer.timed``), the four parts record
+        ``decode.assemble``, ``decode.model``, ``decode.sample`` and
+        ``decode.writeback`` spans on ``track`` (by default the view's PE),
+        the view's form tally ends ``decode.assemble`` as a
+        ``paged_decode`` counter,
+        ``tally`` ends ``decode.model`` as a ``decode_graph`` counter and
+        the heap's tally ends the writeback as a ``heap`` counter.  With
+        that tracer or a recording ``torch.profiler``, the model's layers
+        mark their parts inside ``decode.model`` (``obs/layerspans.py``)."""
         tr, pf = ctx.tracer if ctx.tracer.timed else NULL_TRACER, ctx.prof
         pid, tid = track or (f"pod{ctx.node_of(view.pe)}", f"pe{view.pe}")
         with tr.span("decode.assemble", "engine", pid, tid):
-            cache = view.assemble(heap, slots.cache,
-                                  out=self._paged_leaves(view))
+            cache = view.gather(heap, slots.cache, self._buffers)
+            if tr.enabled:
+                tr.counter("paged_decode", pid, tid, **view.forms.counter())
         with tr.span("decode.model", "engine", pid, tid):
             graph = self._decode_graph(slots, cache, view, tally)
             kv_bytes = sum(leaf.numel() * leaf.element_size()

@@ -72,7 +72,7 @@ from repro_torch.serve import kvpool as kvpool_mod
 from repro_torch.serve.engine import Engine, ServeConfig, seeded
 from repro_torch.serve.kvxfer import EXTRA_SIGNALS, KVMigrator, StreamState, \
     fused_admit_signal
-from repro_torch.serve.paged_attn import PagedDecodeView
+from repro_torch.serve.paged_attn import PagedDecodeTally, PagedDecodeView
 
 (QUEUED, STAGED, STREAMING, PARKED, MIGRATING, DECODING, PREEMPTED,
  FINISHED, SHED, RECOVERING, RECOVERED) = (
@@ -222,8 +222,10 @@ class SchedStats:
 
     def __post_init__(self):
         # the port's own tally, outside the fields the reference's
-        # SchedStats shares: how often the decode step replayed a graph
+        # SchedStats shares: how often the decode step replayed a graph, and
+        # how often it read the gathered block payload in place
         self.decode_graph = DecodeGraphTally()
+        self.paged_decode = PagedDecodeTally()
 
 
 class DisaggScheduler:
@@ -1024,6 +1026,8 @@ class DisaggScheduler:
                 bank, gen, self.ctx, self.heap, self.views[pe],
                 self.scfg.temperature, track=(self._trace_pid, f"pe{pe}"),
                 tally=self.stats.decode_graph)
+            self.stats.paged_decode = PagedDecodeTally.total(
+                v.forms for v in self.views.values())
             return bank, toks
         return self.engine.decode_slots(bank, gen, self.scfg.temperature,
                                         tally=self.stats.decode_graph)

@@ -8,17 +8,22 @@ keeps every slot turning over; every fourth request is a sample of one
 20-token prompt declared shared whole, so its first decode write lands in
 the shared boundary block (blocks of 8) and copies it.
 """
+import dataclasses
+
 import torch
 
 from repro_torch.launch import serve
+from repro_torch.models import model
 
 PROMPT, NEW = 24, 16
 
 
 def build(arch: str, device: str, *, requests: int = 16, slots: int = 2,
           decode_pes: int = 2, temperature: float = 0.0, seed: int = 0,
-          dense: bool = False):
-    """The scheduler with its requests submitted and nothing run."""
+          dense: bool = False, **changes):
+    """The scheduler with its requests submitted and nothing run;
+    ``changes`` replace fields of the reduced configuration (``dtype`` and
+    ``param_dtype`` "bfloat16" for a bf16 cache)."""
     argv = ["--disagg", "--device", device, "--arch", arch, "--requests",
             "0", "--prompt-len", str(PROMPT), "--max-new", str(NEW),
             "--slots", str(slots), "--decode-pes", str(decode_pes),
@@ -27,6 +32,9 @@ def build(arch: str, device: str, *, requests: int = 16, slots: int = 2,
     argv.append("--dense-rehydrate" if dense else "--shared-prefix")
     args = serve.parse_args(argv)
     cfg, params = serve._model(args)
+    if changes:
+        cfg = dataclasses.replace(cfg, **changes)
+        params = model.init_params(cfg, seed=seed, device=device)
     sched = serve._build_disagg(args, cfg, params)
     gen = torch.Generator(device=params["embed"].device).manual_seed(seed + 7)
     shared = serve.make_batch(cfg, gen, 1, 20, device)

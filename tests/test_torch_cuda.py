@@ -10,8 +10,12 @@ that has the card and no JAX:
 every test here skips.  Data movement (K1, K3-K9) is compared bitwise,
 attention (K2, K10) to the reference's tolerances, 2e-5 in f32 and 2e-2 in
 bf16; K2's bf16 kernel is also held bitwise to itself run to run and across
-batch positions, and K11 bitwise to K3 followed by K2.  The paged decode
-step replayed as CUDA graphs is held bitwise to the eager step.
+batch positions, and K11 bitwise to K3 followed by K2.  Decode attention
+(``kernels/decode_attn.py``) is held to its plain version in bf16 and
+bitwise to itself run to run, across bank positions and sizes and between
+a dense cache and a block-payload view.  The paged decode step replayed
+as CUDA graphs is held bitwise to the eager step, and in payload form to
+the leaf form.
 """
 import dataclasses
 import json
@@ -916,6 +920,161 @@ def test_cuda_decode_graph_under_a_profiler_and_a_wall_tracer(card, arch):
         assert decode and all(1 <= c["max_per_expert"] <= 2 for c in decode)
     else:
         assert not {"decode.mla", "decode.moe"} & names
+
+
+# ---------------------------------------------------------------------------
+# decode attention over the gathered block payload (kernels/decode_attn.py)
+# ---------------------------------------------------------------------------
+
+# (B, nb, T, nkv, q_per_kv, hd): cell 1's bank (8 rows over 76 blocks of 16,
+# qwen3-4b's 8 KV heads of 4 queries at hd 128), starcoder2's ratio 9,
+# h2o-danube's hd 120, zamba2's hd 80 and whisper's hd 64 (both MHA)
+DECODE_SHAPES = [(8, 76, 16, 8, 4, 128), (3, 10, 16, 4, 9, 128),
+                 (3, 9, 16, 8, 4, 120), (3, 33, 16, 32, 1, 80),
+                 (3, 27, 16, 16, 1, 64)]
+
+
+def _kv_views(payload, T, nkv, hd):
+    """The K and V views of a block payload of three repeats of two leaves,
+    repeat 1 of each, as ``KVLayout.leaf_view`` cuts them."""
+    views = payload.unflatten(2, (2, 3, T, nkv, hd))[:, :, :, 1]
+    return views[:, :, 0], views[:, :, 1]
+
+
+def _decode_case(card, B, nb, T, nkv, g, hd, seed=0):
+    """q, a block payload (``_kv_views``), rows of mixed length (the last
+    position, the first, one past the cache, the rest drawn) and new
+    columns."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=card).bfloat16()
+
+    W = nb * T
+    pos = torch.randint(0, W, (B,), generator=gen, device=card)
+    pos[:3] = torch.tensor([W - 1, 0, W + 3])
+    return (draw(B, 1, nkv * g, hd), draw(B, nb, 2 * 3 * T * nkv * hd), pos,
+            draw(B, 1, nkv, hd), draw(B, 1, nkv, hd))
+
+
+@pytest.mark.parametrize("store", [False, True])
+@pytest.mark.parametrize("B,nb,T,nkv,g,hd", DECODE_SHAPES)
+def test_cuda_decode_attention(card, B, nb, T, nkv, g, hd, store):
+    """The kernel against its plain version to the bf16 tolerance over the
+    payload view, the stored columns bitwise; bitwise run to run and
+    between the dense cache and the payload view of the same positions.
+    With a store, bitwise the kernel without one over the cache that
+    already holds the new columns: the new column is the one attended."""
+    from repro_torch.kernels import decode_attn
+    q, payload, pos, k_new, v_new = _decode_case(card, B, nb, T, nkv, g, hd)
+    new = (k_new, v_new) if store else (None, None)
+    runs = []
+    for _ in range(2):
+        k, v = _kv_views(payload.clone(), T, nkv, hd)
+        ops.reset_launches()
+        runs.append((decode_attn.decode_attention(q, k, v, pos, *new), k, v))
+        assert ops.LAUNCHES["decode_attention"] == 1
+    k, v = _kv_views(payload.clone(), T, nkv, hd)
+    want = decode_attn.decode_attention_plain(q, k, v, pos, *new)
+    kd, vd = (t.flatten(1, 2).contiguous()
+              for t in _kv_views(payload, T, nkv, hd))
+    dense = decode_attn.decode_attention(q, kd, vd, pos, *new)
+    torch.cuda.synchronize()
+    got, kg, vg = runs[0]
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    assert torch.equal(kg, k) and torch.equal(vg, v)
+    assert torch.equal(kd, k.flatten(1, 2)) and torch.equal(vd, v.flatten(1, 2))
+    assert torch.equal(got, runs[1][0]) and torch.equal(got, dense)
+    if store:
+        held = decode_attn.decode_attention(q, kg, vg, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, held)
+
+
+@pytest.mark.parametrize("B,nb,T,nkv,g,hd", DECODE_SHAPES[:2])
+def test_cuda_decode_attention_rows_depend_on_their_own_inputs(
+        card, B, nb, T, nkv, g, hd):
+    """Each row of a bank, moved to another index of a bank of another
+    size (and another block count) among other rows, gives bitwise the
+    same output and stores the same column."""
+    from repro_torch.kernels import decode_attn
+    q, payload, pos, k_new, v_new = _decode_case(card, B, nb, T, nkv, g, hd)
+    pos = pos.clamp(max=nb * T - 1)      # the same live rows in either bank
+    B2, nb2 = B + 3, nb + 2
+    q2, payload2, pos2, kn2, vn2 = _decode_case(card, B2, nb2, T, nkv, g, hd,
+                                                seed=1)
+    rows = torch.randperm(B2, device=card)[:B]
+    q2[rows], pos2[rows], kn2[rows], vn2[rows] = q, pos, k_new, v_new
+    payload2[rows, :nb] = payload
+    k, v = _kv_views(payload, T, nkv, hd)
+    got = decode_attn.decode_attention(q, k, v, pos, k_new, v_new)
+    k2, v2 = _kv_views(payload2, T, nkv, hd)
+    got2 = decode_attn.decode_attention(q2, k2, v2, pos2, kn2, vn2)
+    torch.cuda.synchronize()
+    assert torch.equal(got2[rows], got)
+    assert torch.equal(k2[rows, :nb], k) and torch.equal(v2[rows, :nb], v)
+
+
+def test_cuda_decode_attention_refuses_what_the_kernel_cannot_take(card):
+    from repro_torch.kernels import decode_attn
+    q, payload, pos, _, _ = _decode_case(card, 3, 4, 16, 2, 4, 64)
+    kp, vp = _kv_views(payload, 16, 2, 64)
+    ops.reset_launches()
+    with pytest.raises(TypeError):
+        decode_attn.decode_attention(q.float(), kp.float(), vp.float(), pos)
+    with pytest.raises(TypeError):
+        decode_attn.decode_attention(q, kp, vp, pos.float())
+    odd = torch.zeros(3, 4, 16, 2, 68, dtype=torch.bfloat16,
+                      device=card)[..., 1:65]
+    with pytest.raises(ValueError):
+        decode_attn.decode_attention(q, odd, odd, pos)
+    assert ops.LAUNCHES["decode_attention"] == 0
+
+
+def test_cuda_payload_form_is_bitwise_the_leaf_form_and_the_eager_step(
+        card, monkeypatch):
+    """Reduced qwen3-4b with a bf16 cache, 4 query heads a KV head at hd
+    128, over 24 requests with admissions, evictions and copy-on-write: in
+    payload form, replayed as graphs, every step's logits and pools and
+    every token bitwise the leaf form's and the eager payload step's; the
+    kernel launches once a layer a PE step, the replays counted; greedy,
+    every request is its single-PE dense baseline."""
+    from _torch_decode_traffic import build
+    from repro_torch.models import decode_graph
+    from repro_torch.serve.paged_attn import PagedDecodeView
+    gqa = dict(dtype="bfloat16", param_dtype="bfloat16", num_heads=8,
+               num_kv_heads=2, head_dim=128)
+    runs = {}
+    for name in ("leaf", "eager", "payload"):
+        with monkeypatch.context() as m:
+            if name == "leaf":
+                m.setattr(PagedDecodeView, "form", lambda self: "layout")
+            if name == "eager":
+                m.setattr(decode_graph, "eager_reason", lambda *a: "eager")
+            sched = build("qwen3-4b", "cuda", requests=24, **gqa)
+            ops.reset_launches()
+            runs[name] = (sched, *_stepped(sched), dict(ops.LAUNCHES))
+    sched, pools, logits, launches = runs["payload"]
+    st = sched.stats
+    assert st.cow_copies > 0 and st.admissions == st.evictions == 24
+    assert st.paged_decode.payload_steps == len(logits) >= 40
+    assert st.decode_graph.captures == 1
+    # two layers a step, and the capture's warm-up step once, eagerly
+    assert launches["decode_attention"] == 2 * (len(logits) + 1)
+    assert runs["leaf"][0].stats.paged_decode.leaf_steps == {
+        "layout": len(logits)}
+    for name in ("leaf", "eager"):
+        other, want_pools, want_logits, _ = runs[name]
+        assert len(want_logits) == len(logits)
+        for got, want in zip(logits, want_logits):
+            assert torch.equal(got, want), name
+        for got, want in zip(pools, want_pools):
+            for dt, pool in got.items():
+                assert torch.equal(pool, want[dt]), (name, dt)
+        for rid, req in sched.requests.items():
+            assert req.out == other.requests[rid].out
+    _single_pe(sched)
 
 
 def test_cuda_decode_graph_captures_again_for_another_bank(card):

@@ -69,7 +69,7 @@ def test_buffers_hold_bitwise_the_leaves_assemble_builds(arch, monkeypatch):
     assert st.evictions == st.admissions == 16 and st.cow_copies > 0
     assert st.decode_steps >= 20 and len(seen) >= st.decode_steps
     assert set(seen) == set(sched.decode_pes)
-    assert len(sched.engine._leaves) == 1           # one set, both PEs
+    assert len(sched.engine._buffers) == 1          # one set, both PEs
     for bank in sched.banks.values():
         for pl in lay.paged:
             assert pl.key not in bank.cache["blocks"][pl.unit_idx]
@@ -83,8 +83,11 @@ def test_the_cpu_paged_path_runs_eager_and_serves_as_before(arch,
     every pool byte equal after every step; every step eager, counted
     under ``cpu``."""
     fresh = build(arch, "cpu")
+    gather = PagedDecodeView.gather
     with monkeypatch.context() as m:
-        m.setattr(Engine, "_paged_leaves", lambda self, view: None)
+        m.setattr(PagedDecodeView, "gather",
+                  lambda view, heap, cache, buffers=None:
+                  gather(view, heap, cache))
         states = []
         while not fresh.done():
             fresh.step()

@@ -21,6 +21,7 @@ from repro.configs import base as ref_cfg
 from repro_torch.configs import base as cfgbase
 from repro_torch.launch import dryrun
 from repro_torch.models import kvcache, model
+from repro_torch.roofline import counter
 from repro_torch.train import tree as tree_mod
 from _torch_threads import one_intra_op_thread  # noqa: F401
 
@@ -198,7 +199,14 @@ def test_full_width_decode_record_on_the_card_mesh():
         model.init_params(cfg, device="meta")))
     assert rec["memory"]["argument_size_in_bytes"] == params + cache + 128 * 8
     assert rec["fits"] is False
-    assert rec["counted"]["by_kernel"] == {}        # decode launches none
+    # decode launches one kernel a layer, decode attention over the cache
+    by = rec["counted"]["by_kernel"]
+    want = counter.decode_attn_work(128, 32768, cfg.num_heads,
+                                    cfg.num_kv_heads, cfg.hd, 2)
+    assert set(by) == {"decode_attention"}
+    assert by["decode_attention"]["calls"] == cfg.num_layers
+    for key in ("flops", "bytes", "transcendental"):
+        assert by["decode_attention"][key] == cfg.num_layers * want[key]
 
 
 def test_cli_writes_its_own_directory(tmp_path, monkeypatch):
